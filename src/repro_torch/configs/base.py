@@ -102,8 +102,9 @@ class ServeConfig:
     with a ``decode_capacity``-token per-sample arm. ``bifurcated``
     enables the split cache (policy may still fall back for tiny
     workloads); ``use_kernel`` lowers decode layer-steps to the fused
-    CUDA kernel; ``cache_dtype`` selects the context arm's storage. The
-    port serves "bfloat16" only: "int8" and ``ctx_store="paged"`` raise
+    CUDA kernel; ``cache_dtype`` selects the context arm's storage:
+    "bfloat16", or "int8" (quantized once at cache build, decoded by the
+    fused q8 kernel). ``ctx_store="paged"`` is not ported and raises
     ``NotImplementedError`` (runtime/serve.py)."""
 
     batch: int = 16              # samples per shared context
@@ -114,9 +115,45 @@ class ServeConfig:
     bifurcated: bool = True
     # single-pass fused CUDA decode kernel vs paper-faithful einsums
     use_kernel: bool = False
-    # context-arm cache dtype: "bfloat16" ("int8" is not ported yet)
+    # context-arm cache dtype: "bfloat16" | "int8" (quantized once at
+    # cache build, core/quantized.py)
     cache_dtype: str = "bfloat16"
     # context storage substrate: "dense" ("paged" is not ported yet)
     ctx_store: str = "dense"
     page_size: int = 128         # paged mode: tokens per pool page
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ForestConfig:
+    """Continuous-batching (multi-prefix forest) serve configuration
+    (``runtime.serve.ForestServeEngine``).
+
+    The forest engine serves G concurrent shared-prefix requests from one
+    decode batch of ``slots`` samples: each admitted request prefills into
+    a free context segment (capacity ``ctx_capacity`` tokens) and fans out
+    over free decode slots. All of this is runtime DATA: the cache's
+    tensors are sized once for (slots, n_groups, ctx_capacity,
+    decode_capacity) and serve any admit/retire sequence.
+    ``ctx_store="paged"`` is not ported and raises ``NotImplementedError``.
+    """
+
+    n_groups: int = 4            # context segments (G)
+    slots: int = 16              # decode slots (flat batch b)
+    ctx_capacity: int = 512      # per-segment context capacity (tokens)
+    decode_capacity: int = 64    # per-slot decode capacity (tokens)
+    eos_token: int = -1          # retire a slot when it samples this; -1: off
+    pad_token: int = 0           # emitted by retired slots
+    temperature: float = 0.0     # greedy by default (continuous serving)
+    top_p: float = 1.0
+    use_kernel: bool = False     # grouped fused CUDA kernel vs einsum path
+    # context-segment dtype: "bfloat16" | "int8" (segments quantize once at
+    # admission: write-once read-many, per prefix group)
+    cache_dtype: str = "bfloat16"
+    # segment storage substrate: "dense" (fixed ctx_capacity slabs);
+    # "paged" (shared page pool) is not ported
+    ctx_store: str = "dense"
+    page_size: int = 128         # paged mode: tokens per pool page
+    # paged mode: pool size in pages; None = the full table envelope
+    num_pages: Optional[int] = None
     seed: int = 0

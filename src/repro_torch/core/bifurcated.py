@@ -155,3 +155,50 @@ def bifurcated_attention_flash(
                               ctx_layout=ctx_layout)
     part_d = _partial_softmax(logits_d, v_decode, batched=True)
     return merge_partials([part_c, part_d]).to(q.dtype)
+
+
+def forest_bifurcated_attention(
+    q: torch.Tensor,          # (b, g, p, n, k) — flat slot batch
+    k_context: torch.Tensor,  # (G, m_c, g, k) "mgk" | (G, g, m_c, k) "gmk"
+    v_context: torch.Tensor,
+    group_ids: torch.Tensor,  # (b,) int32 — slot -> prefix-group assignment
+    ctx_lens: torch.Tensor,   # (G,) int32 — live (ragged) prefix lengths
+    k_decode: torch.Tensor,   # (b, C_d, g, k)
+    v_decode: torch.Tensor,
+    *,
+    decode_mask: Optional[torch.Tensor] = None,  # (b, C_d) bool
+    scale: Optional[float] = None,
+    ctx_layout: str = "gmk",
+) -> torch.Tensor:
+    """Einsum path of multi-prefix FOREST decoding (the grouped kernel's
+    semantics): one flat slot batch where slot ``b`` attends over
+    ``[context[group_ids[b]][:ctx_lens[group_ids[b]]] ⊕ decode[b]]``.
+
+    The assignment is an arbitrary ``(b,) -> group`` map, which is what a
+    continuous-batching slot table produces. The per-sample context gather
+    materializes a (b, m_c, ...) tensor — a CORRECTNESS reference; the IO
+    claim lives in the kernel, which reads each segment once.
+    """
+    head_dim = q.shape[-1]
+    scale = head_dim**-0.5 if scale is None else scale
+    gid = group_ids.long()
+    kc, vc = k_context[gid], v_context[gid]
+    if ctx_layout == "gmk":
+        m_c = k_context.shape[2]
+        vc = vc.transpose(1, 2)                   # (b, m_c, g, k)
+        eq_qk = "bgpnk,bgmk->bgpnm"
+    else:
+        m_c = k_context.shape[1]
+        eq_qk = "bgpnk,bmgk->bgpnm"
+
+    logits_c = torch.einsum(eq_qk, q, kc).float() * scale
+    valid_c = (torch.arange(m_c, device=q.device)[None, :]
+               < ctx_lens[gid][:, None])
+    logits_c = logits_c + mask_to_bias(valid_c)[:, None, None, None, :]
+    logits_d = torch.einsum("bgpnk,bmgk->bgpnm", q, k_decode).float() * scale
+    if decode_mask is not None:
+        logits_d = logits_d + mask_to_bias(decode_mask)[:, None, None, None, :]
+
+    part_c = _partial_softmax(logits_c, vc, batched=True)
+    part_d = _partial_softmax(logits_d, v_decode, batched=True)
+    return merge_partials([part_c, part_d]).to(q.dtype)

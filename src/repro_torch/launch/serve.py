@@ -5,8 +5,10 @@
 
 Takes the flags of ``python -m repro.launch.serve``, plus ``--device``
 (default cuda). Reduced config by default; --full serves the published
-width, with seeded random weights. Prints the reference's banner plus the
-device and the kernel launch counts of the run.
+width, with seeded random weights. ``--cache-dtype int8`` quantizes the
+shared context once and decodes it with the fused q8 kernel. Prints the
+reference's banner plus the device and the kernel launch counts of the
+run.
 """
 from __future__ import annotations
 
@@ -19,8 +21,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ServeConfig, get_config, reduced_config
 from repro_torch.kernels.bifurcated_decode import (
+    KERNELS,
     context_flash_partials,
     fused_bifurcated_decode,
+    fused_bifurcated_decode_q8,
 )
 from repro_torch.models import get_model
 from repro_torch.runtime.serve import ServeEngine, rank_by_mean_logprob
@@ -38,7 +42,7 @@ def main(argv=None):
                     help="use the fused CUDA decode kernel")
     ap.add_argument("--cache-dtype", default="bfloat16",
                     choices=["bfloat16", "int8"],
-                    help="context-arm KV dtype (int8 is not ported yet)")
+                    help="context-arm KV dtype")
     ap.add_argument("--top-k", type=int, default=3)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -60,8 +64,8 @@ def main(argv=None):
     rng = np.random.RandomState(0)
     ctx = torch.as_tensor(rng.randint(0, cfg.vocab_size, (1, args.context)),
                           device=dev)
-    fused_bifurcated_decode.launches = 0
-    context_flash_partials.launches = 0
+    for kern in KERNELS:
+        kern.launches = 0
     t0 = time.perf_counter()
     result = engine.generate(params, ctx, n_steps=args.steps, batch=args.batch)
     if dev.type == "cuda":
@@ -72,7 +76,9 @@ def main(argv=None):
           f"batch={args.batch} ctx={args.context} steps={args.steps}")
     print(f"device={dev} "
           f"fused_bifurcated_decode_launches={fused_bifurcated_decode.launches} "
-          f"context_flash_partials_launches={context_flash_partials.launches}")
+          f"context_flash_partials_launches={context_flash_partials.launches} "
+          f"fused_bifurcated_decode_q8_launches="
+          f"{fused_bifurcated_decode_q8.launches}")
     print(f"wall {dt*1e3:.1f} ms  ({dt/args.steps*1e3:.2f} ms/step incl. prefill)")
     best = rank_by_mean_logprob(result, top_k=args.top_k)
     print(f"top-{args.top_k} by mean logprob: samples {best} "

@@ -16,11 +16,24 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import decode_attention
-from repro_torch.core.bifurcated import bifurcated_attention, bifurcated_attention_flash
+from repro_torch.core.bifurcated import (
+    bifurcated_attention,
+    bifurcated_attention_flash,
+    forest_bifurcated_attention,
+)
 from repro_torch.core.kv_cache import update_layer_cache
 from repro_torch.core.masks import mask_to_bias
+from repro_torch.core.quantized import (
+    bifurcated_attention_q8,
+    forest_bifurcated_attention_q8,
+)
 from repro_torch.core.rotary import apply_rope
-from repro_torch.kernels.ops import bifurcated_decode_attention
+from repro_torch.kernels.ops import (
+    bifurcated_decode_attention,
+    bifurcated_decode_attention_q8,
+    grouped_bifurcated_decode_attention,
+    grouped_bifurcated_decode_attention_q8,
+)
 
 
 def _dense_init(gen: torch.Generator, shape, fan_in: int) -> torch.Tensor:
@@ -206,6 +219,8 @@ def attention_decode(
     ``layer_cache`` (standard):   {"k": (b,C,g,hd), "v": ...}
     ``layer_cache`` (bifurcated): {"k_ctx": (m_c,g,hd) | (g,m_c,hd), "v_ctx":
                                    ..., "k_dec": (b,Cd,g,hd), "v_dec": ...}
+      — plus {"k_scale", "v_scale"} (layout-shaped per-(token, head) f32)
+      when the context arm is int8 (core/quantized.py).
     ``position`` — absolute position of the new token(s); also the write
     index for the standard cache; decode-cache index is position - m_c.
 
@@ -242,7 +257,20 @@ def attention_decode(
             dec_valid = dec_valid & (slot + m_c > last - window)
         dec_mask = dec_valid.expand(b, cap)
         k_ctx, v_ctx = layer_cache["k_ctx"], layer_cache["v_ctx"]
-        if impl == "kernel" and window is None:
+        if "k_scale" in layer_cache:  # int8 context arm
+            k_s, v_s = layer_cache["k_scale"], layer_cache["v_scale"]
+            if impl == "kernel" and window is None:
+                # single-pass fused q8 CUDA decode: int8 context blocks and
+                # scales, dequantized in-kernel, merged with the decode arm
+                o = bifurcated_decode_attention_q8(
+                    q, k_ctx, v_ctx, k_s, v_s, k_dec, v_dec, dec_mask,
+                    ctx_layout=cfg.ctx_layout)
+            else:
+                o = bifurcated_attention_q8(
+                    q, k_ctx, v_ctx, k_s, v_s, k_dec, v_dec,
+                    decode_mask=dec_mask, context_mask=ctx_valid,
+                    ctx_layout=cfg.ctx_layout)
+        elif impl == "kernel" and window is None:
             # single-pass fused CUDA decode: context stream + decode arm +
             # merge in ONE launch, any n (drafts ride the kernel's rows).
             o = bifurcated_decode_attention(
@@ -266,6 +294,92 @@ def attention_decode(
             valid = valid & (slot > last - window)
         o = decode_attention(q, k_cache, v_cache,
                              valid_mask=valid.expand(b, cap))
+
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, n, cfg.n_heads_padded * hd)
+    return o @ params["wo"].to(x.dtype)
+
+
+def _scatter_decode_slots(cache_arr, new, starts):
+    """Write (b, n, g, hd) new KVs at PER-SLOT offsets ``starts`` (b,) into
+    a (b, C_d, g, hd) decode cache, in place and with no host sync — the
+    continuous-batching analogue of ``update_layer_cache`` (slots admitted
+    at different times sit at different decode depths). An offset past
+    C_d - n is clamped to it, as the reference's dynamic_update_slice
+    clamps (the engine's capacity guard keeps live slots from it)."""
+    b, n = new.shape[:2]
+    start = torch.clamp(starts.long(), 0, cache_arr.shape[1] - n)
+    cols = start[:, None] + torch.arange(n, device=new.device)[None, :]
+    rows = torch.arange(b, device=new.device)[:, None].expand(b, n)
+    cache_arr[rows, cols] = new.to(cache_arr.dtype)
+    return cache_arr
+
+
+def attention_decode_forest(
+    cfg: ModelConfig,
+    params,
+    x: torch.Tensor,
+    layer_cache: dict,
+    *,
+    group_ids: torch.Tensor,  # (b,) int32 — slot -> prefix-group assignment
+    ctx_lens: torch.Tensor,   # (G,) int32 — live (ragged) prefix lengths
+    dec_lens: torch.Tensor,   # (b,) int32 — per-slot decode depth
+    impl: str = "einsum",     # einsum (forest reference) | kernel (CUDA)
+) -> torch.Tensor:
+    """One incremental-decoding step for one layer over a PREFIX FOREST:
+    G shared-context segments and b decode slots, each slot attending over
+    ``context[group_ids[b]] ⊕ decode[b]``. Returns the layer's output
+    (b, n, d) and writes the step's K/V into ``layer_cache`` IN PLACE.
+
+    ``layer_cache``: {"k_ctx": (G, g, m_c, hd) "gmk" | (G, m_c, g, hd)
+    "mgk", "v_ctx": ..., "k_dec": (b, C_d, g, hd), "v_dec": ...} — plus
+    {"k_scale", "v_scale"} ((G, g, m_c) / (G, m_c, g)) when the context
+    segments are int8.
+
+    Positions, decode-cache write offsets and decode-slot masks are all PER
+    SLOT (``ctx_lens[group_ids] + dec_lens``), computed on the device.
+    Sliding-window configs are not supported, as in the reference.
+    """
+    if cfg.sliding_window is not None:
+        raise NotImplementedError(
+            "forest decoding does not support sliding-window configs")
+    b, n = x.shape[:2]
+    g, hd = cfg.n_kv_heads_padded, cfg.kq_dim
+    p = cfg.n_heads_padded // g
+    dev = x.device
+    q, k_new, v_new = _project_qkv(cfg, params, x)
+    pos_b = ctx_lens[group_ids.long()] + dec_lens                 # (b,)
+    if cfg.rope_theta > 0:
+        pos = pos_b[:, None] + torch.arange(n, device=dev)[None, :]  # (b, n)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    q = q.reshape(b, n, g, p, hd).permute(0, 2, 3, 1, 4)  # (b,g,p,n,hd)
+
+    k_dec = _scatter_decode_slots(layer_cache["k_dec"], k_new, dec_lens)
+    v_dec = _scatter_decode_slots(layer_cache["v_dec"], v_new, dec_lens)
+    cap = k_dec.shape[1]
+    slot = torch.arange(cap, device=dev)[None, :]
+    dec_valid = slot <= dec_lens[:, None] + n - 1                 # (b, C_d)
+
+    k_ctx, v_ctx = layer_cache["k_ctx"], layer_cache["v_ctx"]
+    layout = cfg.ctx_layout
+    if "k_scale" in layer_cache:
+        k_s, v_s = layer_cache["k_scale"], layer_cache["v_scale"]
+        if impl == "kernel":
+            o = grouped_bifurcated_decode_attention_q8(
+                q, k_ctx, v_ctx, k_s, v_s, group_ids, ctx_lens, k_dec, v_dec,
+                dec_valid, ctx_layout=layout)
+        else:
+            o = forest_bifurcated_attention_q8(
+                q, k_ctx, v_ctx, k_s, v_s, group_ids, ctx_lens, k_dec, v_dec,
+                decode_mask=dec_valid, ctx_layout=layout)
+    elif impl == "kernel":
+        o = grouped_bifurcated_decode_attention(
+            q, k_ctx, v_ctx, group_ids, ctx_lens, k_dec, v_dec, dec_valid,
+            ctx_layout=layout)
+    else:
+        o = forest_bifurcated_attention(
+            q, k_ctx, v_ctx, group_ids, ctx_lens, k_dec, v_dec,
+            decode_mask=dec_valid, ctx_layout=layout)
 
     o = o.permute(0, 3, 1, 2, 4).reshape(b, n, cfg.n_heads_padded * hd)
     return o @ params["wo"].to(x.dtype)

@@ -222,13 +222,15 @@ def test_port_imports_no_jax():
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        "assert {'repro_torch.core.quantized', 'repro_torch.core.grouped'}"
+        " <= set(sys.modules)\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=120,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 22
 
 
 def test_port_sources_name_no_jax_or_reference_package():

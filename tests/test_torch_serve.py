@@ -159,9 +159,8 @@ def test_policy_falls_back_to_standard_cache():
 def test_unported_paths_raise():
     from repro_torch.core.errors import DecodeCapacityExceeded
     tm = t_get_model(CFG_T)
-    for kw in (dict(cache_dtype="int8"), dict(ctx_store="paged")):
-        with pytest.raises(NotImplementedError):
-            TServeEngine(tm, CFG_T, tconfigs.ServeConfig(**kw))
+    with pytest.raises(NotImplementedError):
+        TServeEngine(tm, CFG_T, tconfigs.ServeConfig(ctx_store="paged"))
     with pytest.raises(NotImplementedError):
         t_get_model(dataclasses.replace(CFG_T, family="moe"))
     with pytest.raises(KeyError):       # configs of unported families

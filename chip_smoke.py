@@ -13,17 +13,21 @@ printing its result lines:
      main path's shapes (g=8 kv heads, 64 query rows = 32 samples x 2 query
      heads per kv head, hd=128, m_c=8192, 32 x 24 decode slots, bf16; the
      forest kernels over 4 segments of capacity 8192 with live lengths
-     8192/6000/2500/777), once with random inputs and once with a partly
-     masked decode arm that carries most of the softmax mass, and at ragged
-     shapes (m_c off the block size, two fresh positions per sample, rows
-     off the row tile, hd=80, one segment against the single-prefix
-     kernel, a 0-length segment, a segment id outside [0, G), and fp32,
-     which runs the SIMT copy of the bf16 kernels, not the tensor-core one
-     that serves bf16). Every gate is max |kernel - plain| <= tol x
-     max |plain| (bf16 2e-2, fp32 1e-5), and the script shows that plain
-     versions with the decode arm dropped, its mask ignored, another
-     sample's slots read, another group's segment read, or the V scales
-     dropped miss that gate by far;
+     8192/6000/2500/777, the tree kernels over phase 3d's trie, 8 nodes of
+     capacity 4096, both over the served 32 x 64 decode slots), once with
+     random inputs and once with a partly masked decode arm that carries
+     most of the softmax mass, and at ragged shapes (m_c off the block
+     size, two fresh positions per sample, rows off the row tile, hd=80,
+     one segment against the single-prefix kernel, a 0-length segment, a
+     segment id outside [0, G); node lengths 0/1/63/64/65, a depth-1 path
+     beside depth-3 ones, a node twice on one path, ids outside [-1, N),
+     and every path one level deep against the grouped kernels, bit for
+     bit). fp32 queries must raise TypeError (the kernels take bf16 only).
+     Every gate is max |kernel - plain| <= tol x max |plain| (bf16 2e-2),
+     and the script shows that plain versions with the decode arm
+     dropped, its mask ignored, another sample's slots read, another
+     group's segment read, the V scales dropped, the trie's root level
+     dropped or another request's leaf read miss that gate by far;
   3. serve internlm2-1.8b at its published width (seeded random weights)
      with ServeEngine.generate: bifurcated cache, fused kernel, batch 32,
      context 8192, 16 steps. The fused kernel must launch 24 layers x 15
@@ -45,6 +49,18 @@ printing its result lines:
      4000-token request takes its segment and slots, 8 more steps run, and
      the three untouched groups' greedy tokens must be bit-identical to a
      run without the retire and readmit;
+  3d. TreeServeEngine at the same width, bf16 and int8 nodes: a prefix trie
+     of 8 nodes of capacity 4096 (a 4096-token system prompt, templates of
+     2048 and 1024 tokens under it, leaves of 1200 and 500 under the first
+     and of 1800 and 300 under the second), one request of 8 samples per
+     leaf in 32 slots, decode capacity 64, tree kernels. 15 steps must
+     launch the tree kernel 24 x 15 times; per-layer and whole-step logits
+     are held against the single-prefix kernel path of each request over
+     its path's nodes concatenated; then the 500-token leaf's request is
+     cancelled and retired, [system prompt, first template, a 900-token
+     leaf] is admitted (two levels reused, one node written), 8 more steps
+     run, and the three untouched requests' greedy tokens must be
+     bit-identical to a run without the cancel and readmit;
   4. time each kernel at the main path's shapes beside its bound, its plain
      version and, as a yardstick only, one scaled_dot_product_attention call
      computing the same function (the port never calls it);
@@ -66,8 +82,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12      # dense tensor-core bf16
-TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+TOL = 2e-2    # bf16: every gate is max |err| <= TOL x max |ref|
 DEVICE = "cuda"
+CARD = ["not read yet"]     # nvidia-smi's name and power limit, set by main
 
 
 def check(cond, msg):
@@ -81,7 +98,7 @@ def gap(got, want):
     return (got - want).abs().max().item(), want.abs().max().item()
 
 
-def within(got, want, tol=TOL["bfloat16"]):
+def within(got, want, tol=TOL):
     """The gate of every comparison here: max |got - want| <= tol x
     max |want|, so it scales with the outputs (one bf16 ulp is 2^-8 of a
     value); returns (ok, max abs error, relative error)."""
@@ -106,20 +123,19 @@ def build():
           f" in {time.perf_counter() - t0:.1f} s (one nvcc per source, in "
           f"parallel)")
     # ptxas' report, one line per kernel instance: registers, spills, smem
+    # (template arguments: head dim, FUSED, Q8, mode)
     kinds = {"100": "fused", "000": "partials", "110": "fused_q8",
-             "101": "grouped", "111": "grouped_q8"}
+             "101": "grouped", "111": "grouped_q8", "102": "tree",
+             "112": "tree_q8"}
     for path in paths.values():
         name, spill = None, ""
         for line in path.with_suffix(".log").read_text().splitlines():
             if "Compiling entry function" in line:
-                m = re.search(r"(f32_)?decode_kernelILi(\d+)E((?:Lb[01]E)+)",
-                              line)
+                m = re.search(r"decode_kernelILi(\d+)ELb([01])ELb([01])"
+                              r"ELi(\d)E", line)
                 if m:
-                    flags = "".join(re.findall(r"Lb([01])E", m.group(3)))
-                    name = (f"f32 hd={m.group(2)} "
-                            f"{'fused' if flags == '1' else 'partials'}"
-                            if m.group(1) else
-                            f"bf16 hd={m.group(2)} {kinds.get(flags, flags)}")
+                    flags = "".join(m.group(2, 3, 4))
+                    name = f"hd={m.group(1)} {kinds.get(flags, flags)}"
                 else:
                     name = None
             elif name and "spill" in line:
@@ -165,13 +181,12 @@ def kernel_inputs(g, b, p, n, hd, m_c, c_d, dtype, seed, masked=False,
                 scale=hd**-0.5, lens=lens)
 
 
-def check_case(name, x, dtype_name):
+def check_case(name, x):
     """Kernel vs plain on one case; returns the max abs errors of the fused
     output and of the partials' normalised output acc / l."""
     import torch
     from repro_torch.kernels import bifurcated_decode as bd
 
-    tol = TOL[dtype_name]
     args = (x["q"], x["kc"], x["vc"], x["kd"], x["vd"], x["bias"])
     kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"])
     out_k = bd.fused_bifurcated_decode(*args, **kw)
@@ -180,22 +195,65 @@ def check_case(name, x, dtype_name):
     acc_p, m_p, l_p = bd.context_flash_partials_plain(*args[:3],
                                                       scale=x["scale"])
     torch.cuda.synchronize()
-    ok_f, err_f, rel_f = within(out_k, out_p, tol)
+    ok_f, err_f, rel_f = within(out_k, out_p)
     # partials: normalised by their own sumexp, compared as the output;
     # m and l are fp32 sums of the same products in another order
     ok_a, err_a, rel_a = within(acc_k / l_k[..., None],
-                                acc_p / l_p[..., None], tol)
+                                acc_p / l_p[..., None])
     err_m = ((m_k - m_p).abs() / (1 + m_p.abs())).max().item()
     err_l = ((l_k - l_p).abs() / l_p.abs()).max().item()
     print(f"check {name}: fused max_abs_err={err_f:.3e} ({rel_f:.1e} of "
           f"max |out|), partials acc/l {err_a:.3e} ({rel_a:.1e}), m rel "
-          f"{err_m:.3e}, l rel {err_l:.3e} (gates: {tol:g} of max |out|; "
+          f"{err_m:.3e}, l rel {err_l:.3e} (gates: {TOL:g} of max |out|; "
           f"m, l 1e-4)")
     check(ok_f, f"{name}: fused kernel disagrees with its plain version")
     check(ok_a and err_m <= 1e-4 and err_l <= 1e-4,
           f"{name}: partials kernel disagrees with its plain version")
     check(torch.isfinite(out_k.float()).all().item(), f"{name}: non-finite")
     return err_f, err_a
+
+
+def check_fp32_raises(x):
+    """The kernels take bf16 queries only: fp32 CUDA operands raise
+    TypeError and launch nothing (fp32 runs the plain versions on the
+    CPU)."""
+    import torch
+    from repro_torch.kernels import bifurcated_decode as bd
+
+    args = (x["q"], x["kc"], x["vc"], x["kd"], x["vd"], x["bias"])
+    before = read_launches()
+    for call in (lambda: bd.fused_bifurcated_decode(
+                     *args, scale=x["scale"], c_d=x["c_d"], pn=x["pn"]),
+                 lambda: bd.context_flash_partials(*args[:3],
+                                                   scale=x["scale"])):
+        try:
+            call()
+        except TypeError:
+            continue
+        raise AssertionError("a kernel took fp32 queries on the card")
+    torch.cuda.synchronize()
+    check(read_launches() == before, "an fp32 call launched a kernel")
+    print("check fp32 queries: TypeError from the fused and partials "
+          "wrappers, no launch")
+
+
+def decode_arm_share(x, m, l):
+    """The least share of any row's softmax mass (per kv head) that its
+    decode arm carries, given the context arm's running max ``m`` and sum
+    ``l`` (both (g, rows), f32) and each row's own live decode slots."""
+    import torch
+
+    q, kd, bias = x["q"], x["kd"], x["bias"]
+    g, rows, hd = q.shape
+    b, c_d = rows // x["pn"], x["c_d"]
+    s = torch.einsum("grh,gbch->grbc", q.float(),
+                     kd.float().reshape(g, b, c_d, hd)) * x["scale"]
+    own = s[:, torch.arange(rows, device=DEVICE),
+            torch.arange(rows, device=DEVICE) // x["pn"]]      # (g, rows, c_d)
+    own = own + bias.reshape(b, c_d).repeat_interleave(x["pn"], 0)
+    top = torch.maximum(m, own.amax(-1))
+    dec = torch.exp(own - top[..., None]).sum(-1)
+    return (dec / (dec + l * torch.exp(m - top))).min().item()
 
 
 def check_gate_sensitivity(name, x):
@@ -211,18 +269,8 @@ def check_gate_sensitivity(name, x):
     kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"])
     want = bd.fused_bifurcated_decode_plain(q, kc, vc, kd, vd, bias, **kw)
     acc, m, l = bd.context_flash_partials_plain(q, kc, vc, scale=x["scale"])
-    # the decode arm's share of each row's softmax mass, from the plain
-    # context partials and each row's own live slots
-    g, rows, hd = q.shape
-    b, c_d = rows // x["pn"], x["c_d"]
-    s = torch.einsum("grh,gbch->grbc", q.float(),
-                     kd.float().reshape(g, b, c_d, hd)) * x["scale"]
-    own = s[:, torch.arange(rows, device=DEVICE),
-            torch.arange(rows, device=DEVICE) // x["pn"]]      # (g, rows, c_d)
-    own = own + bias.reshape(b, c_d).repeat_interleave(x["pn"], 0)
-    top = torch.maximum(m, own.amax(-1))
-    dec = torch.exp(own - top[..., None]).sum(-1)
-    share = (dec / (dec + l * torch.exp(m - top))).min().item()
+    share = decode_arm_share(x, m, l)
+    c_d = x["c_d"]
     shifted = dict(kd=kd.roll(c_d, 1), vd=vd.roll(c_d, 1),
                    bias=bias.roll(c_d, 1))
     faults = {
@@ -238,7 +286,7 @@ def check_gate_sensitivity(name, x):
           + ", ".join(f"{k} {v:.2f}" for k, v in rels.items()))
     check(share >= 0.5, f"{name}: the decode arm does not dominate")
     for k, v in rels.items():
-        check(v >= 10 * TOL["bfloat16"], f"{name}: the gate misses '{k}'")
+        check(v >= 10 * TOL, f"{name}: the gate misses '{k}'")
 
 
 def quantized(x):
@@ -366,14 +414,233 @@ def check_forest_gate_sensitivity(name, xq, xg):
     rel_g = within(got, want)[2]
     print(f"check {name}: a faulty version's error / max |out|: V scales "
           f"dropped {rel_v:.2f}, another group's segment {rel_g:.2f}")
-    check(rel_v >= 10 * TOL["bfloat16"], f"{name}: the gate misses a q8 "
+    check(rel_v >= 10 * TOL, f"{name}: the gate misses a q8 "
           f"plain version without V scales")
-    check(rel_g >= 10 * TOL["bfloat16"], f"{name}: the gate misses a grouped "
+    check(rel_g >= 10 * TOL, f"{name}: the gate misses a grouped "
           f"plain version reading another group's segment")
 
 
 FOREST_LENS = (8192, 6000, 2500, 777)
 FOREST_DEC_CAP = 64     # phase 3c's decode capacity
+
+# phase 3d's trie: a system prompt, two templates under it, two leaves
+# under each template; four requests (one per leaf), 8 samples each
+TREE_TOKENS = {"SYS": 4096, "TPL_A": 2048, "TPL_B": 1024, "A1": 1200,
+               "A2": 500, "B1": 1800, "B2": 300, "A3": 900}
+TREE_REQUESTS = (("SYS", "TPL_A", "A1"), ("SYS", "TPL_A", "A2"),
+                 ("SYS", "TPL_B", "B1"), ("SYS", "TPL_B", "B2"))
+TREE_READMIT = ("SYS", "TPL_A", "A3")       # replaces the A2 request
+TREE_NODES, TREE_DEPTH, TREE_CAP, TREE_DEC_CAP = 8, 3, 4096, 64
+TREE_STEPS, TREE_MORE = 15, 8
+
+
+def served_trie():
+    """Phase 3d's node ids in admission order, their lengths (N,), and each
+    request's path: SYS 0, TPL_A 1, A1 2, A2 3, TPL_B 4, B1 5, B2 6; node 7
+    stays free."""
+    ids, paths = {}, []
+    for req in TREE_REQUESTS:
+        for name in req:
+            ids.setdefault(name, len(ids))
+        paths.append([ids[name] for name in req])
+    lens = [0] * TREE_NODES
+    for name, nid in ids.items():
+        lens[nid] = TREE_TOKENS[name]
+    return lens, paths
+
+
+def tree_inputs(n_nodes, g, b, p, n, hd, cap, lens, slot_paths, c_d, seed,
+                masked=False, dec_boost=0.0, quant=False):
+    """Random tree-kernel operands: ``n_nodes`` nodes of capacity ``cap``
+    with live lengths ``lens``; slot i reads the nodes of
+    ``slot_paths[i]`` (padded with -1 to the deepest path); the decode arm
+    as in ``kernel_inputs``."""
+    import torch
+
+    x = kernel_inputs(g, b, p, n, hd, 8, c_d, torch.bfloat16, seed,
+                      masked=masked, dec_boost=dec_boost)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 100)
+    shape = (n_nodes, g, cap, hd)
+    x["kc"] = torch.randn(shape, generator=gen, device=DEVICE)
+    x["vc"] = torch.randn(shape, generator=gen, device=DEVICE)
+    depth = max(len(pth) for pth in slot_paths)
+    table = [list(pth) + [-1] * (depth - len(pth)) for pth in slot_paths]
+    x["paths"] = torch.tensor(table, dtype=torch.int32, device=DEVICE
+                              ).T.repeat_interleave(p * n, dim=1).contiguous()
+    x["node_lens"] = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+    if quant:
+        return quantized(x)
+    x["kc"], x["vc"] = x["kc"].to(torch.bfloat16), x["vc"].to(torch.bfloat16)
+    return x
+
+
+def tree_args(x, quant):
+    ctx = ((x["kc"], x["vc"], x["ks"], x["vs"]) if quant
+           else (x["kc"], x["vc"]))
+    return (x["q"],) + ctx + (x["paths"], x["node_lens"], x["kd"], x["vd"],
+                              x["bias"])
+
+
+def tree_kernel(quant):
+    from repro_torch.kernels import bifurcated_decode as bd
+
+    return (bd.tree_fused_bifurcated_decode_q8 if quant
+            else bd.tree_fused_bifurcated_decode)
+
+
+def tree_plain(quant):
+    from repro_torch.kernels import bifurcated_decode as bd
+
+    return (bd.tree_fused_bifurcated_decode_q8_plain if quant
+            else bd.tree_fused_bifurcated_decode_plain)
+
+
+def check_tree(name, x, quant):
+    """A tree kernel vs its plain version on one case: both NaN on the rows
+    whose path holds an id outside [-1, N) and nowhere else, within the
+    gate on the others; returns the max abs error."""
+    import torch
+
+    kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"])
+    out_k = tree_kernel(quant)(*tree_args(x, quant), **kw)
+    out_p = tree_plain(quant)(*tree_args(x, quant), **kw)
+    torch.cuda.synchronize()
+    n_nodes = x["node_lens"].numel()
+    bad = ((x["paths"] < -1) | (x["paths"] >= n_nodes)).any(0)
+    for out, which in ((out_k, "kernel"), (out_p, "plain version")):
+        nan = torch.isnan(out.float()).any(-1).any(0)
+        check(bool(torch.equal(nan, bad)),
+              f"{name}: the {which}'s NaN rows "
+              f"{nan.nonzero().flatten().tolist()} are not the rows of ids "
+              f"outside the table")
+    check(bool(torch.isfinite(out_k[:, ~bad].float()).all()),
+          f"{name}: non-finite")
+    ok, err, rel = within(out_k[:, ~bad], out_p[:, ~bad])
+    print(f"check {name}: {'tree q8' if quant else 'tree'} "
+          f"max_abs_err={err:.3e} ({rel:.1e} of max |out|, gate 2e-2)"
+          + (f"; {int(bad.sum())} rows of an id outside [-1, N) NaN"
+             if bad.any() else ""))
+    check(ok, f"{name}: tree kernel disagrees with its plain version")
+    return err
+
+
+def check_tree_gate_sensitivity(name, x):
+    """Two faulty plain versions of #6 on the main-shape trie: one drops
+    the root level, one reads another request's leaf. Each must miss the
+    kernel gate by at least tenfold."""
+    kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"])
+    plain = tree_plain(False)
+    want = plain(*tree_args(x, False), **kw)
+    paths = x["paths"]
+    rows_per_req = paths.shape[1] // len(TREE_REQUESTS)
+    faults = {"root level dropped": paths.clone(),
+              "another request's leaf": paths.clone()}
+    faults["root level dropped"][0] = -1
+    faults["another request's leaf"][-1] = paths[-1].roll(rows_per_req)
+    rels = {k: within(plain(*tree_args(dict(x, paths=v), False), **kw),
+                      want)[2] for k, v in faults.items()}
+    print(f"check {name}: a faulty version's error / max |out|: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in rels.items()))
+    for k, v in rels.items():
+        check(v >= 10 * TOL, f"{name}: the gate misses '{k}'")
+
+
+def check_tree_decode_share(name, x):
+    """The decode arm's least share of any row's softmax mass on a trie
+    case, with the context mass taken over each row's distinct path nodes'
+    live keys; it must be at least half."""
+    import torch
+
+    q, kc = x["q"].float(), x["kc"].float()
+    n_nodes, g, cap, hd = kc.shape
+    rows = q.shape[1]
+    on = torch.zeros(rows, n_nodes, dtype=torch.bool, device=DEVICE)
+    for lvl in x["paths"].long():
+        ok = (lvl >= 0) & (lvl < n_nodes)
+        on[ok.nonzero().flatten(), lvl[ok]] = True
+    live = (torch.arange(cap, device=DEVICE)[None, :]
+            < x["node_lens"][:, None])                       # (N, cap)
+    s = torch.einsum("grh,ngkh->grnk", q, kc) * x["scale"]
+    s = s.masked_fill(~(on[:, :, None] & live[None]), float("-inf"))
+    s = s.flatten(2)
+    m = s.amax(-1)
+    l = torch.exp(s - m[..., None]).nan_to_num(0.0).sum(-1)
+    share = decode_arm_share(x, m, l)
+    print(f"check {name}: decode arm carries >= {share:.3f} of every row's "
+          f"softmax mass")
+    check(share >= 0.5, f"{name}: the decode arm does not dominate")
+
+
+def check_tree_depth_one(quant):
+    """Every path one level deep: the tree kernel must compute the grouped
+    kernel's bits (#6 vs #4, #7 vs #5)."""
+    import torch
+    from repro_torch.kernels import bifurcated_decode as bd
+
+    gen = torch.Generator().manual_seed(26)
+    slot_paths = [[int(i)] for i in torch.randint(0, 4, (32,),
+                                                  generator=gen)]
+    x = tree_inputs(4, 8, 32, 2, 1, 128, 2049, (2049, 0, 77, 1000),
+                    slot_paths, 24, seed=26, masked=True, quant=quant)
+    kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"])
+    tree = tree_kernel(quant)(*tree_args(x, quant), **kw)
+    ctx = tree_args(x, quant)[:-5]
+    grouped = (bd.grouped_fused_bifurcated_decode_q8 if quant
+               else bd.grouped_fused_bifurcated_decode)(
+        *ctx, x["paths"][0].contiguous(), x["node_lens"], x["kd"], x["vd"],
+        x["bias"], **kw)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(tree, grouped))
+    err = within(tree, grouped)[1]
+    print(f"check {'int8 ' if quant else ''}depth-1 trie N=4 lens "
+          f"2049/0/77/1000: tree vs grouped kernel bit-equal {same} "
+          f"(max_abs_err={err:.3e})")
+    check(same, "depth 1: the tree kernel is not the grouped kernel")
+
+
+def check_tree_kernels():
+    """Phase 2's cases of #6 and #7; returns {kernel name: max abs error
+    over the main-shape cases}."""
+    lens, req_paths = served_trie()
+    slot_paths = [req_paths[s * len(req_paths) // BATCH]
+                  for s in range(BATCH)]
+    tmain = (f"N={TREE_NODES} cap={TREE_CAP} lens="
+             f"{'/'.join(map(str, lens))} depth={TREE_DEPTH} g=8 rows=64 "
+             f"hd=128 ld={BATCH * TREE_DEC_CAP} bf16")
+    out = {}
+    for quant, kname in ((False, "tree_fused_bifurcated_decode"),
+                         (True, "tree_fused_bifurcated_decode_q8")):
+        tag = "int8 " if quant else ""
+        x = tree_inputs(TREE_NODES, 8, BATCH, 2, 1, 128, TREE_CAP, lens,
+                        slot_paths, TREE_DEC_CAP, seed=30, quant=quant)
+        dominant = tree_inputs(TREE_NODES, 8, BATCH, 2, 1, 128, TREE_CAP,
+                               lens, slot_paths, TREE_DEC_CAP, seed=31,
+                               masked=True, dec_boost=3.0, quant=quant)
+        if not quant:
+            check_tree_gate_sensitivity(f"main {tmain}", x)
+            # the int8 case below is this case's data, quantized
+            check_tree_decode_share(f"main {tmain} decode-dominant masked",
+                                    dominant)
+        out[kname] = max(
+            check_tree(f"main {tag}{tmain}", x, quant),
+            check_tree(f"main {tag}{tmain} decode-dominant masked",
+                       dominant, quant))
+        # node lengths 0/1/63/64/65, a depth-1 slot beside depth-3 ones,
+        # a node twice on one path, ids N and -2 outside the table
+        ragged = [[5, 1, 2], [3], [5, 4, 4], [0, 3, 6], [2, 2], [6, 1],
+                  [5, 1, 2], [7], [4, -2, 1]]
+        check_tree(f"{tag}N=7 lens 0/1/63/64/65/200/130, depth 1 beside 3, "
+                   f"a repeated node, ids outside [-1, N)",
+                   tree_inputs(7, 8, 9, 2, 1, 128, 200,
+                               (0, 1, 63, 64, 65, 200, 130), ragged, 5,
+                               seed=32, masked=True, quant=quant), quant)
+        cycle = [[0, 1], [0, 4], [3], [0, 1, 2], [4, 3]]
+        check_tree(f"{tag}n=2 p=2 hd=80 rows=96 N=5 cap=700",
+                   tree_inputs(5, 8, 24, 2, 2, 80, 700, (700, 333, 0, 64, 129),
+                               [cycle[i % 5] for i in range(24)], 9, seed=33,
+                               masked=True, quant=quant), quant)
+        check_tree_depth_one(quant)
+    return out
 
 
 def check_kernels():
@@ -381,27 +648,25 @@ def check_kernels():
     cases}."""
     import torch
 
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16 = torch.bfloat16
     main = "g=8 rows=64 hd=128 m_c=8192 ld=768 bf16"
     errs = check_case(f"main {main}",
-                      kernel_inputs(8, 32, 2, 1, 128, 8192, 24, bf16, seed=0),
-                      "bfloat16")
+                      kernel_inputs(8, 32, 2, 1, 128, 8192, 24, bf16, seed=0))
     dominant = kernel_inputs(8, 32, 2, 1, 128, 8192, 24, bf16, seed=6,
                              masked=True, dec_boost=3.0)
     check_gate_sensitivity(f"main {main} decode-dominant masked", dominant)
     errs = [max(a, b) for a, b in zip(errs, check_case(
-        f"main {main} decode-dominant masked", dominant, "bfloat16"))]
+        f"main {main} decode-dominant masked", dominant))]
     ragged = [
-        ("m_c=8191 masked-arm bf16", (8, 32, 2, 1, 128, 8191, 24, bf16, 1)),
-        ("n=2 p=2 m_c=1000 bf16", (8, 8, 2, 2, 128, 1000, 5, bf16, 2)),
-        ("rows=6 g=2 m_c=77 bf16", (2, 3, 2, 1, 128, 77, 3, bf16, 3)),
-        ("hd=80 rows=96 m_c=700 bf16", (8, 48, 2, 1, 80, 700, 9, bf16, 4)),
-        ("hd=128 m_c=2049 n=2 fp32 (SIMT copy, not the served bf16 kernel)",
-         (8, 8, 2, 2, 128, 2049, 6, f32, 5)),
+        ("m_c=8191 masked-arm bf16", (8, 32, 2, 1, 128, 8191, 24, 1)),
+        ("n=2 p=2 m_c=1000 bf16", (8, 8, 2, 2, 128, 1000, 5, 2)),
+        ("rows=6 g=2 m_c=77 bf16", (2, 3, 2, 1, 128, 77, 3, 3)),
+        ("hd=80 rows=96 m_c=700 bf16", (8, 48, 2, 1, 80, 700, 9, 4)),
     ]
-    for name, (g, b, p, n, hd, m_c, c_d, dt, seed) in ragged:
-        x = kernel_inputs(g, b, p, n, hd, m_c, c_d, dt, seed, masked=True)
-        check_case(name, x, "bfloat16" if dt == bf16 else "float32")
+    for name, (g, b, p, n, hd, m_c, c_d, seed) in ragged:
+        check_case(name, kernel_inputs(g, b, p, n, hd, m_c, c_d, bf16, seed,
+                                       masked=True))
+    check_fp32_raises(kernel_inputs(2, 3, 2, 1, 128, 77, 3, torch.float32, 5))
     out = {"fused_bifurcated_decode": errs[0],
            "context_flash_partials": errs[1]}
 
@@ -476,6 +741,7 @@ def check_kernels():
         out[kname] = err
     check_forest_gate_sensitivity(f"main {main} int8 ctx; main {fmain}",
                                   x_q, x_g)
+    out.update(check_tree_kernels())
     return out
 
 
@@ -661,7 +927,7 @@ def serve():
           f"{err_kf:.3e}, plain versions vs flash {err_pf:.3e}, kernel path "
           f"vs plain versions {err_kp:.3e}; max |logit| {scale:.3f} (gate "
           f"max(2e-2 x max |logit|, 1.5 x plain vs flash))")
-    check(err_kf <= max(TOL["bfloat16"] * scale, 1.5 * err_pf),
+    check(err_kf <= max(TOL * scale, 1.5 * err_pf),
           "kernel path logits disagree with the flash path")
     profile_step(model, params, fresh(cache), tok)
 
@@ -923,7 +1189,7 @@ def forest_vs_single(cfg, model, params, fcache, tokens, slots, quant):
         err_ps, _ = gap(lp[s][live[:len(s)]], want)
         check(bool(torch.isfinite(lf[s].float()[live[:len(s)]]).all()),
               "non-finite forest logits")
-        check(err_fs <= max(TOL["bfloat16"] * top, 1.5 * err_ps),
+        check(err_fs <= max(TOL * top, 1.5 * err_ps),
               f"forest group {gi}: logits disagree with the single-prefix "
               f"kernel path ({err_fs:.3e}, max |logit| {top:.3f})")
         if worst is None or err_fs / top > worst[0] / worst[1]:
@@ -1027,6 +1293,244 @@ def serve_forest(cfg, model, params, quant):
           f"to the run without retirement: {same}")
     check(same, "the retire and readmit moved another group's tokens")
     check(all(len(eng.outputs[s]) == FOREST_MORE + 1 for s in s_new),
+          "readmitted slots' outputs")
+    del eng, st
+    return st_b.cache, counts[kname], path_err
+
+
+def _path_prefix_cache(tcache, path, idx, depth, quant):
+    """The single-prefix cache that one request of the trie cache
+    ``tcache`` describes, for the slots ``idx``: its path's nodes' live
+    keys concatenated, and those slots' decode arms (copies)."""
+    import torch
+    from repro_torch.core.kv_cache import BifurcatedCache
+    from repro_torch.core.quantized import QuantBifurcatedCache
+
+    lens = tcache.node_lens.tolist()
+    names = ("k_ctx", "v_ctx") + (("k_scale", "v_scale") if quant else ())
+    ctx = {n: torch.cat([getattr(tcache, n)[:, nid, :, :lens[nid]]
+                         for nid in path], dim=2).contiguous()
+           for n in names}
+    dec = dict(k_dec=tcache.k_dec[:, idx].clone(),
+               v_dec=tcache.v_dec[:, idx].clone(), dec_length=depth,
+               ctx_layout="gmk")
+    return (QuantBifurcatedCache if quant else BifurcatedCache)(**ctx, **dec)
+
+
+def tree_vs_single(cfg, model, params, tcache, tokens, slots, req_paths,
+                   quant):
+    """One decode step of the trie, per layer on the trie stream's own
+    input: the tree kernel against its plain version, and against the
+    single-prefix kernel path of each request over its path's nodes
+    concatenated (the same decode arm); then the whole step against that
+    path. Each request's single-prefix batch is its 8 slots tiled to 32.
+    Returns the per-layer kernel-vs-plain max abs error."""
+    import torch
+    from repro_torch.kernels import bifurcated_decode as bd
+    from repro_torch.models import blocks
+
+    depth = int(tcache.dec_lens[slots[0][0]])
+    idx = [torch.tensor(s * (BATCH // len(s)), device=DEVICE) for s in slots]
+    lens = tcache.node_lens.tolist()
+    path_lens = [sum(lens[nid] for nid in pth) for pth in req_paths]
+    ctx_lens_b = tcache.slot_context_lens()
+    names = ("k_ctx", "v_ctx") + (("k_scale", "v_scale") if quant else ())
+    rel_layer = [0.0]
+    plain_err = [0.0, 0.0]      # max abs error, and its share of max |out|
+    on_cuda = bd._on_cuda
+
+    def tree_attn(i, layer, h, plain=False):
+        lc = {n: getattr(tcache, n)[i] for n in names}
+        lc.update(k_dec=tcache.k_dec[i].clone(), v_dec=tcache.v_dec[i].clone())
+        if plain:
+            bd._on_cuda = lambda *t: False
+        try:
+            return blocks.attention_decode_tree(
+                cfg, layer["attn"], h, lc, paths=tcache.paths,
+                node_lens=tcache.node_lens, ctx_lens_b=ctx_lens_b,
+                dec_lens=tcache.dec_lens, impl="kernel")
+        finally:
+            bd._on_cuda = on_cuda
+
+    def attn(i, layer, h):
+        o = tree_attn(i, layer, h)
+        ok, err, rel = within(o, tree_attn(i, layer, h, plain=True))
+        check(ok, f"tree layer {i}: tree kernel attention disagrees with "
+                  f"its plain versions ({rel:.2e} of max |out|)")
+        plain_err[:] = max(plain_err[0], err), max(plain_err[1], rel)
+        for r, s in enumerate(slots):
+            lcs = {n: torch.cat([getattr(tcache, n)[i, nid][:, :lens[nid]]
+                                 for nid in req_paths[r]], dim=1).contiguous()
+                   for n in names}
+            lcs.update(k_dec=tcache.k_dec[i][idx[r]],
+                       v_dec=tcache.v_dec[i][idx[r]])
+            o_s = blocks.attention_decode(
+                cfg, layer["attn"], h[idx[r]], lcs,
+                position=path_lens[r] + depth, bifurcated=True,
+                impl="kernel")
+            ok, _, rel = within(o[s], o_s[:len(s)])
+            check(ok, f"tree layer {i} request {r}: tree kernel attention "
+                      f"disagrees with the single-prefix kernel path over "
+                      f"its path ({rel:.2e} of max |out|)")
+            rel_layer[0] = max(rel_layer[0], rel)
+        return o
+
+    _per_layer_residual(cfg, model, params, model._embed(params, tokens), attn)
+    lt, _ = model.decode_step(params, _fork(tcache), tokens, impl="kernel")
+    bd._on_cuda = lambda *t: False
+    try:
+        lp, _ = model.decode_step(params, _fork(tcache), tokens, impl="kernel")
+    finally:
+        bd._on_cuda = on_cuda
+    worst = None
+    for r, s in enumerate(slots):
+        single = _path_prefix_cache(tcache, req_paths[r], idx[r], depth,
+                                    quant)
+        ls, _ = model.decode_step(params, single, tokens[idx[r]],
+                                  impl="kernel")
+        del single
+        live = ls.abs() < 1e29
+        want = ls[:len(s)][live[:len(s)]]
+        err_ts, top = gap(lt[s][live[:len(s)]], want)
+        err_ps, _ = gap(lp[s][live[:len(s)]], want)
+        check(bool(torch.isfinite(lt[s].float()[live[:len(s)]]).all()),
+              "non-finite trie logits")
+        check(err_ts <= max(TOL * top, 1.5 * err_ps),
+              f"tree request {r}: logits disagree with the single-prefix "
+              f"kernel path ({err_ts:.3e}, max |logit| {top:.3f})")
+        if worst is None or err_ts / top > worst[0] / worst[1]:
+            worst = (err_ts, top, err_ps, r)
+    n_slots, c_d = tcache.k_dec.shape[1:3]
+    print(f"serve tree{' int8' if quant else ''}: {depth + 1} live decode "
+          f"slots of {c_d} (ld {n_slots * c_d}); per-layer attention, tree "
+          f"kernel vs its plain versions max_abs_err={plain_err[0]:.3e} "
+          f"({plain_err[1]:.2e} of max |out|), vs the single-prefix kernel "
+          f"path over each request's concatenated path "
+          f"{rel_layer[0]:.2e} of max |out| (gates 2e-2); decode-step "
+          f"logits, worst request {worst[3]}: {worst[0]:.3e} against max "
+          f"|logit| {worst[1]:.3f} (plain versions {worst[2]:.3e}; gate "
+          f"max(2e-2 x max |logit|, 1.5 x plain))")
+    return plain_err[0]
+
+
+def serve_tree(cfg, model, params, quant):
+    """Phase 3d: TreeServeEngine at the published width. Returns the trie
+    cache of the run without the cancel (for phase 4), the tree kernel's
+    launch count of the counted chunk and its per-layer max abs error
+    against its plain versions."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import TreeConfig
+    from repro_torch.runtime.serve import TreeServeEngine
+
+    tag = "serve tree int8" if quant else "serve tree"
+    kname = ("tree_fused_bifurcated_decode_q8" if quant
+             else "tree_fused_bifurcated_decode")
+    tcfg = TreeConfig(n_nodes=TREE_NODES, depth=TREE_DEPTH, slots=BATCH,
+                      node_capacity=TREE_CAP, decode_capacity=TREE_DEC_CAP,
+                      use_kernel=True,
+                      cache_dtype="int8" if quant else "bfloat16")
+    rng = np.random.RandomState(2)
+    toks = {name: torch.as_tensor(rng.randint(0, cfg.vocab_size, (1, m)),
+                                  device=DEVICE)
+            for name, m in TREE_TOKENS.items()}
+    per_req = BATCH // len(TREE_REQUESTS)
+
+    def start():
+        eng = TreeServeEngine(model, cfg, tcfg)
+        st = eng.init_state(device=DEVICE)
+        slots = []
+        for req in TREE_REQUESTS:
+            st, s = eng.admit(params, st, [toks[n] for n in req], per_req)
+            slots.append(s)
+        return eng, st, slots
+
+    # run B, without the cancel: the reference of the bit-identity check
+    # (and the path's warm-up)
+    t0 = time.perf_counter()
+    eng_b, st_b, slots = start()
+    torch.cuda.synchronize()
+    admit_s = time.perf_counter() - t0
+    st_b = eng_b.step_chunk(params, st_b, TREE_STEPS)
+    # run A, counted: the same admissions, then the same chunk
+    eng, st, slots_a = start()
+    check(slots_a == slots, "the two runs assigned different slots")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    st = eng.step_chunk(params, st, TREE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    lens, req_paths = served_trie()
+    req_tokens = ", ".join("+".join(str(TREE_TOKENS[n]) for n in r)
+                           for r in TREE_REQUESTS)
+    print(f"{tag}: 4 admissions ({req_tokens} tokens, 8 samples each) "
+          f"{admit_s * 1e3:.1f} ms; {TREE_STEPS} "
+          f"steps {wall * 1e3:.1f} ms ({wall / TREE_STEPS * 1e3:.2f} "
+          f"ms/step) on {CARD[0]}; launches {counts}")
+    expect_launches(counts, kname, cfg.n_layers * TREE_STEPS)
+    check(eng.outputs == eng_b.outputs, "two identical runs differ")
+    check([eng.requests[r]["path"] for r in range(4)] == req_paths,
+          f"paths {[eng.requests[r]['path'] for r in range(4)]}")
+    check(st.cache.node_lens.tolist() == lens,
+          f"node_lens {st.cache.node_lens.tolist()}")
+    check(eng.node_refs == [4, 2, 1, 1, 2, 1, 1, 0],
+          f"node_refs {eng.node_refs}")
+    io = eng.step_io_bytes(st)
+    print(f"{tag}: {eng.node_live.count(True)} live nodes, "
+          f"{sum(eng.node_len)} keys (longest path "
+          f"{max(sum(lens[n] for n in p) for p in req_paths)}); modelled "
+          f"bytes per layer-step {io['total'] / 1e6:.1f} MB, of which "
+          f"context {io['ctx_bytes'] / 1e6:.1f} MB (step_io_bytes, which "
+          f"models bf16 nodes as the reference does)")
+    for s in sum(slots, []):
+        out = eng.outputs[s]
+        check(len(out) == TREE_STEPS + 1, f"slot {s}: {len(out)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in out), "token range")
+        check(all(np.isfinite(eng.logps[s])), "logprobs")
+    path_err = tree_vs_single(cfg, model, params, st_b.cache, st_b.tokens,
+                              slots, req_paths, quant)
+
+    # cancel and retire the A2 request: its leaf frees, SYS and TPL_A keep
+    # one reference less; readmit [SYS, TPL_A, A3]: two levels reused, one
+    # node written; the untouched requests must not move by one bit
+    st = eng.cancel_request(st, 1)
+    check(eng.retire_requests(st) == [1], "retire")
+    check(eng.node_refs == [3, 1, 1, 0, 2, 1, 1, 0] and not eng.node_live[3],
+          f"after the retire: node_refs {eng.node_refs}")
+    stats = dict(eng.prefix_stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, s_new = eng.admit(params, st, [toks[n] for n in TREE_READMIT],
+                          per_req)
+    torch.cuda.synchronize()
+    readmit_s = time.perf_counter() - t0
+    reused = TREE_TOKENS["SYS"] + TREE_TOKENS["TPL_A"]
+    check(s_new == slots[1], f"readmitted into slots {s_new}")
+    check(eng.prefix_stats["partial_hits"] == stats["partial_hits"] + 1
+          and eng.prefix_stats["reused_tokens"]
+          == stats["reused_tokens"] + reused
+          and eng.prefix_stats["new_tokens"]
+          == stats["new_tokens"] + TREE_TOKENS["A3"],
+          f"prefix_stats {eng.prefix_stats}")
+    check(eng.node_live.count(True) == 7 and eng.node_len[3] ==
+          TREE_TOKENS["A3"] and eng.node_refs == [4, 2, 1, 1, 2, 1, 1, 0],
+          f"after the readmit: node_live {eng.node_live}, node_refs "
+          f"{eng.node_refs}")
+    st = eng.step_chunk(params, st, TREE_MORE)
+    st_b = eng_b.step_chunk(params, st_b, TREE_MORE)
+    same = all(eng.outputs[s] == eng_b.outputs[s]
+               for r in (0, 2, 3) for s in slots[r])
+    print(f"{tag}: request A2 cancelled and retired (its leaf freed, "
+          f"SYS/TPL_A refs 4/2 -> 3/1), [SYS, TPL_A, A3] readmitted in "
+          f"{readmit_s * 1e3:.1f} ms reusing {reused} tokens and writing "
+          f"one node of {TREE_TOKENS['A3']}, into slots "
+          f"{s_new[0]}-{s_new[-1]}; {TREE_MORE} more steps: untouched "
+          f"requests' {1 + TREE_STEPS + TREE_MORE} tokens per slot "
+          f"bit-identical to the run without the cancel: {same}")
+    check(same, "the cancel and readmit moved another request's tokens")
+    check(all(len(eng.outputs[s]) == TREE_MORE + 1 for s in s_new),
           "readmitted slots' outputs")
     del eng, st
     return st_b.cache, counts[kname], path_err
@@ -1136,7 +1640,7 @@ def _dequantized(kq, sc):
     return (kq.float() * sc[..., None]).to(torch.bfloat16)
 
 
-def time_kernels(cfg, cache, q8cache, fcaches, launches, errs):
+def time_kernels(cfg, cache, q8cache, fcaches, tcaches, launches, errs):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import bifurcated_decode as bd
@@ -1347,6 +1851,109 @@ def time_kernels(cfg, cache, q8cache, fcaches, launches, errs):
         entries.append(_timed_entry(
             kname, "forest_q8_decode.cu", line, grouped, grouped_plain,
             grouped_lib, nbytes, flop, launches[kname], errs[kname], L))
+    del g_k, g_v, kd, vd
+    entries += time_tree_kernels(cfg, tcaches, q, launches, errs)
+    return entries
+
+
+def time_tree_kernels(cfg, tcaches, q, launches, errs):
+    """#6 and #7 on the trie caches of phase 3d (7 live nodes, 10,968
+    keys; 8 slots per request), with their own decode arms (32 slots of
+    capacity TREE_DEC_CAP, live up to each slot's depth), the same q. The
+    yardstick: SDPA over [the referenced nodes' live keys ⊕ decode slots],
+    a row seeing the nodes on its path and its own live slots."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import bifurcated_decode as bd
+    from repro_torch.kernels.ops import _decode_operands
+
+    L, g, rows, hd = cfg.n_layers, *q.shape
+    p = cfg.n_heads // cfg.n_kv_heads
+    scale, e = hd**-0.5, 2
+    q4 = q[None]
+    entries = []
+    for quant, kname, line in ((False, "tree_fused_bifurcated_decode", 814),
+                               (True, "tree_fused_bifurcated_decode_q8",
+                                963)):
+        tc = tcaches[quant]
+        b, t_cd = tc.k_dec.shape[1:3]
+        t_live = (torch.arange(t_cd, device=DEVICE)[None, :]
+                  <= tc.dec_lens[:, None])                  # (slots, t_cd)
+        arms = [_decode_operands(tc.k_dec[i], tc.v_dec[i], t_live)
+                for i in range(L)]
+        kd, vd = [a[0] for a in arms], [a[1] for a in arms]
+        t_bias = arms[0][2]
+        del arms
+        row_s = torch.arange(rows, device=DEVICE)[:, None] // p
+        col_s = torch.arange(b * t_cd, device=DEVICE)[None, :] // t_cd
+        dec_ok = (row_s == col_s) & t_live.reshape(1, b * t_cd)
+        n_live = int(t_live.sum())
+        path_rows = tc.paths.repeat_interleave(p, dim=1).contiguous()
+        node_lens = tc.node_lens
+        lens = node_lens.tolist()
+        used = sorted(set(tc.paths[tc.paths >= 0].tolist()))
+        key_node = torch.cat([torch.full((lens[n],), n, device=DEVICE)
+                              for n in used])
+        mask = torch.cat([(path_rows[:, :, None] == key_node).any(0),
+                          dec_ok], dim=1)
+        slot_keys = sum(lens[n] for n in tc.paths[tc.paths >= 0].tolist())
+        if quant:
+            ctx_k = [torch.cat([_dequantized(tc.k_ctx[i, n, :, :lens[n]],
+                                             tc.k_scale[i, n, :, :lens[n]])
+                                for n in used], dim=1) for i in range(L)]
+            ctx_v = [torch.cat([_dequantized(tc.v_ctx[i, n, :, :lens[n]],
+                                             tc.v_scale[i, n, :, :lens[n]])
+                                for n in used], dim=1) for i in range(L)]
+            kds = [(kd[i].float() * scale).to(torch.bfloat16)
+                   for i in range(L)]
+            lib_scale = 1.0
+        else:
+            ctx_k = [torch.cat([tc.k_ctx[i, n, :, :lens[n]] for n in used],
+                               dim=1) for i in range(L)]
+            ctx_v = [torch.cat([tc.v_ctx[i, n, :, :lens[n]] for n in used],
+                               dim=1) for i in range(L)]
+            kds, lib_scale = kd, scale
+        t_k = [torch.cat([ctx_k[i], kds[i]], dim=1)[None] for i in range(L)]
+        t_v = [torch.cat([ctx_v[i], vd[i]], dim=1)[None] for i in range(L)]
+        del ctx_k, ctx_v, kds
+        ctx_ops = ((lambda i: (tc.k_ctx[i], tc.v_ctx[i], tc.k_scale[i],
+                               tc.v_scale[i])) if quant
+                   else (lambda i: (tc.k_ctx[i], tc.v_ctx[i])))
+        kern = getattr(bd, kname)
+        plain = getattr(bd, kname + "_plain")
+        tkw = dict(scale=scale, c_d=t_cd, pn=p)
+
+        def tree(i, kern=kern, ctx_ops=ctx_ops, kd=kd, vd=vd):
+            return kern(q, *ctx_ops(i), path_rows, node_lens, kd[i], vd[i],
+                        t_bias, **tkw)
+
+        def tree_plain_(i, plain=plain, ctx_ops=ctx_ops, kd=kd, vd=vd):
+            return plain(q, *ctx_ops(i), path_rows, node_lens, kd[i], vd[i],
+                         t_bias, **tkw)
+
+        def tree_lib(i, t_k=t_k, t_v=t_v, mask=mask, lib_scale=lib_scale):
+            return F.scaled_dot_product_attention(q4, t_k[i], t_v[i],
+                                                  attn_mask=mask,
+                                                  scale=lib_scale)
+
+        ok, _, rel = within(tree_lib(0)[0], tree(0))
+        print(f"time: library yardstick vs {kname} {rel:.2e} of max |out| "
+              f"(gate 2e-2; {len(used)} referenced nodes, {key_node.numel()}"
+              f" keys; decode arm ld {b * t_cd}, {n_live} live slots)")
+        check(ok, f"{kname}: library yardstick computes another function")
+        # what the function needs: every referenced node's live keys read
+        # once (K and V; int8 plus 8 bytes of scales per key and head),
+        # the live decode slots and the bias, q and the output, the path
+        # table and node_lens; the products count each row's own path
+        per_key = 2 * hd * (1 if quant else e) + (2 * 4 if quant else 0)
+        nbytes = (2 * g * rows * hd * e + 2 * g * n_live * hd * e
+                  + b * t_cd * 4 + g * key_node.numel() * per_key
+                  + path_rows.numel() * 4 + node_lens.numel() * 4)
+        flop = 4 * g * p * (slot_keys + n_live) * hd
+        entries.append(_timed_entry(
+            kname, "tree_decode.cu", line, tree, tree_plain_, tree_lib,
+            nbytes, flop, launches[kname], errs[kname], L))
+        del t_k, t_v
     return entries
 
 
@@ -1368,20 +1975,26 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
-    card = card_line()
+    card = CARD[0] = card_line()
     print(card)
     build()
     errs = check_kernels()
     cfg, model, params, ctx, tokens, cache, launches = serve()
     q8cache, launches["fused_bifurcated_decode_q8"] = serve_int8(
         cfg, model, params, ctx, tokens, cache)
-    fcaches = {}
+    fcaches, tcaches = {}, {}
     for quant, kname in ((False, "grouped_fused_bifurcated_decode"),
                          (True, "grouped_fused_bifurcated_decode_q8")):
         fcaches[quant], launches[kname], path_err = serve_forest(
             cfg, model, params, quant)
         errs[kname] = max(errs[kname], path_err)
-    entries = time_kernels(cfg, cache, q8cache, fcaches, launches, errs)
+    for quant, kname in ((False, "tree_fused_bifurcated_decode"),
+                         (True, "tree_fused_bifurcated_decode_q8")):
+        tcaches[quant], launches[kname], path_err = serve_tree(
+            cfg, model, params, quant)
+        errs[kname] = max(errs[kname], path_err)
+    entries = time_kernels(cfg, cache, q8cache, fcaches, tcaches, launches,
+                           errs)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -157,3 +157,60 @@ class ForestConfig:
     # paged mode: pool size in pages; None = the full table envelope
     num_pages: Optional[int] = None
     seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeConfig:
+    """Hierarchical prefix-trie (cascade) serve configuration
+    (``runtime.serve.TreeServeEngine``).
+
+    Requests arrive as a PATH of shared segments (system prompt ->
+    few-shot template -> per-request prompt). Admission matches the
+    longest existing prefix path in the trie, prefills once per request,
+    writes each NEW level's KV slice into a free node segment (capacity
+    ``node_capacity`` tokens each) and fans samples out over free decode
+    slots. The cache's tensors are sized once for (slots, n_nodes, depth,
+    node_capacity, decode_capacity) and serve any admit/retire sequence.
+
+    ``depth`` is the maximum trie depth (the path table's height); a
+    request may use fewer levels (unused levels are -1 in the path table).
+    At depth == 1 the engine serves the flat forest's workload.
+
+    The fields of the slices not ported yet keep the reference's defaults;
+    ``TreeServeEngine`` raises ``NotImplementedError`` for
+    ``ctx_store="paged"``, ``prefix_cache``, ``suffix_prefill``,
+    ``step_mode="packed"`` and any ``evict_policy`` but "lru".
+    """
+
+    n_nodes: int = 8             # trie-node segments (N)
+    depth: int = 3               # path-table height (max trie depth)
+    slots: int = 16              # decode slots (flat batch b)
+    node_capacity: int = 256     # per-node context capacity (tokens)
+    decode_capacity: int = 64    # per-slot decode capacity (tokens)
+    eos_token: int = -1          # retire a slot when it samples this; -1: off
+    pad_token: int = 0           # emitted by retired slots
+    temperature: float = 0.0     # greedy by default (continuous serving)
+    top_p: float = 1.0
+    use_kernel: bool = False     # tree fused CUDA kernel vs einsum path
+    # node-segment dtype: "bfloat16" | "int8" (nodes quantize once at
+    # admission: write-once read-many, per trie node)
+    cache_dtype: str = "bfloat16"
+    # node storage substrate: "dense" (fixed node_capacity slabs);
+    # "paged" (shared page pool) is not ported
+    ctx_store: str = "dense"
+    page_size: int = 128         # paged mode: tokens per pool page
+    # paged mode: pool size in pages; None = the full table envelope
+    num_pages: Optional[int] = None
+    # cross-request prefix cache (refcount-zero nodes kept resident):
+    # not ported
+    prefix_cache: bool = False
+    # suffix-only prefill on a prefix hit: not ported
+    suffix_prefill: bool = False
+    # "decode" (admission prefills synchronously); "packed" (prefill
+    # chunks piggybacked onto decode steps) is not ported
+    step_mode: str = "decode"
+    # packed mode: suffix tokens prefilled per piggybacked chunk
+    prefill_chunk: int = 0
+    # prefix-cache eviction order: "lru" | "sharing"
+    evict_policy: str = "lru"
+    seed: int = 0

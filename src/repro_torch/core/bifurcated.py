@@ -202,3 +202,79 @@ def forest_bifurcated_attention(
     part_c = _partial_softmax(logits_c, vc, batched=True)
     part_d = _partial_softmax(logits_d, v_decode, batched=True)
     return merge_partials([part_c, part_d]).to(q.dtype)
+
+
+def _tree_level_ids(paths: torch.Tensor, lvl: int) -> torch.Tensor:
+    """Level ``lvl``'s node ids with SET semantics: an id repeated from an
+    earlier level of the same path becomes -1 (it contributes once)."""
+    ids = paths[lvl]
+    for prev in range(lvl):
+        ids = torch.where(ids == paths[prev], torch.full_like(ids, -1), ids)
+    return ids
+
+
+def tree_bad_slots(paths: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """(b,) bool — slots whose path holds an id outside [-1, N). The port
+    writes NaN for them on every tree path (kernel, plain version, einsum),
+    so the engine's non-finite sentinel sees them. The reference has no
+    common answer: its einsum path clips such an id to node N - 1, its
+    Pallas kernel ignores the level; the engine never makes such ids."""
+    return ((paths < -1) | (paths >= n_nodes)).any(0)
+
+
+def tree_bifurcated_attention(
+    q: torch.Tensor,          # (b, g, p, n, k) — flat slot batch
+    k_context: torch.Tensor,  # (N, m_c, g, k) "mgk" | (N, g, m_c, k) "gmk"
+    v_context: torch.Tensor,
+    paths: torch.Tensor,      # (depth, b) int32 — slot -> node id per
+                              #   level, -1 = level unused by that slot
+    node_lens: torch.Tensor,  # (N,) int32 — live (ragged) node lengths
+    k_decode: torch.Tensor,   # (b, C_d, g, k)
+    v_decode: torch.Tensor,
+    *,
+    decode_mask: Optional[torch.Tensor] = None,  # (b, C_d) bool
+    scale: Optional[float] = None,
+    ctx_layout: str = "gmk",
+) -> torch.Tensor:
+    """Einsum path of prefix-trie (cascade) decoding, the tree kernel's
+    semantics: slot ``b`` attends over
+
+        [node[paths[0][b]] ⊕ node[paths[1][b]] ⊕ ... ⊕ decode[b]],
+
+    -1 entries contributing nothing. One partial softmax per trie LEVEL (a
+    per-slot gather of that level's node), merged with the decode arm by
+    the online-softmax combine. SET semantics, as in the kernel: a node id
+    repeated at several levels of one path contributes once. Slots whose
+    path holds an id outside [-1, N) come out NaN (``tree_bad_slots``).
+    The per-level gathers materialize (b, m_c, ...) tensors — a
+    correctness reference. At depth == 1 this is
+    ``forest_bifurcated_attention`` with ``paths[0]`` as the groups.
+    """
+    head_dim = q.shape[-1]
+    scale = head_dim**-0.5 if scale is None else scale
+    n_nodes = k_context.shape[0]
+    m_c = k_context.shape[2 if ctx_layout == "gmk" else 1]
+    parts = []
+    for lvl in range(paths.shape[0]):
+        ids = _tree_level_ids(paths, lvl)
+        safe = torch.clamp(ids, 0, n_nodes - 1).long()
+        kc, vc = k_context[safe], v_context[safe]
+        if ctx_layout == "gmk":
+            vc = vc.transpose(1, 2)                   # (b, m_c, g, k)
+            eq_qk = "bgpnk,bgmk->bgpnm"
+        else:
+            eq_qk = "bgpnk,bmgk->bgpnm"
+        logits = torch.einsum(eq_qk, q, kc).float() * scale
+        valid = (ids >= 0)[:, None] & (
+            torch.arange(m_c, device=q.device)[None, :]
+            < node_lens[safe][:, None])
+        logits = logits + mask_to_bias(valid)[:, None, None, None, :]
+        parts.append(_partial_softmax(logits, vc, batched=True))
+
+    logits_d = torch.einsum("bgpnk,bmgk->bgpnm", q, k_decode).float() * scale
+    if decode_mask is not None:
+        logits_d = logits_d + mask_to_bias(decode_mask)[:, None, None, None, :]
+    parts.append(_partial_softmax(logits_d, v_decode, batched=True))
+    out = merge_partials(parts).to(q.dtype)
+    bad = tree_bad_slots(paths, n_nodes)
+    return out.masked_fill(bad[:, None, None, None, None], float("nan"))

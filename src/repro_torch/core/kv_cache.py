@@ -16,15 +16,19 @@ loops over layers and hands each one its slice:
     G fixed-capacity context segments plus a per-SLOT decode arm, with the
     slot table (``ctx_lens`` / ``group_ids`` / ``dec_lens``) as int32
     device tensors.
+  * ``PrefixTreeCache`` — the prefix-TRIE (cascade) generalization of the
+    forest: N node segments and, per slot, a path of node ids (one per
+    trie level), with ``node_lens`` / ``paths`` / ``dec_lens`` as int32
+    device tensors.
 
 Unlike the reference's functional updates, the port writes new decode KVs
 IN PLACE into the existing arm tensors (``update_layer_cache``); a decode
 step returns a cache object that shares those tensors with its input and
 carries the advanced length. The single-prefix caches keep their lengths
 as host-side Python ints: the step loop runs on the host and slices with
-them. The forest cache keeps every length on the device and updates its
-tensors in place at admission too, so admit and retire change data, never
-a tensor's shape or storage.
+them. The forest and trie caches keep every length on the device and update
+their tensors in place at admission too, so admit and retire change data,
+never a tensor's shape or storage.
 """
 from __future__ import annotations
 
@@ -212,6 +216,122 @@ class GroupedBifurcatedCache:
         self.k_dec.masked_fill_(wipe, 0)
         self.v_dec.masked_fill_(wipe, 0)
         return self
+
+
+@dataclasses.dataclass
+class PrefixTreeCache:
+    """Prefix-TRIE (cascade) bifurcated KV cache: the L-level
+    generalization of ``GroupedBifurcatedCache``. N fixed-capacity node
+    segments and, per decode slot, a path of node ids; a slot attends over
+    the concatenation of the nodes on its path plus its own decode arm.
+
+      k_ctx/v_ctx — per ``ctx_layout``:
+          "gmk" (default): (L, N, g, m_c, hd) — head-major, contiguous
+          block reads for the tree fused decode kernel.
+          "mgk":           (L, N, m_c, g, hd) — sequence-major einsum layout.
+      node_lens: (N,) int32 — live (ragged) token count per node.
+      paths:     (depth, slots) int32 — slot -> node id per trie level,
+                 -1 = level unused by that slot.
+      k_dec/v_dec: (L, slots, C_d, g, hd) — per-slot decode continuation.
+      dec_lens:  (slots,) int32 — per-slot decode depth.
+
+    A node's KV is computed with its ancestors in context (prefill the
+    concatenation, write each node its token slice), so node identity is
+    (ancestor path, tokens). ``write_node`` and ``assign_paths`` write into
+    the existing tensors: admission is data, no tensor is reallocated. At
+    depth == 1 this is the grouped cache with ``paths[0]`` as
+    ``group_ids``.
+    """
+
+    k_ctx: torch.Tensor
+    v_ctx: torch.Tensor
+    node_lens: torch.Tensor
+    paths: torch.Tensor
+    k_dec: torch.Tensor
+    v_dec: torch.Tensor
+    dec_lens: torch.Tensor
+    ctx_layout: str = "gmk"
+
+    @property
+    def n_nodes(self) -> int:
+        return self.k_ctx.shape[1]
+
+    @property
+    def depth(self) -> int:
+        return self.paths.shape[0]
+
+    @property
+    def node_capacity(self) -> int:
+        return self.k_ctx.shape[3 if self.ctx_layout == "gmk" else 2]
+
+    @property
+    def n_slots(self) -> int:
+        return self.k_dec.shape[1]
+
+    @property
+    def decode_capacity(self) -> int:
+        return self.k_dec.shape[2]
+
+    @staticmethod
+    def init(n_layers, n_nodes, depth, slots, m_c, dec_capacity, n_kv,
+             head_dim, dtype=torch.bfloat16, ctx_layout="gmk", device="cuda"):
+        """All-zeros cache in ``dtype`` on ``device``. ``m_c`` is the
+        per-NODE capacity, ``depth`` the path table's height; ``paths``
+        start at -1 (no slot attends any node until ``assign_paths``)."""
+        ctx = GroupedBifurcatedCache._ctx_shape(
+            n_layers, n_nodes, m_c, n_kv, head_dim, ctx_layout)
+        dec = (n_layers, slots, dec_capacity, n_kv, head_dim)
+        i32 = dict(dtype=torch.int32, device=device)
+        return PrefixTreeCache(
+            k_ctx=torch.zeros(ctx, dtype=dtype, device=device),
+            v_ctx=torch.zeros(ctx, dtype=dtype, device=device),
+            node_lens=torch.zeros(n_nodes, **i32),
+            paths=torch.full((depth, slots), -1, **i32),
+            k_dec=torch.zeros(dec, dtype=dtype, device=device),
+            v_dec=torch.zeros(dec, dtype=dtype, device=device),
+            dec_lens=torch.zeros(slots, **i32),
+            ctx_layout=ctx_layout,
+        )
+
+    def write_node(self, k_ctx, v_ctx, node_idx: int):
+        """Admit a prefilled KV slice into trie node ``node_idx``, in place.
+
+        k_ctx/v_ctx: (L, m_new, g, hd), the prefill's sequence-major
+        layout, m_new <= node_capacity, computed WITH the node's ancestors
+        in context. The one-time transpose (under "gmk") happens here and
+        the node's tail past m_new is zeroed, as in
+        ``GroupedBifurcatedCache.write_context``. Returns ``self``."""
+        m_new = k_ctx.shape[1]
+        cap = self.node_capacity
+        if m_new > cap:
+            raise ValueError(f"node slice of {m_new} tokens > capacity {cap}")
+        _write_segment(self.k_ctx, self.v_ctx, k_ctx, v_ctx, node_idx,
+                       self.ctx_layout)
+        self.node_lens[node_idx] = m_new
+        return self
+
+    def assign_paths(self, slot_mask: torch.Tensor,
+                     path_column: torch.Tensor):
+        """Point the slots selected by ``slot_mask`` (slots,) bool at the
+        trie path ``path_column`` ((depth,) int32, -1 for unused levels)
+        and reset their decode arms (the previous occupant's decode KVs
+        are zeroed), in place and with no host sync. Returns ``self``."""
+        self.paths.copy_(torch.where(slot_mask[None, :],
+                                     path_column.to(self.paths)[:, None],
+                                     self.paths))
+        self.dec_lens.masked_fill_(slot_mask, 0)
+        wipe = slot_mask[None, :, None, None, None]
+        self.k_dec.masked_fill_(wipe, 0)
+        self.v_dec.masked_fill_(wipe, 0)
+        return self
+
+    def slot_context_lens(self) -> torch.Tensor:
+        """(slots,) int32 — total live context per slot: the node lengths
+        along its path summed (-1 levels count zero). This is each slot's
+        absolute decode position base."""
+        safe = torch.clamp(self.paths, 0, self.n_nodes - 1).long()
+        per_level = torch.where(self.paths >= 0, self.node_lens[safe], 0)
+        return per_level.sum(0).to(torch.int32)
 
 
 def _write_segment(dst_k, dst_v, k, v, group_idx, ctx_layout):

@@ -16,11 +16,12 @@ The int8 values and f32 scales are bit-equal to the reference's
 max|x| / 127 floored at 1e-8, round half to even, clip to ±127, and the
 fold applied as one f32 multiply.
 
-Layouts mirror ``BifurcatedCache`` / ``GroupedBifurcatedCache``:
+Layouts mirror ``BifurcatedCache`` / ``GroupedBifurcatedCache`` /
+``PrefixTreeCache``:
 head-major "gmk" (default) or sequence-major "mgk"; scales follow
 (…, g, m_c) / (…, m_c, g). Like the bf16 caches, the port writes in place:
 a decode step writes the decode arm into the existing tensors, and the
-forest cache's admission writes into its existing segments.
+forest and trie caches' admissions write into their existing segments.
 """
 from __future__ import annotations
 
@@ -29,10 +30,16 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.bifurcated import _partial_softmax, merge_partials
+from repro_torch.core.bifurcated import (
+    _partial_softmax,
+    _tree_level_ids,
+    merge_partials,
+    tree_bad_slots,
+)
 from repro_torch.core.kv_cache import (
     BifurcatedCache,
     GroupedBifurcatedCache,
+    PrefixTreeCache,
     _write_segment,
 )
 from repro_torch.core.masks import NEG_INF, mask_to_bias
@@ -177,18 +184,104 @@ class GroupedQuantBifurcatedCache:
         hd**-0.5 is pre-folded into k_scale; positions past m_new carry
         zero values and zero scales (masked by ``ctx_lens`` in the kernel
         and the einsum path alike). Returns ``self``."""
-        m_new, hd = k_ctx.shape[1], k_ctx.shape[3]
+        m_new = k_ctx.shape[1]
         cap = self.context_capacity
         if m_new > cap:
             raise ValueError(f"context of {m_new} tokens > capacity {cap}")
-        kq, ks = quantize_ctx(k_ctx, fold_scale=hd**-0.5)
-        vq, vs = quantize_ctx(v_ctx)
-        _write_segment(self.k_ctx, self.v_ctx, kq, vq, group_idx,
-                       self.ctx_layout)
-        _write_segment(self.k_scale, self.v_scale, ks, vs, group_idx,
-                       self.ctx_layout)
+        _write_quantized(self, k_ctx, v_ctx, group_idx)
         self.ctx_lens[group_idx] = m_new
         return self
+
+
+def _write_quantized(cache, k_ctx, v_ctx, idx):
+    """Quantize (L, m_new, g, hd) float K/V (the logit scale hd**-0.5
+    folded into k_scale) and write values and scales into segment ``idx``
+    of ``cache``, zeroing the segment past m_new, in place."""
+    hd = k_ctx.shape[3]
+    kq, ks = quantize_ctx(k_ctx, fold_scale=hd**-0.5)
+    vq, vs = quantize_ctx(v_ctx)
+    _write_segment(cache.k_ctx, cache.v_ctx, kq, vq, idx, cache.ctx_layout)
+    _write_segment(cache.k_scale, cache.v_scale, ks, vs, idx,
+                   cache.ctx_layout)
+
+
+@dataclasses.dataclass
+class QuantPrefixTreeCache:
+    """PrefixTreeCache with int8 trie-node segments.
+
+    k_ctx/v_ctx: int8, (L, N, g, m_c, hd) under "gmk" (default) or
+    (L, N, m_c, g, hd) under "mgk"; k_scale/v_scale: f32 per-(token, head)
+    scales, (L, N, g, m_c) / (L, N, m_c, g) — k_scale carries the logit
+    scale pre-folded. Nodes quantize ONCE at admission (``write_node``).
+    ``node_lens`` / ``paths`` / ``dec_lens`` are int32 device data, and
+    admission writes into the existing tensors, as on ``PrefixTreeCache``.
+    """
+
+    k_ctx: torch.Tensor
+    v_ctx: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+    node_lens: torch.Tensor
+    paths: torch.Tensor
+    k_dec: torch.Tensor
+    v_dec: torch.Tensor
+    dec_lens: torch.Tensor
+    ctx_layout: str = "gmk"
+
+    n_nodes = PrefixTreeCache.n_nodes
+    depth = PrefixTreeCache.depth
+    node_capacity = PrefixTreeCache.node_capacity
+    n_slots = PrefixTreeCache.n_slots
+    decode_capacity = PrefixTreeCache.decode_capacity
+    assign_paths = PrefixTreeCache.assign_paths
+    slot_context_lens = PrefixTreeCache.slot_context_lens
+
+    @staticmethod
+    def init(n_layers, n_nodes, depth, slots, m_c, dec_capacity, n_kv,
+             head_dim, dtype=torch.bfloat16, ctx_layout="gmk", device="cuda"):
+        """All-zeros cache: int8 node values + f32 scales, ``dtype`` decode
+        arm, int32 trie state — the same parameter surface as
+        ``PrefixTreeCache.init``."""
+        ctx_shape, sc_shape = GroupedQuantBifurcatedCache._shapes(
+            n_layers, n_nodes, m_c, n_kv, head_dim, ctx_layout)
+        dec = (n_layers, slots, dec_capacity, n_kv, head_dim)
+        i32 = dict(dtype=torch.int32, device=device)
+        return QuantPrefixTreeCache(
+            k_ctx=torch.zeros(ctx_shape, dtype=torch.int8, device=device),
+            v_ctx=torch.zeros(ctx_shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(sc_shape, dtype=torch.float32, device=device),
+            v_scale=torch.zeros(sc_shape, dtype=torch.float32, device=device),
+            node_lens=torch.zeros(n_nodes, **i32),
+            paths=torch.full((depth, slots), -1, **i32),
+            k_dec=torch.zeros(dec, dtype=dtype, device=device),
+            v_dec=torch.zeros(dec, dtype=dtype, device=device),
+            dec_lens=torch.zeros(slots, **i32),
+            ctx_layout=ctx_layout,
+        )
+
+    def write_node(self, k_ctx, v_ctx, node_idx: int):
+        """Admit + quantize a prefilled KV slice (L, m_new, g, hd) float
+        into node ``node_idx``, in place; the logit scale is folded into
+        k_scale, positions past m_new carry zero values and scales.
+        Returns ``self``."""
+        m_new = k_ctx.shape[1]
+        cap = self.node_capacity
+        if m_new > cap:
+            raise ValueError(f"node slice of {m_new} tokens > capacity {cap}")
+        _write_quantized(self, k_ctx, v_ctx, node_idx)
+        self.node_lens[node_idx] = m_new
+        return self
+
+
+def tree_cache_family(ctx_quant: str = "none"):
+    """Prefix-trie analogue of ``forest_cache_family``: the same
+    ``init``/``write_node``/``assign_paths`` surface across the bf16 and
+    int8 families, selected here."""
+    if ctx_quant == "int8":
+        return QuantPrefixTreeCache
+    if ctx_quant == "none":
+        return PrefixTreeCache
+    raise ValueError(f"unknown ctx_quant mode: {ctx_quant!r}")
 
 
 def forest_cache_family(ctx_quant: str = "none"):
@@ -313,3 +406,57 @@ def forest_bifurcated_attention_q8(
     part_c = _q8_context_partial(logits_c, s_v, vc, "bgpnm,bmgv->bgpnv")
     part_d = _decode_partial(q, k_decode, v_decode, decode_mask, scale)
     return merge_partials([part_c, part_d]).to(q.dtype)
+
+
+def tree_bifurcated_attention_q8(
+    q: torch.Tensor,              # (b, g, p, n, k) — flat slot batch
+    k_ctx_q: torch.Tensor,        # int8 (N, m_c, g, hd) "mgk" | (N, g, m_c, hd)
+    v_ctx_q: torch.Tensor,
+    k_scale_folded: torch.Tensor,  # f32 (N, m_c, g) | (N, g, m_c); MUST
+    v_scale: torch.Tensor,         #   carry the logit scale pre-folded
+    paths: torch.Tensor,          # (depth, b) int32 — -1 = level unused
+    node_lens: torch.Tensor,      # (N,) int32 — live (ragged) node lengths
+    k_decode: torch.Tensor,       # (b, C_d, g, hd)
+    v_decode: torch.Tensor,
+    *,
+    decode_mask: Optional[torch.Tensor] = None,  # (b, C_d) bool
+    scale: Optional[float] = None,
+    ctx_layout: str = "gmk",
+) -> torch.Tensor:
+    """Einsum path of the tree q8 kernel: the cascade semantics of
+    ``core.bifurcated.tree_bifurcated_attention`` (one partial softmax per
+    trie level, SET semantics, NaN for slots whose path holds an id
+    outside [-1, N)) over int8 node segments with scale-folded
+    dequantization; the same contract as ``bifurcated_attention_q8``
+    (``scale`` touches the decode arm only). At depth == 1 this is
+    ``forest_bifurcated_attention_q8``."""
+    head_dim = q.shape[-1]
+    scale = head_dim**-0.5 if scale is None else scale
+    n_nodes = k_ctx_q.shape[0]
+    m_c = k_ctx_q.shape[2 if ctx_layout == "gmk" else 1]
+    parts = []
+    for lvl in range(paths.shape[0]):
+        ids = _tree_level_ids(paths, lvl)
+        safe = torch.clamp(ids, 0, n_nodes - 1).long()
+        kc, vc = k_ctx_q[safe], v_ctx_q[safe]
+        s_k, s_v = k_scale_folded[safe], v_scale[safe]
+        if ctx_layout == "gmk":
+            logits = torch.einsum("bgpnk,bgmk->bgpnm", q.float(), kc.float())
+            s_k = s_k[:, :, None, None, :]
+            s_v = s_v[:, :, None, None, :]
+            vc = vc.transpose(1, 2)                 # (b, m_c, g, hd)
+        else:
+            logits = torch.einsum("bgpnk,bmgk->bgpnm", q.float(), kc.float())
+            s_k = s_k.transpose(1, 2)[:, :, None, None, :]
+            s_v = s_v.transpose(1, 2)[:, :, None, None, :]
+        logits = logits * s_k
+        valid = (ids >= 0)[:, None] & (
+            torch.arange(m_c, device=q.device)[None, :]
+            < node_lens[safe][:, None])
+        logits = logits + mask_to_bias(valid)[:, None, None, None, :]
+        parts.append(_q8_context_partial(logits, s_v, vc,
+                                         "bgpnm,bmgv->bgpnv"))
+    parts.append(_decode_partial(q, k_decode, v_decode, decode_mask, scale))
+    out = merge_partials(parts).to(q.dtype)
+    bad = tree_bad_slots(paths, n_nodes)
+    return out.masked_fill(bad[:, None, None, None, None], float("nan"))

@@ -37,10 +37,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     "bifurcated_decode": {
         # q, k_ctx, v_ctx, k_dec, v_dec, dec_bias, out,
-        # g, rows, m_c, ld, hd, c_d, pn, scale, dtype, stream
-        "fused_bifurcated_decode": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
-        # q, k_ctx, v_ctx, acc, m, l, g, rows, m_c, hd, scale, dtype, stream
-        "context_flash_partials": [_P] * 6 + [_I] * 4 + [_F, _I, _P],
+        # g, rows, m_c, ld, hd, c_d, pn, scale, stream
+        "fused_bifurcated_decode": [_P] * 7 + [_I] * 7 + [_F, _P],
+        # q, k_ctx, v_ctx, acc, m, l, g, rows, m_c, hd, scale, stream
+        "context_flash_partials": [_P] * 6 + [_I] * 4 + [_F, _P],
     },
     "forest_q8_decode": {
         # q, k_ctx, v_ctx, k_scale, v_scale, k_dec, v_dec, dec_bias, out,
@@ -53,6 +53,15 @@ SIGNATURES = {
         # v_dec, dec_bias, out, n_groups, g, rows, m_c, ld, hd, c_d, pn,
         # scale, stream
         "grouped_fused_bifurcated_decode_q8": [_P] * 11 + [_I] * 8 + [_F, _P],
+    },
+    "tree_decode": {
+        # q, k_ctx, v_ctx, paths, node_lens, k_dec, v_dec, dec_bias, out,
+        # n_nodes, depth, g, rows, m_c, ld, hd, c_d, pn, scale, stream
+        "tree_fused_bifurcated_decode": [_P] * 9 + [_I] * 9 + [_F, _P],
+        # q, k_ctx, v_ctx, k_scale, v_scale, paths, node_lens, k_dec, v_dec,
+        # dec_bias, out, n_nodes, depth, g, rows, m_c, ld, hd, c_d, pn,
+        # scale, stream
+        "tree_fused_bifurcated_decode_q8": [_P] * 11 + [_I] * 9 + [_F, _P],
     },
 }
 SOURCES = {name: CSRC / f"{name}.cu" for name in SIGNATURES}

@@ -2,9 +2,10 @@
 
 The paper's context GEMM (⟨q, K_c⟩, Eq. 3) is the memory-IO hot spot of
 shared-prefix batch decoding: K_c is the one tensor whose HBM traffic the
-technique eliminates b-fold. Five kernels live here, written in CUDA C++
-for Hopper (``csrc/bifurcated_decode.cu`` and ``csrc/forest_q8_decode.cu``
-over the shared ``csrc/decode_common.cuh``, built by ``_build.py``):
+technique eliminates b-fold. Seven kernels live here, written in CUDA C++
+for Hopper (``csrc/bifurcated_decode.cu``, ``csrc/forest_q8_decode.cu`` and
+``csrc/tree_decode.cu`` over the shared ``csrc/decode_common.cuh``, built
+by ``_build.py``):
 
 ``fused_bifurcated_decode`` — the deployable single-pass path. For each kv
   head, all ``rows = b*p*n`` query rows stream K_c/V_c once, then fold in
@@ -33,13 +34,23 @@ over the shared ``csrc/decode_common.cuh``, built by ``_build.py``):
   ids). Replace the Pallas ``_grouped_fused_kernel`` /
   ``_grouped_fused_q8_kernel``.
 
+``tree_fused_bifurcated_decode`` / ``..._q8`` — the prefix-TRIE (cascade)
+  decode: N node segments, ragged live lengths ``node_lens`` and a
+  (depth, rows) row -> node table (-1 = level unused); each row attends
+  over every node on its path (a node repeated on one path counts once)
+  and its own sample's decode slots. Rows whose path holds an id outside
+  [-1, N) come out NaN (the reference's einsum path clips such an id to
+  node N - 1, its Pallas kernel ignores the level). Replace the Pallas
+  ``_tree_fused_kernel`` / ``_tree_fused_q8_kernel``.
+
 Each wrapper takes CPU tensors to its plain PyTorch version (which walks
 the context in blocks with the same fp32 online update, ``_online_update``)
 and CUDA tensors to its kernel; a CUDA tensor the kernel does not take
-raises, it never falls back. The three kernels of the int8 and forest
-paths take bf16 queries only on the card (fp32 stays on the CPU's plain
-path). ``<wrapper>.launches`` counts kernel launches. The bound and design
-of the kernels are written at the top of the CUDA sources.
+raises, it never falls back. Every kernel takes bf16 queries only on the
+card: another dtype raises ``TypeError`` there (fp32 runs the plain
+version on the CPU). ``<wrapper>.launches`` counts kernel launches. The
+bound and design of the kernels are written at the top of the CUDA
+sources.
 """
 from __future__ import annotations
 
@@ -52,7 +63,8 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 BLOCK_M = 512        # context keys per block of the plain versions
 KERNEL_HEAD_DIMS = (16, 64, 80, 128)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_TREE_DEPTH = 32         # the tree kernels' path-table height
+MAX_TREE_NODES = 65536      # and node count (their shared-memory bitmap)
 
 
 def _online_update(s, v, acc, m, l, p_scale=None):
@@ -81,14 +93,14 @@ def _init_state(q):
 
 
 def _context_arm(q, k_ctx, v_ctx, scale, block_m, k_scale=None, v_scale=None,
-                 length=None):
+                 length=None, state=None):
     """The context arm over keys [0, length) (default: all) in ``block_m``
-    blocks. With ``k_scale``/``v_scale`` (g, m_c) the context is int8: the
-    logits are (q · K_q) * k_scale (the logit scale pre-folded, ``scale``
-    unused) and the weights carry v_scale against f32 V_q, as in the
-    reference."""
+    blocks, from the running ``state`` (acc, m, l) (default: empty). With
+    ``k_scale``/``v_scale`` (g, m_c) the context is int8: the logits are
+    (q · K_q) * k_scale (the logit scale pre-folded, ``scale`` unused) and
+    the weights carry v_scale against f32 V_q, as in the reference."""
     qf = q.float()
-    acc, m, l = _init_state(q)
+    acc, m, l = _init_state(q) if state is None else state
     stop = k_ctx.shape[1] if length is None else length
     for start in range(0, stop, block_m):
         end = min(start + block_m, stop)
@@ -141,26 +153,36 @@ def fused_bifurcated_decode_q8_plain(q, k_ctx_q, v_ctx_q, k_scale, v_scale,
                                  scale=scale, c_d=c_d, pn=pn)
 
 
-def _grouped_plain(q, k_ctx, v_ctx, k_scale, v_scale, row_group, ctx_lens,
-                   k_dec, v_dec, dec_bias, *, scale, c_d, pn, block_m):
-    n_groups, _, m_c, _ = k_ctx.shape
+def _tree_plain(q, k_ctx, v_ctx, k_scale, v_scale, paths, node_lens, k_dec,
+                v_dec, dec_bias, *, scale, c_d, pn, block_m):
+    n_nodes, _, m_c, _ = k_ctx.shape
     acc, m, l = _init_state(q)
-    rg = row_group.long()
-    lens = ctx_lens.tolist()
-    for gi in range(n_groups):
-        rows_g = torch.nonzero(rg == gi)[:, 0]
-        if rows_g.numel() == 0:
-            continue
-        length = min(max(int(lens[gi]), 0), m_c)
+    pr = paths.long()
+    lens = node_lens.tolist()
+    # the distinct ids on any path, ascending: the kernel's node order and
+    # the set semantics (a node repeated on one path counts once)
+    for node in sorted(set(pr[(pr >= 0) & (pr < n_nodes)].tolist())):
+        rows_n = torch.nonzero((pr == node).any(0))[:, 0]
         a, mm, ll = _context_arm(
-            q[:, rows_g], k_ctx[gi], v_ctx[gi], scale, block_m,
-            k_scale=None if k_scale is None else k_scale[gi],
-            v_scale=None if v_scale is None else v_scale[gi], length=length)
-        acc[:, rows_g], m[:, rows_g], l[:, rows_g] = a, mm, ll
+            q[:, rows_n], k_ctx[node], v_ctx[node], scale, block_m,
+            k_scale=None if k_scale is None else k_scale[node],
+            v_scale=None if v_scale is None else v_scale[node],
+            length=min(max(int(lens[node]), 0), m_c),
+            state=(acc[:, rows_n], m[:, rows_n], l[:, rows_n]))
+        acc[:, rows_n], m[:, rows_n], l[:, rows_n] = a, mm, ll
     out = _decode_arm_and_flush(q, k_dec, v_dec, dec_bias, acc, m, l,
                                 scale=scale, c_d=c_d, pn=pn)
-    bad = (rg < 0) | (rg >= n_groups)
+    bad = ((pr < -1) | (pr >= n_nodes)).any(0)
     return out.masked_fill(bad[None, :, None], float("nan"))
+
+
+def _grouped_plain(q, k_ctx, v_ctx, k_scale, v_scale, row_group, ctx_lens,
+                   k_dec, v_dec, dec_bias, **kw):
+    """The forest is the trie at depth 1, except that a row of id -1 reads
+    no segment there and is NaN here, as every id outside [0, G)."""
+    out = _tree_plain(q, k_ctx, v_ctx, k_scale, v_scale, row_group[None],
+                      ctx_lens, k_dec, v_dec, dec_bias, **kw)
+    return out.masked_fill((row_group == -1)[None, :, None], float("nan"))
 
 
 def grouped_fused_bifurcated_decode_plain(q, k_ctx, v_ctx, row_group,
@@ -189,6 +211,33 @@ def grouped_fused_bifurcated_decode_q8_plain(q, k_ctx_q, v_ctx_q, k_scale,
                           c_d=c_d, pn=pn, block_m=block_m)
 
 
+def tree_fused_bifurcated_decode_plain(q, k_ctx, v_ctx, paths, node_lens,
+                                       k_dec, v_dec, dec_bias, *,
+                                       scale: float, c_d: int, pn: int,
+                                       block_m: int = BLOCK_M
+                                       ) -> torch.Tensor:
+    """Plain PyTorch version of ``tree_fused_bifurcated_decode``: each
+    trie node on any path, in ascending id order, folds its live prefix
+    into the running state of the rows whose path holds it; then the
+    decode arm as in the fused version. Rows whose path holds an id
+    outside [-1, N) come out NaN."""
+    return _tree_plain(q, k_ctx, v_ctx, None, None, paths, node_lens, k_dec,
+                       v_dec, dec_bias, scale=scale, c_d=c_d, pn=pn,
+                       block_m=block_m)
+
+
+def tree_fused_bifurcated_decode_q8_plain(q, k_ctx_q, v_ctx_q, k_scale,
+                                          v_scale, paths, node_lens, k_dec,
+                                          v_dec, dec_bias, *, scale: float,
+                                          c_d: int, pn: int,
+                                          block_m: int = BLOCK_M
+                                          ) -> torch.Tensor:
+    """Plain PyTorch version of ``tree_fused_bifurcated_decode_q8``."""
+    return _tree_plain(q, k_ctx_q, v_ctx_q, k_scale, v_scale, paths,
+                       node_lens, k_dec, v_dec, dec_bias, scale=scale,
+                       c_d=c_d, pn=pn, block_m=block_m)
+
+
 def context_flash_partials_plain(q, k_ctx, v_ctx, *, scale: float,
                                  block_m: int = BLOCK_M):
     """Plain PyTorch version of ``context_flash_partials``."""
@@ -215,8 +264,12 @@ def _check_contiguous(*tensors):
 
 
 def _check_kernel_operands(q, *tensors):
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"kernel takes float32 or bfloat16, not {q.dtype}")
+    """What the kernels take on the card: bf16 queries (float32 runs on
+    the CPU's plain path), the head dims they are built for, 16-byte
+    aligned operands."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the kernels take bfloat16 queries on CUDA, not "
+                        f"{q.dtype}; float32 runs on the CPU's plain path")
     if q.shape[-1] not in KERNEL_HEAD_DIMS:
         raise ValueError(f"kernel takes head_dim in {KERNEL_HEAD_DIMS}, "
                          f"not {q.shape[-1]}")
@@ -286,12 +339,19 @@ def _check_segments(q, k_ctx, row_group, ctx_lens):
         raise TypeError("row_group and ctx_lens must be int32")
 
 
-def _check_bf16_kernel(q, *tensors):
-    """The int8 and forest kernels take bf16 queries only on the card."""
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"this kernel takes bfloat16 queries on CUDA, not "
-                        f"{q.dtype}; float32 runs on the CPU's plain path")
-    _check_kernel_operands(q, *tensors)
+def _check_paths(q, k_ctx, paths, node_lens):
+    n_nodes = k_ctx.shape[0]
+    if (paths.ndim != 2 or paths.shape[1] != q.shape[1]
+            or node_lens.shape != (n_nodes,)):
+        raise ValueError(f"paths {tuple(paths.shape)} / node_lens "
+                         f"{tuple(node_lens.shape)} do not fit q "
+                         f"{tuple(q.shape)} and {n_nodes} nodes")
+    if not 1 <= paths.shape[0] <= MAX_TREE_DEPTH or n_nodes > MAX_TREE_NODES:
+        raise ValueError(f"tree of depth {paths.shape[0]} over {n_nodes} "
+                         f"nodes: the kernels take depth 1..{MAX_TREE_DEPTH}"
+                         f" and at most {MAX_TREE_NODES} nodes")
+    if paths.dtype != torch.int32 or node_lens.dtype != torch.int32:
+        raise TypeError("paths and node_lens must be int32")
 
 
 def _launch(name, device, *args):
@@ -325,8 +385,7 @@ def fused_bifurcated_decode(q, k_ctx, v_ctx, k_dec, v_dec, dec_bias, *,
     out = torch.empty_like(q)
     _launch("fused_bifurcated_decode", q.device,
             *(t.data_ptr() for t in ops), out.data_ptr(), g, rows,
-            k_ctx.shape[1], ld, hd, c_d, pn, float(scale),
-            _DTYPE_CODE[q.dtype])
+            k_ctx.shape[1], ld, hd, c_d, pn, float(scale))
     fused_bifurcated_decode.launches += 1
     return out
 
@@ -349,7 +408,7 @@ def context_flash_partials(q, k_ctx, v_ctx, *, scale: float
     l = torch.empty(g, rows, dtype=torch.float32, device=q.device)
     _launch("context_flash_partials", q.device,
             *(t.data_ptr() for t in (q, k_ctx, v_ctx, acc, m, l)), g, rows,
-            k_ctx.shape[1], hd, float(scale), _DTYPE_CODE[q.dtype])
+            k_ctx.shape[1], hd, float(scale))
     context_flash_partials.launches += 1
     return acc, m, l
 
@@ -380,7 +439,7 @@ def fused_bifurcated_decode_q8(q, k_ctx_q, v_ctx_q, k_scale, v_scale, k_dec,
     if not _on_cuda(*ops):
         return fused_bifurcated_decode_q8_plain(*ops, scale=scale, c_d=c_d,
                                                 pn=pn)
-    _check_bf16_kernel(q, k_ctx_q, v_ctx_q, k_dec, v_dec, dec_bias)
+    _check_kernel_operands(q, k_ctx_q, v_ctx_q, k_dec, v_dec, dec_bias)
     g, rows, hd = q.shape
     out = torch.empty_like(q)
     _launch("fused_bifurcated_decode_q8", q.device,
@@ -416,7 +475,7 @@ def grouped_fused_bifurcated_decode(q, k_ctx, v_ctx, row_group, ctx_lens,
     if not _on_cuda(*ops):
         return grouped_fused_bifurcated_decode_plain(*ops, scale=scale,
                                                      c_d=c_d, pn=pn)
-    _check_bf16_kernel(q, k_ctx, v_ctx, k_dec, v_dec, dec_bias)
+    _check_kernel_operands(q, k_ctx, v_ctx, k_dec, v_dec, dec_bias)
     n_groups, g, m_c, hd = k_ctx.shape
     out = torch.empty_like(q)
     _launch("grouped_fused_bifurcated_decode", q.device,
@@ -446,7 +505,7 @@ def grouped_fused_bifurcated_decode_q8(q, k_ctx_q, v_ctx_q, k_scale, v_scale,
     if not _on_cuda(*ops):
         return grouped_fused_bifurcated_decode_q8_plain(*ops, scale=scale,
                                                         c_d=c_d, pn=pn)
-    _check_bf16_kernel(q, k_ctx_q, v_ctx_q, k_dec, v_dec, dec_bias)
+    _check_kernel_operands(q, k_ctx_q, v_ctx_q, k_dec, v_dec, dec_bias)
     n_groups, g, m_c, hd = k_ctx_q.shape
     out = torch.empty_like(q)
     _launch("grouped_fused_bifurcated_decode_q8", q.device,
@@ -458,8 +517,81 @@ def grouped_fused_bifurcated_decode_q8(q, k_ctx_q, v_ctx_q, k_scale, v_scale,
 
 grouped_fused_bifurcated_decode_q8.launches = 0
 
+# ---------------------------------------------------------------------------
+# prefix trie (csrc/tree_decode.cu)
+# ---------------------------------------------------------------------------
+
+def tree_fused_bifurcated_decode(q, k_ctx, v_ctx, paths, node_lens, k_dec,
+                                 v_dec, dec_bias, *, scale: float, c_d: int,
+                                 pn: int) -> torch.Tensor:
+    """Single-pass prefix-trie (cascade) decode; returns the normalised
+    (g, rows, hd).
+
+      q:           (g, rows, hd), rows = b * p * n, row r of slot r // pn
+      k_ctx/v_ctx: (N, g, m_c, hd) trie-node segments, q's dtype
+      paths:       (depth, rows) int32 — the node each row reads at each
+                   trie level, -1 for a level it does not use
+      node_lens:   (N,) int32 — live length of each node
+      k_dec/v_dec: (g, b * c_d, hd); dec_bias (1, b * c_d) f32
+    Rows whose path holds an id outside [-1, N) come out NaN."""
+    if k_ctx.ndim != 4 or v_ctx.shape != k_ctx.shape:
+        raise ValueError(f"want k_ctx = v_ctx (N, g, m_c, hd); got "
+                         f"{tuple(k_ctx.shape)}, {tuple(v_ctx.shape)}")
+    _check_context(q, k_ctx[0], v_ctx[0])
+    _check_paths(q, k_ctx, paths, node_lens)
+    ld = _check_decode_arm(q, k_dec, v_dec, dec_bias, c_d, pn)
+    ops = (q, k_ctx, v_ctx, paths, node_lens, k_dec, v_dec, dec_bias)
+    _check_contiguous(*ops)
+    if not _on_cuda(*ops):
+        return tree_fused_bifurcated_decode_plain(*ops, scale=scale, c_d=c_d,
+                                                  pn=pn)
+    _check_kernel_operands(q, k_ctx, v_ctx, k_dec, v_dec, dec_bias)
+    n_nodes, g, m_c, hd = k_ctx.shape
+    out = torch.empty_like(q)
+    _launch("tree_fused_bifurcated_decode", q.device,
+            *(t.data_ptr() for t in ops), out.data_ptr(), n_nodes,
+            paths.shape[0], g, q.shape[1], m_c, ld, hd, c_d, pn,
+            float(scale))
+    tree_fused_bifurcated_decode.launches += 1
+    return out
+
+
+tree_fused_bifurcated_decode.launches = 0
+
+
+def tree_fused_bifurcated_decode_q8(q, k_ctx_q, v_ctx_q, k_scale, v_scale,
+                                    paths, node_lens, k_dec, v_dec, dec_bias,
+                                    *, scale: float, c_d: int, pn: int
+                                    ) -> torch.Tensor:
+    """``tree_fused_bifurcated_decode`` over int8 nodes (N, g, m_c, hd) and
+    f32 scales (N, g, m_c), ``k_scale`` with the logit scale pre-folded
+    (``scale`` applies to the decode arm only)."""
+    lead = tuple(k_ctx_q.shape[:1])
+    _check_q8_context(q, k_ctx_q, v_ctx_q, k_scale, v_scale, lead=lead)
+    _check_paths(q, k_ctx_q, paths, node_lens)
+    ld = _check_decode_arm(q, k_dec, v_dec, dec_bias, c_d, pn)
+    ops = (q, k_ctx_q, v_ctx_q, k_scale, v_scale, paths, node_lens, k_dec,
+           v_dec, dec_bias)
+    _check_contiguous(*ops)
+    if not _on_cuda(*ops):
+        return tree_fused_bifurcated_decode_q8_plain(*ops, scale=scale,
+                                                     c_d=c_d, pn=pn)
+    _check_kernel_operands(q, k_ctx_q, v_ctx_q, k_dec, v_dec, dec_bias)
+    n_nodes, g, m_c, hd = k_ctx_q.shape
+    out = torch.empty_like(q)
+    _launch("tree_fused_bifurcated_decode_q8", q.device,
+            *(t.data_ptr() for t in ops), out.data_ptr(), n_nodes,
+            paths.shape[0], g, q.shape[1], m_c, ld, hd, c_d, pn,
+            float(scale))
+    tree_fused_bifurcated_decode_q8.launches += 1
+    return out
+
+
+tree_fused_bifurcated_decode_q8.launches = 0
+
 # every kernel wrapper of this module, for code that reads or resets the
 # launch counts
 KERNELS = (fused_bifurcated_decode, context_flash_partials,
            fused_bifurcated_decode_q8, grouped_fused_bifurcated_decode,
-           grouped_fused_bifurcated_decode_q8)
+           grouped_fused_bifurcated_decode_q8, tree_fused_bifurcated_decode,
+           tree_fused_bifurcated_decode_q8)

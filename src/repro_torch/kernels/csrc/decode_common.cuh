@@ -1,11 +1,13 @@
 // Shared device code of the bifurcated flash-decode kernels for Hopper
 // (sm_90a): the tensor-core online-softmax stream over one arm, and one
-// kernel template that every bf16-query decode kernel of the port
-// instantiates (bifurcated_decode.cu: the single-prefix bf16 kernels;
-// forest_q8_decode.cu: the int8-context and multi-prefix kernels).
+// kernel template that every decode kernel of the port instantiates
+// (bifurcated_decode.cu: the single-prefix bf16 kernels;
+// forest_q8_decode.cu: the int8-context and multi-prefix kernels;
+// tree_decode.cu: the prefix-trie kernels). All take bf16 queries.
 //
 // One CTA of kThreads threads serves a tile of kRowTile query rows of one
-// kv head (and, in the grouped kernels, one context segment). Each warp
+// kv head (and, in the grouped kernels, one context segment; in the tree
+// kernels, every trie node on its rows' paths). Each warp
 // owns 16 rows; its running fp32 state (max, sumexp, acc) stays in
 // registers. Keys stream in blocks of kBlockN through a two-stage
 // cp.async ring in shared memory; both products run on the tensor cores
@@ -42,6 +44,13 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRowTile = kWarps * 16;   // query rows per CTA, 16 per warp
 constexpr int kBlockN = 64;             // keys per staged block
 constexpr int kPad = 8;                 // bf16 padding per smem row (16 B)
+
+// How a kernel's rows find their context: one shared context (kSingle),
+// one segment per row (kGrouped), or every node on a row's trie path
+// (kTree).
+enum : int { kSingle = 0, kGrouped = 1, kTree = 2 };
+constexpr int kMaxDepth = 32;           // tree: path-table height
+constexpr int kMaxNodes = 65536;        // tree: node-set bitmap, 8 KB
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -108,7 +117,9 @@ struct Smem {
   static constexpr int BF16 = 2 * 2 * STAGE * 2;
   static constexpr int Q8 = 2 * STAGE * 2 + 2 * 2 * kBlockN * HD +
                             2 * 2 * kBlockN * 4;
-  static constexpr int bytes(bool q8) { return q8 && Q8 > BF16 ? Q8 : BF16; }
+  __host__ __device__ static constexpr int bytes(bool q8) {
+    return q8 && Q8 > BF16 ? Q8 : BF16;
+  }
 };
 
 // Stage kBlockN rows [col0, col0 + kBlockN) of bf16 K and V (row length
@@ -191,12 +202,16 @@ struct WarpState {
 // DECODE: the decode arm — logits get the slot bias, and a row attends only
 // its own sample's slots (row / pn == col / c_d). Q8: an int8 context arm
 // with per-key scales ks (logit scale folded in) and vs. Memory rows at or
-// past `limit` are never read.
+// past `limit` are never read. row_on: bit 0 (row gr) and bit 1 (row gr+8)
+// say whether this thread's rows attend the arm at all; a row that does not
+// gets every logit at kNegInf (the tree kernels' node membership), and a
+// warp none of whose rows does skips the products but takes the barriers.
 template <int HD, bool DECODE, bool Q8>
 __device__ __forceinline__ void stream_arm(
     WarpState<HD>& st, unsigned char* smem_raw, const void* k, const void* v,
     const float* ks, const float* vs, int col_begin, int col_end, int limit,
-    float scale, const float* bias, int c_d, int pn, int wrow0) {
+    float scale, const float* bias, int c_d, int pn, int wrow0,
+    unsigned row_on = 3u) {
   static_assert(!(DECODE && Q8), "the decode arm is bf16");
   constexpr int SROW = HD + kPad;
   constexpr int STAGE = kBlockN * SROW;
@@ -229,6 +244,7 @@ __device__ __forceinline__ void stream_arm(
     }
   };
 
+  const bool warp_on = __any_sync(0xffffffffu, row_on != 0u);
   // decode arm: the warp's rows read only their samples' slot range
   int wcol_lo = 0, wcol_hi = col_end;
   if (DECODE) {
@@ -264,7 +280,7 @@ __device__ __forceinline__ void stream_arm(
     }
 
     const bool active =
-        !DECODE || (col0 < wcol_hi && col0 + kBlockN > wcol_lo);
+        warp_on && (!DECODE || (col0 < wcol_hi && col0 + kBlockN > wcol_lo));
     if (active) {
       float s[kBlockN / 8][4];
 #pragma unroll
@@ -289,7 +305,7 @@ __device__ __forceinline__ void stream_arm(
             const int j = nt * 8 + 2 * tq + e;
             const int col = col0 + j;
             float x = s[nt][2 * i + e] * (Q8 ? kss[j] : scale);
-            bool valid = col < col_end;
+            bool valid = col < col_end && ((row_on >> i) & 1u);
             if (DECODE && valid) {
               x += bias[col];
               valid = (row / pn) == (col / c_d);
@@ -356,7 +372,8 @@ struct Params {
   const float* k_scale;   // (G, g, m_c) f32, logit scale folded (Q8)
   const float* v_scale;   // (G, g, m_c) f32 (Q8)
   const int* row_group;   // (rows,) i32 row -> segment (grouped)
-  const int* ctx_lens;    // (G,) i32 live segment lengths (grouped)
+  const int* ctx_lens;    // (G,) i32 live segment / node lengths
+  const int* paths;       // (depth, rows) i32 row -> node per level (tree)
   const void* k_dec;      // (g, ld, HD) bf16
   const void* v_dec;
   const float* dec_bias;  // (ld,) f32, 0 or kNegInf
@@ -364,21 +381,89 @@ struct Params {
   float* acc;             // (g, rows, HD) f32 (partials)
   float* m;               // (g, rows) f32 (partials)
   float* l;
-  int n_groups, g, rows, m_c, ld, c_d, pn;
+  int n_groups, g, rows, m_c, ld, c_d, pn;  // n_groups: G or N
+  int depth;              // path-table height (tree)
   float scale;
 };
 
+// Stream the first `len` keys of context segment (or trie node) `seg` of
+// kv head gi through the online softmax; positions start at
+// (seg * g + gi) * m_c in the (G, g, m_c, HD) slabs and their scales.
+template <int HD, bool Q8>
+__device__ __forceinline__ void stream_segment(WarpState<HD>& st,
+                                               unsigned char* smem_raw,
+                                               const Params& p, int seg,
+                                               int gi, int len, int wrow0,
+                                               unsigned row_on) {
+  const size_t off = (static_cast<size_t>(seg) * p.g + gi) * p.m_c;
+  const size_t elt = Q8 ? 1 : 2;
+  const unsigned char* kc = static_cast<const unsigned char*>(p.k_ctx);
+  const unsigned char* vc = static_cast<const unsigned char*>(p.v_ctx);
+  stream_arm<HD, false, Q8>(
+      st, smem_raw, kc + off * HD * elt, vc + off * HD * elt,
+      Q8 ? p.k_scale + off : nullptr, Q8 ? p.v_scale + off : nullptr, 0, len,
+      len, p.scale, nullptr, 1, 1, wrow0, row_on);
+}
+
+// The operands of a fused launch over one context (the C entry points set
+// the rest).
+inline Params fused_params(const void* q, const void* k_ctx,
+                           const void* v_ctx, const void* k_dec,
+                           const void* v_dec, const void* dec_bias, void* out,
+                           int g, int rows, int m_c, int ld, int c_d, int pn,
+                           float scale) {
+  Params a{};
+  a.q = q;
+  a.k_ctx = k_ctx;
+  a.v_ctx = v_ctx;
+  a.k_dec = k_dec;
+  a.v_dec = v_dec;
+  a.dec_bias = static_cast<const float*>(dec_bias);
+  a.out = out;
+  a.n_groups = 1;
+  a.g = g;
+  a.rows = rows;
+  a.m_c = m_c;
+  a.ld = ld;
+  a.c_d = c_d;
+  a.pn = pn;
+  a.scale = scale;
+  return a;
+}
+
+// Dynamic shared memory of one CTA: the stream's plan, then in the tree
+// kernels the tile's bad-row mask (2 words), path table (depth x kRowTile
+// ids) and node-set bitmap (one bit per node).
+template <int HD, bool Q8, int MODE>
+int smem_bytes(const Params& a) {
+  int bytes = Smem<HD>::bytes(Q8);
+  if (MODE == kTree)
+    bytes += 4 * (2 + a.depth * kRowTile + (a.n_groups + 31) / 32);
+  return bytes;
+}
+
 // One CTA per (row tile, kv head, segment). FUSED: context arm, then the
 // decode arm of the tile's samples, normalised output; else the context
-// arm's unnormalised partials. GROUPED: the CTA of segment grp walks only
+// arm's unnormalised partials. kGrouped: the CTA of segment grp walks only
 // ctx_lens[grp] keys of its segment and writes only the rows assigned to
 // grp (each row is written by exactly one CTA); a CTA whose tile holds no
 // row of grp exits at once. Rows whose segment id lies outside [0, G) are
 // written as NaN by the CTA of segment 0, so a caller's non-finite check
-// sees them.
-template <int HD, bool FUSED, bool Q8, bool GROUPED>
+// sees them. kTree: the CTA first collects its rows' path table and the
+// set of node ids on those paths (a bitmap: distinct by construction,
+// which is the reference's set semantics), then streams each node of the
+// set in ascending id order over its ctx_lens[node] live keys, a row
+// taking part only where the node lies on its path; rows whose path holds
+// an id outside [-1, N) are written as NaN. A row masked out of a node
+// before its first node of its own accumulates finite garbage under
+// m = kNegInf, and that first real block wipes it exactly (corr =
+// exp(kNegInf - m_new) = 0): the state is then bit-equal to a fresh one,
+// so at depth 1 the tree kernel computes the grouped kernel's bits.
+template <int HD, bool FUSED, bool Q8, int MODE>
 __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
-  static_assert(FUSED || !(Q8 || GROUPED), "partials: bf16, one segment");
+  static_assert(FUSED || (!Q8 && MODE == kSingle),
+                "partials: bf16, one segment");
+  constexpr bool GROUPED = MODE == kGrouped;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int gi = blockIdx.y;
   const int grp = GROUPED ? blockIdx.z : 0;
@@ -405,6 +490,29 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
     if (!__syncthreads_or(owned)) return;
     ctx_len = min(max(p.ctx_lens[grp], 0), p.m_c);
   }
+  // tree: the tile's bad-row mask, path table and node set
+  unsigned* s_bad =
+      reinterpret_cast<unsigned*>(smem_raw + Smem<HD>::bytes(Q8));
+  int* s_path = reinterpret_cast<int*>(s_bad + 2);
+  unsigned* s_nodes =
+      reinterpret_cast<unsigned*>(s_path + p.depth * kRowTile);
+  const int node_words = (p.n_groups + 31) / 32;
+  if (MODE == kTree) {
+    for (int w = threadIdx.x; w < node_words; w += kThreads) s_nodes[w] = 0u;
+    if (threadIdx.x < 2) s_bad[threadIdx.x] = 0u;
+    __syncthreads();
+    for (int e = threadIdx.x; e < p.depth * kRowTile; e += kThreads) {
+      const int r = e % kRowTile, row = row0 + r;
+      int id = row < rows ? p.paths[(e / kRowTile) * rows + row] : -1;
+      if (id < -1 || id >= p.n_groups) {
+        atomicOr(&s_bad[r >> 5], 1u << (r & 31));
+        id = -1;
+      }
+      s_path[e] = id;
+      if (id >= 0) atomicOr(&s_nodes[id >> 5], 1u << (id & 31));
+    }
+    __syncthreads();
+  }
 
   WarpState<HD> st;
   const __nv_bfloat16* qg =
@@ -423,15 +531,24 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
   st.m[0] = st.m[1] = kNegInf;
   st.l[0] = st.l[1] = 0.f;
 
-  // this (segment, kv head)'s context: positions start at seg_off
-  const size_t seg_off = (static_cast<size_t>(grp) * p.g + gi) * p.m_c;
-  const size_t elt = Q8 ? 1 : 2;
-  const unsigned char* kc = static_cast<const unsigned char*>(p.k_ctx);
-  const unsigned char* vc = static_cast<const unsigned char*>(p.v_ctx);
-  stream_arm<HD, false, Q8>(
-      st, smem_raw, kc + seg_off * HD * elt, vc + seg_off * HD * elt,
-      Q8 ? p.k_scale + seg_off : nullptr, Q8 ? p.v_scale + seg_off : nullptr,
-      0, ctx_len, ctx_len, p.scale, nullptr, 1, 1, wrow0);
+  if (MODE == kTree) {
+    const int la = ra - row0, lb = rb - row0;   // tile-local rows
+    for (int w = 0; w < node_words; ++w) {
+      for (unsigned bits = s_nodes[w]; bits; bits &= bits - 1u) {
+        const int node = w * 32 + __ffs(bits) - 1;
+        unsigned on = 0u;
+        for (int lvl = 0; lvl < p.depth; ++lvl) {
+          on |= s_path[lvl * kRowTile + la] == node ? 1u : 0u;
+          on |= s_path[lvl * kRowTile + lb] == node ? 2u : 0u;
+        }
+        stream_segment<HD, Q8>(st, smem_raw, p, node, gi,
+                               min(max(p.ctx_lens[node], 0), p.m_c), wrow0,
+                               on);
+      }
+    }
+  } else {
+    stream_segment<HD, Q8>(st, smem_raw, p, grp, gi, ctx_len, wrow0, 3u);
+  }
 
   if (FUSED) {
     // decode slots of the samples in this CTA's row tile
@@ -453,7 +570,10 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
     if (GROUPED && p.row_group[row] != grp) continue;
     const size_t base = (static_cast<size_t>(gi) * rows + row) * HD;
     if (FUSED) {
-      const float inv = 1.f / fmaxf(st.l[i], kMinL);
+      const int r = row - row0;
+      const bool bad = MODE == kTree && ((s_bad[r >> 5] >> (r & 31)) & 1u);
+      const float inv = bad ? __int_as_float(0x7fc00000)
+                            : 1.f / fmaxf(st.l[i], kMinL);
 #pragma unroll
       for (int nt = 0; nt < HD / 8; ++nt) {
         const int c = nt * 8 + 2 * tq;
@@ -477,30 +597,32 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
   }
 }
 
-template <int HD, bool FUSED, bool Q8, bool GROUPED>
+template <int HD, bool FUSED, bool Q8, int MODE>
 cudaError_t launch(const Params& a, cudaStream_t stream) {
-  constexpr int smem = Smem<HD>::bytes(Q8);
-  auto kern = decode_kernel<HD, FUSED, Q8, GROUPED>;
+  const int smem = smem_bytes<HD, Q8, MODE>(a);
+  auto kern = decode_kernel<HD, FUSED, Q8, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.rows + kRowTile - 1) / kRowTile, a.g,
-            GROUPED ? a.n_groups : 1);
+            MODE == kGrouped ? a.n_groups : 1);
   kern<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // Head dims 16, 64, 80 and 128.
-template <bool FUSED, bool Q8, bool GROUPED>
+template <bool FUSED, bool Q8, int MODE>
 cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
   if (a.g <= 0 || a.rows <= 0 || a.m_c <= 0 || a.pn <= 0 || a.c_d <= 0 ||
-      a.n_groups <= 0 || a.n_groups > 65535)
+      a.n_groups <= 0 || (MODE == kGrouped && a.n_groups > 65535) ||
+      (MODE == kTree && (a.n_groups > kMaxNodes || a.depth < 1 ||
+                         a.depth > kMaxDepth)))
     return cudaErrorInvalidValue;
   switch (hd) {
-    case 16: return launch<16, FUSED, Q8, GROUPED>(a, stream);
-    case 64: return launch<64, FUSED, Q8, GROUPED>(a, stream);
-    case 80: return launch<80, FUSED, Q8, GROUPED>(a, stream);
-    case 128: return launch<128, FUSED, Q8, GROUPED>(a, stream);
+    case 16: return launch<16, FUSED, Q8, MODE>(a, stream);
+    case 64: return launch<64, FUSED, Q8, MODE>(a, stream);
+    case 80: return launch<80, FUSED, Q8, MODE>(a, stream);
+    case 128: return launch<128, FUSED, Q8, MODE>(a, stream);
   }
   return cudaErrorInvalidValue;
 }

@@ -49,6 +49,9 @@
 #include "decode_common.cuh"
 
 using bifurcated::dispatch_hd;
+using bifurcated::fused_params;
+using bifurcated::kGrouped;
+using bifurcated::kSingle;
 using bifurcated::Params;
 
 extern "C" {
@@ -63,11 +66,11 @@ int fused_bifurcated_decode_q8(const void* q, const void* k_ctx,
                                void* out, int g, int rows, int m_c, int ld,
                                int hd, int c_d, int pn, float scale,
                                void* stream) {
-  Params a{q, k_ctx, v_ctx, static_cast<const float*>(k_scale),
-           static_cast<const float*>(v_scale), nullptr, nullptr, k_dec, v_dec,
-           static_cast<const float*>(dec_bias), out, nullptr, nullptr,
-           nullptr, 1, g, rows, m_c, ld, c_d, pn, scale};
-  return static_cast<int>(dispatch_hd<true, true, false>(
+  Params a = fused_params(q, k_ctx, v_ctx, k_dec, v_dec, dec_bias, out, g,
+                          rows, m_c, ld, c_d, pn, scale);
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
+  return static_cast<int>(dispatch_hd<true, true, kSingle>(
       a, hd, static_cast<cudaStream_t>(stream)));
 }
 
@@ -81,12 +84,12 @@ int grouped_fused_bifurcated_decode(const void* q, const void* k_ctx,
                                     void* out, int n_groups, int g, int rows,
                                     int m_c, int ld, int hd, int c_d, int pn,
                                     float scale, void* stream) {
-  Params a{q, k_ctx, v_ctx, nullptr, nullptr,
-           static_cast<const int*>(row_group),
-           static_cast<const int*>(ctx_lens), k_dec, v_dec,
-           static_cast<const float*>(dec_bias), out, nullptr, nullptr,
-           nullptr, n_groups, g, rows, m_c, ld, c_d, pn, scale};
-  return static_cast<int>(dispatch_hd<true, false, true>(
+  Params a = fused_params(q, k_ctx, v_ctx, k_dec, v_dec, dec_bias, out, g,
+                          rows, m_c, ld, c_d, pn, scale);
+  a.row_group = static_cast<const int*>(row_group);
+  a.ctx_lens = static_cast<const int*>(ctx_lens);
+  a.n_groups = n_groups;
+  return static_cast<int>(dispatch_hd<true, false, kGrouped>(
       a, hd, static_cast<cudaStream_t>(stream)));
 }
 
@@ -98,13 +101,14 @@ int grouped_fused_bifurcated_decode_q8(
     const void* k_dec, const void* v_dec, const void* dec_bias, void* out,
     int n_groups, int g, int rows, int m_c, int ld, int hd, int c_d, int pn,
     float scale, void* stream) {
-  Params a{q, k_ctx, v_ctx, static_cast<const float*>(k_scale),
-           static_cast<const float*>(v_scale),
-           static_cast<const int*>(row_group),
-           static_cast<const int*>(ctx_lens), k_dec, v_dec,
-           static_cast<const float*>(dec_bias), out, nullptr, nullptr,
-           nullptr, n_groups, g, rows, m_c, ld, c_d, pn, scale};
-  return static_cast<int>(dispatch_hd<true, true, true>(
+  Params a = fused_params(q, k_ctx, v_ctx, k_dec, v_dec, dec_bias, out, g,
+                          rows, m_c, ld, c_d, pn, scale);
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
+  a.row_group = static_cast<const int*>(row_group);
+  a.ctx_lens = static_cast<const int*>(ctx_lens);
+  a.n_groups = n_groups;
+  return static_cast<int>(dispatch_hd<true, true, kGrouped>(
       a, hd, static_cast<cudaStream_t>(stream)));
 }
 

@@ -31,6 +31,13 @@ launches. The port passes the row -> group map to the kernels as a
 (rows,) int32 tensor and the ragged lengths as ``ctx_lens`` (G,) int32,
 where the reference builds a lane-replicated (rows, 128) table and a
 (G, m_c) bias; the function computed is the same.
+
+``tree_bifurcated_decode_attention`` / ``..._q8`` are the prefix-TRIE
+dispatchers: N node segments, a (depth, b) slot -> node path table and
+ragged node lengths, all device data. The port passes the kernels a
+(depth, rows) int32 row -> node table and ``node_lens`` (N,) int32, where
+the reference builds a lane-replicated (depth, rows, 128) table and an
+(N, m_c) bias.
 """
 from __future__ import annotations
 
@@ -44,6 +51,8 @@ from repro_torch.kernels.bifurcated_decode import (
     fused_bifurcated_decode_q8,
     grouped_fused_bifurcated_decode,
     grouped_fused_bifurcated_decode_q8,
+    tree_fused_bifurcated_decode,
+    tree_fused_bifurcated_decode_q8,
 )
 
 NEG_INF = -1e30
@@ -176,14 +185,15 @@ def bifurcated_decode_attention_q8(
     return _from_rows(out, q)
 
 
-def _forest_operands(q, group_ids, k_dec, v_dec, dec_mask):
-    """Shared grouped-dispatch plumbing: kernel-major q rows, the (rows,)
-    int32 row -> group map (row r reads the segment of slot r // (p*n)),
-    group-major decode arm and its slot bias."""
+def _slot_operands(q, slot_table, k_dec, v_dec, dec_mask):
+    """Shared slot-table dispatch plumbing (forest and trie): kernel-major
+    q rows, the slot table ((b,) group ids or (depth, b) paths) widened to
+    int32 rows (row r = (b_idx*p + p_idx)*n + n_idx inherits slot b_idx's
+    entry), group-major decode arm and its slot bias."""
     b, g, p, n, hd = q.shape
-    row_group = group_ids.to(torch.int32).repeat_interleave(p * n)
+    rows = slot_table.to(torch.int32).repeat_interleave(p * n, dim=-1)
     kd, vd, bias = _decode_operands(k_dec, v_dec, dec_mask)
-    return _query_rows(q), row_group, kd, vd, bias
+    return _query_rows(q), rows.contiguous(), kd, vd, bias
 
 
 def grouped_bifurcated_decode_attention(
@@ -213,8 +223,8 @@ def grouped_bifurcated_decode_attention(
     else:
         kc = k_ctx.transpose(1, 2).contiguous()  # (G, g, m_c, hd)
         vc = v_ctx.transpose(1, 2).contiguous()
-    qk, row_group, kd, vd, bias = _forest_operands(q, group_ids, k_dec,
-                                                   v_dec, dec_mask)
+    qk, row_group, kd, vd, bias = _slot_operands(q, group_ids, k_dec,
+                                                 v_dec, dec_mask)
     out = grouped_fused_bifurcated_decode(
         qk, kc, vc, row_group, ctx_lens.to(torch.int32).contiguous(), kd, vd,
         bias, scale=scale, c_d=c_d, pn=p * n)
@@ -250,9 +260,83 @@ def grouped_bifurcated_decode_attention_q8(
         vc = v_ctx_q.transpose(1, 2).contiguous()
         ks = k_scale_folded.transpose(1, 2).contiguous()  # (G, g, m_c)
         vs = v_scale.transpose(1, 2).contiguous()
-    qk, row_group, kd, vd, bias = _forest_operands(q, group_ids, k_dec,
-                                                   v_dec, dec_mask)
+    qk, row_group, kd, vd, bias = _slot_operands(q, group_ids, k_dec,
+                                                 v_dec, dec_mask)
     out = grouped_fused_bifurcated_decode_q8(
         qk, kc, vc, ks, vs, row_group, ctx_lens.to(torch.int32).contiguous(),
+        kd, vd, bias, scale=scale, c_d=c_d, pn=p * n)
+    return _from_rows(out, q)
+
+
+def tree_bifurcated_decode_attention(
+    q: torch.Tensor,          # (b, g, p, n, hd) — framework decode layout
+    k_ctx: torch.Tensor,      # (N, m_c, g, hd) "mgk" or (N, g, m_c, hd) "gmk"
+    v_ctx: torch.Tensor,
+    paths: torch.Tensor,      # (depth, b) int32 — slot -> node id per trie
+                              #   level, -1 = level unused by that slot
+    node_lens: torch.Tensor,  # (N,) int32 — live (ragged) node lengths
+    k_dec: torch.Tensor,      # (b, c_d, g, hd)
+    v_dec: torch.Tensor,
+    dec_mask: torch.Tensor,   # (b, c_d) bool
+    *,
+    scale: Optional[float] = None,
+    ctx_layout: str = "gmk",
+) -> torch.Tensor:
+    """Prefix-trie (cascade) fused decode dispatcher: N node segments in
+    ONE batch, each decode slot attending over the concatenation of the
+    nodes on its ``paths`` column plus its own decode arm. One launch of
+    the tree kernel: every node on a path is read once per kv head and row
+    tile however many paths go through it. At depth == 1 the computation
+    equals ``grouped_bifurcated_decode_attention``'s."""
+    b, g, p, n, hd = q.shape
+    c_d = k_dec.shape[1]
+    scale = hd**-0.5 if scale is None else scale
+    if ctx_layout == "gmk":  # already kernel-major: zero-copy
+        kc, vc = k_ctx.contiguous(), v_ctx.contiguous()
+    else:
+        kc = k_ctx.transpose(1, 2).contiguous()  # (N, g, m_c, hd)
+        vc = v_ctx.transpose(1, 2).contiguous()
+    qk, path_rows, kd, vd, bias = _slot_operands(q, paths, k_dec, v_dec,
+                                                 dec_mask)
+    out = tree_fused_bifurcated_decode(
+        qk, kc, vc, path_rows, node_lens.to(torch.int32).contiguous(), kd,
+        vd, bias, scale=scale, c_d=c_d, pn=p * n)
+    return _from_rows(out, q)
+
+
+def tree_bifurcated_decode_attention_q8(
+    q: torch.Tensor,          # (b, g, p, n, hd) — framework decode layout
+    k_ctx_q: torch.Tensor,    # int8: (N, m_c, g, hd) "mgk" | (N, g, m_c, hd)
+    v_ctx_q: torch.Tensor,
+    k_scale_folded: torch.Tensor,  # f32: (N, m_c, g) | (N, g, m_c); MUST
+    v_scale: torch.Tensor,         #   carry the logit scale pre-folded
+    paths: torch.Tensor,      # (depth, b) int32 — -1 = level unused
+    node_lens: torch.Tensor,  # (N,) int32
+    k_dec: torch.Tensor,      # (b, c_d, g, hd)
+    v_dec: torch.Tensor,
+    dec_mask: torch.Tensor,   # (b, c_d) bool
+    *,
+    scale: Optional[float] = None,
+    ctx_layout: str = "gmk",
+) -> torch.Tensor:
+    """Int8-node twin of ``tree_bifurcated_decode_attention``: int8 node
+    segments + per-(token, head) scales (k pre-folded with the logit
+    scale), read by the tree q8 kernel. At depth == 1 the computation
+    equals ``grouped_bifurcated_decode_attention_q8``'s."""
+    b, g, p, n, hd = q.shape
+    c_d = k_dec.shape[1]
+    scale = hd**-0.5 if scale is None else scale
+    if ctx_layout == "gmk":  # already kernel-major: zero-copy
+        kc, vc = k_ctx_q.contiguous(), v_ctx_q.contiguous()
+        ks, vs = k_scale_folded.contiguous(), v_scale.contiguous()
+    else:
+        kc = k_ctx_q.transpose(1, 2).contiguous()   # (N, g, m_c, hd)
+        vc = v_ctx_q.transpose(1, 2).contiguous()
+        ks = k_scale_folded.transpose(1, 2).contiguous()  # (N, g, m_c)
+        vs = v_scale.transpose(1, 2).contiguous()
+    qk, path_rows, kd, vd, bias = _slot_operands(q, paths, k_dec, v_dec,
+                                                 dec_mask)
+    out = tree_fused_bifurcated_decode_q8(
+        qk, kc, vc, ks, vs, path_rows, node_lens.to(torch.int32).contiguous(),
         kd, vd, bias, scale=scale, c_d=c_d, pn=p * n)
     return _from_rows(out, q)

@@ -20,12 +20,14 @@ from repro_torch.core.bifurcated import (
     bifurcated_attention,
     bifurcated_attention_flash,
     forest_bifurcated_attention,
+    tree_bifurcated_attention,
 )
 from repro_torch.core.kv_cache import update_layer_cache
 from repro_torch.core.masks import mask_to_bias
 from repro_torch.core.quantized import (
     bifurcated_attention_q8,
     forest_bifurcated_attention_q8,
+    tree_bifurcated_attention_q8,
 )
 from repro_torch.core.rotary import apply_rope
 from repro_torch.kernels.ops import (
@@ -33,6 +35,8 @@ from repro_torch.kernels.ops import (
     bifurcated_decode_attention_q8,
     grouped_bifurcated_decode_attention,
     grouped_bifurcated_decode_attention_q8,
+    tree_bifurcated_decode_attention,
+    tree_bifurcated_decode_attention_q8,
 )
 
 
@@ -379,6 +383,81 @@ def attention_decode_forest(
     else:
         o = forest_bifurcated_attention(
             q, k_ctx, v_ctx, group_ids, ctx_lens, k_dec, v_dec,
+            decode_mask=dec_valid, ctx_layout=layout)
+
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, n, cfg.n_heads_padded * hd)
+    return o @ params["wo"].to(x.dtype)
+
+
+def attention_decode_tree(
+    cfg: ModelConfig,
+    params,
+    x: torch.Tensor,
+    layer_cache: dict,
+    *,
+    paths: torch.Tensor,       # (depth, b) int32 — slot -> node id per level
+    node_lens: torch.Tensor,   # (N,) int32 — live (ragged) node lengths
+    ctx_lens_b: torch.Tensor,  # (b,) int32 — per-slot TOTAL path context
+    dec_lens: torch.Tensor,    # (b,) int32 — per-slot decode depth
+    impl: str = "einsum",      # einsum (cascade reference) | kernel (CUDA)
+) -> torch.Tensor:
+    """One incremental-decoding step for one layer over a PREFIX TRIE: N
+    node segments and b decode slots, each slot attending over the
+    concatenation of the nodes on its ``paths`` column ⊕ its decode arm.
+    Returns the layer's output (b, n, d) and writes the step's K/V into
+    ``layer_cache`` IN PLACE.
+
+    ``layer_cache``: {"k_ctx": (N, g, m_c, hd) "gmk" | (N, m_c, g, hd)
+    "mgk", "v_ctx": ..., "k_dec": (b, C_d, g, hd), "v_dec": ...} — plus
+    {"k_scale", "v_scale"} ((N, g, m_c) / (N, m_c, g)) when the nodes are
+    int8.
+
+    As ``attention_decode_forest``, except that the per-slot position base
+    is the SUM of the path's node lengths (``ctx_lens_b``, computed once
+    per step by the caller) and the dispatch is the tree kernel or the
+    cascade einsum path. Sliding-window configs are not supported, as in
+    the reference.
+    """
+    if cfg.sliding_window is not None:
+        raise NotImplementedError(
+            "tree decoding does not support sliding-window configs")
+    b, n = x.shape[:2]
+    g, hd = cfg.n_kv_heads_padded, cfg.kq_dim
+    p = cfg.n_heads_padded // g
+    dev = x.device
+    q, k_new, v_new = _project_qkv(cfg, params, x)
+    pos_b = ctx_lens_b + dec_lens                                # (b,)
+    if cfg.rope_theta > 0:
+        pos = pos_b[:, None] + torch.arange(n, device=dev)[None, :]  # (b, n)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    q = q.reshape(b, n, g, p, hd).permute(0, 2, 3, 1, 4)  # (b,g,p,n,hd)
+
+    k_dec = _scatter_decode_slots(layer_cache["k_dec"], k_new, dec_lens)
+    v_dec = _scatter_decode_slots(layer_cache["v_dec"], v_new, dec_lens)
+    cap = k_dec.shape[1]
+    slot = torch.arange(cap, device=dev)[None, :]
+    dec_valid = slot <= dec_lens[:, None] + n - 1                 # (b, C_d)
+
+    k_ctx, v_ctx = layer_cache["k_ctx"], layer_cache["v_ctx"]
+    layout = cfg.ctx_layout
+    if "k_scale" in layer_cache:
+        k_s, v_s = layer_cache["k_scale"], layer_cache["v_scale"]
+        if impl == "kernel":
+            o = tree_bifurcated_decode_attention_q8(
+                q, k_ctx, v_ctx, k_s, v_s, paths, node_lens, k_dec, v_dec,
+                dec_valid, ctx_layout=layout)
+        else:
+            o = tree_bifurcated_attention_q8(
+                q, k_ctx, v_ctx, k_s, v_s, paths, node_lens, k_dec, v_dec,
+                decode_mask=dec_valid, ctx_layout=layout)
+    elif impl == "kernel":
+        o = tree_bifurcated_decode_attention(
+            q, k_ctx, v_ctx, paths, node_lens, k_dec, v_dec, dec_valid,
+            ctx_layout=layout)
+    else:
+        o = tree_bifurcated_attention(
+            q, k_ctx, v_ctx, paths, node_lens, k_dec, v_dec,
             decode_mask=dec_valid, ctx_layout=layout)
 
     o = o.permute(0, 3, 1, 2, 4).reshape(b, n, cfg.n_heads_padded * hd)

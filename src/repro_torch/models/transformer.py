@@ -4,8 +4,9 @@ Parameters are a plain dict whose layer weights are stacked (L, ...) as in
 the reference (``params["layers"]``); the forward passes loop over layers
 in Python and hand each one its slice. The decode path takes the standard
 batched KV cache, the paper's ``BifurcatedCache`` or its int8 twin
-``QuantBifurcatedCache``, or a forest cache (``GroupedBifurcatedCache`` /
-``GroupedQuantBifurcatedCache``) — the cache TYPE selects the path.
+``QuantBifurcatedCache``, a forest cache (``GroupedBifurcatedCache`` /
+``GroupedQuantBifurcatedCache``) or a trie cache (``PrefixTreeCache`` /
+``QuantPrefixTreeCache``) — the cache TYPE selects the path.
 """
 from __future__ import annotations
 
@@ -20,11 +21,14 @@ from repro_torch.core.kv_cache import (
     BifurcatedCache,
     DecodeCache,
     GroupedBifurcatedCache,
+    PrefixTreeCache,
 )
 from repro_torch.core.quantized import (
     GroupedQuantBifurcatedCache,
     QuantBifurcatedCache,
+    QuantPrefixTreeCache,
     forest_cache_family,
+    tree_cache_family,
 )
 from repro_torch.models import blocks
 from repro_torch.models.blocks import (
@@ -32,6 +36,7 @@ from repro_torch.models.blocks import (
     apply_norm,
     attention_decode,
     attention_decode_forest,
+    attention_decode_tree,
     attention_train,
     init_attention,
     init_mlp,
@@ -117,6 +122,8 @@ class TransformerLM:
         """tokens: (b, n) new token ids. Returns (logits (b, n, V), cache')
         where cache' shares the input cache's tensors, updated in place."""
         cfg = self.cfg
+        if isinstance(cache, (PrefixTreeCache, QuantPrefixTreeCache)):
+            return self._decode_step_tree(params, cache, tokens, impl=impl)
         if isinstance(cache, (GroupedBifurcatedCache,
                               GroupedQuantBifurcatedCache)):
             return self._decode_step_forest(params, cache, tokens, impl=impl)
@@ -173,6 +180,49 @@ class TransformerLM:
         logits = self._unembed(params, x)
         cache.dec_lens.add_(tokens.shape[1])
         return logits, cache
+
+    def _decode_step_tree(self, params, cache, tokens, *, impl: str):
+        """Prefix-trie decode: b slots over N node segments, each slot
+        attending over the concatenation of the nodes on its path. The trie
+        state (paths / node_lens / dec_lens and the per-slot total context
+        length) has no layer axis and is handed to every layer;
+        ``impl="kernel"`` runs every layer-step as one launch of the tree
+        CUDA kernel. The decode arms and ``dec_lens`` advance in place,
+        with no host sync; the returned cache is ``cache``."""
+        cfg = self.cfg
+        names = ["k_ctx", "v_ctx", "k_dec", "v_dec"]
+        if isinstance(cache, QuantPrefixTreeCache):
+            names += ["k_scale", "v_scale"]
+        ctx_lens_b = cache.slot_context_lens()      # (b,), once per step
+        x = self._embed(params, tokens)
+        for i in range(cfg.n_layers):
+            layer = _layer(params["layers"], i)
+            lcache = {name: getattr(cache, name)[i] for name in names}
+            h = apply_norm(cfg, layer["ln1"], x)
+            x = x + attention_decode_tree(
+                cfg, layer["attn"], h, lcache, paths=cache.paths,
+                node_lens=cache.node_lens, ctx_lens_b=ctx_lens_b,
+                dec_lens=cache.dec_lens, impl=impl)
+            x = x + apply_mlp(cfg, layer["mlp"], apply_norm(cfg, layer["ln2"], x))
+        x = apply_norm(cfg, params["final_norm"], x)
+        logits = self._unembed(params, x)
+        cache.dec_lens.add_(tokens.shape[1])
+        return logits, cache
+
+    def make_tree_cache(self, slots, n_nodes, depth, node_capacity,
+                        dec_capacity=None, ctx_quant: str = "none", *,
+                        dtype=torch.bfloat16, device="cuda"):
+        """An empty PrefixTreeCache / QuantPrefixTreeCache for this model,
+        on ``device`` (the counterpart of the reference's abstract
+        ``make_tree_cache_spec``: the port builds the concrete cache).
+        ``depth`` is the path table's height; everything else about the
+        trie is data."""
+        cfg = self.cfg
+        dec_capacity = dec_capacity or cfg.decode_capacity
+        return tree_cache_family(ctx_quant).init(
+            cfg.n_layers, n_nodes, depth, slots, node_capacity, dec_capacity,
+            cfg.n_kv_heads_padded, cfg.kq_dim, dtype=dtype,
+            ctx_layout=cfg.ctx_layout, device=resolve_device(device))
 
     def make_forest_cache(self, slots, n_groups, ctx_capacity,
                           dec_capacity=None, ctx_quant: str = "none", *,

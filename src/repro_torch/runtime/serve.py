@@ -19,7 +19,10 @@ mean-logprob tracking used for pass@top-k style reranking (paper §5.4).
 many concurrent shared-prefix requests (a prefix FOREST) served from one
 slot table over grouped caches, with admit/retire as in-place value
 updates of tensors allocated once, and a step loop that keeps its state
-on the device and reads it back once per chunk.
+on the device and reads it back once per chunk. ``TreeServeEngine``
+generalizes it to a prefix TRIE: requests are paths of shared segments,
+and a shared ancestor is stored once and read once per step however many
+requests hang below it.
 """
 from __future__ import annotations
 
@@ -30,13 +33,19 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ForestConfig, ModelConfig, ServeConfig
+from repro_torch.configs.base import (
+    ForestConfig,
+    ModelConfig,
+    ServeConfig,
+    TreeConfig,
+)
 from repro_torch.core.errors import (
     DecodeCapacityExceeded,
     SegmentCapacityExceeded,
     SegmentsExhausted,
     SlotsExhausted,
 )
+from repro_torch.core.io_model import tree_decode_io_bytes
 from repro_torch.core.kv_cache import DecodeCache
 from repro_torch.core.policy import BifurcationPolicy
 from repro_torch.core.quantized import ctx_cache_family
@@ -513,3 +522,333 @@ class ForestServeEngine(_SlotTableEngine):
         slots = [s for s in range(self.fcfg.slots)
                  if self.slot_group[s] == group]
         return self.deactivate_slots(state, slots)
+
+
+# ---------------------------------------------------------------------------
+# Continuous-batching prefix-trie engine (cascade serving)
+# ---------------------------------------------------------------------------
+
+def _tokens_key(seg) -> tuple:
+    """A (1, m) token segment's contents as a hashable tuple (host sync)."""
+    return tuple(int(t) for t in torch.as_tensor(seg)[0].tolist())
+
+
+class TreeServeEngine(_SlotTableEngine):
+    """Continuous-batching serve loop over a prefix TRIE.
+
+    Requests arrive as a path of ``segments`` (outermost shared level
+    first); admission matches the LONGEST existing prefix path before
+    allocating anything:
+
+      admit   — walk the host-side trie index level by level; every level
+                that matches a live node (same ancestor path, same tokens)
+                is REUSED, its KV neither recomputed into the cache nor
+                stored again. The request's full concatenation is
+                prefilled once (batch=1) for the first-token logits, and
+                only the NEW levels' KV slices are written into free node
+                segments (``write_node``: quantize/transpose once, in
+                place). Free slots are pointed at the path
+                (``assign_paths``).
+      decode  — inherited ``step_chunk``: the whole slot table advances
+                with the state on the device, read back once per chunk;
+                with ``use_kernel`` every layer-step is one launch of the
+                tree kernel, which reads each node on a path once per kv
+                head per step however many paths go through it.
+      retire  — ``retire_requests`` frees finished requests; node
+                refcounts drop along their paths and a node (and its
+                trie-index entry) frees only when NO live request
+                references it: shared ancestors survive their children.
+
+    With every request a single segment (depth-1 paths) this engine serves
+    the flat forest's workload. Not ported here: the paged store, the
+    cross-request prefix cache, suffix-only prefill, the packed step
+    (``TreeConfig`` knobs that raise ``NotImplementedError``), and the
+    integrity and durability surface of the reference engine (segment
+    checksums, ``audit_state``, ``host_state``).
+    """
+
+    def __init__(self, model, cfg: ModelConfig, tcfg: TreeConfig):
+        for knob, value, ported in (
+                ("ctx_store", tcfg.ctx_store, "dense"),
+                ("prefix_cache", tcfg.prefix_cache, False),
+                ("suffix_prefill", tcfg.suffix_prefill, False),
+                ("step_mode", tcfg.step_mode, "decode"),
+                ("evict_policy", tcfg.evict_policy, "lru")):
+            if value != ported:
+                raise NotImplementedError(f"{knob}={value!r} is not ported")
+        super().__init__(model, cfg, tcfg)
+        self.tcfg = tcfg
+        # host-side trie mirrors (admission policy only — the decode math
+        # depends exclusively on device-side state values)
+        self.node_live = [False] * tcfg.n_nodes
+        self.node_refs = [0] * tcfg.n_nodes          # live-request refcount
+        self.node_index = {}    # (parent id, token tuple) -> node id
+        self.node_key = [None] * tcfg.n_nodes        # reverse map
+        self.node_len = [0] * tcfg.n_nodes           # live tokens per node
+        self.slot_request = [-1] * tcfg.slots
+        # request table: rid -> {"path", "slots", "live"}: live requests
+        # plus retired ones still referenced by a slot (their outputs stay
+        # readable until the slot is reused); anything else compacts away
+        # (_compact_requests). rids are monotonic and never reused.
+        self.requests = {}
+        self.next_rid = 0
+        self.last_rid = -1      # rid of the most recent admit
+        # per-admission accounting of path tokens reused from live trie
+        # nodes vs written fresh, and tokens run through prefill
+        self.prefix_stats = {"admits": 0, "full_hits": 0,
+                             "partial_hits": 0, "reused_tokens": 0,
+                             "new_tokens": 0, "computed_tokens": 0,
+                             "evictions": 0}
+
+    # ---- lifecycle ----
+    def init_state(self, device="cuda") -> ForestState:
+        """The empty slot table and trie cache on ``device`` (CUDA unless
+        the caller asks for the CPU). The bf16 family's nodes and both
+        families' decode arms are stored in bf16, as in the reference."""
+        tcfg = self.tcfg
+        dev = resolve_device(device)
+        quant = "int8" if tcfg.cache_dtype == "int8" else "none"
+        cache = self.model.make_tree_cache(
+            tcfg.slots, tcfg.n_nodes, tcfg.depth, tcfg.node_capacity,
+            tcfg.decode_capacity, quant, dtype=torch.bfloat16, device=dev)
+        b = tcfg.slots
+        return ForestState(
+            cache=cache,
+            tokens=torch.zeros((b, 1), dtype=torch.int64, device=dev),
+            active=torch.zeros(b, dtype=torch.bool, device=dev),
+            steps=torch.zeros(b, dtype=torch.int32, device=dev),
+            generator=torch.Generator(device=dev).manual_seed(tcfg.seed),
+        )
+
+    def free_nodes(self):
+        return [i for i, live in enumerate(self.node_live) if not live]
+
+    def free_slots(self, state: ForestState, active=None):
+        """Slots safe to (re)assign: never admitted, or belonging to a
+        RETIRED request (an EOS'd slot of a still-live request keeps its
+        output readable). A slot whose request was compacted away counts
+        as retired. ``active`` — optional host copy of ``state.active``,
+        so one serve round syncs once."""
+        if active is None:
+            active = state.active.cpu()
+        return [s for s in range(self.tcfg.slots)
+                if not bool(active[s]) and (
+                    self.slot_request[s] < 0
+                    or not self.request_live(self.slot_request[s]))]
+
+    def request_live(self, rid: int) -> bool:
+        """Is request ``rid`` still live? A compacted rid is not."""
+        req = self.requests.get(rid)
+        return bool(req is not None and req["live"])
+
+    def match_prefix(self, segments):
+        """Longest-matching prefix path for ``segments`` (list of (1, m)
+        token tensors, outermost level first): returns (node ids of the
+        matched levels, number matched). Node identity is (ancestor node,
+        token content), so a match guarantees identical KV."""
+        path, parent = [], -1
+        for seg in segments:
+            nid = self.node_index.get((parent, _tokens_key(seg)))
+            if nid is None or not self.node_live[nid]:
+                break
+            path.append(nid)
+            parent = nid
+        return path, len(path)
+
+    def peek_prefix(self, segments):
+        """Side-effect-free admission probe: ``(path, matched,
+        matched_tokens)`` — what ``admit`` would reuse, and the resident
+        tokens on that path. Touches no refcount and no statistic."""
+        path, matched = self.match_prefix(segments)
+        return path, matched, sum(self.node_len[nid] for nid in path)
+
+    def step_io_bytes(self, state: ForestState, active=None) -> dict:
+        """Modelled per-decode-step device-memory bytes of the live slot
+        table (per layer), via ``core.io_model.tree_decode_io_bytes`` over
+        the live slots' paths: every referenced node read once, plus the
+        per-slot decode arms and q/out rows. Returns ``{"ctx_bytes",
+        "total", "slots"}`` — zeros when nothing is decoding."""
+        if active is None:
+            active = state.active.cpu()
+        paths = []
+        for s in range(self.tcfg.slots):
+            rid = self.slot_request[s]
+            if bool(active[s]) and rid >= 0 and self.request_live(rid):
+                paths.append(tuple(self.requests[rid]["path"]))
+        if not paths:
+            return {"ctx_bytes": 0, "total": 0, "slots": 0}
+        io = tree_decode_io_bytes(
+            paths=paths, node_lens=self.node_len,
+            c_d=self.tcfg.decode_capacity, g=self.cfg.n_kv_heads,
+            hd=self.cfg.kq_dim)
+        return {"ctx_bytes": int(sum(io["per_node"].values())),
+                "total": int(io["total"]), "slots": len(paths)}
+
+    def admit(self, params, state: ForestState, segments,
+              n_samples: int) -> tuple:
+        """Admit one request given as a PATH of ``segments`` — a list of
+        (1, m_i) token tensors, outermost shared level first; 1 <= len <=
+        ``depth``. The longest matching prefix of the path is reused from
+        the trie; the full concatenation is prefilled ONCE and only the
+        new levels' KV slices are written. ``n_samples`` free slots fan out
+        over the path. Returns (state, slot_ids). A rejected admission
+        raises its typed error before anything is mutated; EOS at step 0
+        retires a slot before it ever decodes."""
+        tcfg = self.tcfg
+        dev = state.active.device
+        segments = [torch.as_tensor(s, device=dev) for s in segments]
+        if not 1 <= len(segments) <= tcfg.depth:
+            raise ValueError(
+                f"request path of {len(segments)} levels; engine depth "
+                f"is {tcfg.depth}")
+        cap = state.cache.node_capacity
+        for seg in segments:
+            if seg.shape[1] > cap:
+                raise SegmentCapacityExceeded(
+                    f"segment of {seg.shape[1]} tokens > node capacity {cap}")
+        path, matched = self.match_prefix(segments)
+        new_segs = segments[matched:]
+        free_n = self.free_nodes()
+        free_s = self.free_slots(state)
+        if len(new_segs) > len(free_n):
+            raise SegmentsExhausted(
+                f"need {len(new_segs)} free trie nodes, have {len(free_n)}"
+                " — retire first")
+        if len(free_s) < n_samples:
+            raise SlotsExhausted(
+                f"need {n_samples} free slots, have {len(free_s)}")
+        slots = free_s[:n_samples]
+
+        total = sum(int(s.shape[1]) for s in segments)
+        offset = sum(int(s.shape[1]) for s in segments[:matched])
+        # ONE prefill of the full concatenation: reused ancestors are
+        # recomputed (identical values) but not rewritten; each new node
+        # gets its token slice
+        logits0, cache1 = self.model.prefill(params, torch.cat(segments, 1))
+        stats = self.prefix_stats
+        stats["admits"] += 1
+        if matched == len(segments):
+            stats["full_hits"] += 1
+        elif matched:
+            stats["partial_hits"] += 1
+        stats["reused_tokens"] += offset
+        stats["new_tokens"] += total - offset
+        stats["computed_tokens"] += total
+        cache = state.cache
+        parent = path[-1] if path else -1
+        for seg in new_segs:
+            nid = free_n.pop(0)
+            m = int(seg.shape[1])
+            cache.write_node(cache1.k[:, 0, offset:offset + m],
+                             cache1.v[:, 0, offset:offset + m], nid)
+            key = (parent, _tokens_key(seg))
+            self.node_index[key] = nid
+            self.node_key[nid] = key
+            self.node_live[nid] = True
+            self.node_len[nid] = m
+            path.append(nid)
+            parent = nid
+            offset += m
+        for nid in path:
+            self.node_refs[nid] += 1
+
+        path_col = torch.tensor(path + [-1] * (tcfg.depth - len(path)),
+                                dtype=torch.int32, device=dev)
+        slot_ids = torch.as_tensor(slots, dtype=torch.long, device=dev)
+        slot_mask = torch.zeros(tcfg.slots, dtype=torch.bool, device=dev)
+        slot_mask[slot_ids] = True
+        cache.assign_paths(slot_mask, path_col)
+
+        tok, lp, live = self._sample_first(state.generator, logits0,
+                                           n_samples)
+        state.tokens[slot_ids, 0] = tok
+        state.active[slot_ids] = live
+        state.steps[slot_ids] = 0
+        rid = self.next_rid
+        self.next_rid += 1
+        self.last_rid = rid
+        self.requests[rid] = {"path": list(path), "slots": list(slots),
+                              "live": True}
+        tok_h, lp_h = tok.tolist(), lp.tolist()
+        for i, s in enumerate(slots):
+            self.slot_request[s] = rid
+            self.outputs[s] = [int(tok_h[i])]
+            self.logps[s] = [float(lp_h[i])]
+            self.corrupt_slots.discard(s)  # fresh request, fresh verdict
+        # slot reuse may have dropped the last reference to a retired
+        # request's table entry
+        self._compact_requests()
+        return state, slots
+
+    # ---- retire ----
+    def retire_requests(self, state: ForestState, active=None):
+        """Free every request whose slots have all gone inactive. Node
+        refcounts drop along the retired paths; a node's segment (and its
+        trie-index entry) frees only at refcount zero — an ancestor shared
+        with a still-live request survives. Returns the retired request
+        ids; their slots become reusable by the next ``admit``.
+        ``active`` optionally supplies a host copy of ``state.active``."""
+        if active is None:
+            active = state.active.cpu()
+        retired = []
+        for rid in sorted(self.requests):
+            req = self.requests[rid]
+            if req["live"] and not any(bool(active[s]) for s in req["slots"]):
+                req["live"] = False
+                retired.append(rid)
+                self._release_path(req["path"])
+        if retired:
+            self._compact_requests()
+        return retired
+
+    def _release_path(self, path):
+        """Drop one reference from every node on ``path`` and free, leaf
+        first, every node whose refcount reaches zero."""
+        for nid in path:
+            self.node_refs[nid] -= 1
+        for nid in reversed(path):
+            if self.node_refs[nid] == 0 and self.node_live[nid]:
+                self.node_live[nid] = False
+                self.node_index.pop(self.node_key[nid], None)
+                self.node_key[nid] = None
+                self.node_len[nid] = 0
+
+    def _compact_requests(self):
+        """Drop retired request-table entries no slot references anymore:
+        the table stays O(slots), and a compacted rid reads as dead."""
+        referenced = {rid for rid in self.slot_request if rid >= 0}
+        for rid in [r for r, req in self.requests.items()
+                    if not req["live"] and r not in referenced]:
+            del self.requests[rid]
+
+    def release_retired(self, state: ForestState) -> ForestState:
+        """Paged mode clears freed nodes' page tables; the dense store has
+        nothing to release: identity. A freed node keeps its bytes until
+        the next admission overwrites them; the kernels read only nodes on
+        live paths."""
+        return state
+
+    # ---- robustness surface ----
+    def cancel_request(self, state: ForestState, rid: int) -> ForestState:
+        """Deactivate every slot of a LIVE request (preemption / deadline /
+        client cancellation); its nodes free through ``retire_requests``,
+        shared ancestors survive. A compacted or retired rid is a no-op."""
+        req = self.requests.get(rid)
+        if req is None or not req["live"]:
+            return state
+        return self.deactivate_slots(state, req["slots"])
+
+    def request_sharing(self, rid: int) -> int:
+        """How many of this request's trie nodes another live request
+        shares (refcount > 1)."""
+        req = self.requests.get(rid)
+        if req is None:
+            return 0
+        return sum(1 for nid in req["path"] if self.node_refs[nid] > 1)
+
+    def occupancy(self, state: ForestState) -> dict:
+        """Live slot count, and the trie nodes held resident with no live
+        request (always 0: the prefix cache is not ported)."""
+        occ = super().occupancy(state)
+        occ["nodes_cached"] = 0
+        return occ

@@ -50,21 +50,31 @@ def _assert_within(got, want, tol):
 # dominant decode arm, ragged m_c, rows off the tile
 SHAPES = [(8, 32, 2, 128, 4096, 24, 0.0), (8, 32, 2, 128, 4096, 24, 3.0),
           (2, 3, 4, 64, 333, 5, 0.0), (4, 9, 2, 80, 130, 3, 0.0)]
-TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 
 
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernels_match_plain_versions(cuda, shape, dtype):
+    """bf16: each kernel against its plain version. float32: the kernels
+    take bf16 queries only on the card, so fp32 raises TypeError (fp32
+    runs the plain versions on the CPU)."""
     g, b, pn, hd, m_c, c_d, boost = shape
     x = _inputs(cuda, g, b, pn, hd, m_c, c_d, dtype, seed=hd + m_c,
                 dec_boost=boost)
     kw = dict(scale=hd**-0.5, c_d=c_d, pn=pn)
+    if dtype == torch.float32:
+        n0 = [k.launches for k in bd.KERNELS]
+        with pytest.raises(TypeError, match="bfloat16"):
+            bd.fused_bifurcated_decode(*x, **kw)
+        with pytest.raises(TypeError, match="bfloat16"):
+            bd.context_flash_partials(*x[:3], scale=hd**-0.5)
+        assert [k.launches for k in bd.KERNELS] == n0
+        return
     n0 = bd.fused_bifurcated_decode.launches
     out = bd.fused_bifurcated_decode(*x, **kw)
     assert bd.fused_bifurcated_decode.launches == n0 + 1
     want = bd.fused_bifurcated_decode_plain(*x, **kw)
-    tol = TOL[dtype]
+    tol = 2e-2
     _assert_within(out, want, tol)
     acc, m, l = bd.context_flash_partials(*x[:3], scale=hd**-0.5)
     acc_p, m_p, l_p = bd.context_flash_partials_plain(*x[:3], scale=hd**-0.5)
@@ -239,4 +249,118 @@ def test_forest_serve_path_launches_the_grouped_kernel(cuda, cache_dtype):
     kern.launches = 0
     eng.step_chunk(params, st, 4)
     assert kern.launches == cfg.n_layers * 4
+    assert all(len(eng.outputs[s]) == 5 for s in a + b)
+
+
+# ---- prefix-trie kernels ----
+
+# (g, pn, hd, cap, node_lens, paths (depth, b) as rows of slot ids, c_d,
+# dec_boost): the main shape's trie (root, two templates, four leaves,
+# 8 slots per leaf); ragged node lengths 0, 1, 63, 64, 65 with a depth-1
+# slot beside depth-3 ones and a node repeated on one path; hd 80, rows
+# off the tile
+TREE_LEAVES = [[0, 1, 3]] * 8 + [[0, 1, 4]] * 8 + [[0, 2, 5]] * 8 + [[0, 2, 6]] * 8
+TREE_SHAPES = [
+    (8, 2, 128, 4096, (4096, 2048, 1024, 1200, 500, 1800, 300, 0),
+     TREE_LEAVES, 24, 0.0),
+    (8, 2, 128, 4096, (4096, 2048, 1024, 1200, 500, 1800, 300, 0),
+     TREE_LEAVES, 24, 3.0),
+    (2, 2, 64, 130, (0, 1, 63, 64, 65, 130),
+     [[0, 1, 2], [3, -1, -1], [5, 4, 4], [1, 3, 5], [2, 2, -1]], 5, 0.0),
+    (4, 2, 80, 200, (200, 77, 5), [[0, 1, -1], [2, -1, -1]] * 5, 3, 0.0),
+]
+
+
+def _tree_inputs(dev, shape, seed, quant):
+    g, pn, hd, cap, lens, slot_paths, c_d, boost = shape
+    b = len(slot_paths)
+    q, _, _, kd, vd, bias = _inputs(dev, g, b, pn, hd, 8, c_d,
+                                    torch.bfloat16, seed=seed,
+                                    dec_boost=boost)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    n_nodes = len(lens)
+    kc = torch.randn(n_nodes, g, cap, hd, generator=gen, device=dev)
+    vc = torch.randn(n_nodes, g, cap, hd, generator=gen, device=dev)
+    depth = max(len(pth) for pth in slot_paths)
+    paths = torch.tensor([pth + [-1] * (depth - len(pth))
+                          for pth in slot_paths], dtype=torch.int32,
+                         device=dev).T.repeat_interleave(pn, dim=1)
+    node_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    ctx = ((kc.to(torch.bfloat16), vc.to(torch.bfloat16)) if not quant
+           else _q8(kc, vc))
+    return (q,) + ctx + (paths.contiguous(), node_lens, kd, vd, bias)
+
+
+@pytest.mark.parametrize("shape", TREE_SHAPES)
+@pytest.mark.parametrize("quant", [False, True])
+def test_tree_kernels_match_plain_versions(cuda, shape, quant):
+    pn, hd, c_d = shape[1], shape[2], shape[6]
+    x = _tree_inputs(cuda, shape, seed=hd + shape[3], quant=quant)
+    kw = dict(scale=hd**-0.5, c_d=c_d, pn=pn)
+    kern = (bd.tree_fused_bifurcated_decode_q8 if quant
+            else bd.tree_fused_bifurcated_decode)
+    plain = (bd.tree_fused_bifurcated_decode_q8_plain if quant
+             else bd.tree_fused_bifurcated_decode_plain)
+    n0 = kern.launches
+    out = kern(*x, **kw)
+    assert kern.launches == n0 + 1
+    _assert_within(out, plain(*x, **kw), 2e-2)
+    # a row whose path holds an id outside [-1, N) comes out NaN
+    paths = x[-5].clone()
+    paths[-1, :pn] = x[-4].numel()
+    y = x[:-5] + (paths,) + x[-4:]
+    out = kern(*y, **kw)
+    assert torch.isnan(out[:, :pn].float()).all()
+    assert torch.isfinite(out[:, pn:].float()).all()
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_tree_kernels_at_depth_one_are_the_grouped_kernels(cuda, quant):
+    """Every path one level deep: the tree kernel computes the grouped
+    kernel's bits."""
+    shape = (8, 2, 128, 1000, (1000, 0, 77, 513),
+             [[2], [0], [3], [0], [2]] * 6 + [[3], [0]], 24, 0.0)
+    x = _tree_inputs(cuda, shape, seed=7, quant=quant)
+    kw = dict(scale=128**-0.5, c_d=24, pn=2)
+    tree = (bd.tree_fused_bifurcated_decode_q8 if quant
+            else bd.tree_fused_bifurcated_decode)
+    grp = (bd.grouped_fused_bifurcated_decode_q8 if quant
+           else bd.grouped_fused_bifurcated_decode)
+    paths = x[-5]
+    got = tree(*x, **kw)
+    want = grp(*x[:-5], paths[0].contiguous(), *x[-4:], **kw)
+    assert torch.equal(got, want)
+
+
+def test_tree_kernels_take_bf16_only(cuda):
+    x = _tree_inputs(cuda, TREE_SHAPES[2], seed=0, quant=False)
+    f32 = (x[0].float(), x[1].float(), x[2].float()) + x[3:5] + (
+        x[5].float(), x[6].float(), x[7])
+    with pytest.raises(TypeError, match="bfloat16"):
+        bd.tree_fused_bifurcated_decode(*f32, scale=0.125, c_d=5, pn=2)
+
+
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "int8"])
+def test_tree_serve_path_launches_the_tree_kernel(cuda, cache_dtype):
+    from repro_torch.configs import TreeConfig
+    from repro_torch.runtime.serve import TreeServeEngine
+
+    cfg, model, params = _reduced_model(cuda)
+    eng = TreeServeEngine(model, cfg, TreeConfig(
+        n_nodes=4, depth=2, slots=5, node_capacity=48, decode_capacity=8,
+        use_kernel=True, cache_dtype=cache_dtype))
+    st = eng.init_state(device=cuda)
+    root = torch.randint(0, 500, (1, 40), device=cuda)
+    st, a = eng.admit(params, st, [root, torch.randint(0, 500, (1, 9),
+                                                       device=cuda)], 3)
+    st, b = eng.admit(params, st, [root, torch.randint(0, 500, (1, 7),
+                                                       device=cuda)], 2)
+    assert eng.node_refs[:3] == [2, 1, 1]
+    kern = (bd.tree_fused_bifurcated_decode_q8 if cache_dtype == "int8"
+            else bd.tree_fused_bifurcated_decode)
+    for k in bd.KERNELS:
+        k.launches = 0
+    eng.step_chunk(params, st, 4)
+    assert {k.__name__: k.launches for k in bd.KERNELS if k.launches} == {
+        kern.__name__: cfg.n_layers * 4}
     assert all(len(eng.outputs[s]) == 5 for s in a + b)

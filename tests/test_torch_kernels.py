@@ -156,6 +156,8 @@ def test_cuda_request_without_library_raises(monkeypatch):
     """A request routed to the kernel on a machine where the library cannot
     be built or loaded raises; it never returns the plain version."""
     q, kc, vc, kd, vd, bias = _small_operands()
+    # bf16, the kernels' dtype on the card (fp32 raises TypeError there)
+    q, kc, vc, kd, vd = (t.to(torch.bfloat16) for t in (q, kc, vc, kd, vd))
     with pytest.raises(RuntimeError):
         _build.library()
     monkeypatch.setattr(tbd, "_on_cuda", lambda *t: True)
@@ -180,7 +182,9 @@ def test_wrappers_reject_what_they_do_not_take():
         tbd.fused_bifurcated_decode(q, kc, vc, kd, vd, bias.double(),
                                     scale=0.25, c_d=3, pn=1)
     with pytest.raises(ValueError, match="head_dim"):
-        tbd._check_kernel_operands(torch.zeros(2, 4, 24))
+        tbd._check_kernel_operands(torch.zeros(2, 4, 24, dtype=torch.bfloat16))
+    with pytest.raises(TypeError, match="bfloat16"):  # the card's kernels
+        tbd._check_kernel_operands(torch.zeros(2, 4, 64))
     with pytest.raises(ValueError, match="contiguous"):   # on the CPU too
         tbd.context_flash_partials(q, kc.transpose(1, 2).contiguous()
                                    .transpose(1, 2), vc, scale=0.25)

@@ -22,12 +22,18 @@ printing its result lines:
      segment id outside [0, G); node lengths 0/1/63/64/65, a depth-1 path
      beside depth-3 ones, a node twice on one path, ids outside [-1, N),
      and every path one level deep against the grouped kernels, bit for
-     bit). fp32 queries must raise TypeError (the kernels take bf16 only).
+     bit). The paged kernels run on pools of shuffled pages: the single
+     prefix on 64 pages of 128 (bit for bit the single-prefix kernels),
+     the trie on pages of 128, 64, 48 and 16 (bit for bit the tree
+     kernels), a hole, a page id past the pool (its rows NaN), and free
+     pages full of NaN against zeros there (bit-identical). fp32 queries
+     must raise TypeError (the kernels take bf16 only).
      Every gate is max |kernel - plain| <= tol x max |plain| (bf16 2e-2),
      and the script shows that plain versions with the decode arm
      dropped, its mask ignored, another sample's slots read, another
      group's segment read, the V scales dropped, the trie's root level
-     dropped or another request's leaf read miss that gate by far;
+     dropped, another request's leaf read, another segment's page table
+     read or the ragged tail of a page read miss that gate by far;
   3. serve internlm2-1.8b at its published width (seeded random weights)
      with ServeEngine.generate: bifurcated cache, fused kernel, batch 32,
      context 8192, 16 steps. The fused kernel must launch 24 layers x 15
@@ -61,9 +67,18 @@ printing its result lines:
      leaf] is admitted (two levels reused, one node written), 8 more steps
      run, and the three untouched requests' greedy tokens must be
      bit-identical to a run without the cancel and readmit;
+  3e. the three engines with ctx_store="paged" (pages of 128), bf16 and
+     int8: ServeEngine on phase 3's workload, ForestServeEngine on phase
+     3c's over a 160-page pool (below its 256-page envelope: the
+     readmission must raise PoolExhausted before the retire and fit after
+     it, into freed pages filled with NaN first), TreeServeEngine on phase
+     3d's trie (reused ancestors cost no page). Each must launch the paged
+     kernel 24 x 15 times, hold per layer against its plain versions, and
+     give the dense engines' tokens bit for bit;
   4. time each kernel at the main path's shapes beside its bound, its plain
      version and, as a yardstick only, one scaled_dot_product_attention call
-     computing the same function (the port never calls it);
+     computing the same function (the port never calls it); the paged
+     kernels at the single-prefix shape and on the paged trie;
   5. print the kernels' JSON line, then the result line, last.
 
 Imports torch and the port only; needs a checkout of the repository (it
@@ -126,7 +141,7 @@ def build():
     # (template arguments: head dim, FUSED, Q8, mode)
     kinds = {"100": "fused", "000": "partials", "110": "fused_q8",
              "101": "grouped", "111": "grouped_q8", "102": "tree",
-             "112": "tree_q8"}
+             "112": "tree_q8", "103": "paged", "113": "paged_q8"}
     for path in paths.values():
         name, spill = None, ""
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -643,6 +658,285 @@ def check_tree_kernels():
     return out
 
 
+def single_case(x, quant):
+    """A single-prefix case of ``kernel_inputs`` as a one-node trie: its
+    context the node, every row's path [0]."""
+    import torch
+
+    if quant:
+        x = quantized(x)
+    y = dict(x, node_lens=torch.tensor([x["kc"].shape[1]], dtype=torch.int32,
+                                       device=DEVICE),
+             paths=torch.zeros(1, x["q"].shape[1], dtype=torch.int32,
+                               device=DEVICE))
+    for n in ("kc", "vc", "ks", "vs"):
+        if n in y:
+            y[n] = y[n][None]
+    return y
+
+
+def paged_case(x, quant, pm, seed, spare=0, fill=0.0):
+    """The trie case ``x`` (of ``tree_inputs``) with its nodes moved onto
+    shuffled pool pages of ``pm`` keys, ``spare`` pool pages more than the
+    live ones. Every page no table entry names holds ``fill`` (the int8
+    values 127 when ``fill`` is not 0); a live page's tail holds the node's
+    dense keys past its length. Adds kp, vp (ksp, vsp), tables (N, ppn)
+    int32 and seg_lens."""
+    import torch
+
+    n_nodes, g, cap, hd = x["kc"].shape
+    lens = x["node_lens"].tolist()
+    ppn = -(-cap // pm)
+    need = [min(-(-max(m, 0) // pm), ppn) for m in lens]
+    n_pages = sum(need) + spare
+    perm = torch.randperm(n_pages,
+                          generator=torch.Generator().manual_seed(seed))
+    tables = torch.full((n_nodes, ppn), -1, dtype=torch.int32)
+    at = 0
+    for nid, k in enumerate(need):
+        tables[nid, :k] = perm[at:at + k].to(torch.int32)
+        at += k
+    tables = tables.to(DEVICE)
+    live = tables >= 0
+    y = dict(x, tables=tables, seg_lens=x["node_lens"])
+    names = [("kc", "kp"), ("vc", "vp")]
+    if quant:
+        names += [("ks", "ksp"), ("vs", "vsp")]
+    for src, dst in names:
+        c = x[src]
+        rest = tuple(c.shape[3:])
+        f = fill if c.dtype != torch.int8 else (127 if fill != 0 else 0)
+        pad = torch.zeros((n_nodes, g, ppn * pm - cap) + rest, dtype=c.dtype,
+                          device=DEVICE)
+        slabs = torch.cat([c, pad], dim=2).reshape(
+            (n_nodes, g, ppn, pm) + rest).transpose(1, 2)
+        pool = torch.full((n_pages, g, pm) + rest, f, dtype=c.dtype,
+                          device=DEVICE)
+        pool[tables[live].long()] = slabs[live]
+        y[dst] = pool
+    return y
+
+
+def paged_args(y, quant):
+    pool = ((y["kp"], y["vp"], y["ksp"], y["vsp"]) if quant
+            else (y["kp"], y["vp"]))
+    return (y["q"],) + pool + (y["tables"], y["seg_lens"], y["paths"],
+                               y["kd"], y["vd"], y["bias"])
+
+
+def paged_kernel(quant):
+    from repro_torch.kernels import bifurcated_decode as bd
+
+    return (bd.paged_fused_bifurcated_decode_q8 if quant
+            else bd.paged_fused_bifurcated_decode)
+
+
+def paged_plain(quant):
+    from repro_torch.kernels import bifurcated_decode as bd
+
+    return (bd.paged_fused_bifurcated_decode_q8_plain if quant
+            else bd.paged_fused_bifurcated_decode_plain)
+
+
+def paged_bad_rows(y):
+    """The rows the paged kernels write as NaN: a path id outside [-1, N),
+    or a segment whose live pages name an id outside [-1, P)."""
+    import torch
+
+    tables, paths = y["tables"], y["paths"].long()
+    n_segs, ppn = tables.shape
+    pm, n_pages = y["kp"].shape[2], y["kp"].shape[0]
+    need = (y["seg_lens"].long() + pm - 1) // pm
+    live = torch.arange(ppn, device=DEVICE)[None, :] < need[:, None]
+    poisoned = (live & ((tables < -1) | (tables >= n_pages))).any(1)
+    inside = (paths >= 0) & (paths < n_segs)
+    return (((paths < -1) | (paths >= n_segs))
+            | (inside & poisoned[paths.clamp(0, n_segs - 1)])).any(0)
+
+
+def check_paged(name, y, quant):
+    """A paged kernel vs its plain version on one case: both NaN on the
+    rows of ``paged_bad_rows`` and nowhere else, within the gate on the
+    others. Returns (max abs error, the kernel's output)."""
+    import torch
+
+    kw = dict(scale=y["scale"], c_d=y["c_d"], pn=y["pn"])
+    out_k = paged_kernel(quant)(*paged_args(y, quant), **kw)
+    out_p = paged_plain(quant)(*paged_args(y, quant), **kw)
+    torch.cuda.synchronize()
+    bad = paged_bad_rows(y)
+    for out, which in ((out_k, "kernel"), (out_p, "plain version")):
+        nan = torch.isnan(out.float()).any(-1).any(0)
+        check(bool(torch.equal(nan, bad)),
+              f"{name}: the {which}'s NaN rows "
+              f"{nan.nonzero().flatten().tolist()} are not the rows of bad "
+              f"ids")
+    check(bool(torch.isfinite(out_k[:, ~bad].float()).all()),
+          f"{name}: non-finite")
+    ok, err, rel = within(out_k[:, ~bad], out_p[:, ~bad])
+    print(f"check {name}: {'paged q8' if quant else 'paged'} "
+          f"max_abs_err={err:.3e} ({rel:.1e} of max |out|, gate 2e-2)"
+          + (f"; {int(bad.sum())} rows of bad ids NaN" if bad.any() else ""))
+    check(ok, f"{name}: paged kernel disagrees with its plain version")
+    return err, out_k
+
+
+def same_bits(a, b):
+    """Bit-equal, NaN rows included (NaN where the other is NaN)."""
+    import torch
+
+    na, nb = torch.isnan(a.float()), torch.isnan(b.float())
+    return bool(torch.equal(na, nb) and torch.equal(a[~na], b[~nb]))
+
+
+def check_paged_gate_sensitivity(yt, yr):
+    """Two faulty plain versions of #8 miss the gate: one reads another
+    segment's page table (main trie ``yt``), one ignores the ragged tail
+    (reads whole pages; the ragged trie ``yr``, whose pages' tails hold
+    other keys)."""
+    import torch
+
+    plain = paged_plain(False)
+
+    def rel(y, **fault):
+        kw = dict(scale=y["scale"], c_d=y["c_d"], pn=y["pn"])
+        want = plain(*paged_args(y, False), **kw)
+        got = plain(*paged_args(dict(y, **fault), False), **kw)
+        bad = paged_bad_rows(y)
+        return within(got[:, ~bad], want[:, ~bad])[2]
+
+    pm = yr["kp"].shape[2]
+    whole_pages = ((yr["seg_lens"] + pm - 1) // pm * pm).clamp(
+        max=yr["tables"].shape[1] * pm).to(torch.int32)
+    rels = {"another segment's page table":
+            rel(yt, tables=yt["tables"].roll(1, 0).contiguous()),
+            "ragged tail ignored": rel(yr, seg_lens=whole_pages)}
+    print("check paged plain versions: a faulty version's error / max "
+          "|out|: " + ", ".join(f"{k} {v:.2f}" for k, v in rels.items()))
+    for k, v in rels.items():
+        check(v >= 10 * TOL, f"paged: the gate misses '{k}'")
+
+
+def check_paged_kernels():
+    """Phase 2's cases of #8 and #9; returns {kernel name: max abs error
+    over the main-shape cases}."""
+    import torch
+    from repro_torch.kernels import bifurcated_decode as bd
+
+    nan = float("nan")
+    lens, req_paths = served_trie()
+    slot_paths = [req_paths[s * len(req_paths) // BATCH]
+                  for s in range(BATCH)]
+    ragged = [[5, 1, 2], [3], [5, 4, 4], [0, 3, 6], [2, 2], [6, 1],
+              [5, 1, 2], [7], [4, -2, 1]]
+    out = {}
+    yt0 = yr0 = None
+    for quant, kname in ((False, "paged_fused_bifurcated_decode"),
+                         (True, "paged_fused_bifurcated_decode_q8")):
+        tag = "int8 " if quant else ""
+        kern = paged_kernel(quant)
+        kw = dict(scale=128**-0.5, c_d=24, pn=2)
+        # the main single prefix: 8192 keys on 64 shuffled pages of 128, in
+        # a pool with 16 free pages of NaN; bit for bit #1 (#3)
+        x1 = kernel_inputs(8, 32, 2, 1, 128, 8192, 24, torch.bfloat16,
+                           seed=40)
+        y1 = paged_case(single_case(x1, quant), quant, 128, seed=41,
+                        spare=16, fill=nan)
+        err1, out1 = check_paged(
+            f"main {tag}single prefix g=8 rows=64 hd=128: 8192 keys on 64 "
+            f"shuffled pages of 128, 16 free pages of NaN, ld=768", y1,
+            quant)
+        if quant:
+            xq = quantized(x1)
+            one = bd.fused_bifurcated_decode_q8(*q8_args(xq), **kw)
+        else:
+            one = bd.fused_bifurcated_decode(x1["q"], x1["kc"], x1["vc"],
+                                             x1["kd"], x1["vd"], x1["bias"],
+                                             **kw)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(out1, one))
+        print(f"check {tag}single prefix: paged vs "
+              f"{'fused q8' if quant else 'fused'} kernel bit-equal {same}")
+        check(same, "the paged kernel is not the single-prefix kernel")
+        # phase 3d's trie in an oversubscribed pool (112 pages against an
+        # envelope of 256), free pages NaN, against the same pool with
+        # zeros there and against #6 (#7) on the dense nodes
+        xt = tree_inputs(TREE_NODES, 8, BATCH, 2, 1, 128, TREE_CAP, lens,
+                         slot_paths, TREE_DEC_CAP, seed=42, quant=quant)
+        yt = paged_case(xt, quant, 128, seed=43, spare=24, fill=nan)
+        zt = paged_case(xt, quant, 128, seed=43, spare=24)
+        tkw = dict(scale=xt["scale"], c_d=xt["c_d"], pn=xt["pn"])
+        err2, out2 = check_paged(
+            f"main {tag}trie N={TREE_NODES} lens {'/'.join(map(str, lens))} "
+            f"on 88 shuffled pages of 128 + 24 free of NaN", yt, quant)
+        zero = kern(*paged_args(zt, quant), **tkw)
+        tree = tree_kernel(quant)(*tree_args(xt, quant), **tkw)
+        torch.cuda.synchronize()
+        nan_same, tree_same = (bool(torch.equal(out2, zero)),
+                               bool(torch.equal(out2, tree)))
+        print(f"check {tag}main trie: free pages NaN vs 0 bit-identical "
+              f"{nan_same}; paged vs tree kernel bit-equal {tree_same}")
+        check(nan_same, "a free page of the pool was read")
+        check(tree_same, "the paged kernel is not the tree kernel")
+        # its decode-dominant masked twin, on pages of 64
+        xd = tree_inputs(TREE_NODES, 8, BATCH, 2, 1, 128, TREE_CAP, lens,
+                         slot_paths, TREE_DEC_CAP, seed=44, masked=True,
+                         dec_boost=3.0, quant=quant)
+        err3, out3 = check_paged(f"main {tag}trie decode-dominant masked, "
+                                 f"pages of 64",
+                                 paged_case(xd, quant, 64, seed=45), quant)
+        check(bool(torch.equal(out3, tree_kernel(quant)(
+            *tree_args(xd, quant), **tkw))),
+            "decode-dominant: the paged kernel is not the tree kernel")
+        out[kname] = max(err1, err2, err3)
+        # the ragged trie: lengths 0/1/63/64/65/200/130 inside pages of 16,
+        # 48 (a block straddles pages) and 64, ids outside [-1, N)
+        xr = tree_inputs(7, 8, 9, 2, 1, 128, 200,
+                         (0, 1, 63, 64, 65, 200, 130), ragged, 5, seed=46,
+                         masked=True, quant=quant)
+        rkw = dict(scale=xr["scale"], c_d=xr["c_d"], pn=xr["pn"])
+        tr = tree_kernel(quant)(*tree_args(xr, quant), **rkw)
+        for pm in (16, 48, 64):
+            yr = paged_case(xr, quant, pm, seed=47 + pm, spare=5, fill=nan)
+            _, outr = check_paged(
+                f"{tag}N=7 lens 0/1/63/64/65/200/130 on pages of {pm}, ids "
+                f"outside [-1, N)", yr, quant)
+            same = same_bits(outr, tr)
+            print(f"check {tag}ragged trie, pages of {pm}: paged vs tree "
+                  f"kernel bit-equal {same}")
+            check(same, f"pages of {pm}: the paged kernel is not the tree "
+                        f"kernel")
+            if pm == 64 and not quant:
+                yr0 = yr
+        # a hole inside the root's live keys (masked, never read), and a
+        # live page id past the pool on node 5 (its rows NaN)
+        tables = yt["tables"].clone()
+        tables[0, 3] = -1
+        tables[5, 0] = yt["kp"].shape[0] + 7
+        check_paged(f"{tag}main trie, a hole in the root's table row and a "
+                    f"page id past the pool", dict(yt, tables=tables), quant)
+        if not quant:
+            yt0 = zt
+    # fp32 queries raise
+    x = tree_inputs(7, 8, 9, 2, 1, 128, 200, (0, 1, 63, 64, 65, 200, 130),
+                    ragged[:8] + [[1]], 5, seed=48)
+    y = paged_case(x, False, 64, seed=49)
+    f32 = dict(y, q=y["q"].float(), kp=y["kp"].float(), vp=y["vp"].float(),
+               kd=y["kd"].float(), vd=y["vd"].float())
+    before = read_launches()
+    try:
+        paged_kernel(False)(*paged_args(f32, False), scale=y["scale"],
+                            c_d=y["c_d"], pn=y["pn"])
+    except TypeError:
+        pass
+    else:
+        raise AssertionError("the paged kernel took fp32 queries")
+    check(read_launches() == before, "an fp32 call launched a kernel")
+    print("check fp32 queries: TypeError from the paged wrapper, no launch")
+    check_paged_gate_sensitivity(yt0, yr0)
+    return out
+
+
 def check_kernels():
     """Phase 2; returns {kernel name: max abs error over its main-shape
     cases}."""
@@ -742,6 +1036,7 @@ def check_kernels():
     check_forest_gate_sensitivity(f"main {main} int8 ctx; main {fmain}",
                                   x_q, x_g)
     out.update(check_tree_kernels())
+    out.update(check_paged_kernels())
     return out
 
 
@@ -984,8 +1279,8 @@ def _per_layer_residual(cfg, model, params, x0, layer_attn):
 
 def serve_int8(cfg, model, params, ctx, tokens, cache_bf16):
     """Phase 3b: the int8 context arm on the same workload. Returns the
-    served int8 cache (for phase 4) and the q8 kernel's launch count of
-    the counted generate."""
+    served int8 cache (for phase 4), the q8 kernel's launch count of the
+    counted generate and its tokens."""
     import dataclasses
 
     import torch
@@ -1081,7 +1376,7 @@ def serve_int8(cfg, model, params, ctx, tokens, cache_bf16):
           f"path vs its plain versions {err_qp:.3e}, int8 vs bf16 context "
           f"{err_qb:.3e} ({err_qb / top:.2e} of max |logit| {top:.3f}); "
           f"greedy tokens agree on {agree:.3f} of the samples")
-    return cache, counts["fused_bifurcated_decode_q8"]
+    return cache, counts["fused_bifurcated_decode_q8"], result.tokens
 
 
 def _single_prefix_cache(fcache, gi, length, idx, depth, quant):
@@ -1213,8 +1508,9 @@ FOREST_STEPS, FOREST_MORE, READMIT_LEN = 15, 8, 4000
 def serve_forest(cfg, model, params, quant):
     """Phase 3c: ForestServeEngine at the published width. Returns the
     forest cache of the run without retirement (for phase 4), the grouped
-    kernel's launch count of the counted chunk and its per-layer max abs
-    error against its plain versions."""
+    kernel's launch count of the counted chunk, its per-layer max abs
+    error against its plain versions, and the two runs' tokens (after the
+    first chunk, and at the end of each run) for phase 3e."""
     import numpy as np
     import torch
     from repro_torch.configs import ForestConfig
@@ -1248,6 +1544,7 @@ def serve_forest(cfg, model, params, quant):
     torch.cuda.synchronize()
     admit_s = time.perf_counter() - t0
     st_b = eng_b.step_chunk(params, st_b, FOREST_STEPS)
+    outs = {"first": _copy_outputs(eng_b)}
     # run A, counted: the same admissions, then the same chunk
     eng, st, slots_a = start()
     check(slots_a == slots, "the two runs assigned different slots")
@@ -1294,8 +1591,9 @@ def serve_forest(cfg, model, params, quant):
     check(same, "the retire and readmit moved another group's tokens")
     check(all(len(eng.outputs[s]) == FOREST_MORE + 1 for s in s_new),
           "readmitted slots' outputs")
+    outs.update(a=_copy_outputs(eng), b=_copy_outputs(eng_b))
     del eng, st
-    return st_b.cache, counts[kname], path_err
+    return st_b.cache, counts[kname], path_err, outs
 
 
 def _path_prefix_cache(tcache, path, idx, depth, quant):
@@ -1416,8 +1714,9 @@ def tree_vs_single(cfg, model, params, tcache, tokens, slots, req_paths,
 def serve_tree(cfg, model, params, quant):
     """Phase 3d: TreeServeEngine at the published width. Returns the trie
     cache of the run without the cancel (for phase 4), the tree kernel's
-    launch count of the counted chunk and its per-layer max abs error
-    against its plain versions."""
+    launch count of the counted chunk, its per-layer max abs error against
+    its plain versions, and the two runs' tokens (after the first chunk,
+    and at the end of each run) for phase 3e."""
     import numpy as np
     import torch
     from repro_torch.configs import TreeConfig
@@ -1452,6 +1751,7 @@ def serve_tree(cfg, model, params, quant):
     torch.cuda.synchronize()
     admit_s = time.perf_counter() - t0
     st_b = eng_b.step_chunk(params, st_b, TREE_STEPS)
+    outs = {"first": _copy_outputs(eng_b)}
     # run A, counted: the same admissions, then the same chunk
     eng, st, slots_a = start()
     check(slots_a == slots, "the two runs assigned different slots")
@@ -1532,8 +1832,408 @@ def serve_tree(cfg, model, params, quant):
     check(same, "the cancel and readmit moved another request's tokens")
     check(all(len(eng.outputs[s]) == TREE_MORE + 1 for s in s_new),
           "readmitted slots' outputs")
+    outs.update(a=_copy_outputs(eng), b=_copy_outputs(eng_b))
     del eng, st
-    return st_b.cache, counts[kname], path_err
+    return st_b.cache, counts[kname], path_err, outs
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: the paged pool at the published width
+# ---------------------------------------------------------------------------
+
+PAGE = 128                  # phase 3e's page size, tokens
+PAGED_FOREST_PAGES = 160    # below the forest's envelope of 4 x 64 pages
+
+
+def _paged_kname(quant):
+    return ("paged_fused_bifurcated_decode_q8" if quant
+            else "paged_fused_bifurcated_decode")
+
+
+def paged_vs_plain(cfg, model, params, cache, tokens, tag, dense=None):
+    """One decode step of a paged cache, per layer on the paged stream's
+    own input: the paged kernel against its plain versions and, given
+    ``dense(i, layer, h)`` (the dense kernel path's attention on the same
+    input), against that. Returns the kernel-vs-plain max abs error."""
+    from repro_torch.kernels import bifurcated_decode as bd
+    from repro_torch.models import blocks
+
+    store = cache.store
+    pools = {"k_pages": store.k_pages, "v_pages": store.v_pages}
+    if hasattr(store, "k_scale_pages"):
+        pools.update(k_scale_pages=store.k_scale_pages,
+                     v_scale_pages=store.v_scale_pages)
+    paths, dec_lens = cache.slot_paths(), cache.slot_dec_lens()
+    ctx_lens_b = cache.slot_context_lens()
+    plain_err = [0.0, 0.0]      # max abs error, and its share of max |out|
+    dense_err = [0.0, 0.0]
+    on_cuda = bd._on_cuda
+
+    def paged_attn(i, layer, h, plain=False):
+        lc = {n: t[i] for n, t in pools.items()}
+        lc.update(k_dec=cache.k_dec[i].clone(), v_dec=cache.v_dec[i].clone())
+        if plain:
+            bd._on_cuda = lambda *t: False
+        try:
+            return blocks.attention_decode_paged(
+                cfg, layer["attn"], h, lc, page_tables=store.page_tables,
+                seg_lens=store.seg_lens, paths=paths, ctx_lens_b=ctx_lens_b,
+                dec_lens=dec_lens, impl="kernel")
+        finally:
+            bd._on_cuda = on_cuda
+
+    def attn(i, layer, h):
+        o = paged_attn(i, layer, h)
+        ok, err, rel = within(o, paged_attn(i, layer, h, plain=True))
+        check(ok, f"{tag} layer {i}: paged kernel attention disagrees with "
+                  f"its plain versions ({rel:.2e} of max |out|)")
+        plain_err[:] = max(plain_err[0], err), max(plain_err[1], rel)
+        if dense is not None:
+            ok, err, rel = within(o, dense(i, layer, h))
+            check(ok, f"{tag} layer {i}: paged kernel attention disagrees "
+                      f"with the dense kernel path ({rel:.2e} of max |out|)")
+            dense_err[:] = max(dense_err[0], err), max(dense_err[1], rel)
+        return o
+
+    _per_layer_residual(cfg, model, params, model._embed(params, tokens), attn)
+    print(f"{tag}: per-layer attention on the paged stream's input, paged "
+          f"kernel vs its plain versions max_abs_err={plain_err[0]:.3e} "
+          f"({plain_err[1]:.2e} of max |out|)"
+          + (f", vs the dense kernel path max_abs_err={dense_err[0]:.3e} "
+             f"({dense_err[1]:.2e})" if dense is not None else "")
+          + f" (gates 2e-2, {cfg.n_layers} layers)")
+    return plain_err[0]
+
+
+def serve_paged_single(cfg, model, params, ctx, dense_tokens, dense_cache,
+                       warm_tokens, quant):
+    """Phase 3e, single prefix: ServeEngine(ctx_store="paged") on phase
+    3's (3b's) workload; the paged kernel must launch 24 x 15 times, the
+    tokens are compared with the dense kernel path's, and one decode step
+    (after phase 3's WARM_STEPS tokens) is held per layer against the
+    paged plain versions and the dense kernel path on the same input.
+    Returns the paged cache (for phase 4), the launch count and the
+    per-layer kernel-vs-plain max abs error."""
+    import torch
+    from repro_torch.configs import ServeConfig
+    from repro_torch.core.paged import PagedBifurcatedCache
+    from repro_torch.kernels.ops import live_page_list
+    from repro_torch.models import blocks
+    from repro_torch.runtime.serve import ServeEngine
+
+    tag = "serve paged int8" if quant else "serve paged"
+    kname = _paged_kname(quant)
+    scfg = ServeConfig(batch=BATCH, context_len=CONTEXT,
+                       decode_capacity=max(16, STEPS + 8), bifurcated=True,
+                       use_kernel=True,
+                       cache_dtype="int8" if quant else "bfloat16",
+                       ctx_store="paged", page_size=PAGE)
+    engine = ServeEngine(model, cfg, scfg)
+    engine.generate(params, ctx, n_steps=2)      # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    result = engine.generate(params, ctx, n_steps=STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    print(f"{tag}: generate launches {counts}")
+    expect_launches(counts, kname, cfg.n_layers * (STEPS - 1))
+    toks, lps = result.tokens, result.logprobs
+    check(tuple(toks.shape) == (BATCH, STEPS), f"tokens {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "token range")
+    check(bool(torch.isfinite(lps).all() and (lps <= 0).all()), "logprobs")
+    same = bool(torch.equal(toks, dense_tokens))
+    n_diff = int((toks != dense_tokens).sum())
+    t0 = time.perf_counter()
+    _, cache = engine.prefill_shared(params, ctx, BATCH)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(isinstance(cache, PagedBifurcatedCache), "paged cache family")
+    store = cache.store
+    n_pages = CONTEXT // PAGE
+    n_live = int(live_page_list(store.page_tables, store.seg_lens,
+                                PAGE)[2][0])
+    check(store.num_pages == n_pages and n_live == n_pages,
+          f"pool of {store.num_pages} pages, {n_live} live")
+    print(f"{tag}: generate {wall * 1e3:.1f} ms = prefill {prefill_s * 1e3:.1f}"
+          f" ms + {STEPS - 1} decode steps at "
+          f"{(wall - prefill_s) / (STEPS - 1) * 1e3:.2f} ms/step on "
+          f"{CARD[0]}; context on {n_live} pages of {PAGE}; tokens "
+          f"bit-identical to the dense {'int8 ' if quant else ''}kernel "
+          f"path's: {same} ({n_diff} of {toks.numel()} differ)")
+    for t in range(WARM_STEPS):
+        _, cache = model.decode_step(params, cache, warm_tokens[:, t:t + 1],
+                                     impl="kernel")
+    check(cache.dec_length == dense_cache.dec_length, "decode depths")
+    position = CONTEXT + cache.dec_length
+    names = ("k_ctx", "v_ctx") + (("k_scale", "v_scale") if quant else ())
+
+    def dense(i, layer, h):
+        lc = {n: getattr(dense_cache, n)[i] for n in names}
+        lc.update(k_dec=dense_cache.k_dec[i].clone(),
+                  v_dec=dense_cache.v_dec[i].clone())
+        return blocks.attention_decode(cfg, layer["attn"], h, lc,
+                                       position=position, bifurcated=True,
+                                       impl="kernel")
+
+    err = paged_vs_plain(cfg, model, params, cache,
+                         warm_tokens[:, WARM_STEPS:WARM_STEPS + 1], tag,
+                         dense)
+    return cache, counts[kname], err
+
+
+def serve_paged_forest(cfg, model, params, quant, dense_outs):
+    """Phase 3e, forest: ForestServeEngine(ctx_store="paged") at phase 3c's
+    shapes over a pool of PAGED_FOREST_PAGES pages, below the envelope: the
+    4000-token readmission raises PoolExhausted before the retire (and
+    mutates nothing) and fits after it into freed pages, which are filled
+    with NaN first. Returns the per-layer kernel-vs-plain max abs
+    error."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ForestConfig
+    from repro_torch.core.errors import PoolExhausted
+    from repro_torch.kernels.ops import live_page_list
+    from repro_torch.runtime.serve import ForestServeEngine
+
+    tag = "serve paged forest" + (" int8" if quant else "")
+    kname = _paged_kname(quant)
+    fcfg = ForestConfig(n_groups=4, slots=BATCH, ctx_capacity=CONTEXT,
+                        decode_capacity=FOREST_DEC_CAP, use_kernel=True,
+                        cache_dtype="int8" if quant else "bfloat16",
+                        ctx_store="paged", page_size=PAGE,
+                        num_pages=PAGED_FOREST_PAGES)
+    rng = np.random.RandomState(1)       # phase 3c's prompts
+    ctxs = [torch.as_tensor(rng.randint(0, cfg.vocab_size, (1, m)),
+                            device=DEVICE) for m in FOREST_LENS]
+    new_ctx = torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                          (1, READMIT_LEN)), device=DEVICE)
+    pages = [-(-m // PAGE) for m in FOREST_LENS]
+
+    def start():
+        eng = ForestServeEngine(model, cfg, fcfg)
+        st = eng.init_state(device=DEVICE)
+        slots = []
+        for c in ctxs:
+            st, s = eng.admit(params, st, c, BATCH // len(ctxs))
+            slots.append(s)
+        return eng, st, slots
+
+    eng_b, st_b, slots = start()
+    st_b = eng_b.step_chunk(params, st_b, FOREST_STEPS)
+    eng, st, slots_a = start()
+    check(slots_a == slots, "the two runs assigned different slots")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    st = eng.step_chunk(params, st, FOREST_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    print(f"{tag}: 4 admissions onto {sum(pages)} pages of a "
+          f"{PAGED_FOREST_PAGES}-page pool (envelope {4 * CONTEXT // PAGE}); "
+          f"{FOREST_STEPS} steps {wall * 1e3:.1f} ms "
+          f"({wall / FOREST_STEPS * 1e3:.2f} ms/step); launches {counts}")
+    expect_launches(counts, kname, cfg.n_layers * FOREST_STEPS)
+    check(eng.outputs == eng_b.outputs, "two identical runs differ")
+    first_same = _copy_outputs(eng) == dense_outs["first"]
+    err = paged_vs_plain(cfg, model, params, st_b.cache, st_b.tokens, tag)
+
+    store = st.cache.store
+
+    def n_live():
+        return int(live_page_list(store.page_tables, store.seg_lens,
+                                  PAGE)[2][0])
+
+    def snapshot():
+        return (eng.page_alloc.state_dict(), list(eng.group_live),
+                dict(eng.group_pages), list(eng.slot_group),
+                store.page_tables.clone(), store.seg_lens.clone())
+
+    free0, live0 = eng.page_alloc.free_count(), n_live()
+    check(free0 == PAGED_FOREST_PAGES - sum(pages) and live0 == sum(pages),
+          f"free {free0}, live {live0}")
+    before = snapshot()
+    try:
+        eng.admit(params, st, new_ctx, BATCH // len(ctxs))
+    except PoolExhausted:
+        exhausted = True
+    else:
+        exhausted = False
+    check(exhausted, f"the {READMIT_LEN}-token readmission did not raise "
+                     f"PoolExhausted on {free0} free pages")
+    check(all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+              for a, b in zip(before, snapshot())),
+          "the rejected admission mutated the engine")
+    st = eng.cancel_group(st, 2)
+    check(eng.retire_groups(st) == [2], "retire")
+    free1, live1 = eng.page_alloc.free_count(), n_live()
+    st = eng.release_retired(st)
+    live2 = n_live()
+    check(free1 == free0 + pages[2] and live1 == live0
+          and live2 == live0 - pages[2],
+          f"after the retire: free {free1}, live {live1} -> {live2}")
+    # every free page (the retired group's among them) filled with NaN
+    # (int8 values 127 and NaN scales): the readmission overwrites the pages
+    # it takes, and no other may ever be read
+    free_ids = torch.tensor(eng.page_alloc.free_pages(), device=DEVICE)
+    for pool in (store.k_pages, store.v_pages):
+        pool[:, free_ids] = 127 if quant else float("nan")
+    if quant:
+        store.k_scale_pages[:, free_ids] = float("nan")
+        store.v_scale_pages[:, free_ids] = float("nan")
+    t0 = time.perf_counter()
+    st, s_new = eng.admit(params, st, new_ctx, BATCH // len(ctxs))
+    torch.cuda.synchronize()
+    readmit_s = time.perf_counter() - t0
+    need = -(-READMIT_LEN // PAGE)
+    free2, live3 = eng.page_alloc.free_count(), n_live()
+    check(s_new == slots[2] and free2 == free1 - need
+          and live3 == live2 + need,
+          f"readmission: slots {s_new}, free {free2}, live {live3}")
+    st = eng.step_chunk(params, st, FOREST_MORE)
+    st_b = eng_b.step_chunk(params, st_b, FOREST_MORE)
+    same = all(eng.outputs[s] == eng_b.outputs[s]
+               for gi in (0, 1, 3) for s in slots[gi])
+    check(all(np.isfinite(eng.logps[s]).all() and
+              len(eng.outputs[s]) == FOREST_MORE + 1 for s in s_new),
+          "readmitted slots' outputs")
+    dense_same = (first_same and _copy_outputs(eng) == dense_outs["a"]
+                  and _copy_outputs(eng_b) == dense_outs["b"])
+    print(f"{tag}: a {READMIT_LEN}-token readmission on {free0} free pages "
+          f"raised PoolExhausted and mutated nothing; group 2 cancelled and "
+          f"retired (free pages {free0} -> {free1}), release_retired: live "
+          f"pages {live1} -> {live2}; {len(free_ids)} free pages filled with "
+          f"NaN; readmitted in {readmit_s * 1e3:.1f} ms onto {need} pages "
+          f"(free {free2}, live {live3}); {FOREST_MORE} more steps: "
+          f"untouched groups' tokens bit-identical to the run without "
+          f"retirement: {same}; every token equal to phase 3c's dense "
+          f"forest: {dense_same}")
+    check(same, "the retire and readmit moved another group's tokens")
+    check(dense_same, "the paged forest's tokens differ from the dense "
+                      "forest's")
+    del eng, st, eng_b, st_b
+    return counts[kname], err
+
+
+def serve_paged_tree(cfg, model, params, quant, dense_outs):
+    """Phase 3e, trie: TreeServeEngine(ctx_store="paged") over phase 3d's
+    trie (pages of 128: the leaves' last pages ragged): reused ancestors
+    allocate no pages, the allocator's free count follows the admits, the
+    cancel and retire, ``release_retired`` and the readmit, and every token
+    equals phase 3d's dense trie. Returns the paged trie cache of the run
+    without the cancel (for phase 4), the launch count and the per-layer
+    kernel-vs-plain max abs error."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import TreeConfig
+    from repro_torch.kernels.ops import live_page_list
+    from repro_torch.runtime.serve import TreeServeEngine
+
+    tag = "serve paged tree" + (" int8" if quant else "")
+    kname = _paged_kname(quant)
+    tcfg = TreeConfig(n_nodes=TREE_NODES, depth=TREE_DEPTH, slots=BATCH,
+                      node_capacity=TREE_CAP, decode_capacity=TREE_DEC_CAP,
+                      use_kernel=True,
+                      cache_dtype="int8" if quant else "bfloat16",
+                      ctx_store="paged", page_size=PAGE)
+    rng = np.random.RandomState(2)       # phase 3d's prompts
+    toks = {name: torch.as_tensor(rng.randint(0, cfg.vocab_size, (1, m)),
+                                  device=DEVICE)
+            for name, m in TREE_TOKENS.items()}
+    per_req = BATCH // len(TREE_REQUESTS)
+    pages = {n: -(-m // PAGE) for n, m in TREE_TOKENS.items()}
+    envelope = TREE_NODES * (TREE_CAP // PAGE)
+    want_free, seen = [], set()
+    for req in TREE_REQUESTS:
+        new = [n for n in req if n not in seen]
+        seen.update(new)
+        want_free.append((want_free[-1] if want_free else envelope)
+                         - sum(pages[n] for n in new))
+
+    def start():
+        eng = TreeServeEngine(model, cfg, tcfg)
+        st = eng.init_state(device=DEVICE)
+        slots, free = [], []
+        for req in TREE_REQUESTS:
+            st, s = eng.admit(params, st, [toks[n] for n in req], per_req)
+            slots.append(s)
+            free.append(eng.page_alloc.free_count())
+        check(free == want_free, f"free pages after the admits {free}, want "
+                                 f"{want_free} (reused ancestors cost none)")
+        return eng, st, slots
+
+    eng_b, st_b, slots = start()
+    st_b = eng_b.step_chunk(params, st_b, TREE_STEPS)
+    eng, st, slots_a = start()
+    check(slots_a == slots, "the two runs assigned different slots")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    st = eng.step_chunk(params, st, TREE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    lens, req_paths = served_trie()
+    print(f"{tag}: 4 admissions, free pages {envelope} -> "
+          f"{' -> '.join(map(str, want_free))}; {TREE_STEPS} steps "
+          f"{wall * 1e3:.1f} ms ({wall / TREE_STEPS * 1e3:.2f} ms/step) on "
+          f"{CARD[0]}; launches {counts}")
+    expect_launches(counts, kname, cfg.n_layers * TREE_STEPS)
+    check(eng.outputs == eng_b.outputs, "two identical runs differ")
+    check({n: len(ids) for n, ids in eng.node_pages.items()}
+          == {n: -(-lens[n] // PAGE) for n in range(TREE_NODES) if lens[n]},
+          f"node_pages {eng.node_pages}")
+    first_same = _copy_outputs(eng) == dense_outs["first"]
+    err = paged_vs_plain(cfg, model, params, st_b.cache, st_b.tokens, tag)
+
+    store = st.cache.store
+
+    def n_live():
+        return int(live_page_list(store.page_tables, store.seg_lens,
+                                  PAGE)[2][0])
+
+    live0, free0 = n_live(), eng.page_alloc.free_count()
+    st = eng.cancel_request(st, 1)
+    check(eng.retire_requests(st) == [1], "retire")
+    free1 = eng.page_alloc.free_count()
+    check(eng.node_refs == [3, 1, 1, 0, 2, 1, 1, 0] and 3 not in
+          eng.node_pages and free1 == free0 + pages["A2"],
+          f"after the retire: node_refs {eng.node_refs}, free {free1}")
+    st = eng.release_retired(st)
+    live1 = n_live()
+    check(live1 == live0 - pages["A2"], f"live pages {live0} -> {live1}")
+    st, s_new = eng.admit(params, st, [toks[n] for n in TREE_READMIT],
+                          per_req)
+    free2, live2 = eng.page_alloc.free_count(), n_live()
+    check(s_new == slots[1] and free2 == free1 - pages["A3"]
+          and live2 == live1 + pages["A3"]
+          and len(eng.node_pages[3]) == pages["A3"],
+          f"readmission: slots {s_new}, free {free2}, live {live2}")
+    st = eng.step_chunk(params, st, TREE_MORE)
+    st_b = eng_b.step_chunk(params, st_b, TREE_MORE)
+    same = all(eng.outputs[s] == eng_b.outputs[s]
+               for r in (0, 2, 3) for s in slots[r])
+    dense_same = (first_same and _copy_outputs(eng) == dense_outs["a"]
+                  and _copy_outputs(eng_b) == dense_outs["b"])
+    print(f"{tag}: request A2 cancelled and retired (its leaf's "
+          f"{pages['A2']} pages back: free {free0} -> {free1}), "
+          f"release_retired: live pages {live0} -> {live1}; [SYS, TPL_A, "
+          f"A3] readmitted onto {pages['A3']} pages (free {free2}, live "
+          f"{live2}); {TREE_MORE} more steps: untouched requests' tokens "
+          f"bit-identical to the run without the cancel: {same}; every "
+          f"token equal to phase 3d's dense trie: {dense_same}")
+    check(same, "the cancel and readmit moved another request's tokens")
+    check(dense_same, "the paged trie's tokens differ from the dense "
+                      "trie's")
+    del eng, st
+    return st_b.cache, counts[kname], err
+
+
+def _copy_outputs(eng):
+    """The engine's per-slot token lists, copied."""
+    return {s: list(v) for s, v in eng.outputs.items()}
 
 
 def profile_step(model, params, cache, tok, top=8):
@@ -1640,7 +2340,8 @@ def _dequantized(kq, sc):
     return (kq.float() * sc[..., None]).to(torch.bfloat16)
 
 
-def time_kernels(cfg, cache, q8cache, fcaches, tcaches, launches, errs):
+def time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches, launches,
+                 errs):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import bifurcated_decode as bd
@@ -1755,6 +2456,41 @@ def time_kernels(cfg, cache, q8cache, fcaches, tcaches, launches, errs):
         launches["fused_bifurcated_decode_q8"],
         errs["fused_bifurcated_decode_q8"], L))
 
+    # #8, #9 at the single-prefix shape: phase 3e's paged caches (the same
+    # context on 64 pages of 128), the same q, decode arms and yardsticks
+    # as #1 and #3; the bytes add the page table, its length and the paths
+    paths0 = torch.zeros(1, rows, dtype=torch.int32, device=DEVICE)
+    single_entries = []
+    for quant, kname, line, lib, nbytes in (
+            (False, "paged_fused_bifurcated_decode", 1139, fused_lib,
+             fused_bytes),
+            (True, "paged_fused_bifurcated_decode_q8", 1312, q8_lib,
+             q8_bytes)):
+        st = pcaches[quant][0].store
+        pools = ((st.k_pages, st.v_pages, st.k_scale_pages, st.v_scale_pages)
+                 if quant else (st.k_pages, st.v_pages))
+        kern = getattr(bd, kname)
+        plain = getattr(bd, kname + "_plain")
+
+        def paged(i, kern=kern, pools=pools, st=st):
+            return kern(q, *(t[i] for t in pools), st.page_tables,
+                        st.seg_lens, paths0, kd[i], vd[i], bias, **fkw)
+
+        def paged_plain(i, plain=plain, pools=pools, st=st):
+            return plain(q, *(t[i] for t in pools), st.page_tables,
+                         st.seg_lens, paths0, kd[i], vd[i], bias, **fkw)
+
+        ok, _, rel = within(lib(0)[0], paged(0))
+        print(f"time: library yardstick vs {kname} at the single-prefix "
+              f"shape {rel:.2e} of max |out| (gate 2e-2)")
+        check(ok, f"{kname}: library yardstick computes another function")
+        table_bytes = (st.page_tables.numel() + st.seg_lens.numel()
+                       + paths0.numel()) * 4
+        single_entries.append(_timed_entry(
+            kname, "paged_decode.cu", line, paged, paged_plain, lib,
+            nbytes + table_bytes, fused_flop, launches[kname], errs[kname],
+            L))
+
     # #4, #5: the forest caches of phase 3c (live lengths FOREST_LENS, 8
     # slots per segment) with their own decode arms (32 slots of capacity
     # FOREST_DEC_CAP, live up to each slot's depth, as the next step reads
@@ -1852,18 +2588,25 @@ def time_kernels(cfg, cache, q8cache, fcaches, tcaches, launches, errs):
             kname, "forest_q8_decode.cu", line, grouped, grouped_plain,
             grouped_lib, nbytes, flop, launches[kname], errs[kname], L))
     del g_k, g_v, kd, vd
-    entries += time_tree_kernels(cfg, tcaches, q, launches, errs)
-    return entries
+    tree_entries = time_tree_kernels(cfg, tcaches, pcaches, q, launches,
+                                     errs)
+    # one JSON entry per kernel: #8/#9 at the single-prefix shape (their
+    # main path); their times on the paged trie are printed above
+    return (entries + [t for t in tree_entries if t["name"].startswith("tree")]
+            + single_entries)
 
 
-def time_tree_kernels(cfg, tcaches, q, launches, errs):
+def time_tree_kernels(cfg, tcaches, pcaches, q, launches, errs):
     """#6 and #7 on the trie caches of phase 3d (7 live nodes, 10,968
-    keys; 8 slots per request), with their own decode arms (32 slots of
-    capacity TREE_DEC_CAP, live up to each slot's depth), the same q. The
-    yardstick: SDPA over [the referenced nodes' live keys ⊕ decode slots],
-    a row seeing the nodes on its path and its own live slots."""
+    keys; 8 slots per request), and #8 and #9 on phase 3e's paged trie
+    caches (the same nodes on pages of 128), each with its own decode arms
+    (32 slots of capacity TREE_DEC_CAP, live up to each slot's depth), the
+    same q. The yardstick: SDPA over [the referenced nodes' live keys ⊕
+    decode slots], a row seeing the nodes on its path and its own live
+    slots."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.core.paged import gather_pages
     from repro_torch.kernels import bifurcated_decode as bd
     from repro_torch.kernels.ops import _decode_operands
 
@@ -1872,10 +2615,14 @@ def time_tree_kernels(cfg, tcaches, q, launches, errs):
     scale, e = hd**-0.5, 2
     q4 = q[None]
     entries = []
-    for quant, kname, line in ((False, "tree_fused_bifurcated_decode", 814),
-                               (True, "tree_fused_bifurcated_decode_q8",
-                                963)):
-        tc = tcaches[quant]
+    for quant, kname, source, line in (
+            (False, "tree_fused_bifurcated_decode", "tree_decode.cu", 814),
+            (True, "tree_fused_bifurcated_decode_q8", "tree_decode.cu", 963),
+            (False, "paged_fused_bifurcated_decode", "paged_decode.cu", 1139),
+            (True, "paged_fused_bifurcated_decode_q8", "paged_decode.cu",
+             1312)):
+        paged = kname.startswith("paged")
+        tc = pcaches[quant][1] if paged else tcaches[quant]
         b, t_cd = tc.k_dec.shape[1:3]
         t_live = (torch.arange(t_cd, device=DEVICE)[None, :]
                   <= tc.dec_lens[:, None])                  # (slots, t_cd)
@@ -1897,37 +2644,62 @@ def time_tree_kernels(cfg, tcaches, q, launches, errs):
         mask = torch.cat([(path_rows[:, :, None] == key_node).any(0),
                           dec_ok], dim=1)
         slot_keys = sum(lens[n] for n in tc.paths[tc.paths >= 0].tolist())
+        if paged:
+            st = tc.store
+            pools = ((st.k_pages, st.v_pages, st.k_scale_pages,
+                      st.v_scale_pages) if quant else (st.k_pages, st.v_pages))
+            ctx_ops = (lambda i, pools=pools, st=st:
+                       tuple(t[i] for t in pools) + (st.page_tables,))
+
+            def node_keys(name, i, n, pools=pools, st=st):
+                j = ("k_ctx", "v_ctx", "k_scale", "v_scale").index(name)
+                return gather_pages(pools[j][i], st.page_tables[n:n + 1])[
+                    0, :, :lens[n]]
+        else:
+            ctx_ops = ((lambda i, tc=tc: (tc.k_ctx[i], tc.v_ctx[i],
+                                          tc.k_scale[i], tc.v_scale[i]))
+                       if quant else (lambda i, tc=tc: (tc.k_ctx[i],
+                                                        tc.v_ctx[i])))
+
+            def node_keys(name, i, n, tc=tc):
+                return getattr(tc, name)[i, n, :, :lens[n]]
         if quant:
-            ctx_k = [torch.cat([_dequantized(tc.k_ctx[i, n, :, :lens[n]],
-                                             tc.k_scale[i, n, :, :lens[n]])
+            ctx_k = [torch.cat([_dequantized(node_keys("k_ctx", i, n),
+                                             node_keys("k_scale", i, n))
                                 for n in used], dim=1) for i in range(L)]
-            ctx_v = [torch.cat([_dequantized(tc.v_ctx[i, n, :, :lens[n]],
-                                             tc.v_scale[i, n, :, :lens[n]])
+            ctx_v = [torch.cat([_dequantized(node_keys("v_ctx", i, n),
+                                             node_keys("v_scale", i, n))
                                 for n in used], dim=1) for i in range(L)]
             kds = [(kd[i].float() * scale).to(torch.bfloat16)
                    for i in range(L)]
             lib_scale = 1.0
         else:
-            ctx_k = [torch.cat([tc.k_ctx[i, n, :, :lens[n]] for n in used],
+            ctx_k = [torch.cat([node_keys("k_ctx", i, n) for n in used],
                                dim=1) for i in range(L)]
-            ctx_v = [torch.cat([tc.v_ctx[i, n, :, :lens[n]] for n in used],
+            ctx_v = [torch.cat([node_keys("v_ctx", i, n) for n in used],
                                dim=1) for i in range(L)]
             kds, lib_scale = kd, scale
         t_k = [torch.cat([ctx_k[i], kds[i]], dim=1)[None] for i in range(L)]
         t_v = [torch.cat([ctx_v[i], vd[i]], dim=1)[None] for i in range(L)]
         del ctx_k, ctx_v, kds
-        ctx_ops = ((lambda i: (tc.k_ctx[i], tc.v_ctx[i], tc.k_scale[i],
-                               tc.v_scale[i])) if quant
-                   else (lambda i: (tc.k_ctx[i], tc.v_ctx[i])))
         kern = getattr(bd, kname)
         plain = getattr(bd, kname + "_plain")
         tkw = dict(scale=scale, c_d=t_cd, pn=p)
+        lens_arg = (tc.store.seg_lens,) if paged else ()
 
-        def tree(i, kern=kern, ctx_ops=ctx_ops, kd=kd, vd=vd):
+        def tree(i, kern=kern, ctx_ops=ctx_ops, kd=kd, vd=vd,
+                 lens_arg=lens_arg):
+            if lens_arg:     # paged: pools, tables, seg_lens, paths
+                return kern(q, *ctx_ops(i), *lens_arg, path_rows, kd[i],
+                            vd[i], t_bias, **tkw)
             return kern(q, *ctx_ops(i), path_rows, node_lens, kd[i], vd[i],
                         t_bias, **tkw)
 
-        def tree_plain_(i, plain=plain, ctx_ops=ctx_ops, kd=kd, vd=vd):
+        def tree_plain_(i, plain=plain, ctx_ops=ctx_ops, kd=kd, vd=vd,
+                        lens_arg=lens_arg):
+            if lens_arg:
+                return plain(q, *ctx_ops(i), *lens_arg, path_rows, kd[i],
+                             vd[i], t_bias, **tkw)
             return plain(q, *ctx_ops(i), path_rows, node_lens, kd[i], vd[i],
                          t_bias, **tkw)
 
@@ -1937,22 +2709,27 @@ def time_tree_kernels(cfg, tcaches, q, launches, errs):
                                                   scale=lib_scale)
 
         ok, _, rel = within(tree_lib(0)[0], tree(0))
-        print(f"time: library yardstick vs {kname} {rel:.2e} of max |out| "
-              f"(gate 2e-2; {len(used)} referenced nodes, {key_node.numel()}"
-              f" keys; decode arm ld {b * t_cd}, {n_live} live slots)")
+        print(f"time: library yardstick vs {kname} on the "
+              f"{'paged ' if paged else ''}trie {rel:.2e} of max |out| "
+              f"(gate 2e-2; {len(used)} referenced nodes, "
+              f"{key_node.numel()} keys; decode arm ld {b * t_cd}, {n_live} "
+              f"live slots)")
         check(ok, f"{kname}: library yardstick computes another function")
         # what the function needs: every referenced node's live keys read
         # once (K and V; int8 plus 8 bytes of scales per key and head),
         # the live decode slots and the bias, q and the output, the path
-        # table and node_lens; the products count each row's own path
+        # table and the lengths (and, paged, the page tables); the products
+        # count each row's own path
         per_key = 2 * hd * (1 if quant else e) + (2 * 4 if quant else 0)
         nbytes = (2 * g * rows * hd * e + 2 * g * n_live * hd * e
                   + b * t_cd * 4 + g * key_node.numel() * per_key
                   + path_rows.numel() * 4 + node_lens.numel() * 4)
+        if paged:
+            nbytes += tc.store.page_tables.numel() * 4
         flop = 4 * g * p * (slot_keys + n_live) * hd
         entries.append(_timed_entry(
-            kname, "tree_decode.cu", line, tree, tree_plain_, tree_lib,
-            nbytes, flop, launches[kname], errs[kname], L))
+            kname, source, line, tree, tree_plain_, tree_lib, nbytes, flop,
+            launches[kname], errs[kname], L))
         del t_k, t_v
     return entries
 
@@ -1980,21 +2757,32 @@ def main():
     build()
     errs = check_kernels()
     cfg, model, params, ctx, tokens, cache, launches = serve()
-    q8cache, launches["fused_bifurcated_decode_q8"] = serve_int8(
+    q8cache, launches["fused_bifurcated_decode_q8"], q8tokens = serve_int8(
         cfg, model, params, ctx, tokens, cache)
-    fcaches, tcaches = {}, {}
+    fcaches, tcaches, fouts, touts = {}, {}, {}, {}
     for quant, kname in ((False, "grouped_fused_bifurcated_decode"),
                          (True, "grouped_fused_bifurcated_decode_q8")):
-        fcaches[quant], launches[kname], path_err = serve_forest(
-            cfg, model, params, quant)
+        fcaches[quant], launches[kname], path_err, fouts[quant] = \
+            serve_forest(cfg, model, params, quant)
         errs[kname] = max(errs[kname], path_err)
     for quant, kname in ((False, "tree_fused_bifurcated_decode"),
                          (True, "tree_fused_bifurcated_decode_q8")):
-        tcaches[quant], launches[kname], path_err = serve_tree(
-            cfg, model, params, quant)
+        tcaches[quant], launches[kname], path_err, touts[quant] = \
+            serve_tree(cfg, model, params, quant)
         errs[kname] = max(errs[kname], path_err)
-    entries = time_kernels(cfg, cache, q8cache, fcaches, tcaches, launches,
-                           errs)
+    pcaches = {}
+    for quant in (False, True):
+        kname = _paged_kname(quant)
+        single, launches[kname], e1 = serve_paged_single(
+            cfg, model, params, ctx, q8tokens if quant else tokens,
+            q8cache if quant else cache, tokens, quant)
+        _, e2 = serve_paged_forest(cfg, model, params, quant, fouts[quant])
+        trie, _, e3 = serve_paged_tree(cfg, model, params, quant,
+                                       touts[quant])
+        pcaches[quant] = (single, trie)
+        errs[kname] = max(errs[kname], e1, e2, e3)
+    entries = time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches,
+                           launches, errs)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))

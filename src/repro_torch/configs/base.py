@@ -104,8 +104,8 @@ class ServeConfig:
     workloads); ``use_kernel`` lowers decode layer-steps to the fused
     CUDA kernel; ``cache_dtype`` selects the context arm's storage:
     "bfloat16", or "int8" (quantized once at cache build, decoded by the
-    fused q8 kernel). ``ctx_store="paged"`` is not ported and raises
-    ``NotImplementedError`` (runtime/serve.py)."""
+    fused q8 kernel). ``ctx_store="paged"`` stores the context in a page
+    pool of ``page_size``-token pages, decoded by the paged kernel."""
 
     batch: int = 16              # samples per shared context
     context_len: int = 8192
@@ -118,7 +118,7 @@ class ServeConfig:
     # context-arm cache dtype: "bfloat16" | "int8" (quantized once at
     # cache build, core/quantized.py)
     cache_dtype: str = "bfloat16"
-    # context storage substrate: "dense" ("paged" is not ported yet)
+    # context storage substrate: "dense" | "paged" (core/paged.py)
     ctx_store: str = "dense"
     page_size: int = 128         # paged mode: tokens per pool page
     seed: int = 0
@@ -135,7 +135,8 @@ class ForestConfig:
     over free decode slots. All of this is runtime DATA: the cache's
     tensors are sized once for (slots, n_groups, ctx_capacity,
     decode_capacity) and serve any admit/retire sequence.
-    ``ctx_store="paged"`` is not ported and raises ``NotImplementedError``.
+    ``ctx_store="paged"`` stores the segments in a shared page pool of
+    ``num_pages`` pages of ``page_size`` tokens.
     """
 
     n_groups: int = 4            # context segments (G)
@@ -150,8 +151,8 @@ class ForestConfig:
     # context-segment dtype: "bfloat16" | "int8" (segments quantize once at
     # admission: write-once read-many, per prefix group)
     cache_dtype: str = "bfloat16"
-    # segment storage substrate: "dense" (fixed ctx_capacity slabs);
-    # "paged" (shared page pool) is not ported
+    # segment storage substrate: "dense" (fixed ctx_capacity slabs) |
+    # "paged" (shared page pool, core/paged.py)
     ctx_store: str = "dense"
     page_size: int = 128         # paged mode: tokens per pool page
     # paged mode: pool size in pages; None = the full table envelope
@@ -178,8 +179,8 @@ class TreeConfig:
 
     The fields of the slices not ported yet keep the reference's defaults;
     ``TreeServeEngine`` raises ``NotImplementedError`` for
-    ``ctx_store="paged"``, ``prefix_cache``, ``suffix_prefill``,
-    ``step_mode="packed"`` and any ``evict_policy`` but "lru".
+    ``prefix_cache``, ``suffix_prefill``, ``step_mode="packed"`` and any
+    ``evict_policy`` but "lru".
     """
 
     n_nodes: int = 8             # trie-node segments (N)
@@ -195,8 +196,8 @@ class TreeConfig:
     # node-segment dtype: "bfloat16" | "int8" (nodes quantize once at
     # admission: write-once read-many, per trie node)
     cache_dtype: str = "bfloat16"
-    # node storage substrate: "dense" (fixed node_capacity slabs);
-    # "paged" (shared page pool) is not ported
+    # node storage substrate: "dense" (fixed node_capacity slabs) |
+    # "paged" (shared page pool, core/paged.py)
     ctx_store: str = "dense"
     page_size: int = 128         # paged mode: tokens per pool page
     # paged mode: pool size in pages; None = the full table envelope

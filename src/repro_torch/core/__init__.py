@@ -15,6 +15,18 @@ from repro_torch.core.kv_cache import (
     PrefixTreeCache,
     update_layer_cache,
 )
+from repro_torch.core.paged import (
+    PAGED_CACHE_FAMILIES,
+    PageAllocator,
+    PagedBifurcatedCache,
+    PagedGroupedBifurcatedCache,
+    PagedKVStore,
+    PagedPrefixTreeCache,
+    QuantPagedKVStore,
+    gather_pages,
+    paged_store_family,
+    pages_needed,
+)
 from repro_torch.core.policy import BifurcationPolicy
 from repro_torch.core.quantized import (
     GroupedQuantBifurcatedCache,
@@ -53,4 +65,14 @@ __all__ = [
     "forest_cache_family",
     "tree_bifurcated_attention_q8",
     "tree_cache_family",
+    "PagedKVStore",
+    "QuantPagedKVStore",
+    "PageAllocator",
+    "PagedBifurcatedCache",
+    "PagedGroupedBifurcatedCache",
+    "PagedPrefixTreeCache",
+    "PAGED_CACHE_FAMILIES",
+    "gather_pages",
+    "pages_needed",
+    "paged_store_family",
 ]

@@ -7,6 +7,8 @@ machine-readable ``reason``, and keeps its historical base class so
 ``except ValueError`` / ``except RuntimeError`` sites still catch it.
 ``retryable`` tells a caller whether waiting for retirements can help
 (pool, segment and slot exhaustion) or not (an envelope overflow).
+``AllocatorCorruption`` (raised by ``core/paged.PageAllocator``) is the one
+invariant error ported so far.
 """
 from __future__ import annotations
 
@@ -65,6 +67,16 @@ class DecodeCapacityExceeded(CapacityError, ValueError, RuntimeError):
     retryable = False
 
 
+class AllocatorCorruption(RuntimeError):
+    """An allocator/bookkeeping INVARIANT was violated: double release,
+    release/share of an unknown or free page, refcount drift, aliased page
+    tables, free-list damage. Raised by ``PageAllocator``'s mutators (which
+    reject the operation atomically, before any state change) and by
+    ``PageAllocator.audit()``. Never retryable: it means a bug."""
+
+    reason = "allocator_corruption"
+
+
 __all__ = [
     "CapacityError",
     "PoolExhausted",
@@ -72,4 +84,5 @@ __all__ = [
     "SlotsExhausted",
     "SegmentCapacityExceeded",
     "DecodeCapacityExceeded",
+    "AllocatorCorruption",
 ]

@@ -63,6 +63,16 @@ SIGNATURES = {
         # scale, stream
         "tree_fused_bifurcated_decode_q8": [_P] * 11 + [_I] * 9 + [_F, _P],
     },
+    "paged_decode": {
+        # q, k_pages, v_pages, page_tables, seg_lens, paths, k_dec, v_dec,
+        # dec_bias, out, n_pages, n_segs, ppn, page_m, depth, g, rows, ld,
+        # hd, c_d, pn, scale, stream
+        "paged_fused_bifurcated_decode": [_P] * 10 + [_I] * 11 + [_F, _P],
+        # q, k_pages, v_pages, k_scale_pages, v_scale_pages, page_tables,
+        # seg_lens, paths, k_dec, v_dec, dec_bias, out, n_pages, n_segs,
+        # ppn, page_m, depth, g, rows, ld, hd, c_d, pn, scale, stream
+        "paged_fused_bifurcated_decode_q8": [_P] * 12 + [_I] * 11 + [_F, _P],
+    },
 }
 SOURCES = {name: CSRC / f"{name}.cu" for name in SIGNATURES}
 

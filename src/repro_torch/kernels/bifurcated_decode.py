@@ -2,10 +2,10 @@
 
 The paper's context GEMM (⟨q, K_c⟩, Eq. 3) is the memory-IO hot spot of
 shared-prefix batch decoding: K_c is the one tensor whose HBM traffic the
-technique eliminates b-fold. Seven kernels live here, written in CUDA C++
-for Hopper (``csrc/bifurcated_decode.cu``, ``csrc/forest_q8_decode.cu`` and
-``csrc/tree_decode.cu`` over the shared ``csrc/decode_common.cuh``, built
-by ``_build.py``):
+technique eliminates b-fold. Nine kernels live here, written in CUDA C++
+for Hopper (``csrc/bifurcated_decode.cu``, ``csrc/forest_q8_decode.cu``,
+``csrc/tree_decode.cu`` and ``csrc/paged_decode.cu`` over the shared
+``csrc/decode_common.cuh``, built by ``_build.py``):
 
 ``fused_bifurcated_decode`` — the deployable single-pass path. For each kv
   head, all ``rows = b*p*n`` query rows stream K_c/V_c once, then fold in
@@ -42,6 +42,17 @@ by ``_build.py``):
   [-1, N) come out NaN (the reference's einsum path clips such an id to
   node N - 1, its Pallas kernel ignores the level). Replace the Pallas
   ``_tree_fused_kernel`` / ``_tree_fused_q8_kernel``.
+
+``paged_fused_bifurcated_decode`` / ``..._q8`` — the PAGED decode: the
+  segments' keys lie in a shared (P, g, pm, hd) page pool addressed
+  through (N, ppn) int32 page tables (-1 = unallocated) with live lengths
+  ``seg_lens`` (N,), and a (depth, rows) row -> segment table: the trie
+  decode over pool pages, only live pages read. A -1 entry inside a live
+  length is a hole (its keys masked). Rows whose path holds an id outside
+  [-1, N), or a segment whose live pages name an id outside [-1, P), come
+  out NaN. The plain versions walk ``ops.live_page_list`` page by page,
+  as the reference's Pallas kernels do. Replace ``_paged_fused_kernel`` /
+  ``_paged_fused_q8_kernel``.
 
 Each wrapper takes CPU tensors to its plain PyTorch version (which walks
 the context in blocks with the same fp32 online update, ``_online_update``)
@@ -589,9 +600,208 @@ def tree_fused_bifurcated_decode_q8(q, k_ctx_q, v_ctx_q, k_scale, v_scale,
 
 tree_fused_bifurcated_decode_q8.launches = 0
 
+# ---------------------------------------------------------------------------
+# paged pool (csrc/paged_decode.cu)
+# ---------------------------------------------------------------------------
+
+def _paged_plain(q, k_pages, v_pages, k_sp, v_sp, page_tables, seg_lens,
+                 paths, k_dec, v_dec, dec_bias, *, scale, c_d, pn):
+    from repro_torch.kernels.ops import live_page_list
+
+    n_pages, _, pm, _ = k_pages.shape
+    n_segs, ppn = page_tables.shape
+    ids, segs, n_live, page_bias = live_page_list(page_tables, seg_lens, pm)
+    n_live = int(n_live[0])
+    pr = paths.long()
+    # segments whose live table entries name an id outside [-1, P)
+    needed = (seg_lens.long() + pm - 1) // pm
+    live_slot = (torch.arange(ppn, device=q.device)[None, :]
+                 < needed[:, None])
+    poisoned = (live_slot & ((page_tables < -1) | (page_tables >= n_pages))
+                ).any(1)
+    in_table = (pr >= 0) & (pr < n_segs)
+    bad = (((pr < -1) | (pr >= n_segs))
+           | (in_table & poisoned[pr.clamp(0, n_segs - 1)])).any(0)
+    qf = q.float()
+    acc, m, l = _init_state(q)
+    # the live pages in (segment, page) order, as the Pallas grid walks
+    # them: every row rides every page, rows off the page's segment masked
+    for i, (pid, seg) in enumerate(zip(ids[:n_live].tolist(),
+                                       segs[:n_live].tolist())):
+        if pid >= n_pages:              # outside the pool: never read
+            continue
+        on = (pr == seg).any(0)                              # (rows,)
+        s = torch.matmul(qf, k_pages[pid].float().transpose(1, 2))
+        s = s * (scale if k_sp is None else k_sp[pid][:, None, :])
+        # the ragged tail and the rows off the page's segment at NEG_INF
+        # (the reference adds the tail's bias: the same bits for any finite
+        # logit); the tail's values zeroed, as the kernel zero-fills them,
+        # so whatever a page holds past its segment never reaches the output
+        tail = page_bias[i] < 0
+        s = torch.where(tail[None, None, :] | ~on[None, :, None],
+                        torch.full((), NEG_INF, device=q.device), s)
+        v = v_pages[pid].masked_fill(tail[None, :, None], 0)
+        if k_sp is None:
+            acc, m, l = _online_update(s, v, acc, m, l)
+        else:
+            acc, m, l = _online_update(s, v.float(), acc, m, l,
+                                       p_scale=v_sp[pid][:, None, :])
+    out = _decode_arm_and_flush(q, k_dec, v_dec, dec_bias, acc, m, l,
+                                scale=scale, c_d=c_d, pn=pn)
+    return out.masked_fill(bad[None, :, None], float("nan"))
+
+
+def paged_fused_bifurcated_decode_plain(q, k_pages, v_pages, page_tables,
+                                        seg_lens, paths, k_dec, v_dec,
+                                        dec_bias, *, scale: float, c_d: int,
+                                        pn: int) -> torch.Tensor:
+    """Plain PyTorch version of ``paged_fused_bifurcated_decode``: the
+    reference's page walk. Every live page of ``ops.live_page_list``, in
+    (segment, page) order, folds into the running state of all rows, its
+    ragged tail biased to NEG_INF and the rows whose path does not hold
+    its segment masked; then the decode arm as in the fused version."""
+    return _paged_plain(q, k_pages, v_pages, None, None, page_tables,
+                        seg_lens, paths, k_dec, v_dec, dec_bias, scale=scale,
+                        c_d=c_d, pn=pn)
+
+
+def paged_fused_bifurcated_decode_q8_plain(q, k_pages_q, v_pages_q,
+                                           k_scale_pages, v_scale_pages,
+                                           page_tables, seg_lens, paths,
+                                           k_dec, v_dec, dec_bias, *,
+                                           scale: float, c_d: int, pn: int
+                                           ) -> torch.Tensor:
+    """Plain PyTorch version of ``paged_fused_bifurcated_decode_q8``: the
+    page walk over int8 pages, the logits scaled by the page's k scales
+    (logit scale folded) and the weights by its v scales, ``l`` unscaled."""
+    return _paged_plain(q, k_pages_q, v_pages_q, k_scale_pages,
+                        v_scale_pages, page_tables, seg_lens, paths, k_dec,
+                        v_dec, dec_bias, scale=scale, c_d=c_d, pn=pn)
+
+
+def _check_paged(q, k_pages, v_pages, page_tables, seg_lens, paths,
+                 k_sp=None, v_sp=None):
+    """A (P, g, pm, hd) pool fitting q (int8 with (P, g, pm) f32 scales
+    when ``k_sp`` is given, else q's dtype), (N, ppn) int32 page tables,
+    (N,) int32 lengths and a (depth, rows) int32 path table."""
+    if q.ndim != 3:
+        raise ValueError(f"want q (g, rows, hd); got {tuple(q.shape)}")
+    g, rows, hd = q.shape
+    if (k_pages.ndim != 4 or v_pages.shape != k_pages.shape
+            or k_pages.shape[1] != g or k_pages.shape[3] != hd
+            or k_pages.shape[0] < 1 or k_pages.shape[2] < 1):
+        raise ValueError(f"page pool {tuple(k_pages.shape)} / "
+                         f"{tuple(v_pages.shape)} does not fit q "
+                         f"{tuple(q.shape)}: want (P, g, pm, hd), P, pm >= 1")
+    if k_pages.shape[0] * g * k_pages.shape[2] >= 2**31:
+        raise ValueError(f"page pool {tuple(k_pages.shape)}: the kernels "
+                         f"address fewer than 2^31 key rows (P * g * pm)")
+    if k_sp is None:
+        if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+            raise TypeError("page pool must have the query's dtype")
+    else:
+        if (k_sp.shape != k_pages.shape[:3] or v_sp.shape != k_sp.shape):
+            raise ValueError(f"scale pages {tuple(k_sp.shape)} do not fit "
+                             f"the pool {tuple(k_pages.shape)}")
+        if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
+            raise TypeError("int8 page pool values must be int8")
+        if k_sp.dtype != torch.float32 or v_sp.dtype != torch.float32:
+            raise TypeError("scale pages must be float32")
+    n_segs = page_tables.shape[0] if page_tables.ndim == 2 else -1
+    if (page_tables.ndim != 2 or min(page_tables.shape) < 1
+            or seg_lens.shape != (n_segs,) or paths.ndim != 2
+            or paths.shape[1] != rows):
+        raise ValueError(f"page_tables {tuple(page_tables.shape)} / "
+                         f"seg_lens {tuple(seg_lens.shape)} / paths "
+                         f"{tuple(paths.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if not 1 <= paths.shape[0] <= MAX_TREE_DEPTH or n_segs > MAX_TREE_NODES:
+        raise ValueError(f"paths of depth {paths.shape[0]} over {n_segs} "
+                         f"segments: the kernels take depth "
+                         f"1..{MAX_TREE_DEPTH} and at most {MAX_TREE_NODES}"
+                         f" segments")
+    if (page_tables.dtype != torch.int32 or seg_lens.dtype != torch.int32
+            or paths.dtype != torch.int32):
+        raise TypeError("page_tables, seg_lens and paths must be int32")
+
+
+def paged_fused_bifurcated_decode(q, k_pages, v_pages, page_tables, seg_lens,
+                                  paths, k_dec, v_dec, dec_bias, *,
+                                  scale: float, c_d: int, pn: int
+                                  ) -> torch.Tensor:
+    """Single-pass paged decode; returns the normalised (g, rows, hd).
+
+      q:             (g, rows, hd), rows = b * p * n, row r of slot r // pn
+      k_pages/v_pages: (P, g, pm, hd) one layer's page pool, q's dtype
+      page_tables:   (N, ppn) int32 — pool page per (segment, page slot),
+                     -1 unallocated
+      seg_lens:      (N,) int32 — live length of each segment
+      paths:         (depth, rows) int32 — the segment each row reads at
+                     each level, -1 for a level it does not use
+      k_dec/v_dec:   (g, b * c_d, hd); dec_bias (1, b * c_d) f32
+    Only live pages of segments on some path are read; a -1 entry inside a
+    live length is a hole, its keys masked. Rows whose path holds an id
+    outside [-1, N), or a segment whose live pages name an id outside
+    [-1, P), come out NaN: page ids are device data, so the kernel checks
+    them itself instead of the wrapper reading them back."""
+    _check_paged(q, k_pages, v_pages, page_tables, seg_lens, paths)
+    ld = _check_decode_arm(q, k_dec, v_dec, dec_bias, c_d, pn)
+    ops = (q, k_pages, v_pages, page_tables, seg_lens, paths, k_dec, v_dec,
+           dec_bias)
+    _check_contiguous(*ops)
+    if not _on_cuda(*ops):
+        return paged_fused_bifurcated_decode_plain(*ops, scale=scale,
+                                                   c_d=c_d, pn=pn)
+    _check_kernel_operands(q, k_pages, v_pages, k_dec, v_dec, dec_bias)
+    n_pages, g, pm, hd = k_pages.shape
+    n_segs, ppn = page_tables.shape
+    out = torch.empty_like(q)
+    _launch("paged_fused_bifurcated_decode", q.device,
+            *(t.data_ptr() for t in ops), out.data_ptr(), n_pages, n_segs,
+            ppn, pm, paths.shape[0], g, q.shape[1], ld, hd, c_d, pn,
+            float(scale))
+    paged_fused_bifurcated_decode.launches += 1
+    return out
+
+
+paged_fused_bifurcated_decode.launches = 0
+
+
+def paged_fused_bifurcated_decode_q8(q, k_pages_q, v_pages_q, k_scale_pages,
+                                     v_scale_pages, page_tables, seg_lens,
+                                     paths, k_dec, v_dec, dec_bias, *,
+                                     scale: float, c_d: int, pn: int
+                                     ) -> torch.Tensor:
+    """``paged_fused_bifurcated_decode`` over an int8 pool (P, g, pm, hd)
+    and f32 scale pages (P, g, pm), ``k_scale_pages`` with the logit scale
+    pre-folded (``scale`` applies to the decode arm only)."""
+    _check_paged(q, k_pages_q, v_pages_q, page_tables, seg_lens, paths,
+                 k_scale_pages, v_scale_pages)
+    ld = _check_decode_arm(q, k_dec, v_dec, dec_bias, c_d, pn)
+    ops = (q, k_pages_q, v_pages_q, k_scale_pages, v_scale_pages,
+           page_tables, seg_lens, paths, k_dec, v_dec, dec_bias)
+    _check_contiguous(*ops)
+    if not _on_cuda(*ops):
+        return paged_fused_bifurcated_decode_q8_plain(*ops, scale=scale,
+                                                      c_d=c_d, pn=pn)
+    _check_kernel_operands(q, k_pages_q, v_pages_q, k_dec, v_dec, dec_bias)
+    n_pages, g, pm, hd = k_pages_q.shape
+    n_segs, ppn = page_tables.shape
+    out = torch.empty_like(q)
+    _launch("paged_fused_bifurcated_decode_q8", q.device,
+            *(t.data_ptr() for t in ops), out.data_ptr(), n_pages, n_segs,
+            ppn, pm, paths.shape[0], g, q.shape[1], ld, hd, c_d, pn,
+            float(scale))
+    paged_fused_bifurcated_decode_q8.launches += 1
+    return out
+
+
+paged_fused_bifurcated_decode_q8.launches = 0
+
 # every kernel wrapper of this module, for code that reads or resets the
 # launch counts
 KERNELS = (fused_bifurcated_decode, context_flash_partials,
            fused_bifurcated_decode_q8, grouped_fused_bifurcated_decode,
            grouped_fused_bifurcated_decode_q8, tree_fused_bifurcated_decode,
-           tree_fused_bifurcated_decode_q8)
+           tree_fused_bifurcated_decode_q8, paged_fused_bifurcated_decode,
+           paged_fused_bifurcated_decode_q8)

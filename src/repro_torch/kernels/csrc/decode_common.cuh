@@ -3,11 +3,14 @@
 // kernel template that every decode kernel of the port instantiates
 // (bifurcated_decode.cu: the single-prefix bf16 kernels;
 // forest_q8_decode.cu: the int8-context and multi-prefix kernels;
-// tree_decode.cu: the prefix-trie kernels). All take bf16 queries.
+// tree_decode.cu: the prefix-trie kernels; paged_decode.cu: the paged-pool
+// kernels). All take bf16 queries.
 //
 // One CTA of kThreads threads serves a tile of kRowTile query rows of one
 // kv head (and, in the grouped kernels, one context segment; in the tree
-// kernels, every trie node on its rows' paths). Each warp
+// and paged kernels, every trie node or segment on its rows' paths). In
+// the paged kernels each key row is addressed through its segment's page
+// table (PageMap). Each warp
 // owns 16 rows; its running fp32 state (max, sumexp, acc) stays in
 // registers. Keys stream in blocks of kBlockN through a two-stage
 // cp.async ring in shared memory; both products run on the tensor cores
@@ -46,11 +49,30 @@ constexpr int kBlockN = 64;             // keys per staged block
 constexpr int kPad = 8;                 // bf16 padding per smem row (16 B)
 
 // How a kernel's rows find their context: one shared context (kSingle),
-// one segment per row (kGrouped), or every node on a row's trie path
-// (kTree).
-enum : int { kSingle = 0, kGrouped = 1, kTree = 2 };
-constexpr int kMaxDepth = 32;           // tree: path-table height
-constexpr int kMaxNodes = 65536;        // tree: node-set bitmap, 8 KB
+// one segment per row (kGrouped), every node on a row's trie path (kTree),
+// or every segment on a row's path, stored in pool pages (kPaged).
+enum : int { kSingle = 0, kGrouped = 1, kTree = 2, kPaged = 3 };
+constexpr int kMaxDepth = 32;           // tree, paged: path-table height
+constexpr int kMaxNodes = 65536;        // tree, paged: node-set bitmap, 8 KB
+
+// Where the keys of one paged segment lie: its page-table row (ppn pool
+// page ids, -1 = unallocated) over a (P, g, pm, HD) pool of one layer.
+// Key `col` of kv head gi is row col % pm of page row[col / pm]. krow is
+// shared memory for the row indices of the two staged blocks (2 x kBlockN
+// ints), filled once per block by stream_arm.
+struct PageMap {
+  const int* row;
+  int pm, g, gi, n_pages;
+  int* krow;
+  // The key's row index in the pool's P * g * pm rows (and in the
+  // (P, g, pm) scale pages; the wrapper keeps that count below 2^31), or
+  // -1 for a hole (-1) or an id outside [0, P): such a key is never read
+  // and its logit is masked.
+  __device__ __forceinline__ int key_row(int col) const {
+    const int pid = row[col / pm];
+    return (pid < 0 || pid >= n_pages) ? -1 : (pid * g + gi) * pm + col % pm;
+  }
+};
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -122,45 +144,64 @@ struct Smem {
   }
 };
 
+// Memory row of the block's key r: col0 + r in a dense slab, valid below
+// `limit`; paged, the stage's row table krow (-1: not read).
+template <bool PAGED>
+__device__ __forceinline__ size_t key_row(const int* krow, int col0, int r,
+                                          int limit, bool& valid) {
+  if constexpr (PAGED) {
+    const int kr = krow[r];
+    valid = kr >= 0;
+    return valid ? static_cast<size_t>(kr) : 0;
+  } else {
+    const int col = col0 + r;
+    valid = col < limit;
+    return valid ? static_cast<size_t>(col) : 0;
+  }
+}
+
 // Stage kBlockN rows [col0, col0 + kBlockN) of bf16 K and V (row length
-// HD, rows at or past `limit` zero-filled) into shared memory.
-template <int HD>
+// HD, rows at or past `limit`, and paged holes, zero-filled) into shared
+// memory. Paged rows are addressed one by one through the block's row
+// table `krow`: a block may straddle pages.
+template <int HD, bool PAGED>
 __device__ __forceinline__ void stage_block(__nv_bfloat16* sK,
                                             __nv_bfloat16* sV,
                                             const __nv_bfloat16* k,
                                             const __nv_bfloat16* v, int col0,
-                                            int limit) {
+                                            int limit, const int* krow) {
   constexpr int SROW = HD + kPad;
   constexpr int CHUNKS = HD / 8;  // 16-byte chunks per row
   for (int c = threadIdx.x; c < kBlockN * CHUNKS; c += kThreads) {
     int r = c / CHUNKS, ch = c % CHUNKS;
-    int col = col0 + r;
-    bool valid = col < limit;
-    size_t off = valid ? static_cast<size_t>(col) * HD + ch * 8 : 0;
+    bool valid;
+    const size_t row = key_row<PAGED>(krow, col0, r, limit, valid);
+    size_t off = valid ? row * HD + ch * 8 : 0;
     cp_async16(sK + r * SROW + ch * 8, k + off, valid);
     cp_async16(sV + r * SROW + ch * 8, v + off, valid);
   }
 }
 
 // The same for an int8 block and its scale vectors (unpadded rows).
-template <int HD>
+template <int HD, bool PAGED>
 __device__ __forceinline__ void stage_block_q8(
     int8_t* qK, int8_t* qV, float* sKs, float* sVs, const int8_t* k,
-    const int8_t* v, const float* ks, const float* vs, int col0, int limit) {
+    const int8_t* v, const float* ks, const float* vs, int col0, int limit,
+    const int* krow) {
   constexpr int CHUNKS = HD / 16;
   for (int c = threadIdx.x; c < kBlockN * CHUNKS; c += kThreads) {
     int r = c / CHUNKS, ch = c % CHUNKS;
-    int col = col0 + r;
-    bool valid = col < limit;
-    size_t off = valid ? static_cast<size_t>(col) * HD + ch * 16 : 0;
+    bool valid;
+    const size_t row = key_row<PAGED>(krow, col0, r, limit, valid);
+    size_t off = valid ? row * HD + ch * 16 : 0;
     cp_async16(qK + r * HD + ch * 16, k + off, valid);
     cp_async16(qV + r * HD + ch * 16, v + off, valid);
   }
   for (int r = threadIdx.x; r < kBlockN; r += kThreads) {
-    int col = col0 + r;
-    bool valid = col < limit;
-    cp_async4(sKs + r, ks + (valid ? col : 0), valid);
-    cp_async4(sVs + r, vs + (valid ? col : 0), valid);
+    bool valid;
+    const size_t row = key_row<PAGED>(krow, col0, r, limit, valid);
+    cp_async4(sKs + r, ks + row, valid);
+    cp_async4(sVs + r, vs + row, valid);
   }
 }
 
@@ -206,13 +247,19 @@ struct WarpState {
 // say whether this thread's rows attend the arm at all; a row that does not
 // gets every logit at kNegInf (the tree kernels' node membership), and a
 // warp none of whose rows does skips the products but takes the barriers.
-template <int HD, bool DECODE, bool Q8>
+// PAGED: keys are addressed through ``pg`` (k, v, ks, vs are one layer's
+// pools): each block's row table is computed once into pg.krow (one
+// division per key, then a barrier) before its copies are issued, and a
+// key on a hole or an id outside the pool is masked like a key past
+// col_end.
+template <int HD, bool DECODE, bool Q8, bool PAGED = false>
 __device__ __forceinline__ void stream_arm(
     WarpState<HD>& st, unsigned char* smem_raw, const void* k, const void* v,
     const float* ks, const float* vs, int col_begin, int col_end, int limit,
     float scale, const float* bias, int c_d, int pn, int wrow0,
-    unsigned row_on = 3u) {
+    unsigned row_on = 3u, const PageMap& pg = PageMap{}) {
   static_assert(!(DECODE && Q8), "the decode arm is bf16");
+  static_assert(!(DECODE && PAGED), "the decode arm is dense");
   constexpr int SROW = HD + kPad;
   constexpr int STAGE = kBlockN * SROW;
   const int lane = threadIdx.x & 31;
@@ -232,15 +279,28 @@ __device__ __forceinline__ void stream_arm(
   float* sVs = sKs + 2 * kBlockN;
 
   auto stage = [&](int s, int col0) {
+    int* krow = nullptr;
+    if constexpr (PAGED) {
+      // the block's row table: stage s's slot was last read by the block
+      // before, whose iteration ended at a barrier
+      krow = pg.krow + s * kBlockN;
+      for (int r = threadIdx.x; r < kBlockN; r += kThreads) {
+        const int col = col0 + r;
+        krow[r] = col < limit ? pg.key_row(col) : -1;
+      }
+      __syncthreads();
+    }
     if constexpr (Q8) {
-      stage_block_q8<HD>(qK + s * kBlockN * HD, qV + s * kBlockN * HD,
-                         sKs + s * kBlockN, sVs + s * kBlockN,
-                         static_cast<const int8_t*>(k),
-                         static_cast<const int8_t*>(v), ks, vs, col0, limit);
+      stage_block_q8<HD, PAGED>(qK + s * kBlockN * HD, qV + s * kBlockN * HD,
+                                sKs + s * kBlockN, sVs + s * kBlockN,
+                                static_cast<const int8_t*>(k),
+                                static_cast<const int8_t*>(v), ks, vs, col0,
+                                limit, krow);
     } else {
-      stage_block<HD>(sK + s * STAGE, sV + s * STAGE,
-                      static_cast<const __nv_bfloat16*>(k),
-                      static_cast<const __nv_bfloat16*>(v), col0, limit);
+      stage_block<HD, PAGED>(sK + s * STAGE, sV + s * STAGE,
+                             static_cast<const __nv_bfloat16*>(k),
+                             static_cast<const __nv_bfloat16*>(v), col0,
+                             limit, krow);
     }
   };
 
@@ -293,6 +353,19 @@ __device__ __forceinline__ void stream_arm(
                    *reinterpret_cast<const uint32_t*>(kp + 8));
         }
       }
+      // paged: which of this thread's 16 columns hold a readable key
+      unsigned col_ok = 0xffffu;
+      if constexpr (PAGED) {
+        const int* krow = pg.krow + cur * kBlockN;
+        col_ok = 0u;
+#pragma unroll
+        for (int nt = 0; nt < kBlockN / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (krow[nt * 8 + 2 * tq + e] >= 0) col_ok |= 1u << (2 * nt + e);
+          }
+        }
+      }
       // scale, mask, and the online update of rows gr (i=0) and gr+8 (i=1)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -305,7 +378,8 @@ __device__ __forceinline__ void stream_arm(
             const int j = nt * 8 + 2 * tq + e;
             const int col = col0 + j;
             float x = s[nt][2 * i + e] * (Q8 ? kss[j] : scale);
-            bool valid = col < col_end && ((row_on >> i) & 1u);
+            bool valid = col < col_end && ((row_on >> i) & 1u) &&
+                         ((col_ok >> (2 * nt + e)) & 1u);
             if (DECODE && valid) {
               x += bias[col];
               valid = (row / pn) == (col / c_d);
@@ -373,7 +447,9 @@ struct Params {
   const float* v_scale;   // (G, g, m_c) f32 (Q8)
   const int* row_group;   // (rows,) i32 row -> segment (grouped)
   const int* ctx_lens;    // (G,) i32 live segment / node lengths
-  const int* paths;       // (depth, rows) i32 row -> node per level (tree)
+  const int* paths;       // (depth, rows) i32 row -> node per level (tree,
+                          // paged: row -> segment)
+  const int* page_tables; // (N, ppn) i32 pool page per segment page (paged)
   const void* k_dec;      // (g, ld, HD) bf16
   const void* v_dec;
   const float* dec_bias;  // (ld,) f32, 0 or kNegInf
@@ -382,7 +458,9 @@ struct Params {
   float* m;               // (g, rows) f32 (partials)
   float* l;
   int n_groups, g, rows, m_c, ld, c_d, pn;  // n_groups: G or N
-  int depth;              // path-table height (tree)
+  int depth;              // path-table height (tree, paged)
+  int ppn, page_m, n_pages;  // paged: table width, page size, pool pages;
+                             // m_c = ppn * page_m
   float scale;
 };
 
@@ -403,6 +481,22 @@ __device__ __forceinline__ void stream_segment(WarpState<HD>& st,
       st, smem_raw, kc + off * HD * elt, vc + off * HD * elt,
       Q8 ? p.k_scale + off : nullptr, Q8 ? p.v_scale + off : nullptr, 0, len,
       len, p.scale, nullptr, 1, 1, wrow0, row_on);
+}
+
+// The paged twin: the first `len` keys of segment `seg`, kv head gi, each
+// read from the pool page its page-table entry names (k_ctx/v_ctx and the
+// scales are one layer's (P, g, pm, HD) and (P, g, pm) pools).
+template <int HD, bool Q8>
+__device__ __forceinline__ void stream_paged(WarpState<HD>& st,
+                                             unsigned char* smem_raw,
+                                             const Params& p, int seg,
+                                             int gi, int len, int wrow0,
+                                             unsigned row_on, int* krow) {
+  const PageMap pg{p.page_tables + static_cast<size_t>(seg) * p.ppn,
+                   p.page_m, p.g, gi, p.n_pages, krow};
+  stream_arm<HD, false, Q8, true>(st, smem_raw, p.k_ctx, p.v_ctx, p.k_scale,
+                                  p.v_scale, 0, len, len, p.scale, nullptr,
+                                  1, 1, wrow0, row_on, pg);
 }
 
 // The operands of a fused launch over one context (the C entry points set
@@ -432,13 +526,15 @@ inline Params fused_params(const void* q, const void* k_ctx,
 }
 
 // Dynamic shared memory of one CTA: the stream's plan, then in the tree
-// kernels the tile's bad-row mask (2 words), path table (depth x kRowTile
-// ids) and node-set bitmap (one bit per node).
+// and paged kernels the tile's bad-row mask (2 words), path table (depth x
+// kRowTile ids) and node-set bitmap (one bit per node or segment), then in
+// the paged kernels the two staged blocks' row tables (2 x kBlockN ints).
 template <int HD, bool Q8, int MODE>
 int smem_bytes(const Params& a) {
   int bytes = Smem<HD>::bytes(Q8);
-  if (MODE == kTree)
+  if (MODE == kTree || MODE == kPaged)
     bytes += 4 * (2 + a.depth * kRowTile + (a.n_groups + 31) / 32);
+  if (MODE == kPaged) bytes += 4 * 2 * kBlockN;
   return bytes;
 }
 
@@ -459,11 +555,18 @@ int smem_bytes(const Params& a) {
 // m = kNegInf, and that first real block wipes it exactly (corr =
 // exp(kNegInf - m_new) = 0): the state is then bit-equal to a fresh one,
 // so at depth 1 the tree kernel computes the grouped kernel's bits.
+// kPaged: kTree over segments whose keys lie in pool pages (stream_paged),
+// each key row read from the page its segment's table names, so the same
+// logical contents give kTree's bits at any page size. A table entry of -1
+// inside a segment's live length is a hole: its keys are masked, never
+// read. A live entry outside [-1, P) is never read either, and every row
+// whose path holds its segment is written as NaN.
 template <int HD, bool FUSED, bool Q8, int MODE>
 __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
   static_assert(FUSED || (!Q8 && MODE == kSingle),
                 "partials: bf16, one segment");
   constexpr bool GROUPED = MODE == kGrouped;
+  constexpr bool PATHS = MODE == kTree || MODE == kPaged;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int gi = blockIdx.y;
   const int grp = GROUPED ? blockIdx.z : 0;
@@ -490,14 +593,15 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
     if (!__syncthreads_or(owned)) return;
     ctx_len = min(max(p.ctx_lens[grp], 0), p.m_c);
   }
-  // tree: the tile's bad-row mask, path table and node set
+  // tree, paged: the tile's bad-row mask, path table and node set
   unsigned* s_bad =
       reinterpret_cast<unsigned*>(smem_raw + Smem<HD>::bytes(Q8));
   int* s_path = reinterpret_cast<int*>(s_bad + 2);
   unsigned* s_nodes =
       reinterpret_cast<unsigned*>(s_path + p.depth * kRowTile);
   const int node_words = (p.n_groups + 31) / 32;
-  if (MODE == kTree) {
+  int* s_krow = reinterpret_cast<int*>(s_nodes + node_words);   // paged
+  if (PATHS) {
     for (int w = threadIdx.x; w < node_words; w += kThreads) s_nodes[w] = 0u;
     if (threadIdx.x < 2) s_bad[threadIdx.x] = 0u;
     __syncthreads();
@@ -510,6 +614,29 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
       }
       s_path[e] = id;
       if (id >= 0) atomicOr(&s_nodes[id >> 5], 1u << (id & 31));
+    }
+    __syncthreads();
+  }
+  if (MODE == kPaged) {
+    // a segment whose live pages name an id outside [-1, P) poisons the
+    // rows on it (the set is read by every thread alike: uniform loop)
+    for (int w = 0; w < node_words; ++w) {
+      for (unsigned bits = s_nodes[w]; bits; bits &= bits - 1u) {
+        const int seg = w * 32 + __ffs(bits) - 1;
+        const int len = min(max(p.ctx_lens[seg], 0), p.m_c);
+        const int* row = p.page_tables + static_cast<size_t>(seg) * p.ppn;
+        bool poison = false;
+        for (int j = threadIdx.x; j * p.page_m < len; j += kThreads)
+          poison |= row[j] < -1 || row[j] >= p.n_pages;
+        if (__syncthreads_or(poison)) {
+          for (int e = threadIdx.x; e < p.depth * kRowTile; e += kThreads) {
+            if (s_path[e] == seg) {
+              const int r = e % kRowTile;
+              atomicOr(&s_bad[r >> 5], 1u << (r & 31));
+            }
+          }
+        }
+      }
     }
     __syncthreads();
   }
@@ -531,7 +658,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
   st.m[0] = st.m[1] = kNegInf;
   st.l[0] = st.l[1] = 0.f;
 
-  if (MODE == kTree) {
+  if (PATHS) {
     const int la = ra - row0, lb = rb - row0;   // tile-local rows
     for (int w = 0; w < node_words; ++w) {
       for (unsigned bits = s_nodes[w]; bits; bits &= bits - 1u) {
@@ -541,9 +668,12 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
           on |= s_path[lvl * kRowTile + la] == node ? 1u : 0u;
           on |= s_path[lvl * kRowTile + lb] == node ? 2u : 0u;
         }
-        stream_segment<HD, Q8>(st, smem_raw, p, node, gi,
-                               min(max(p.ctx_lens[node], 0), p.m_c), wrow0,
-                               on);
+        const int len = min(max(p.ctx_lens[node], 0), p.m_c);
+        if constexpr (MODE == kPaged)
+          stream_paged<HD, Q8>(st, smem_raw, p, node, gi, len, wrow0, on,
+                               s_krow);
+        else
+          stream_segment<HD, Q8>(st, smem_raw, p, node, gi, len, wrow0, on);
       }
     }
   } else {
@@ -571,7 +701,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
     const size_t base = (static_cast<size_t>(gi) * rows + row) * HD;
     if (FUSED) {
       const int r = row - row0;
-      const bool bad = MODE == kTree && ((s_bad[r >> 5] >> (r & 31)) & 1u);
+      const bool bad = PATHS && ((s_bad[r >> 5] >> (r & 31)) & 1u);
       const float inv = bad ? __int_as_float(0x7fc00000)
                             : 1.f / fmaxf(st.l[i], kMinL);
 #pragma unroll
@@ -615,8 +745,9 @@ template <bool FUSED, bool Q8, int MODE>
 cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
   if (a.g <= 0 || a.rows <= 0 || a.m_c <= 0 || a.pn <= 0 || a.c_d <= 0 ||
       a.n_groups <= 0 || (MODE == kGrouped && a.n_groups > 65535) ||
-      (MODE == kTree && (a.n_groups > kMaxNodes || a.depth < 1 ||
-                         a.depth > kMaxDepth)))
+      ((MODE == kTree || MODE == kPaged) &&
+       (a.n_groups > kMaxNodes || a.depth < 1 || a.depth > kMaxDepth)) ||
+      (MODE == kPaged && (a.page_m < 1 || a.ppn < 1 || a.n_pages < 1)))
     return cudaErrorInvalidValue;
   switch (hd) {
     case 16: return launch<16, FUSED, Q8, MODE>(a, stream);

@@ -38,6 +38,18 @@ ragged node lengths, all device data. The port passes the kernels a
 (depth, rows) int32 row -> node table and ``node_lens`` (N,) int32, where
 the reference builds a lane-replicated (depth, rows, 128) table and an
 (N, m_c) bias.
+
+``paged_bifurcated_decode_attention`` / ``..._q8`` are the PAGED
+dispatchers, the general form of the family: the segments' context lives
+in a shared head-major page pool addressed through per-segment page tables,
+and a (depth, b) slot -> segment path table says what each slot reads (one
+segment with all-zero paths is the single-prefix workload, depth 1 the
+forest, the full table the trie). ``_slot_operands`` builds their operands,
+as the reference's ``_paged_operands`` does, with (depth, rows) int32 rows
+in place of its lane-replicated (depth, rows, 128) table. The kernels read
+the page tables and lengths themselves; ``live_page_list`` (the
+reference's scalar-prefetched page list) is what their plain versions
+walk.
 """
 from __future__ import annotations
 
@@ -51,6 +63,8 @@ from repro_torch.kernels.bifurcated_decode import (
     fused_bifurcated_decode_q8,
     grouped_fused_bifurcated_decode,
     grouped_fused_bifurcated_decode_q8,
+    paged_fused_bifurcated_decode,
+    paged_fused_bifurcated_decode_q8,
     tree_fused_bifurcated_decode,
     tree_fused_bifurcated_decode_q8,
 )
@@ -339,4 +353,115 @@ def tree_bifurcated_decode_attention_q8(
     out = tree_fused_bifurcated_decode_q8(
         qk, kc, vc, ks, vs, path_rows, node_lens.to(torch.int32).contiguous(),
         kd, vd, bias, scale=scale, c_d=c_d, pn=p * n)
+    return _from_rows(out, q)
+
+
+# ---------------------------------------------------------------------------
+# Paged dispatchers: page-pool caches, only live pages read
+# ---------------------------------------------------------------------------
+
+def live_page_list(page_tables: torch.Tensor, seg_lens: torch.Tensor,
+                   page_m: int):
+    """Prefix-counted LIVE page list of a paged store — pure tensor data.
+
+    page_tables: (N, ppn) int32 pool indices per segment (-1 =
+    unallocated); seg_lens: (N,) int32 live token count per segment. A
+    table entry is LIVE iff its segment needs it (slot j < ceil(seg_len /
+    page_m)) and it is allocated (>= 0). Returns
+
+      page_ids  (N*ppn,) int32 — live pool pages first, in (segment, page)
+                order, the tail repeating the last live page;
+      page_segs (N*ppn,) int32 — owning segment per entry (same padding);
+      n_live    (1,) int32     — live page count;
+      page_bias (N*ppn, page_m) f32 — 0 within the owning segment's live
+                length, NEG_INF past it (the ragged-tail mask, per entry).
+    """
+    n_seg, ppn = page_tables.shape
+    page_m = int(page_m)
+    dev = page_tables.device
+    needed = (seg_lens.long() + page_m - 1) // page_m             # ceil
+    j = torch.arange(ppn, device=dev)
+    live = (j[None, :] < needed[:, None]) & (page_tables >= 0)
+    flat_live = live.reshape(-1)
+    # stable compaction: live entries first, (segment, page) order kept
+    order = torch.sort((~flat_live).to(torch.int8), stable=True).indices
+    ids = torch.clamp(page_tables.long(), min=0).reshape(-1)[order]
+    segs = torch.arange(n_seg, device=dev).repeat_interleave(ppn)[order]
+    offs = (j * page_m).repeat(n_seg)[order]               # token offset
+    n_live = flat_live.sum()
+    last = torch.clamp(n_live - 1, min=0)
+    tail = torch.arange(n_seg * ppn, device=dev) >= n_live
+    ids = torch.where(tail, ids[last], ids)
+    segs = torch.where(tail, segs[last], segs)
+    offs = torch.where(tail, offs[last], offs)
+    valid_to = seg_lens.long()[torch.clamp(segs, 0, n_seg - 1)]
+    cols = offs[:, None] + torch.arange(page_m, device=dev)[None, :]
+    page_bias = torch.where(cols < valid_to[:, None], 0.0, NEG_INF
+                            ).to(torch.float32)
+    return (ids.to(torch.int32), segs.to(torch.int32),
+            n_live.to(torch.int32).reshape(1), page_bias)
+
+
+def paged_bifurcated_decode_attention(
+    q: torch.Tensor,           # (b, g, p, n, hd) — framework decode layout
+    k_pages: torch.Tensor,     # (P, g, pm, hd) — head-major page pool
+    v_pages: torch.Tensor,
+    page_tables: torch.Tensor, # (N, ppn) int32 — pool pages per segment
+    seg_lens: torch.Tensor,    # (N,) int32 — live (ragged) segment lengths
+    paths: torch.Tensor,       # (depth, b) int32 — slot -> segment id per
+                               #   level, -1 = level unused by that slot
+    k_dec: torch.Tensor,       # (b, c_d, g, hd)
+    v_dec: torch.Tensor,
+    dec_mask: torch.Tensor,    # (b, c_d) bool
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Paged fused decode dispatcher: one launch of the paged kernel, which
+    reads only the live pages of the segments on the slots' paths, once per
+    kv head and row tile. All paging state (pool contents, tables, lengths,
+    paths) is device data. On fully populated pages the result equals the
+    tree dispatcher's on the same logical contents."""
+    b, g, p, n, hd = q.shape
+    c_d = k_dec.shape[1]
+    scale = hd**-0.5 if scale is None else scale
+    qk, path_rows, kd, vd, bias = _slot_operands(q, paths, k_dec, v_dec,
+                                                 dec_mask)
+    out = paged_fused_bifurcated_decode(
+        qk, k_pages.contiguous(), v_pages.contiguous(),
+        page_tables.to(torch.int32).contiguous(),
+        seg_lens.to(torch.int32).contiguous(), path_rows, kd, vd, bias,
+        scale=scale, c_d=c_d, pn=p * n)
+    return _from_rows(out, q)
+
+
+def paged_bifurcated_decode_attention_q8(
+    q: torch.Tensor,           # (b, g, p, n, hd) — framework decode layout
+    k_pages_q: torch.Tensor,   # (P, g, pm, hd) int8 — quantized page pool
+    v_pages_q: torch.Tensor,
+    k_scale_pages: torch.Tensor,  # (P, g, pm) f32 — logit scale PRE-FOLDED
+    v_scale_pages: torch.Tensor,  # (P, g, pm) f32
+    page_tables: torch.Tensor, # (N, ppn) int32
+    seg_lens: torch.Tensor,    # (N,) int32
+    paths: torch.Tensor,       # (depth, b) int32 — -1 = level unused
+    k_dec: torch.Tensor,       # (b, c_d, g, hd)
+    v_dec: torch.Tensor,
+    dec_mask: torch.Tensor,    # (b, c_d) bool
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Int8 twin of ``paged_bifurcated_decode_attention``: int8 pool pages
+    and per-(token, head) f32 scale pages (k pre-folded with the logit
+    scale; ``scale`` touches the decode arm only), read by the paged q8
+    kernel."""
+    b, g, p, n, hd = q.shape
+    c_d = k_dec.shape[1]
+    scale = hd**-0.5 if scale is None else scale
+    qk, path_rows, kd, vd, bias = _slot_operands(q, paths, k_dec, v_dec,
+                                                 dec_mask)
+    out = paged_fused_bifurcated_decode_q8(
+        qk, k_pages_q.contiguous(), v_pages_q.contiguous(),
+        k_scale_pages.contiguous(), v_scale_pages.contiguous(),
+        page_tables.to(torch.int32).contiguous(),
+        seg_lens.to(torch.int32).contiguous(), path_rows, kd, vd, bias,
+        scale=scale, c_d=c_d, pn=p * n)
     return _from_rows(out, q)

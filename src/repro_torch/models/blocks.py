@@ -24,6 +24,7 @@ from repro_torch.core.bifurcated import (
 )
 from repro_torch.core.kv_cache import update_layer_cache
 from repro_torch.core.masks import mask_to_bias
+from repro_torch.core.paged import gather_pages
 from repro_torch.core.quantized import (
     bifurcated_attention_q8,
     forest_bifurcated_attention_q8,
@@ -35,6 +36,8 @@ from repro_torch.kernels.ops import (
     bifurcated_decode_attention_q8,
     grouped_bifurcated_decode_attention,
     grouped_bifurcated_decode_attention_q8,
+    paged_bifurcated_decode_attention,
+    paged_bifurcated_decode_attention_q8,
     tree_bifurcated_decode_attention,
     tree_bifurcated_decode_attention_q8,
 )
@@ -459,6 +462,85 @@ def attention_decode_tree(
         o = tree_bifurcated_attention(
             q, k_ctx, v_ctx, paths, node_lens, k_dec, v_dec,
             decode_mask=dec_valid, ctx_layout=layout)
+
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, n, cfg.n_heads_padded * hd)
+    return o @ params["wo"].to(x.dtype)
+
+
+def attention_decode_paged(
+    cfg: ModelConfig,
+    params,
+    x: torch.Tensor,
+    layer_cache: dict,
+    *,
+    page_tables: torch.Tensor,  # (N, ppn) int32 — pool pages per segment
+    seg_lens: torch.Tensor,     # (N,) int32 — live (ragged) segment lengths
+    paths: torch.Tensor,        # (depth, b) int32 — slot -> segment/level
+    ctx_lens_b: torch.Tensor,   # (b,) int32 — per-slot TOTAL path context
+    dec_lens: torch.Tensor,     # (b,) int32 — per-slot decode depth
+    impl: str = "kernel",       # kernel (paged CUDA kernel) | einsum (pages
+                                #   gathered into dense slabs -> cascade)
+) -> torch.Tensor:
+    """One incremental-decoding step for one layer over a PAGED context
+    store: the general form serving single-prefix (one segment, zero
+    paths), forest (depth-1 paths) and trie workloads alike. Returns the
+    layer's output (b, n, d) and writes the step's K/V into ``layer_cache``
+    IN PLACE.
+
+    ``layer_cache``: {"k_pages": (P, g, pm, hd), "v_pages": ...,
+    "k_dec": (b, C_d, g, hd), "v_dec": ...} — plus {"k_scale_pages",
+    "v_scale_pages"} ((P, g, pm) f32) when the pool is int8.
+
+    ``impl="kernel"`` (the default: paging exists for the kernel) runs the
+    paged CUDA kernel, which reads only live pages. ``impl="einsum"`` is
+    the reference and oracle path: it gathers the pool into dense
+    per-segment slabs (``gather_pages``) and runs the cascade einsum path
+    on them, as the reference does. Sliding-window configs are not
+    supported, as in the reference.
+    """
+    if cfg.sliding_window is not None:
+        raise NotImplementedError(
+            "paged decoding does not support sliding-window configs")
+    b, n = x.shape[:2]
+    g, hd = cfg.n_kv_heads_padded, cfg.kq_dim
+    p = cfg.n_heads_padded // g
+    dev = x.device
+    q, k_new, v_new = _project_qkv(cfg, params, x)
+    pos_b = ctx_lens_b + dec_lens                                # (b,)
+    if cfg.rope_theta > 0:
+        pos = pos_b[:, None] + torch.arange(n, device=dev)[None, :]  # (b, n)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    q = q.reshape(b, n, g, p, hd).permute(0, 2, 3, 1, 4)  # (b,g,p,n,hd)
+
+    k_dec = _scatter_decode_slots(layer_cache["k_dec"], k_new, dec_lens)
+    v_dec = _scatter_decode_slots(layer_cache["v_dec"], v_new, dec_lens)
+    cap = k_dec.shape[1]
+    slot = torch.arange(cap, device=dev)[None, :]
+    dec_valid = slot <= dec_lens[:, None] + n - 1                 # (b, C_d)
+
+    k_pages, v_pages = layer_cache["k_pages"], layer_cache["v_pages"]
+    if "k_scale_pages" in layer_cache:
+        k_sp, v_sp = layer_cache["k_scale_pages"], layer_cache["v_scale_pages"]
+        if impl == "kernel":
+            o = paged_bifurcated_decode_attention_q8(
+                q, k_pages, v_pages, k_sp, v_sp, page_tables, seg_lens,
+                paths, k_dec, v_dec, dec_valid)
+        else:
+            o = tree_bifurcated_attention_q8(
+                q, *(gather_pages(t, page_tables)
+                     for t in (k_pages, v_pages, k_sp, v_sp)),
+                paths, seg_lens, k_dec, v_dec, decode_mask=dec_valid,
+                ctx_layout="gmk")
+    elif impl == "kernel":
+        o = paged_bifurcated_decode_attention(
+            q, k_pages, v_pages, page_tables, seg_lens, paths, k_dec, v_dec,
+            dec_valid)
+    else:
+        o = tree_bifurcated_attention(
+            q, gather_pages(k_pages, page_tables),
+            gather_pages(v_pages, page_tables), paths, seg_lens, k_dec,
+            v_dec, decode_mask=dec_valid, ctx_layout="gmk")
 
     o = o.permute(0, 3, 1, 2, 4).reshape(b, n, cfg.n_heads_padded * hd)
     return o @ params["wo"].to(x.dtype)

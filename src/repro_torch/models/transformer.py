@@ -5,8 +5,9 @@ the reference (``params["layers"]``); the forward passes loop over layers
 in Python and hand each one its slice. The decode path takes the standard
 batched KV cache, the paper's ``BifurcatedCache`` or its int8 twin
 ``QuantBifurcatedCache``, a forest cache (``GroupedBifurcatedCache`` /
-``GroupedQuantBifurcatedCache``) or a trie cache (``PrefixTreeCache`` /
-``QuantPrefixTreeCache``) — the cache TYPE selects the path.
+``GroupedQuantBifurcatedCache``), a trie cache (``PrefixTreeCache`` /
+``QuantPrefixTreeCache``) or one of the paged families over a page pool
+(``core/paged.PAGED_CACHE_FAMILIES``) — the cache TYPE selects the path.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from repro_torch.core.kv_cache import (
     GroupedBifurcatedCache,
     PrefixTreeCache,
 )
+from repro_torch.core.paged import PAGED_CACHE_FAMILIES, PagedPrefixTreeCache
 from repro_torch.core.quantized import (
     GroupedQuantBifurcatedCache,
     QuantBifurcatedCache,
@@ -36,6 +38,7 @@ from repro_torch.models.blocks import (
     apply_norm,
     attention_decode,
     attention_decode_forest,
+    attention_decode_paged,
     attention_decode_tree,
     attention_train,
     init_attention,
@@ -122,6 +125,8 @@ class TransformerLM:
         """tokens: (b, n) new token ids. Returns (logits (b, n, V), cache')
         where cache' shares the input cache's tensors, updated in place."""
         cfg = self.cfg
+        if isinstance(cache, PAGED_CACHE_FAMILIES):
+            return self._decode_step_paged(params, cache, tokens, impl=impl)
         if isinstance(cache, (PrefixTreeCache, QuantPrefixTreeCache)):
             return self._decode_step_tree(params, cache, tokens, impl=impl)
         if isinstance(cache, (GroupedBifurcatedCache,
@@ -208,6 +213,58 @@ class TransformerLM:
         logits = self._unembed(params, x)
         cache.dec_lens.add_(tokens.shape[1])
         return logits, cache
+
+    def _decode_step_paged(self, params, cache, tokens, *, impl: str):
+        """Paged-store decode: b slots over a shared page POOL addressed
+        through per-segment page tables — one step for the three paged
+        families (single / forest / trie), which differ only in their
+        adapter views ``slot_paths`` / ``slot_dec_lens`` /
+        ``slot_context_lens``. The tables, lengths and paths have no layer
+        axis and are handed to every layer; ``impl="kernel"`` runs every
+        layer-step as one launch of the paged CUDA kernel (only live pages
+        read), ``impl="einsum"`` gathers dense slabs and runs the cascade
+        einsum path. The decode arms are written in place; the returned
+        cache is ``cache.advance_decode(n)``."""
+        cfg = self.cfg
+        store = cache.store
+        names = {"k_pages": store.k_pages, "v_pages": store.v_pages,
+                 "k_dec": cache.k_dec, "v_dec": cache.v_dec}
+        if hasattr(store, "k_scale_pages"):
+            names.update(k_scale_pages=store.k_scale_pages,
+                         v_scale_pages=store.v_scale_pages)
+        paths = cache.slot_paths()                  # (depth, b)
+        dec_lens = cache.slot_dec_lens()            # (b,)
+        ctx_lens_b = cache.slot_context_lens()      # (b,), once per step
+        x = self._embed(params, tokens)
+        for i in range(cfg.n_layers):
+            layer = _layer(params["layers"], i)
+            lcache = {name: t[i] for name, t in names.items()}
+            h = apply_norm(cfg, layer["ln1"], x)
+            x = x + attention_decode_paged(
+                cfg, layer["attn"], h, lcache, page_tables=store.page_tables,
+                seg_lens=store.seg_lens, paths=paths, ctx_lens_b=ctx_lens_b,
+                dec_lens=dec_lens, impl=impl)
+            x = x + apply_mlp(cfg, layer["mlp"], apply_norm(cfg, layer["ln2"], x))
+        x = apply_norm(cfg, params["final_norm"], x)
+        logits = self._unembed(params, x)
+        return logits, cache.advance_decode(tokens.shape[1])
+
+    def make_paged_cache(self, slots, n_segments, depth, node_capacity,
+                         page_m=128, num_pages=None, dec_capacity=None,
+                         ctx_quant: str = "none", *, dtype=torch.bfloat16,
+                         device="cuda"):
+        """An empty PagedPrefixTreeCache (the general paged family) for this
+        model, on ``device`` (the counterpart of the reference's abstract
+        ``make_paged_cache_spec``). ``node_capacity`` is the per-segment
+        TABLE envelope (tokens); storage is ``num_pages`` pool pages of
+        ``page_m`` tokens (default: the full envelope)."""
+        cfg = self.cfg
+        dec_capacity = dec_capacity or cfg.decode_capacity
+        return PagedPrefixTreeCache.init(
+            cfg.n_layers, n_segments, depth, slots, node_capacity,
+            dec_capacity, cfg.n_kv_heads_padded, cfg.kq_dim, dtype=dtype,
+            page_m=page_m, num_pages=num_pages, ctx_quant=ctx_quant,
+            device=resolve_device(device))
 
     def make_tree_cache(self, slots, n_nodes, depth, node_capacity,
                         dec_capacity=None, ctx_quant: str = "none", *,

@@ -23,6 +23,13 @@ on the device and reads it back once per chunk. ``TreeServeEngine``
 generalizes it to a prefix TRIE: requests are paths of shared segments,
 and a shared ancestor is stored once and read once per step however many
 requests hang below it.
+
+With ``ctx_store="paged"`` every engine stores its contexts in a shared
+page pool (core/paged.py): a context occupies ``ceil(len / page_size)``
+pages of its live length, the pool may be smaller than the envelope of
+all segments (``num_pages``, oversubscription), a ``PageAllocator`` on the
+host hands pages out and takes them back at retirement, and every decode
+layer-step runs the paged CUDA kernel, which reads only live pages.
 """
 from __future__ import annotations
 
@@ -41,12 +48,19 @@ from repro_torch.configs.base import (
 )
 from repro_torch.core.errors import (
     DecodeCapacityExceeded,
+    PoolExhausted,
     SegmentCapacityExceeded,
     SegmentsExhausted,
     SlotsExhausted,
 )
 from repro_torch.core.io_model import tree_decode_io_bytes
 from repro_torch.core.kv_cache import DecodeCache
+from repro_torch.core.paged import (
+    PageAllocator,
+    PagedBifurcatedCache,
+    PagedGroupedBifurcatedCache,
+    pages_needed,
+)
 from repro_torch.core.policy import BifurcationPolicy
 from repro_torch.core.quantized import ctx_cache_family
 
@@ -93,9 +107,7 @@ def _token_logprob(logits, tok):
 class ServeEngine:
     def __init__(self, model, cfg: ModelConfig, scfg: ServeConfig,
                  policy: Optional[BifurcationPolicy] = None):
-        if scfg.ctx_store != "dense":
-            raise NotImplementedError(
-                f"ctx_store={scfg.ctx_store!r} is not ported")
+        _check_ctx_store(scfg.ctx_store)
         self.model = model
         self.cfg = cfg
         self.scfg = scfg
@@ -119,14 +131,22 @@ class ServeEngine:
             raise NotImplementedError(f"family {cfg.family!r} is not ported")
         m_c = context_tokens.shape[1]
         logits, cache1 = model.prefill(params, context_tokens)
-        if self.should_bifurcate(batch, m_c):
+        quant = "int8" if self.scfg.cache_dtype == "int8" else "none"
+        bifurcated = self.should_bifurcate(batch, m_c)
+        if bifurcated and self.scfg.ctx_store == "paged":
+            # the context lands in a page pool of exactly
+            # ceil(m_c / page_size) pages; decode reads it through the page
+            # table (the int8 store carries the int8 and scale pages)
+            cache = PagedBifurcatedCache.from_prefill(
+                cache1.k[:, 0], cache1.v[:, 0], batch,
+                self.scfg.decode_capacity, dtype=cache1.k.dtype,
+                page_m=self.scfg.page_size, ctx_quant=quant)
+        elif bifurcated:
             # cache_dtype="int8" selects the quantized family: the context
             # arm is quantized ONCE here, the decode arm keeps the
             # activation dtype. (The policy's fallback below ignores
-            # cache_dtype, as in the reference.)
-            fam = ctx_cache_family(
-                "int8" if self.scfg.cache_dtype == "int8" else "none")
-            cache = fam.from_prefill(
+            # cache_dtype and ctx_store, as in the reference.)
+            cache = ctx_cache_family(quant).from_prefill(
                 cache1.k[:, 0], cache1.v[:, 0], batch,
                 self.scfg.decode_capacity, dtype=cache1.k.dtype,
                 ctx_layout=cfg.ctx_layout)
@@ -198,6 +218,12 @@ class ServeEngine:
                                 logprobs=logprobs)
 
 
+def _check_ctx_store(ctx_store: str):
+    if ctx_store not in ("dense", "paged"):
+        raise ValueError(f"unknown ctx_store {ctx_store!r}: 'dense' or "
+                         f"'paged'")
+
+
 def rank_by_mean_logprob(result: GenerationResult, top_k: int = 3):
     """Deduplicate + rank samples by mean log-probability (paper §5.4).
 
@@ -228,7 +254,7 @@ class ForestState:
     ``init_state``: admission never changes a shape or reallocates.
     """
 
-    cache: object              # GroupedBifurcatedCache | GroupedQuant...
+    cache: object              # a forest, trie or paged cache
     tokens: torch.Tensor       # (b, 1) int64 — last sampled token per slot
     active: torch.Tensor       # (b,) bool — slot is live (not retired/free)
     steps: torch.Tensor        # (b,) int32 — decode steps emitted per slot
@@ -244,7 +270,8 @@ class _SlotTableEngine:
     decode-capacity guard, host-side output collection with its non-finite
     sentinel — depends only on the ``ecfg`` fields shared by the slot-table
     configs (slots / temperature / top_p / use_kernel / eos_token /
-    pad_token) and on the cache's ``dec_lens`` / ``decode_capacity``.
+    pad_token, and the paged store's ctx_store / page_size / num_pages)
+    and on the cache's ``dec_lens`` / ``decode_capacity``.
     """
 
     def __init__(self, model, cfg: ModelConfig, ecfg):
@@ -259,6 +286,7 @@ class _SlotTableEngine:
         # slots whose decode output went non-finite (the sentinel in
         # _collect_emitted): their output stops being collected
         self.corrupt_slots = set()
+        self.paged = ecfg.ctx_store == "paged"
 
     # ---- decode ----
     def _decode_one(self, params, state: ForestState):
@@ -364,9 +392,22 @@ class _SlotTableEngine:
         return state
 
     def occupancy(self, state: ForestState) -> dict:
-        """Host-side utilization snapshot: live slot count."""
-        return {"live_slots": int(state.active.sum()),
-                "slots": int(self.ecfg.slots)}
+        """Host-side utilization snapshot: live slot count and, in paged
+        mode, the pool's free and total pages."""
+        occ = {"live_slots": int(state.active.sum()),
+               "slots": int(self.ecfg.slots)}
+        if self.paged:
+            occ["pages_free"] = int(self.page_alloc.free_count())
+            occ["pages_total"] = int(self.num_pages)
+        return occ
+
+    def _init_pages(self, n_segments: int, capacity: int):
+        """Paged mode's host state: the pool geometry and its allocator."""
+        ecfg = self.ecfg
+        self.pages_per_seg = pages_needed(capacity, ecfg.page_size)
+        self.num_pages = (ecfg.num_pages if ecfg.num_pages is not None
+                          else n_segments * self.pages_per_seg)
+        self.page_alloc = PageAllocator(self.num_pages)
 
 
 class ForestServeEngine(_SlotTableEngine):
@@ -391,19 +432,29 @@ class ForestServeEngine(_SlotTableEngine):
                 reusable at once (``assign_slots`` wipes their stale
                 decode arm).
 
+    With ``ctx_store="paged"`` the segments live in a page pool of
+    ``num_pages`` pages (default: the full envelope; fewer oversubscribe
+    it): admission allocates ``ceil(len / page_size)`` pages and raises
+    ``PoolExhausted`` before any mutation when too few are free;
+    retirement returns a group's pages; ``release_retired`` empties the
+    retired groups' page tables, so their pages leave the kernel's walk,
+    and every admission runs it before allocating, so no pool page is ever
+    referenced by two segments.
+
     The integrity and durability surface of the reference engine
     (segment checksums, ``audit_state``, ``host_state``) is not ported.
     """
 
     def __init__(self, model, cfg: ModelConfig, fcfg: ForestConfig):
-        if fcfg.ctx_store != "dense":
-            raise NotImplementedError(
-                f"ctx_store={fcfg.ctx_store!r} is not ported")
+        _check_ctx_store(fcfg.ctx_store)
         super().__init__(model, cfg, fcfg)
         self.fcfg = fcfg
         # host-side slot table mirrors (admission policy only)
         self.group_live = [False] * fcfg.n_groups
         self.slot_group = [-1] * fcfg.slots
+        if self.paged:
+            self._init_pages(fcfg.n_groups, fcfg.ctx_capacity)
+            self.group_pages = {}        # group id -> pool page ids
 
     # ---- lifecycle ----
     def init_state(self, device="cuda") -> ForestState:
@@ -413,9 +464,18 @@ class ForestServeEngine(_SlotTableEngine):
         fcfg = self.fcfg
         dev = resolve_device(device)
         quant = "int8" if fcfg.cache_dtype == "int8" else "none"
-        cache = self.model.make_forest_cache(
-            fcfg.slots, fcfg.n_groups, fcfg.ctx_capacity,
-            fcfg.decode_capacity, quant, dtype=torch.bfloat16, device=dev)
+        if self.paged:
+            cache = PagedGroupedBifurcatedCache.init(
+                self.cfg.n_layers, fcfg.n_groups, fcfg.slots,
+                fcfg.ctx_capacity, fcfg.decode_capacity,
+                self.cfg.n_kv_heads_padded, self.cfg.kq_dim,
+                page_m=fcfg.page_size, num_pages=self.num_pages,
+                ctx_quant=quant, device=dev)
+        else:
+            cache = self.model.make_forest_cache(
+                fcfg.slots, fcfg.n_groups, fcfg.ctx_capacity,
+                fcfg.decode_capacity, quant, dtype=torch.bfloat16,
+                device=dev)
         b = fcfg.slots
         return ForestState(
             cache=cache,
@@ -456,6 +516,13 @@ class ForestServeEngine(_SlotTableEngine):
                 f"context of {m_new} tokens exceeds the segment capacity "
                 f"{fcfg.ctx_capacity}; rejected (raise "
                 f"ForestConfig.ctx_capacity or split the request)")
+        if self.paged:
+            n_pg = pages_needed(m_new, fcfg.page_size)
+            if n_pg > self.page_alloc.free_count():
+                raise PoolExhausted(
+                    f"context of {m_new} tokens needs {n_pg} pool pages, "
+                    f"only {self.page_alloc.free_count()} of "
+                    f"{self.num_pages} free — retire first")
         free_g = self.free_groups()
         free_s = self.free_slots(state)
         if not free_g:
@@ -464,10 +531,22 @@ class ForestServeEngine(_SlotTableEngine):
             raise SlotsExhausted(
                 f"need {n_samples} free slots, have {len(free_s)}")
         gidx, slots = free_g[0], free_s[:n_samples]
+        if self.paged:
+            # pages released at retire may go to this admission: clear the
+            # retired groups' stale table rows first, so no pool page is
+            # ever referenced by two segments (after the rejections: a
+            # rejected admission mutates nothing)
+            state = self.release_retired(state)
 
         logits0, cache1 = self.model.prefill(params, context_tokens)
-        cache = state.cache.write_context(cache1.k[:, 0], cache1.v[:, 0],
-                                          gidx)
+        if self.paged:
+            page_ids = self.page_alloc.alloc(n_pg)
+            self.group_pages[gidx] = page_ids
+            cache = state.cache.write_context(cache1.k[:, 0], cache1.v[:, 0],
+                                              gidx, page_ids)
+        else:
+            cache = state.cache.write_context(cache1.k[:, 0], cache1.v[:, 0],
+                                              gidx)
         dev = state.active.device
         slot_ids = torch.as_tensor(slots, dtype=torch.long, device=dev)
         slot_mask = torch.zeros(fcfg.slots, dtype=torch.bool, device=dev)
@@ -494,7 +573,10 @@ class ForestServeEngine(_SlotTableEngine):
         the retired group ids; their slots become reusable by the next
         ``admit`` (which wipes the stale decode arms). A dense cache keeps
         the retired segment's bytes until the next admission overwrites
-        them; the kernels read only live lengths of assigned segments.
+        them; the kernels read only live lengths of assigned segments. In
+        paged mode the retired groups' pages return to the allocator at
+        once; their table rows are emptied by ``release_retired`` (or by
+        the next admission, before it allocates).
         ``active`` optionally supplies a host copy of ``state.active``."""
         if active is None:
             active = state.active.cpu()
@@ -507,11 +589,19 @@ class ForestServeEngine(_SlotTableEngine):
             if not any(bool(active[s]) for s in slots):
                 self.group_live[g] = False
                 retired.append(g)
+                if self.paged:
+                    self.page_alloc.release(self.group_pages.pop(g, []))
         return retired
 
     def release_retired(self, state: ForestState) -> ForestState:
-        """Paged mode clears retired groups' page tables; the dense store
-        has nothing to release: identity."""
+        """Paged mode: empty the page-table rows of every non-live group,
+        in place, so their pages leave the decode kernel's walk (a freed
+        segment costs zero decode bytes). The dense store has nothing to
+        release. Returns ``state``."""
+        if self.paged:
+            for g in range(self.fcfg.n_groups):
+                if not self.group_live[g]:
+                    state.cache.free_group(g)
         return state
 
     # ---- robustness surface ----
@@ -560,16 +650,21 @@ class TreeServeEngine(_SlotTableEngine):
                 references it: shared ancestors survive their children.
 
     With every request a single segment (depth-1 paths) this engine serves
-    the flat forest's workload. Not ported here: the paged store, the
-    cross-request prefix cache, suffix-only prefill, the packed step
-    (``TreeConfig`` knobs that raise ``NotImplementedError``), and the
-    integrity and durability surface of the reference engine (segment
-    checksums, ``audit_state``, ``host_state``).
+    the flat forest's workload. With ``ctx_store="paged"`` the nodes live in
+    a page pool, as the forest's segments do: only NEW nodes allocate
+    pages (a reused ancestor costs none), a node's pages return to the
+    allocator when its refcount reaches zero, and ``release_retired``
+    empties freed nodes' table rows (every admission runs it before
+    allocating). Not ported here: the cross-request prefix cache,
+    suffix-only prefill, the packed step (``TreeConfig`` knobs that raise
+    ``NotImplementedError``), and the integrity and durability surface of
+    the reference engine (segment checksums, ``audit_state``,
+    ``host_state``).
     """
 
     def __init__(self, model, cfg: ModelConfig, tcfg: TreeConfig):
+        _check_ctx_store(tcfg.ctx_store)
         for knob, value, ported in (
-                ("ctx_store", tcfg.ctx_store, "dense"),
                 ("prefix_cache", tcfg.prefix_cache, False),
                 ("suffix_prefill", tcfg.suffix_prefill, False),
                 ("step_mode", tcfg.step_mode, "decode"),
@@ -599,18 +694,33 @@ class TreeServeEngine(_SlotTableEngine):
                              "partial_hits": 0, "reused_tokens": 0,
                              "new_tokens": 0, "computed_tokens": 0,
                              "evictions": 0}
+        if self.paged:
+            self._init_pages(tcfg.n_nodes, tcfg.node_capacity)
+            # node id -> pool page ids; an ancestor's pages are allocated
+            # at its first admission and freed with the node itself
+            self.node_pages = {}
 
     # ---- lifecycle ----
     def init_state(self, device="cuda") -> ForestState:
         """The empty slot table and trie cache on ``device`` (CUDA unless
-        the caller asks for the CPU). The bf16 family's nodes and both
-        families' decode arms are stored in bf16, as in the reference."""
+        the caller asks for the CPU): a ``PrefixTreeCache`` / its int8 twin,
+        or under ``ctx_store="paged"`` a ``PagedPrefixTreeCache`` over the
+        page pool. The bf16 families' nodes and every decode arm are stored
+        in bf16, as in the reference."""
         tcfg = self.tcfg
         dev = resolve_device(device)
         quant = "int8" if tcfg.cache_dtype == "int8" else "none"
-        cache = self.model.make_tree_cache(
-            tcfg.slots, tcfg.n_nodes, tcfg.depth, tcfg.node_capacity,
-            tcfg.decode_capacity, quant, dtype=torch.bfloat16, device=dev)
+        if self.paged:
+            cache = self.model.make_paged_cache(
+                tcfg.slots, tcfg.n_nodes, tcfg.depth, tcfg.node_capacity,
+                page_m=tcfg.page_size, num_pages=self.num_pages,
+                dec_capacity=tcfg.decode_capacity, ctx_quant=quant,
+                dtype=torch.bfloat16, device=dev)
+        else:
+            cache = self.model.make_tree_cache(
+                tcfg.slots, tcfg.n_nodes, tcfg.depth, tcfg.node_capacity,
+                tcfg.decode_capacity, quant, dtype=torch.bfloat16,
+                device=dev)
         b = tcfg.slots
         return ForestState(
             cache=cache,
@@ -717,6 +827,20 @@ class TreeServeEngine(_SlotTableEngine):
         if len(free_s) < n_samples:
             raise SlotsExhausted(
                 f"need {n_samples} free slots, have {len(free_s)}")
+        if self.paged:
+            # admission gates on allocatable pool pages before any prefill
+            # work: reused ancestors cost zero new pages
+            n_pg = sum(pages_needed(int(s.shape[1]), tcfg.page_size)
+                       for s in new_segs)
+            if n_pg > self.page_alloc.free_count():
+                raise PoolExhausted(
+                    f"request needs {n_pg} pool pages for "
+                    f"{len(new_segs)} new node(s), only "
+                    f"{self.page_alloc.free_count()} of {self.num_pages} "
+                    f"free — retire first")
+            # freed nodes' pages may go to this admission: clear their
+            # stale table rows first (after the rejections)
+            state = self.release_retired(state)
         slots = free_s[:n_samples]
 
         total = sum(int(s.shape[1]) for s in segments)
@@ -739,8 +863,14 @@ class TreeServeEngine(_SlotTableEngine):
         for seg in new_segs:
             nid = free_n.pop(0)
             m = int(seg.shape[1])
-            cache.write_node(cache1.k[:, 0, offset:offset + m],
-                             cache1.v[:, 0, offset:offset + m], nid)
+            k = cache1.k[:, 0, offset:offset + m]
+            v = cache1.v[:, 0, offset:offset + m]
+            if self.paged:
+                ids = self.page_alloc.alloc(pages_needed(m, tcfg.page_size))
+                self.node_pages[nid] = ids
+                cache.write_node(k, v, nid, ids)
+            else:
+                cache.write_node(k, v, nid)
             key = (parent, _tokens_key(seg))
             self.node_index[key] = nid
             self.node_key[nid] = key
@@ -803,7 +933,8 @@ class TreeServeEngine(_SlotTableEngine):
 
     def _release_path(self, path):
         """Drop one reference from every node on ``path`` and free, leaf
-        first, every node whose refcount reaches zero."""
+        first, every node whose refcount reaches zero (in paged mode with
+        its pages: an ancestor's pages free only with the node)."""
         for nid in path:
             self.node_refs[nid] -= 1
         for nid in reversed(path):
@@ -812,6 +943,8 @@ class TreeServeEngine(_SlotTableEngine):
                 self.node_index.pop(self.node_key[nid], None)
                 self.node_key[nid] = None
                 self.node_len[nid] = 0
+                if self.paged:
+                    self.page_alloc.release(self.node_pages.pop(nid, []))
 
     def _compact_requests(self):
         """Drop retired request-table entries no slot references anymore:
@@ -822,10 +955,16 @@ class TreeServeEngine(_SlotTableEngine):
             del self.requests[rid]
 
     def release_retired(self, state: ForestState) -> ForestState:
-        """Paged mode clears freed nodes' page tables; the dense store has
-        nothing to release: identity. A freed node keeps its bytes until
+        """Paged mode: empty the page-table rows of every freed trie node,
+        in place, so their pages leave the decode kernel's walk; live
+        ancestors shared with surviving requests are untouched. The dense
+        store has nothing to release (a freed node keeps its bytes until
         the next admission overwrites them; the kernels read only nodes on
-        live paths."""
+        live paths). Returns ``state``."""
+        if self.paged:
+            for nid in range(self.tcfg.n_nodes):
+                if not self.node_live[nid]:
+                    state.cache.free_node(nid)
         return state
 
     # ---- robustness surface ----
@@ -847,8 +986,11 @@ class TreeServeEngine(_SlotTableEngine):
         return sum(1 for nid in req["path"] if self.node_refs[nid] > 1)
 
     def occupancy(self, state: ForestState) -> dict:
-        """Live slot count, and the trie nodes held resident with no live
-        request (always 0: the prefix cache is not ported)."""
+        """Live slot count, the pool's pages in paged mode, and the trie
+        nodes (and their pages) held resident with no live request (always
+        0: the prefix cache is not ported)."""
         occ = super().occupancy(state)
         occ["nodes_cached"] = 0
+        if self.paged:
+            occ["pages_cached"] = 0
         return occ

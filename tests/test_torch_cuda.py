@@ -364,3 +364,148 @@ def test_tree_serve_path_launches_the_tree_kernel(cuda, cache_dtype):
     assert {k.__name__: k.launches for k in bd.KERNELS if k.launches} == {
         kern.__name__: cfg.n_layers * 4}
     assert all(len(eng.outputs[s]) == 5 for s in a + b)
+
+
+# ---- paged-pool kernels ----
+
+# (tree shape, page size): the main trie on pages of 128 and, with a
+# dominant decode arm, of 64; the ragged trie on pages of 16; hd 80 on
+# pages of 48 (a 64-key block straddles pages)
+PAGED_SHAPES = [(TREE_SHAPES[0], 128), (TREE_SHAPES[1], 64),
+                (TREE_SHAPES[2], 16), (TREE_SHAPES[3], 48)]
+
+
+def _paged_inputs(x, quant, pm, seed, fill, spare=3):
+    """The trie operands ``x`` (of ``_tree_inputs``) with the nodes moved
+    onto shuffled pool pages of ``pm`` keys, ``spare`` pages more than the
+    live ones; every page no table entry names is filled with ``fill``
+    (the int8 values with 127 when ``fill`` is not 0)."""
+    ctx, rest = x[1:5] if quant else x[1:3], x[5:] if quant else x[3:]
+    lens = rest[1]
+    n_nodes, g, cap, hd = ctx[0].shape
+    ppn = -(-cap // pm)
+    need = [-(-int(m) // pm) for m in lens.tolist()]
+    n_pages = sum(need) + spare
+    perm = torch.randperm(n_pages,
+                          generator=torch.Generator().manual_seed(seed))
+    tables = torch.full((n_nodes, ppn), -1, dtype=torch.int32)
+    at = 0
+    for n, k in enumerate(need):
+        tables[n, :k] = perm[at:at + k].to(torch.int32)
+        at += k
+    pools = []
+    for c in ctx:
+        f = fill if c.dtype != torch.int8 else (127 if fill != 0 else 0)
+        pool = torch.full((n_pages, g, pm) + tuple(c.shape[3:]), f,
+                          dtype=c.dtype, device=c.device)
+        pad = torch.zeros((n_nodes, g, ppn * pm - cap) + tuple(c.shape[3:]),
+                          dtype=c.dtype, device=c.device)
+        slabs = torch.cat([c, pad], dim=2)
+        for n, k in enumerate(need):
+            for j in range(k):
+                pool[int(tables[n, j])] = slabs[n, :, j * pm:(j + 1) * pm]
+        pools.append(pool)
+    return ((x[0],) + tuple(pools) + (tables.to(x[0].device), lens, rest[0])
+            + rest[2:])
+
+
+@pytest.mark.parametrize("shape,pm", PAGED_SHAPES)
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_kernels_match_plain_and_tree_kernels(cuda, shape, pm, quant):
+    """#8/#9 against their plain versions; bit-equal to #6/#7 on the same
+    logical trie; free pages full of NaN leave the output bit-identical;
+    a hole is masked; rows on a segment with a live page id outside the
+    pool, or with a segment id outside [-1, N), come out NaN."""
+    hd, c_d, pn = shape[2], shape[6], shape[1]
+    x = _tree_inputs(cuda, shape, seed=hd + shape[3], quant=quant)
+    kw = dict(scale=hd**-0.5, c_d=c_d, pn=pn)
+    kern = (bd.paged_fused_bifurcated_decode_q8 if quant
+            else bd.paged_fused_bifurcated_decode)
+    plain = (bd.paged_fused_bifurcated_decode_q8_plain if quant
+             else bd.paged_fused_bifurcated_decode_plain)
+    tree = (bd.tree_fused_bifurcated_decode_q8 if quant
+            else bd.tree_fused_bifurcated_decode)
+    y = _paged_inputs(x, quant, pm, seed=1, fill=float("nan"))
+    z = _paged_inputs(x, quant, pm, seed=1, fill=0.0)
+    n0 = kern.launches
+    out = kern(*y, **kw)
+    assert kern.launches == n0 + 1
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out, kern(*z, **kw))
+    assert torch.equal(out, tree(*x, **kw))
+    _assert_within(out, plain(*y, **kw), 2e-2)
+    tables, paths = y[-6], y[-4]
+    # a hole inside the first node's live length: masked, in both
+    holed = tables.clone()
+    holed[0, 0] = -1
+    h = y[:-6] + (holed,) + y[-5:]
+    _assert_within(kern(*h, **kw), plain(*h, **kw), 2e-2)
+    # a live page id past the pool poisons node 0's rows; an id N past the
+    # node table poisons the first slot's rows
+    bad_t = tables.clone()
+    bad_t[0, 0] = 1 << 20
+    bad_p = paths.clone()
+    bad_p[-1, :pn] = tables.shape[0]
+    out = kern(*(y[:-6] + (bad_t, y[-5], bad_p) + y[-3:]), **kw)
+    bad = (bad_p == 0).any(0) | (torch.arange(paths.shape[1],
+                                              device=cuda) < pn)
+    assert torch.isnan(out[:, bad].float()).all()
+    assert torch.isfinite(out[:, ~bad].float()).all()
+
+
+def test_paged_kernels_take_bf16_only(cuda):
+    x = _tree_inputs(cuda, TREE_SHAPES[2], seed=0, quant=False)
+    y = _paged_inputs(x, False, 16, seed=0, fill=0.0)
+    f32 = (y[0].float(), y[1].float(), y[2].float()) + y[3:6] + (
+        y[6].float(), y[7].float(), y[8])
+    with pytest.raises(TypeError, match="bfloat16"):
+        bd.paged_fused_bifurcated_decode(*f32, scale=0.125, c_d=5, pn=2)
+
+
+@pytest.mark.parametrize("engine", ["single", "forest", "tree"])
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "int8"])
+def test_paged_serve_paths_launch_the_paged_kernel(cuda, engine,
+                                                   cache_dtype):
+    """Every engine with ctx_store="paged": n decode steps launch the paged
+    kernel n_layers x n times and no other kernel."""
+    from repro_torch.configs import ForestConfig, ServeConfig, TreeConfig
+    from repro_torch.core.policy import BifurcationPolicy
+    from repro_torch.runtime.serve import (ForestServeEngine, ServeEngine,
+                                           TreeServeEngine)
+
+    cfg, model, params = _reduced_model(cuda)
+    kern = (bd.paged_fused_bifurcated_decode_q8 if cache_dtype == "int8"
+            else bd.paged_fused_bifurcated_decode)
+    kw = dict(use_kernel=True, cache_dtype=cache_dtype, ctx_store="paged",
+              page_size=16)
+    tok = lambda m: torch.randint(0, 500, (1, m), device=cuda)  # noqa: E731
+    for k in bd.KERNELS:
+        k.launches = 0
+    if engine == "single":
+        eng = ServeEngine(model, cfg, ServeConfig(batch=4, decode_capacity=8,
+                                                  **kw),
+                          policy=BifurcationPolicy(min_io_saving_bytes=0))
+        res = eng.generate(params, tok(40), n_steps=5)
+        assert torch.isfinite(res.logprobs).all()
+    else:
+        if engine == "forest":
+            eng = ForestServeEngine(model, cfg, ForestConfig(
+                n_groups=2, slots=5, ctx_capacity=48, decode_capacity=8,
+                num_pages=5, **kw))
+            reqs = (tok(40), tok(9))
+        else:
+            eng = TreeServeEngine(model, cfg, TreeConfig(
+                n_nodes=4, depth=2, slots=5, node_capacity=48,
+                decode_capacity=8, num_pages=6, **kw))
+            root = tok(40)
+            reqs = ([root, tok(9)], [root, tok(7)])
+        st = eng.init_state(device=cuda)
+        st, a = eng.admit(params, st, reqs[0], 3)
+        st, b = eng.admit(params, st, reqs[1], 2)
+        assert eng.page_alloc.free_count() == 1
+        for k in bd.KERNELS:
+            k.launches = 0
+        eng.step_chunk(params, st, 4)
+        assert all(len(eng.outputs[s]) == 5 for s in a + b)
+    assert {k.__name__: k.launches for k in bd.KERNELS if k.launches} == {
+        kern.__name__: cfg.n_layers * 4}

@@ -407,8 +407,8 @@ def test_forest_capacity_guard_and_typed_rejections():
     st = eng.deactivate_slots(st, slots)
     st = eng.step_chunk(TP, st, 7)       # no live slot: nothing to guard
     assert all(len(eng.outputs[s]) == 17 for s in slots)
-    with pytest.raises(NotImplementedError):
-        ForestServeEngine(TM, CFG_T, tconfigs.ForestConfig(ctx_store="paged"))
+    with pytest.raises(ValueError, match="ctx_store"):   # dense or paged
+        ForestServeEngine(TM, CFG_T, tconfigs.ForestConfig(ctx_store="ring"))
 
 
 def test_forest_non_finite_sentinel_stops_collecting_a_slot():

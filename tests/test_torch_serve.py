@@ -159,8 +159,12 @@ def test_policy_falls_back_to_standard_cache():
 def test_unported_paths_raise():
     from repro_torch.core.errors import DecodeCapacityExceeded
     tm = t_get_model(CFG_T)
-    with pytest.raises(NotImplementedError):
-        TServeEngine(tm, CFG_T, tconfigs.ServeConfig(ctx_store="paged"))
+    with pytest.raises(ValueError, match="ctx_store"):  # dense or paged
+        TServeEngine(tm, CFG_T, tconfigs.ServeConfig(ctx_store="ring"))
+    with pytest.raises(NotImplementedError):  # unported families, paged too
+        TServeEngine(tm, dataclasses.replace(CFG_T, family="moe"),
+                     tconfigs.ServeConfig(ctx_store="paged")).prefill_shared(
+            None, torch.as_tensor(CTX), 2)
     with pytest.raises(NotImplementedError):
         t_get_model(dataclasses.replace(CFG_T, family="moe"))
     with pytest.raises(KeyError):       # configs of unported families

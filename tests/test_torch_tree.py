@@ -534,7 +534,8 @@ def test_tree_engine_typed_rejections_mutate_nothing():
     assert eng.peek_prefix(_segs(SYS, REQ_A)) == ([0, 1], 2, 12 + 9)
     st, s = eng.admit(TP, st, _segs(SYS, REQ_A), 1)
     assert eng.node_refs == [2, 2] and eng.prefix_stats["full_hits"] == 1
-    for knob in (dict(ctx_store="paged"), dict(prefix_cache=True),
+    for knob in (dict(ctx_store="paged", prefix_cache=True),
+                 dict(prefix_cache=True),
                  dict(suffix_prefill=True), dict(step_mode="packed"),
                  dict(evict_policy="sharing")):
         with pytest.raises(NotImplementedError):

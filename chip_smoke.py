@@ -26,14 +26,23 @@ printing its result lines:
      prefix on 64 pages of 128 (bit for bit the single-prefix kernels),
      the trie on pages of 128, 64, 48 and 16 (bit for bit the tree
      kernels), a hole, a page id past the pool (its rows NaN), and free
-     pages full of NaN against zeros there (bit-identical). fp32 queries
-     must raise TypeError (the kernels take bf16 only).
+     pages full of NaN against zeros there (bit-identical). The packed
+     kernels run on the paged trie with a chunk of 512 positions (1024
+     rows) under [SYS, TPL_A] at rows 300..811 of its envelope (position
+     6144): a decode-only call bit for bit the paged kernels', the decode
+     rows' bits unmoved by the chunk, and on the ragged trie (pages of 48,
+     a tile of decode and chunk rows) fresh_len 0/1/63/64/65, a chunk at
+     position 0 with no ancestors, an id outside [-1, N] on the chunk's
+     path (its rows NaN; N itself poisons nothing). fp32 queries must
+     raise TypeError (the kernels take bf16 only).
      Every gate is max |kernel - plain| <= tol x max |plain| (bf16 2e-2),
      and the script shows that plain versions with the decode arm
      dropped, its mask ignored, another sample's slots read, another
      group's segment read, the V scales dropped, the trie's root level
      dropped, another request's leaf read, another segment's page table
-     read or the ragged tail of a page read miss that gate by far;
+     read, the ragged tail of a page read, the chunk's causal mask dropped,
+     fresh_start off by one, the decode arm leaking into the chunk rows or
+     the envelope leaking into the decode rows miss that gate by far;
   3. serve internlm2-1.8b at its published width (seeded random weights)
      with ServeEngine.generate: bifurcated cache, fused kernel, batch 32,
      context 8192, 16 steps. The fused kernel must launch 24 layers x 15
@@ -75,10 +84,26 @@ printing its result lines:
      3d's trie (reused ancestors cost no page). Each must launch the paged
      kernel 24 x 15 times, hold per layer against its plain versions, and
      give the dense engines' tokens bit for bit;
+  3f. TreeServeEngine(step_mode="packed", suffix_prefill=True,
+     prefill_chunk=512) on the paged store (pages of 128), bf16 and int8
+     nodes, phase 3d's prompts: [SYS, TPL_A, A1] is prefilled in 15 chunks
+     riding on 15 steps; [SYS, TPL_A, A2] (1 chunk) and [SYS, TPL_B, B1]
+     (6 chunks) while it decodes; [SYS, TPL_B, B2] must raise
+     PrefillInFlight while TPL_B is pending and change nothing, and is
+     admitted after it lands (1 chunk); then 8 decode-only steps. The
+     packed kernel must launch 24 x 23 times and the paged kernel 24 x 8,
+     no other; per layer on a step with live decode rows and a chunk, the
+     packed kernel against its plain versions; each request's first-token
+     logits against a synchronous admission of its path, and every node
+     the chunks wrote against a full prefill, within max(2e-2 x max, 1.5 x
+     a run of the plain versions); reused ancestors cost no page; no slot
+     emits before its request activates. Prints packed-step and
+     decode-only ms/step and each admission's time to its first token;
   4. time each kernel at the main path's shapes beside its bound, its plain
      version and, as a yardstick only, one scaled_dot_product_attention call
      computing the same function (the port never calls it); the paged
-     kernels at the single-prefix shape and on the paged trie;
+     kernels at the single-prefix shape and on the paged trie, the packed
+     kernels at phase 2's main packed shape over phase 3e's paged trie;
   5. print the kernels' JSON line, then the result line, last.
 
 Imports torch and the port only; needs a checkout of the repository (it
@@ -141,7 +166,8 @@ def build():
     # (template arguments: head dim, FUSED, Q8, mode)
     kinds = {"100": "fused", "000": "partials", "110": "fused_q8",
              "101": "grouped", "111": "grouped_q8", "102": "tree",
-             "112": "tree_q8", "103": "paged", "113": "paged_q8"}
+             "112": "tree_q8", "103": "paged", "113": "paged_q8",
+             "104": "packed", "114": "packed_q8"}
     for path in paths.values():
         name, spill = None, ""
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -937,6 +963,255 @@ def check_paged_kernels():
     return out
 
 
+def packed_case(y, quant, cp, buf, fresh_start, fresh_path, env, seed):
+    """The paged case ``y`` (of ``paged_case``) as a packed step: ``cp``
+    chunk positions (pn rows each) after the decode rows, reading the
+    nodes of ``fresh_path`` and an envelope of ``env`` random bf16 rows,
+    ``buf + cp`` of them live from position ``fresh_start``, the chunk at
+    rows buf..buf+cp-1 (cp = 0: a decode-only call). Adds q (decode ++
+    chunk rows), kf, vf, paths (one level more: -1 on the decode rows, N on
+    the chunk rows), row_pos, row_slot, fresh_len, fresh_start and nd (the
+    decode rows)."""
+    import torch
+
+    q, paths = y["q"], y["paths"]
+    g, nd, hd = q.shape
+    pn, n_segs, depth = y["pn"], y["tables"].shape[0], paths.shape[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    qc = torch.randn(g, cp * pn, hd, generator=gen, device=DEVICE)
+    kf, vf = (torch.randn(env, g, hd, generator=gen, device=DEVICE
+                          ).to(torch.bfloat16) for _ in range(2))
+    i32 = dict(dtype=torch.int32, device=DEVICE)
+    fp = torch.tensor(list(fresh_path) + [-1] * (depth - len(fresh_path))
+                      + [n_segs], **i32)
+    path_rows = torch.cat([
+        torch.cat([paths, torch.full((1, nd), -1, **i32)]),
+        fp[:, None].expand(depth + 1, cp * pn)], dim=1).contiguous()
+    pos = fresh_start + buf + torch.arange(cp, device=DEVICE)
+    row_pos = torch.cat([torch.zeros(nd, **i32),
+                         pos.to(torch.int32).repeat_interleave(pn)])
+    row_slot = torch.cat([torch.arange(nd, **i32) // pn,
+                          torch.full((cp * pn,), -1, **i32)])
+    return dict(y, q=torch.cat([q, qc.to(q.dtype)], 1).contiguous(), kf=kf,
+                vf=vf, paths=path_rows, row_pos=row_pos.contiguous(),
+                row_slot=row_slot.contiguous(), fresh_len=buf + cp if cp
+                else 0, fresh_start=fresh_start, nd=nd)
+
+
+def packed_args(z, quant):
+    pool = ((z["kp"], z["vp"], z["ksp"], z["vsp"]) if quant
+            else (z["kp"], z["vp"]))
+    return (z["q"],) + pool + (z["kf"], z["vf"], z["tables"], z["seg_lens"],
+                               z["paths"], z["row_pos"], z["row_slot"],
+                               z["kd"], z["vd"], z["bias"])
+
+
+def packed_kw(z):
+    return dict(fresh_len=z["fresh_len"], fresh_start=z["fresh_start"],
+                scale=z["scale"], c_d=z["c_d"], pn=z["pn"])
+
+
+def packed_kernel(quant):
+    from repro_torch.kernels import bifurcated_decode as bd
+
+    return (bd.packed_fused_bifurcated_decode_q8 if quant
+            else bd.packed_fused_bifurcated_decode)
+
+
+def packed_plain(quant):
+    from repro_torch.kernels import bifurcated_decode as bd
+
+    return (bd.packed_fused_bifurcated_decode_q8_plain if quant
+            else bd.packed_fused_bifurcated_decode_plain)
+
+
+def packed_bad_rows(z):
+    """The rows the packed kernels write as NaN: a path id outside
+    [-1, N] (N, the pseudo-segment, is the chunk's own), or a segment whose
+    live pages name an id outside [-1, P)."""
+    n_segs = z["tables"].shape[0]
+    paths = z["paths"].long()
+    return paged_bad_rows(dict(z, paths=paths.masked_fill(paths == n_segs,
+                                                          -1)))
+
+
+def check_packed(name, z, quant):
+    """A packed kernel vs its plain version on one case: both NaN on the
+    rows of ``packed_bad_rows`` and nowhere else, within the gate on the
+    decode rows and on the chunk rows. Returns (max abs error, the
+    kernel's output)."""
+    import torch
+
+    out_k = packed_kernel(quant)(*packed_args(z, quant), **packed_kw(z))
+    out_p = packed_plain(quant)(*packed_args(z, quant), **packed_kw(z))
+    torch.cuda.synchronize()
+    bad = packed_bad_rows(z)
+    for out, which in ((out_k, "kernel"), (out_p, "plain version")):
+        nan = torch.isnan(out.float()).any(-1).any(0)
+        check(bool(torch.equal(nan, bad)),
+              f"{name}: the {which}'s NaN rows "
+              f"{nan.nonzero().flatten().tolist()} are not the rows of bad "
+              f"ids")
+    check(bool(torch.isfinite(out_k[:, ~bad].float()).all()),
+          f"{name}: non-finite")
+    nd = z["nd"]
+    errs, rels = [], []
+    for part, sel in (("decode", slice(0, nd)), ("chunk", slice(nd, None))):
+        ok_rows = ~bad[sel]
+        if not bool(ok_rows.any()):
+            continue
+        ok, err, rel = within(out_k[:, sel][:, ok_rows],
+                              out_p[:, sel][:, ok_rows])
+        check(ok, f"{name}: the packed kernel's {part} rows disagree with "
+                  f"its plain version ({rel:.2e} of max |out|)")
+        errs.append(err)
+        rels.append(f"{part} {err:.3e} ({rel:.1e})")
+    print(f"check {name}: {'packed q8' if quant else 'packed'} max_abs_err "
+          + ", ".join(rels) + " of max |out| (gate 2e-2)"
+          + (f"; {int(bad.sum())} rows of bad ids NaN" if bad.any() else ""))
+    return max(errs), out_k
+
+
+def check_packed_gate_sensitivity(z):
+    """Four faulty plain versions of #10 miss the gate on a chunk at
+    position 0 with no ancestors over the ragged trie: the causal mask
+    dropped, fresh_start off by one, the decode arm leaking into the chunk
+    rows (their slot 0 instead of none), the fresh arm leaking into the
+    decode rows (their extra path level N, every envelope row visible)."""
+    plain = packed_plain(False)
+    nd, n_segs = z["nd"], z["tables"].shape[0]
+    want = plain(*packed_args(z, False), **packed_kw(z))
+    far = 1 << 30
+
+    def rel(rows, **fault):
+        y = dict(z, **{k: v for k, v in fault.items() if k != "fresh_start"})
+        kw = packed_kw(z)
+        kw["fresh_start"] = fault.get("fresh_start", kw["fresh_start"])
+        got = plain(*packed_args(y, False), **kw)
+        return within(got[:, rows], want[:, rows])[2]
+
+    row_pos = z["row_pos"].clone()
+    row_pos[nd:] = far
+    leak_slot = z["row_slot"].clone()
+    leak_slot[nd:] = 0
+    leak_paths = z["paths"].clone()
+    leak_paths[-1, :nd] = n_segs
+    leak_pos = z["row_pos"].clone()
+    leak_pos[:nd] = far
+    chunk, dec = slice(nd, None), slice(0, nd)
+    rels = {"causal mask dropped": rel(chunk, row_pos=row_pos),
+            "fresh_start off by one": rel(chunk,
+                                          fresh_start=z["fresh_start"] + 1),
+            "decode arm leaking into chunk rows": rel(chunk,
+                                                      row_slot=leak_slot),
+            "fresh arm leaking into decode rows": rel(dec, paths=leak_paths,
+                                                      row_pos=leak_pos)}
+    print("check packed plain versions: a faulty version's error / max "
+          "|out|: " + ", ".join(f"{k} {v:.2f}" for k, v in rels.items()))
+    for k, v in rels.items():
+        check(v >= 10 * TOL, f"packed: the gate misses '{k}'")
+
+
+def check_packed_kernels():
+    """Phase 2's cases of #10 and #11; returns {kernel name: max abs error
+    over the main-shape cases}."""
+    import torch
+
+    nan = float("nan")
+    lens, req_paths = served_trie()
+    slot_paths = [req_paths[s * len(req_paths) // BATCH]
+                  for s in range(BATCH)]
+    ragged = [[5, 1, 2], [3], [5, 4, 4], [0, 3, 6], [2, 2], [6, 1],
+              [5, 1, 2], [7], [4, -2, 1]]
+    rlens = (0, 1, 63, 64, 65, 200, 130)
+    out = {}
+    for quant, kname in ((False, "packed_fused_bifurcated_decode"),
+                         (True, "packed_fused_bifurcated_decode_q8")):
+        tag = "int8 " if quant else ""
+        # the main shape: phase 3d's trie on shuffled pages of 128 (24
+        # free pages of NaN), its 32 x 64 decode arm, and a 512-position
+        # chunk (1024 rows) continuing a 1024-token node under [SYS,
+        # TPL_A] at rows 300..811 of its envelope (fresh_start 6144)
+        xt = tree_inputs(TREE_NODES, 8, BATCH, 2, 1, 128, TREE_CAP, lens,
+                         slot_paths, TREE_DEC_CAP, seed=50, quant=quant)
+        yt = paged_case(xt, quant, 128, seed=51, spare=24, fill=nan)
+        dec_only = packed_case(yt, quant, 0, 0, 0, [0, 1], TREE_CAP, 52)
+        fs = TREE_TOKENS["SYS"] + TREE_TOKENS["TPL_A"]
+        z = packed_case(yt, quant, PACKED_CHUNK, PACKED_BUF, fs, [0, 1],
+                        TREE_CAP, 52)
+        out_d = packed_kernel(quant)(*packed_args(dec_only, quant),
+                                     **packed_kw(dec_only))
+        paged = paged_kernel(quant)(*paged_args(yt, quant),
+                                    scale=yt["scale"], c_d=yt["c_d"],
+                                    pn=yt["pn"])
+        torch.cuda.synchronize()
+        same = bool(torch.equal(out_d, paged))
+        print(f"check {tag}main trie, decode only: packed vs paged kernel "
+              f"bit-equal {same}")
+        check(same, "decode only: the packed kernel is not the paged kernel")
+        err, out_z = check_packed(
+            f"main {tag}trie on pages of 128 + a {PACKED_CHUNK}-position "
+            f"chunk ({2 * PACKED_CHUNK} rows) under [SYS, TPL_A], envelope "
+            f"rows {PACKED_BUF}..{PACKED_BUF + PACKED_CHUNK - 1} from "
+            f"position {fs}", z, quant)
+        same = bool(torch.equal(out_z[:, :z["nd"]], paged))
+        print(f"check {tag}main trie with the chunk: decode rows bit-equal "
+              f"to the paged kernel's {same}")
+        check(same, "the chunk moved the decode rows' bits")
+        out[kname] = err
+        # the ragged trie (ids outside [-1, N) on one slot's path) on
+        # pages of 48; 9 slots, so a tile holds 18 decode rows and 46
+        # chunk rows; 45 chunk positions; fresh_len 0/1/63/64/65 under
+        # [node 5, node 4], a chunk at position 0 with no ancestors, an id
+        # outside [-1, N] on the chunk's path (its rows NaN, N alone none)
+        xr = tree_inputs(7, 8, 9, 2, 1, 128, 200, rlens, ragged, 5, seed=46,
+                         masked=True, quant=quant)
+        yr = paged_case(xr, quant, 48, seed=53, spare=5, fill=nan)
+        dec_r = packed_kernel(quant)(
+            *packed_args(packed_case(yr, quant, 0, 0, 0, [], 96, 54),
+                         quant),
+            **packed_kw(packed_case(yr, quant, 0, 0, 0, [], 96, 54)))
+        for fl in (0, 1, 63, 64, 65):
+            cp = min(45, fl) if fl else 45
+            zr = packed_case(yr, quant, cp, fl - cp if fl else 0, 265,
+                             [5, 4], 96, 55 + fl)
+            if not fl:
+                zr["fresh_len"] = 0
+            _, out_r = check_packed(
+                f"{tag}ragged trie on pages of 48, {cp} chunk positions, "
+                f"fresh_len {fl}", zr, quant)
+            check(same_bits(out_r[:, :zr["nd"]], dec_r),
+                  f"fresh_len {fl}: the chunk moved the decode rows' bits")
+        check_packed(f"{tag}ragged trie, a 45-position chunk at position 0 "
+                     f"with no ancestors",
+                     packed_case(yr, quant, 45, 0, 0, [], 96, 56), quant)
+        zb = packed_case(yr, quant, 45, 0, 265, [5, 7 + 3], 96, 57)
+        _, out_b = check_packed(f"{tag}ragged trie, an id outside [-1, N] "
+                                f"on the chunk's path", zb, quant)
+        check(same_bits(out_b[:, :zb["nd"]], dec_r),
+              "a bad chunk path moved the decode rows' bits")
+    # fp32 queries raise; gate sensitivity on the ragged trie without bad
+    # ids, pages of 16, a 256-position chunk at position 0
+    xs = tree_inputs(7, 8, 9, 2, 1, 128, 200, rlens, ragged[:8] + [[1]], 5,
+                     seed=48)
+    zs = packed_case(paged_case(xs, False, 16, seed=58), False, 256, 0, 0,
+                     [], 256, 59)
+    f32 = dict(zs, q=zs["q"].float(), kp=zs["kp"].float(),
+               vp=zs["vp"].float(), kf=zs["kf"].float(), vf=zs["vf"].float(),
+               kd=zs["kd"].float(), vd=zs["vd"].float())
+    before = read_launches()
+    try:
+        packed_kernel(False)(*packed_args(f32, False), **packed_kw(f32))
+    except TypeError:
+        pass
+    else:
+        raise AssertionError("the packed kernel took fp32 queries")
+    check(read_launches() == before, "an fp32 call launched a kernel")
+    print("check fp32 queries: TypeError from the packed wrapper, no launch")
+    check_packed_gate_sensitivity(zs)
+    return out
+
+
 def check_kernels():
     """Phase 2; returns {kernel name: max abs error over its main-shape
     cases}."""
@@ -1037,6 +1312,7 @@ def check_kernels():
                                   x_q, x_g)
     out.update(check_tree_kernels())
     out.update(check_paged_kernels())
+    out.update(check_packed_kernels())
     return out
 
 
@@ -2231,6 +2507,368 @@ def serve_paged_tree(cfg, model, params, quant, dense_outs):
     return st_b.cache, counts[kname], err
 
 
+# ---------------------------------------------------------------------------
+# phase 3f: packed heterogeneous steps at the published width
+# ---------------------------------------------------------------------------
+
+PACKED_CHUNK = 512              # phase 3f's prefill chunk, tokens
+PACKED_BUF = 300                # phases 2 and 4: envelope rows before the
+                                # chunk
+PACKED_REQUESTS = (("SYS", "TPL_A", "A1"), ("SYS", "TPL_A", "A2"),
+                   ("SYS", "TPL_B", "B1"), ("SYS", "TPL_B", "B2"))
+PACKED_DECODE = 8               # decode-only steps at the end
+
+
+def _packed_kname(quant):
+    return ("packed_fused_bifurcated_decode_q8" if quant
+            else "packed_fused_bifurcated_decode")
+
+
+def _spy_first_logits(eng, method):
+    """Record the logits each request's first tokens are sampled from, by
+    wrapping ``eng.<method>`` (``_activate_pending`` or ``_sample_first``);
+    returns the list they are appended to."""
+    seen = []
+    orig = getattr(eng, method)
+
+    def wrap(*args):
+        seen.append(args[2 if method == "_activate_pending" else 1]
+                    .float().reshape(-1).clone())
+        return orig(*args)
+
+    setattr(eng, method, wrap)
+    return seen
+
+
+def packed_vs_plain(cfg, model, params, eng, st, tag):
+    """The next packed step of ``eng``, per layer on the packed stream's
+    own input (decode rows and chunk rows): the packed kernel against its
+    plain versions, each on copies of the decode arms and envelopes.
+    Returns the max abs error over the layers' decode and chunk rows."""
+    import torch
+    from repro_torch.kernels import bifurcated_decode as bd
+    from repro_torch.models import blocks
+    from repro_torch.models.transformer import _layer
+
+    pend = eng._pending[min(eng._pending)]
+    _, m_node = pend["new"][pend["node_i"]]
+    cp = eng._prefill_chunk()
+    cv = min(cp, m_node - pend["buf_len"])
+    buf = torch.zeros((1, cp), dtype=torch.long)
+    buf[0, :cv] = pend["suffix"][pend["done"]:pend["done"] + cv]
+    start = pend["fresh_start"] + pend["buf_len"]
+    fresh_pos = torch.arange(start, start + cp, dtype=torch.int32,
+                             device=DEVICE)
+    fpath = torch.tensor(pend["path"] + [-1] * (TREE_DEPTH
+                                                - len(pend["path"])),
+                         dtype=torch.int32, device=DEVICE)
+    cache = st.cache
+    store = cache.store
+    pools = {"k_pages": store.k_pages, "v_pages": store.v_pages}
+    if hasattr(store, "k_scale_pages"):
+        pools.update(k_scale_pages=store.k_scale_pages,
+                     v_scale_pages=store.v_scale_pages)
+    paths, dec_lens = cache.slot_paths(), cache.slot_dec_lens()
+    ctx_lens_b = cache.slot_context_lens()
+    errs = {"decode": [0.0, 0.0], "chunk": [0.0, 0.0]}
+    on_cuda = bd._on_cuda
+
+    def attn(i, layer, h, h_c, plain):
+        lc = {n: t[i] for n, t in pools.items()}
+        lc.update(k_dec=cache.k_dec[i].clone(), v_dec=cache.v_dec[i].clone(),
+                  k_fresh=pend["k_fresh"][i].clone(),
+                  v_fresh=pend["v_fresh"][i].clone())
+        if plain:
+            bd._on_cuda = lambda *t: False
+        try:
+            return blocks.attention_decode_packed(
+                cfg, layer["attn"], h, h_c, lc,
+                page_tables=store.page_tables, seg_lens=store.seg_lens,
+                paths=paths, ctx_lens_b=ctx_lens_b, dec_lens=dec_lens,
+                buf_len=pend["buf_len"], chunk_valid=cv,
+                fresh_start=pend["fresh_start"], fresh_pos=fresh_pos,
+                fresh_path=fpath)
+        finally:
+            bd._on_cuda = on_cuda
+
+    x = model._embed(params, st.tokens)
+    x_c = model._embed(params, buf.to(DEVICE))
+    for i in range(cfg.n_layers):
+        layer = _layer(params["layers"], i)
+        h = blocks.apply_norm(cfg, layer["ln1"], x)
+        h_c = blocks.apply_norm(cfg, layer["ln1"], x_c)
+        a, a_c = attn(i, layer, h, h_c, False)
+        p, p_c = attn(i, layer, h, h_c, True)
+        for part, got, want in (("decode", a, p),
+                                ("chunk", a_c[:, :cv], p_c[:, :cv])):
+            ok, err, rel = within(got, want)
+            check(ok, f"{tag} layer {i}: the packed kernel's {part} rows "
+                      f"disagree with its plain versions ({rel:.2e} of max "
+                      f"|out|)")
+            errs[part] = [max(errs[part][0], err), max(errs[part][1], rel)]
+        x, x_c = x + a, x_c + a_c
+        x = x + blocks.apply_mlp(cfg, layer["mlp"],
+                                 blocks.apply_norm(cfg, layer["ln2"], x))
+        x_c = x_c + blocks.apply_mlp(cfg, layer["mlp"],
+                                     blocks.apply_norm(cfg, layer["ln2"], x_c))
+    n_live = int(st.active.sum())
+    print(f"{tag}: one packed step ({n_live} live slots, a chunk of {cv} "
+          f"tokens at rows {pend['buf_len']}..{pend['buf_len'] + cv - 1} of "
+          f"its node's envelope, position {start}), per layer on the packed "
+          f"stream's input: kernel vs its plain versions, decode rows "
+          f"max_abs_err={errs['decode'][0]:.3e} ({errs['decode'][1]:.2e} of "
+          f"max |out|), chunk rows {errs['chunk'][0]:.3e} "
+          f"({errs['chunk'][1]:.2e}) (gates 2e-2, {cfg.n_layers} layers)")
+    return max(errs["decode"][0], errs["chunk"][0])
+
+
+def packed_node_kv(cfg, model, params, runs, toks, tag):
+    """Every node the chunks wrote, in the kernel run and in the plain
+    versions' run (``runs``: two (engine, state)), against a full prefill
+    of its request's path, per layer, K and V (int8 nodes dequantized),
+    gated as the whole steps are: the kernel run's distance within
+    max(2e-2 x max |full|, 1.5 x the plain run's). Returns the kernel
+    run's worst share of max |full|."""
+    import torch
+
+    worst, seen = (0.0, 0.0), set()
+    for req in PACKED_REQUESTS:
+        segs = [toks[n] for n in req]
+        path, _ = runs[0][0].match_prefix(segs)
+        _, full = model.prefill(params, torch.cat(segs, 1))
+        off = 0
+        for name, nid in zip(req, path):
+            m = TREE_TOKENS[name]
+            if nid not in seen:
+                seen.add(nid)
+                kvs = [eng._node_kv(st.cache, nid, m) for eng, st in runs]
+                for i in range(cfg.n_layers):
+                    for j, want in enumerate((full.k[i, 0, off:off + m],
+                                              full.v[i, 0, off:off + m])):
+                        err_k, top = gap(kvs[0][j][i], want)
+                        err_p, _ = gap(kvs[1][j][i], want)
+                        check(err_k <= max(TOL * top, 1.5 * err_p),
+                              f"{tag}: node {nid} ({name}) layer {i}: its "
+                              f"chunk-written {'KV'[j]} is {err_k:.3e} from a "
+                              f"full prefill of its path (max {top:.3f}, "
+                              f"plain versions {err_p:.3e})")
+                        if err_k / top > worst[0]:
+                            worst = (err_k / top, err_p / top)
+                del kvs
+            off += m
+        del full
+    print(f"{tag}: the {len(seen)} chunk-written nodes' K and V against a "
+          f"full prefill of each request's path, per layer: worst "
+          f"{worst[0]:.2e} of max |KV| (plain versions' run there "
+          f"{worst[1]:.2e}; gate max(2e-2 of max |KV|, 1.5 x plain))")
+    return worst[0]
+
+
+def serve_packed(cfg, model, params, quant):
+    """Phase 3f: TreeServeEngine(step_mode="packed", suffix_prefill=True,
+    prefill_chunk=512) on the paged store (pages of 128) at the published
+    width, phase 3d's prompts: R1 = [SYS, TPL_A, A1] (15 chunk steps),
+    then R2 = [SYS, TPL_A, A2] (1 chunk) and R3 = [SYS, TPL_B, B1] (6
+    chunks) while R1 decodes; R4 = [SYS, TPL_B, B2] raises PrefillInFlight
+    while TPL_B is pending and changes nothing, then is admitted after R3
+    lands (1 chunk); then 8 decode-only steps. Run with the kernels
+    (counted) and again with the plain versions on the card; a
+    synchronous step_mode="decode" engine admits the same paths. Returns
+    the packed kernel's and the paged kernel's launch counts and the
+    per-layer packed kernel-vs-plain max abs error."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import TreeConfig
+    from repro_torch.core.errors import PrefillInFlight
+    from repro_torch.kernels import bifurcated_decode as bd
+    from repro_torch.runtime.serve import TreeServeEngine
+
+    tag = "serve packed" + (" int8" if quant else "")
+    kname, pname = _packed_kname(quant), _paged_kname(quant)
+    base = dict(n_nodes=TREE_NODES, depth=TREE_DEPTH, slots=BATCH,
+                node_capacity=TREE_CAP, decode_capacity=TREE_DEC_CAP,
+                use_kernel=True, cache_dtype="int8" if quant else "bfloat16",
+                ctx_store="paged", page_size=PAGE, suffix_prefill=True)
+    rng = np.random.RandomState(2)       # phase 3d's prompts
+    toks = {name: torch.as_tensor(rng.randint(0, cfg.vocab_size, (1, m)),
+                                  device=DEVICE)
+            for name, m in TREE_TOKENS.items()}
+    per_req = BATCH // len(PACKED_REQUESTS)
+    pages = {n: -(-m // PAGE) for n, m in TREE_TOKENS.items()}
+    envelope = TREE_NODES * (TREE_CAP // PAGE)
+
+    # the synchronous admissions of the same paths
+    sync = TreeServeEngine(model, cfg, TreeConfig(**base))
+    sync_first = _spy_first_logits(sync, "_sample_first")
+    st_s = sync.init_state(device=DEVICE)
+    sync_ms = []
+    for req in PACKED_REQUESTS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_s, _ = sync.admit(params, st_s, [toks[n] for n in req], per_req)
+        torch.cuda.synchronize()
+        sync_ms.append((time.perf_counter() - t0) * 1e3)
+    del sync, st_s
+
+    def chunks(*names):
+        return sum(-(-TREE_TOKENS[n] // PACKED_CHUNK) for n in names)
+
+    n1, n2 = chunks("SYS", "TPL_A", "A1"), chunks("A2")
+    n3, n4 = chunks("TPL_B", "B1"), chunks("B2")
+    check(chunks("B1") >= 2 and n2 == n4 == 1, "phase 3f's workload")
+
+    def run(counted):
+        eng = TreeServeEngine(model, cfg, TreeConfig(
+            **base, step_mode="packed", prefill_chunk=PACKED_CHUNK))
+        first = _spy_first_logits(eng, "_activate_pending")
+        st = eng.init_state(device=DEVICE)
+        rec = {"packed_ms": [], "decode_ms": [], "ttft_ms": {}, "err": 0.0,
+               "free": []}
+        admitted = {}
+
+        def admit(st, req):
+            torch.cuda.synchronize()
+            admitted[eng.next_rid] = time.perf_counter()
+            st, slots = eng.admit(params, st, [toks[n] for n in req],
+                                  per_req)
+            rec["free"].append(eng.page_alloc.free_count())
+            return st, slots
+
+        def steps(st, n):
+            for _ in range(n):
+                packed = bool(eng._pending)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st = eng.step_chunk(params, st, 1)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                rec["packed_ms" if packed else "decode_ms"].append(
+                    (t1 - t0) * 1e3)
+                for rid, t_adm in admitted.items():
+                    if rid not in eng._pending and rid not in rec["ttft_ms"]:
+                        rec["ttft_ms"][rid] = (t1 - t_adm) * 1e3
+                for pend in eng._pending.values():
+                    check(all(eng.outputs[s] == [] for s in pend["slots"]),
+                          f"{tag}: a slot emitted before its request "
+                          f"activated")
+            return st
+
+        if counted:
+            reset_launches()
+        st, s1 = admit(st, PACKED_REQUESTS[0])
+        st = steps(st, n1)                  # SYS 8 + TPL_A 4 + A1 3 chunks
+        check(not eng._pending, f"{tag}: R1 still pending after {n1} steps")
+        st, s2 = admit(st, PACKED_REQUESTS[1])
+        st, s3 = admit(st, PACKED_REQUESTS[2])
+        # R4's first new level, TPL_B, is R3's pending node
+        before = (eng.page_alloc.free_count(), eng.free_nodes(),
+                  set(eng.node_pending), set(eng._pending),
+                  dict(eng.node_index), eng.next_rid)
+        try:
+            eng.admit(params, st, [toks[n] for n in PACKED_REQUESTS[3]],
+                      per_req)
+        except PrefillInFlight:
+            pass
+        else:
+            raise AssertionError(f"{tag}: R4 did not raise PrefillInFlight")
+        check(before == (eng.page_alloc.free_count(), eng.free_nodes(),
+                         set(eng.node_pending), set(eng._pending),
+                         dict(eng.node_index), eng.next_rid),
+              f"{tag}: the rejected admission changed the engine")
+        # R2's chunk, TPL_B's and B1's first: B1's second is compared
+        st = steps(st, n2 + chunks("TPL_B") + 1)
+        if counted:
+            saved = read_launches()
+            t_check = time.perf_counter()
+            rec["err"] = packed_vs_plain(cfg, model, params, eng, st, tag)
+            for k in bd.KERNELS:
+                k.launches = saved[k.__name__]
+            # the pending requests' time to first token leaves the check out
+            for rid in eng._pending:
+                admitted[rid] += time.perf_counter() - t_check
+        st = steps(st, chunks("B1") - 1)    # R3 activates at the last
+        check(not eng._pending, f"{tag}: R3 still pending")
+        st, s4 = admit(st, PACKED_REQUESTS[3])
+        st = steps(st, 1 + PACKED_DECODE)
+        rec["counts"] = read_launches()
+        want_free, seen = [], set()
+        for req in PACKED_REQUESTS:
+            new = [n for n in req if n not in seen]
+            seen.update(new)
+            want_free.append((want_free[-1] if want_free else envelope)
+                             - sum(pages[n] for n in new))
+        check(rec["free"] == want_free,
+              f"{tag}: free pages after the admits {rec['free']}, want "
+              f"{want_free} (reused ancestors cost none)")
+        # the first token, then one per step after it
+        after = n4 + PACKED_DECODE
+        lens = [1 + n2 + n3 + after, 1 + n3 + after, 1 + after,
+                1 + PACKED_DECODE]
+        for slots, n in zip((s1, s2, s3, s4), lens):
+            for s in slots:
+                out = eng.outputs[s]
+                check(len(out) == n, f"{tag}: slot {s}: {len(out)} tokens, "
+                                     f"want {n}")
+                check(all(0 <= t < cfg.vocab_size for t in out),
+                      "token range")
+                check(all(np.isfinite(eng.logps[s])), "logprobs")
+        rec["first"] = first
+        return eng, st, rec
+
+    eng, st, rec = run(True)
+    n_packed, n_dec = len(rec["packed_ms"]), len(rec["decode_ms"])
+    counts = rec["counts"]
+    print(f"{tag}: {n_packed} packed steps, {n_dec} decode-only steps; "
+          f"launches {counts}")
+    check(n_packed == n1 + n2 + n3 + n4 and n_dec == PACKED_DECODE,
+          "step counts")
+    check({k: v for k, v in counts.items() if v}
+          == {kname: cfg.n_layers * n_packed, pname: cfg.n_layers * n_dec},
+          f"{tag}: launches {counts}")
+    on_cuda = bd._on_cuda
+    bd._on_cuda = lambda *t: False
+    try:
+        eng_p, st_p, rec_p = run(False)
+    finally:
+        bd._on_cuda = on_cuda
+    node_worst = packed_node_kv(cfg, model, params,
+                                [(eng, st), (eng_p, st_p)], toks, tag)
+    del eng, st, eng_p, st_p
+    names = ["+".join(str(TREE_TOKENS[n]) for n in r) for r in PACKED_REQUESTS]
+    worst = None
+    for r, (lk, lp, ls) in enumerate(zip(rec["first"], rec_p["first"],
+                                         sync_first)):
+        live = ls.abs() < 1e29
+        err_k, top = gap(lk[live], ls[live])
+        err_p, _ = gap(lp[live], ls[live])
+        check(bool(torch.isfinite(lk[live]).all()), "first-token logits")
+        check(err_k <= max(TOL * top, 1.5 * err_p),
+              f"{tag}: request {r}'s first-token logits are {err_k:.3e} from "
+              f"a synchronous admission's (max |logit| {top:.3f}, plain "
+              f"versions {err_p:.3e})")
+        if worst is None or err_k / top > worst[0] / worst[1]:
+            worst = (err_k, top, err_p, r)
+    ttft = [rec["ttft_ms"][r] for r in range(len(PACKED_REQUESTS))]
+    print(f"{tag}: first-token logits of each request (its last chunk's "
+          f"last row) against a synchronous step_mode=\"decode\" admission of "
+          f"the same path, worst request {worst[3]}: {worst[0]:.3e} against "
+          f"max |logit| {worst[1]:.3f} (plain versions {worst[2]:.3e}; gate "
+          f"max(2e-2 x max |logit|, 1.5 x plain)); free pages "
+          f"{envelope} -> {' -> '.join(map(str, rec['free']))} (reused "
+          f"ancestors cost none); R4 raised PrefillInFlight while TPL_B was "
+          f"pending and changed nothing")
+    print(f"{tag}: packed step {np.mean(rec['packed_ms']):.2f} ms (min "
+          f"{min(rec['packed_ms']):.2f}, max {max(rec['packed_ms']):.2f}) vs "
+          f"decode-only step {np.mean(rec['decode_ms']):.2f} ms on "
+          f"{CARD[0]}; admission to first token: "
+          + ", ".join(f"R{r + 1} ({names[r]}) {t:.1f} ms"
+                      for r, t in enumerate(ttft))
+          + "; synchronous admissions of the same paths (suffix prefill): "
+          + ", ".join(f"{t:.1f}" for t in sync_ms) + " ms (PR 15's four "
+          "whole-path trie admissions: 1.70-1.78 s)")
+    return counts[kname], counts[pname], max(rec["err"], 0.0), node_worst
+
+
 def _copy_outputs(eng):
     """The engine's per-slot token lists, copied."""
     return {s: list(v) for s, v in eng.outputs.items()}
@@ -2734,6 +3372,162 @@ def time_tree_kernels(cfg, tcaches, pcaches, q, launches, errs):
     return entries
 
 
+def time_packed_kernels(cfg, pcaches, launches, errs):
+    """#10 and #11 at phase 2's main packed shape over phase 3e's paged
+    trie caches (7 live nodes on 88 pages of 128, their decode arms, 24
+    layers cycled): the 64 decode rows and a 512-position chunk (1024 rows)
+    under [SYS, TPL_A] at rows 300..811 of a random envelope from position
+    6144. The yardstick: SDPA over [the referenced nodes' live keys ⊕ the
+    envelope's live rows ⊕ the decode slots] under a boolean mask: a decode
+    row sees the nodes on its path and its own live slots, a chunk row the
+    chunk's ancestors and the envelope rows at or before its position."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.paged import gather_pages
+    from repro_torch.kernels import bifurcated_decode as bd
+    from repro_torch.kernels.ops import _decode_operands
+
+    L, g, hd = cfg.n_layers, cfg.n_kv_heads, cfg.kq_dim
+    p = cfg.n_heads // cfg.n_kv_heads
+    scale, e = hd**-0.5, 2
+    cp, buf, fpath = PACKED_CHUNK, PACKED_BUF, [0, 1]
+    fs = TREE_TOKENS["SYS"] + TREE_TOKENS["TPL_A"]
+    fl = buf + cp
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    entries = []
+    for quant in (False, True):
+        kname = _packed_kname(quant)
+        line = 1815 if quant else 1637
+        tc = pcaches[quant][1]
+        st = tc.store
+        b, t_cd = tc.k_dec.shape[1:3]
+        nd = b * p
+        rows = nd + cp * p
+        t_live = (torch.arange(t_cd, device=DEVICE)[None, :]
+                  <= tc.dec_lens[:, None])
+        arms = [_decode_operands(tc.k_dec[i], tc.v_dec[i], t_live)
+                for i in range(L)]
+        kd, vd = [a[0] for a in arms], [a[1] for a in arms]
+        t_bias = arms[0][2]
+        del arms
+        q = torch.randn(g, rows, hd, generator=gen,
+                        device=DEVICE).to(torch.bfloat16)
+        env_k = torch.randn(L, TREE_CAP, g, hd, generator=gen,
+                            device=DEVICE).to(torch.bfloat16)
+        env_v = torch.randn(L, TREE_CAP, g, hd, generator=gen,
+                            device=DEVICE).to(torch.bfloat16)
+        i32 = dict(dtype=torch.int32, device=DEVICE)
+        depth = tc.paths.shape[0]
+        n_segs = st.page_tables.shape[0]
+        fp = torch.tensor(fpath + [-1] * (depth - len(fpath)) + [n_segs],
+                          **i32)
+        path_rows = torch.cat([
+            torch.cat([tc.paths.repeat_interleave(p, dim=1),
+                       torch.full((1, nd), -1, **i32)]),
+            fp[:, None].expand(depth + 1, cp * p)], dim=1).contiguous()
+        pos = fs + buf + torch.arange(cp, device=DEVICE)
+        row_pos = torch.cat([torch.zeros(nd, **i32),
+                             pos.to(torch.int32).repeat_interleave(p)])
+        row_slot = torch.cat([torch.arange(nd, **i32) // p,
+                              torch.full((cp * p,), -1, **i32)])
+        pools = ((st.k_pages, st.v_pages, st.k_scale_pages,
+                  st.v_scale_pages) if quant else (st.k_pages, st.v_pages))
+        kern = getattr(bd, kname)
+        plain = getattr(bd, kname + "_plain")
+        kw = dict(fresh_len=fl, fresh_start=fs, scale=scale, c_d=t_cd, pn=p)
+
+        def args(i, pools=pools, st=st, kd=kd, vd=vd, path_rows=path_rows,
+                 row_pos=row_pos, row_slot=row_slot, env_k=env_k,
+                 env_v=env_v):
+            return ((q,) + tuple(t[i] for t in pools)
+                    + (env_k[i], env_v[i], st.page_tables, st.seg_lens,
+                       path_rows, row_pos, row_slot, kd[i], vd[i], t_bias))
+
+        # the yardstick's keys, values and mask
+        lens = st.seg_lens.tolist()
+        used = sorted(set(tc.paths[tc.paths >= 0].tolist()) | set(fpath))
+        key_node = torch.cat([torch.full((lens[n],), n, device=DEVICE)
+                              for n in used])
+
+        def node_keys(j, i, n, pools=pools, st=st):
+            return gather_pages(pools[j][i], st.page_tables[n:n + 1])[
+                0, :, :lens[n]]
+
+        def ctx(j, i):
+            if quant:
+                return torch.cat([_dequantized(node_keys(j, i, n),
+                                               node_keys(j + 2, i, n))
+                                  for n in used], dim=1)
+            return torch.cat([node_keys(j, i, n) for n in used], dim=1)
+
+        # with int8 nodes the keys carry the logit scale: the envelope and
+        # the decode keys get it too and SDPA scales by 1
+        k_scale, lib_scale = (scale, 1.0) if quant else (1.0, scale)
+
+        def scaled(x, k_scale=k_scale):
+            return (x.float() * k_scale).to(torch.bfloat16)
+
+        t_k = [torch.cat([ctx(0, i), scaled(env_k[i, :fl].transpose(0, 1)),
+                          scaled(kd[i])], dim=1)[None] for i in range(L)]
+        t_v = [torch.cat([ctx(1, i), env_v[i, :fl].transpose(0, 1), vd[i]],
+                         dim=1)[None] for i in range(L)]
+        dec_ok = ((torch.arange(nd, device=DEVICE)[:, None] // p
+                   == torch.arange(b * t_cd, device=DEVICE)[None, :] // t_cd)
+                  & t_live.reshape(1, b * t_cd))
+        on_node = (path_rows[:depth, :, None] == key_node).any(0)
+        causal = (fs + torch.arange(fl, device=DEVICE))[None, :] <= \
+            row_pos[nd:, None]
+        mask = torch.cat([
+            torch.cat([on_node[:nd],
+                       torch.zeros(nd, fl, dtype=torch.bool, device=DEVICE),
+                       dec_ok], dim=1),
+            torch.cat([on_node[nd:], causal,
+                       torch.zeros(cp * p, b * t_cd, dtype=torch.bool,
+                                   device=DEVICE)], dim=1)])
+        q4 = q[None]
+
+        def packed(i, kern=kern, args=args, kw=kw):
+            return kern(*args(i), **kw)
+
+        def packed_plain_(i, plain=plain, args=args, kw=kw):
+            return plain(*args(i), **kw)
+
+        def packed_lib(i, t_k=t_k, t_v=t_v, mask=mask, lib_scale=lib_scale):
+            return F.scaled_dot_product_attention(q4, t_k[i], t_v[i],
+                                                  attn_mask=mask,
+                                                  scale=lib_scale)
+
+        ok, _, rel = within(packed_lib(0)[0], packed(0))
+        print(f"time: library yardstick vs {kname} {rel:.2e} of max |out| "
+              f"(gate 2e-2; {len(used)} referenced nodes, "
+              f"{key_node.numel()} keys, {fl} envelope rows, decode arm ld "
+              f"{b * t_cd}, {int(t_live.sum())} live slots)")
+        check(ok, f"{kname}: library yardstick computes another function")
+        # what the function needs: each referenced node's live keys once
+        # (int8 plus 8 bytes of scales per key and head), the envelope's
+        # live rows, the live decode slots and the bias, q and the output,
+        # the row tables, page tables and lengths. Products: each decode
+        # row over its path and its live slots; each chunk row over its
+        # ancestors and the envelope rows at or before it
+        per_key = 2 * hd * (1 if quant else e) + (2 * 4 if quant else 0)
+        n_live = int(t_live.sum())
+        slot_keys = sum(sum(lens[n] for n in tc.paths[:, s].tolist()
+                            if n >= 0) for s in range(b))
+        anc = sum(lens[n] for n in fpath)
+        vis = sum(min(buf + j + 1, fl) for j in range(cp))
+        nbytes = (2 * g * rows * hd * e + 2 * g * n_live * hd * e
+                  + b * t_cd * 4 + g * key_node.numel() * per_key
+                  + 2 * g * fl * hd * e
+                  + (path_rows.numel() + 2 * rows) * 4
+                  + st.page_tables.numel() * 4 + len(lens) * 4)
+        flop = 4 * g * p * hd * (slot_keys + n_live + cp * anc + vis)
+        entries.append(_timed_entry(
+            kname, "packed_decode.cu", line, packed, packed_plain_,
+            packed_lib, nbytes, flop, launches[kname], errs[kname], L))
+        del t_k, t_v, env_k, env_v
+    return entries
+
+
 def main():
     try:
         import torch
@@ -2781,8 +3575,13 @@ def main():
                                        touts[quant])
         pcaches[quant] = (single, trie)
         errs[kname] = max(errs[kname], e1, e2, e3)
+    for quant in (False, True):
+        kname = _packed_kname(quant)
+        launches[kname], _, e4, _ = serve_packed(cfg, model, params, quant)
+        errs[kname] = max(errs[kname], e4)
     entries = time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches,
                            launches, errs)
+    entries += time_packed_kernels(cfg, pcaches, launches, errs)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))

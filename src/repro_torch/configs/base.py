@@ -177,10 +177,13 @@ class TreeConfig:
     request may use fewer levels (unused levels are -1 in the path table).
     At depth == 1 the engine serves the flat forest's workload.
 
-    The fields of the slices not ported yet keep the reference's defaults;
-    ``TreeServeEngine`` raises ``NotImplementedError`` for
-    ``prefix_cache``, ``suffix_prefill``, ``step_mode="packed"`` and any
-    ``evict_policy`` but "lru".
+    ``suffix_prefill`` prefills only a request's new levels over its
+    matched ancestors' cached K/V; ``step_mode="packed"`` defers that
+    prefill to chunks of ``prefill_chunk`` tokens riding on the decode
+    steps. The fields of the prefix cache, not ported yet, keep the
+    reference's defaults: ``TreeServeEngine`` raises
+    ``NotImplementedError`` for ``prefix_cache`` and any ``evict_policy``
+    but "lru".
     """
 
     n_nodes: int = 8             # trie-node segments (N)
@@ -205,12 +208,14 @@ class TreeConfig:
     # cross-request prefix cache (refcount-zero nodes kept resident):
     # not ported
     prefix_cache: bool = False
-    # suffix-only prefill on a prefix hit: not ported
+    # suffix-only prefill on a prefix hit: the matched ancestors' cached
+    # KV is the context of a prefill of the new levels' tokens only
     suffix_prefill: bool = False
-    # "decode" (admission prefills synchronously); "packed" (prefill
-    # chunks piggybacked onto decode steps) is not ported
+    # "decode" (admission prefills synchronously) | "packed" (an admission
+    # with new levels is prefilled in chunks piggybacked onto decode steps)
     step_mode: str = "decode"
-    # packed mode: suffix tokens prefilled per piggybacked chunk
+    # packed mode: suffix tokens prefilled per piggybacked chunk; 0 =
+    # page_size. Chunks never cross trie-node boundaries.
     prefill_chunk: int = 0
     # prefix-cache eviction order: "lru" | "sharing"
     evict_policy: str = "lru"

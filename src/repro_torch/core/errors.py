@@ -1,8 +1,8 @@
 """Typed capacity errors raised by the serve engines.
 
 The port's copy of the part of the reference's taxonomy
-(``repro/core/errors.py``) that ``runtime/serve.ServeEngine`` and
-``ForestServeEngine`` raise: every failure has a type and a
+(``repro/core/errors.py``) that the serve engines of ``runtime/serve``
+raise: every failure has a type and a
 machine-readable ``reason``, and keeps its historical base class so
 ``except ValueError`` / ``except RuntimeError`` sites still catch it.
 ``retryable`` tells a caller whether waiting for retirements can help
@@ -48,6 +48,17 @@ class SlotsExhausted(CapacityError, RuntimeError):
     retryable = True
 
 
+class PrefillInFlight(CapacityError, RuntimeError):
+    """Transient: the request's prefix path collides with a trie node
+    whose KV is still being prefilled by a pending packed admission
+    (``step_mode="packed"``): the node can be neither reused (its KV is not
+    written yet) nor duplicated (same (parent, tokens) identity). Clears
+    when the pending prefill's chunks land and the node goes live."""
+
+    reason = "prefill_in_flight"
+    retryable = True
+
+
 class SegmentCapacityExceeded(CapacityError, ValueError):
     """Permanent: a context is longer than the engine's segment capacity;
     no amount of retirement makes it fit. Historically a bare
@@ -82,6 +93,7 @@ __all__ = [
     "PoolExhausted",
     "SegmentsExhausted",
     "SlotsExhausted",
+    "PrefillInFlight",
     "SegmentCapacityExceeded",
     "DecodeCapacityExceeded",
     "AllocatorCorruption",

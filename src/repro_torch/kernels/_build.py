@@ -73,6 +73,17 @@ SIGNATURES = {
         # ppn, page_m, depth, g, rows, ld, hd, c_d, pn, scale, stream
         "paged_fused_bifurcated_decode_q8": [_P] * 12 + [_I] * 11 + [_F, _P],
     },
+    "packed_decode": {
+        # q, k_pages, v_pages, k_fresh, v_fresh, page_tables, seg_lens,
+        # paths, row_pos, row_slot, k_dec, v_dec, dec_bias, out, n_pages,
+        # n_segs, ppn, page_m, depth, g, rows, n_dec, ld, hd, c_d, pn,
+        # fresh_len, fresh_start, scale, stream
+        "packed_fused_bifurcated_decode": [_P] * 14 + [_I] * 14 + [_F, _P],
+        # q, k_pages, v_pages, k_scale_pages, v_scale_pages, k_fresh,
+        # v_fresh, page_tables, seg_lens, paths, row_pos, row_slot, k_dec,
+        # v_dec, dec_bias, out, then the ints, scale and stream as above
+        "packed_fused_bifurcated_decode_q8": [_P] * 16 + [_I] * 14 + [_F, _P],
+    },
 }
 SOURCES = {name: CSRC / f"{name}.cu" for name in SIGNATURES}
 

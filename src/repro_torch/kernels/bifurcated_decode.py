@@ -2,10 +2,11 @@
 
 The paper's context GEMM (⟨q, K_c⟩, Eq. 3) is the memory-IO hot spot of
 shared-prefix batch decoding: K_c is the one tensor whose HBM traffic the
-technique eliminates b-fold. Nine kernels live here, written in CUDA C++
-for Hopper (``csrc/bifurcated_decode.cu``, ``csrc/forest_q8_decode.cu``,
-``csrc/tree_decode.cu`` and ``csrc/paged_decode.cu`` over the shared
-``csrc/decode_common.cuh``, built by ``_build.py``):
+technique eliminates b-fold. Eleven kernels live here, written in CUDA
+C++ for Hopper (``csrc/bifurcated_decode.cu``, ``csrc/forest_q8_decode.cu``,
+``csrc/tree_decode.cu``, ``csrc/paged_decode.cu`` and
+``csrc/packed_decode.cu`` over the shared ``csrc/decode_common.cuh``,
+built by ``_build.py``):
 
 ``fused_bifurcated_decode`` — the deployable single-pass path. For each kv
   head, all ``rows = b*p*n`` query rows stream K_c/V_c once, then fold in
@@ -53,6 +54,17 @@ for Hopper (``csrc/bifurcated_decode.cu``, ``csrc/forest_q8_decode.cu``,
   out NaN. The plain versions walk ``ops.live_page_list`` page by page,
   as the reference's Pallas kernels do. Replace ``_paged_fused_kernel`` /
   ``_paged_fused_q8_kernel``.
+
+``packed_fused_bifurcated_decode`` / ``..._q8`` — the PACKED heterogeneous
+  step: the paged decode of #8/#9 with one request's suffix-prefill chunk
+  riding on it. The chunk's query rows follow the decode rows; a path
+  table with one extra level marks them with the pseudo-segment id N, and
+  they attend their ancestors' live pages (the same pages the decode rows
+  read, once for both), then the chunk's KV envelope causally per row;
+  the decode arm is keyed by each row's slot (chunk rows: none). With no
+  chunk rows the output is #8's / #9's bit for bit. The plain versions
+  walk the reference's work queue (``ops.packed_work_queue``) entry by
+  entry. Replace ``_packed_fused_kernel`` / ``_packed_fused_q8_kernel``.
 
 Each wrapper takes CPU tensors to its plain PyTorch version (which walks
 the context in blocks with the same fp32 online update, ``_online_update``)
@@ -127,13 +139,18 @@ def _context_arm(q, k_ctx, v_ctx, scale, block_m, k_scale=None, v_scale=None,
 
 
 def _decode_arm_and_flush(q, k_dec, v_dec, dec_bias, acc, m, l, *, scale,
-                          c_d, pn):
+                          c_d, pn=None, row_slot=None):
     """Fold the decode arm (slot bias, cross-sample mask
-    ``row // pn == col // c_d``) into the running state and normalise."""
+    ``row // pn == col // c_d``, or ``row_slot[row] == col // c_d`` when
+    each row's slot is given, -1 for none) into the running state and
+    normalise."""
     rows, ld = q.shape[1], k_dec.shape[1]
     s = torch.matmul(q.float(), k_dec.float().transpose(1, 2)) * scale
     s = s + dec_bias.reshape(1, 1, ld)
-    row_s = torch.arange(rows, device=q.device)[:, None] // pn
+    if row_slot is None:
+        row_s = torch.arange(rows, device=q.device)[:, None] // pn
+    else:
+        row_s = row_slot.long()[:, None]
     col_s = torch.arange(ld, device=q.device)[None, :] // c_d
     s = torch.where(row_s == col_s, s, torch.full((), NEG_INF, device=q.device))
     acc, m, l = _online_update(s, v_dec, acc, m, l)
@@ -604,24 +621,32 @@ tree_fused_bifurcated_decode_q8.launches = 0
 # paged pool (csrc/paged_decode.cu)
 # ---------------------------------------------------------------------------
 
+def _paged_bad_rows(paths, page_tables, seg_lens, n_pages, pm, max_id):
+    """(rows,) bool: the rows whose path holds an id outside [-1, max_id],
+    or a segment whose live table entries name an id outside [-1, P)."""
+    n_segs, ppn = page_tables.shape
+    pr = paths.long()
+    needed = (seg_lens.long() + pm - 1) // pm
+    live_slot = (torch.arange(ppn, device=paths.device)[None, :]
+                 < needed[:, None])
+    poisoned = (live_slot & ((page_tables < -1) | (page_tables >= n_pages))
+                ).any(1)
+    in_table = (pr >= 0) & (pr < n_segs)
+    return (((pr < -1) | (pr > max_id))
+            | (in_table & poisoned[pr.clamp(0, n_segs - 1)])).any(0)
+
+
 def _paged_plain(q, k_pages, v_pages, k_sp, v_sp, page_tables, seg_lens,
                  paths, k_dec, v_dec, dec_bias, *, scale, c_d, pn):
     from repro_torch.kernels.ops import live_page_list
 
     n_pages, _, pm, _ = k_pages.shape
-    n_segs, ppn = page_tables.shape
+    n_segs = page_tables.shape[0]
     ids, segs, n_live, page_bias = live_page_list(page_tables, seg_lens, pm)
     n_live = int(n_live[0])
     pr = paths.long()
-    # segments whose live table entries name an id outside [-1, P)
-    needed = (seg_lens.long() + pm - 1) // pm
-    live_slot = (torch.arange(ppn, device=q.device)[None, :]
-                 < needed[:, None])
-    poisoned = (live_slot & ((page_tables < -1) | (page_tables >= n_pages))
-                ).any(1)
-    in_table = (pr >= 0) & (pr < n_segs)
-    bad = (((pr < -1) | (pr >= n_segs))
-           | (in_table & poisoned[pr.clamp(0, n_segs - 1)])).any(0)
+    bad = _paged_bad_rows(paths, page_tables, seg_lens, n_pages, pm,
+                          n_segs - 1)
     qf = q.float()
     acc, m, l = _init_state(q)
     # the live pages in (segment, page) order, as the Pallas grid walks
@@ -798,10 +823,290 @@ def paged_fused_bifurcated_decode_q8(q, k_pages_q, v_pages_q, k_scale_pages,
 
 paged_fused_bifurcated_decode_q8.launches = 0
 
+# ---------------------------------------------------------------------------
+# packed heterogeneous step (csrc/packed_decode.cu)
+# ---------------------------------------------------------------------------
+
+def _packed_walk(q, k_pages, v_pages, k_sp, v_sp, k_tiles, v_tiles,
+                      ent_kind, ent_seg, ent_pdma, ent_fdma, ent_pos, n_ent,
+                      paths, ent_bias, row_pos, row_slot, k_dec=None,
+                      v_dec=None, dec_bias=None, *, scale: float, c_d: int,
+                      carry=None, emit_partials: bool = False):
+    """The reference's packed kernel as a walk over its work queue
+    (``ops.packed_work_queue``): entry by entry, a pool page (kind 0) or a
+    fresh tile of the chunk envelope (kind 1, ``k_tiles``/``v_tiles``
+    (F, g, pm, hd)), each with the reference's op sequence: the logits
+    scaled (int8 pages: by their k scales), the entry's bias (here as a
+    select to NEG_INF, the ragged tail's values zeroed), the rows off the
+    entry's segment masked, and on fresh tiles the causal term
+    ``ent_pos + col <= row_pos[row]``; then the online update (int8 pages
+    weight the values by their v scales). Then the decode arm keyed by
+    ``row_slot`` and the normalisation. ``carry`` seeds the fp32 state
+    (acc, m, l) from an earlier walk; ``emit_partials`` returns the raw
+    state instead of the decode arm, so chained walks over a split queue
+    give one walk's bits."""
+    n_pages, _, pm, _ = k_pages.shape
+    dev = q.device
+    qf = q.float()
+    acc, m, l = _init_state(q) if carry is None else carry
+    pr = paths.long()
+    cols = torch.arange(pm, device=dev)
+    neg = torch.full((), NEG_INF, device=dev)
+    n = int(n_ent[0])
+    entries = zip(*(t[:n].tolist() for t in (ent_kind, ent_seg, ent_pdma,
+                                             ent_fdma, ent_pos)))
+    for i, (kind, seg, pid, fid, pos) in enumerate(entries):
+        on = (pr == seg).any(0)                              # (rows,)
+        tail = ent_bias[i] < 0
+        p_scale = None
+        if kind == 0:
+            if pid >= n_pages:          # outside the pool: never read
+                continue
+            k, v = k_pages[pid], v_pages[pid]
+            s = torch.matmul(qf, k.float().transpose(1, 2))
+            s = s * (scale if k_sp is None else k_sp[pid][:, None, :])
+            masked = tail[None, None, :] | ~on[None, :, None]
+            if v_sp is not None:
+                p_scale = v_sp[pid][:, None, :]
+        else:
+            k, v = k_tiles[fid], v_tiles[fid]
+            s = torch.matmul(qf, k.float().transpose(1, 2)) * scale
+            causal = (pos + cols)[None, :] <= row_pos.long()[:, None]
+            masked = tail[None, None, :] | ~(on[:, None] & causal)[None]
+        s = torch.where(masked, neg, s)
+        v = v.masked_fill(tail[None, :, None], 0)
+        if k_sp is None:
+            acc, m, l = _online_update(s, v, acc, m, l)
+        else:   # int8 pages' values f32; the fresh tiles' weights unscaled
+            acc, m, l = _online_update(s, v.float(), acc, m, l,
+                                       p_scale=p_scale)
+    if emit_partials:
+        return acc, m, l
+    return _decode_arm_and_flush(q, k_dec, v_dec, dec_bias, acc, m, l,
+                                 scale=scale, c_d=c_d, row_slot=row_slot)
+
+
+def _packed_plain(q, k_pages, v_pages, k_sp, v_sp, k_fresh, v_fresh,
+                  page_tables, seg_lens, paths, row_pos, row_slot, k_dec,
+                  v_dec, dec_bias, *, fresh_len, fresh_start, scale, c_d,
+                  pn, entries_per_launch=None):
+    from repro_torch.kernels.ops import (
+        _fresh_tiles,
+        _packed_launches,
+        packed_work_queue,
+    )
+
+    del pn      # the decode rows' slots are row_slot
+    n_pages, g, pm, hd = k_pages.shape
+    n_segs = page_tables.shape[0]
+    k_tiles, v_tiles, fcap = _fresh_tiles(k_fresh, v_fresh, pm, g, hd)
+    *queue, ent_bias = packed_work_queue(
+        page_tables, seg_lens, pm, fresh_len=fresh_len,
+        fresh_start=fresh_start, num_fresh_tiles=fcap, pseudo_seg=n_segs)
+
+    def walk(kind, seg, pdma, fdma, pos, n_ent, bias, kd_args, *, carry,
+             emit_partials):
+        return _packed_walk(
+            q, k_pages, v_pages, k_sp, v_sp, k_tiles, v_tiles, kind, seg,
+            pdma, fdma, pos, n_ent, paths, bias, row_pos, row_slot,
+            *kd_args, scale=scale, c_d=c_d, carry=carry,
+            emit_partials=emit_partials)
+
+    kd_args = (k_dec, v_dec, dec_bias)
+    if entries_per_launch is not None and entries_per_launch < len(queue[0]):
+        out = _packed_launches(walk, queue, ent_bias, entries_per_launch,
+                               kd_args)
+    else:
+        out = walk(*queue, ent_bias, kd_args, carry=None,
+                   emit_partials=False)
+    bad = _paged_bad_rows(paths, page_tables, seg_lens, n_pages, pm, n_segs)
+    return out.masked_fill(bad[None, :, None], float("nan"))
+
+
+def packed_fused_bifurcated_decode_plain(q, k_pages, v_pages, k_fresh,
+                                         v_fresh, page_tables, seg_lens,
+                                         paths, row_pos, row_slot, k_dec,
+                                         v_dec, dec_bias, *, fresh_len: int,
+                                         fresh_start: int, scale: float,
+                                         c_d: int, pn: int,
+                                         entries_per_launch=None
+                                         ) -> torch.Tensor:
+    """Plain PyTorch version of ``packed_fused_bifurcated_decode``: the
+    reference's work queue (``ops.packed_work_queue``: the live pages in
+    (segment, page) order, then the envelope's ``ceil(fresh_len / pm)``
+    fresh tiles) walked by ``_packed_walk``; ``entries_per_launch``
+    chains walks of that many entries (bit-identical to one walk). Rows
+    whose path holds an id outside [-1, N], or a segment whose live pages
+    name an id outside [-1, P), come out NaN."""
+    return _packed_plain(q, k_pages, v_pages, None, None, k_fresh, v_fresh,
+                         page_tables, seg_lens, paths, row_pos, row_slot,
+                         k_dec, v_dec, dec_bias, fresh_len=fresh_len,
+                         fresh_start=fresh_start, scale=scale, c_d=c_d,
+                         pn=pn, entries_per_launch=entries_per_launch)
+
+
+def packed_fused_bifurcated_decode_q8_plain(q, k_pages_q, v_pages_q,
+                                            k_scale_pages, v_scale_pages,
+                                            k_fresh, v_fresh, page_tables,
+                                            seg_lens, paths, row_pos,
+                                            row_slot, k_dec, v_dec, dec_bias,
+                                            *, fresh_len: int,
+                                            fresh_start: int, scale: float,
+                                            c_d: int, pn: int,
+                                            entries_per_launch=None
+                                            ) -> torch.Tensor:
+    """Plain PyTorch version of ``packed_fused_bifurcated_decode_q8``: the
+    queue walk over int8 pages (logits by their k scales, the logit scale
+    folded; weights by their v scales) and the envelope's fresh tiles in
+    the activation dtype (logits by ``scale``, weights unscaled)."""
+    return _packed_plain(q, k_pages_q, v_pages_q, k_scale_pages,
+                         v_scale_pages, k_fresh, v_fresh, page_tables,
+                         seg_lens, paths, row_pos, row_slot, k_dec, v_dec,
+                         dec_bias, fresh_len=fresh_len,
+                         fresh_start=fresh_start, scale=scale, c_d=c_d,
+                         pn=pn, entries_per_launch=entries_per_launch)
+
+
+def _check_packed(q, k_pages, k_fresh, v_fresh, row_pos, row_slot, k_dec,
+                  v_dec, dec_bias, fresh_len, c_d, pn):
+    """The packed kernels' own operands: a (F*pm, g, hd) fresh envelope in
+    q's dtype holding ``fresh_len`` live rows, (rows,) int32 row positions
+    and slots, and a decode arm of b * c_d slots whose b * pn decode rows
+    come first. Returns (ld, n_dec)."""
+    g, rows, hd = q.shape
+    pm = k_pages.shape[2]
+    if (k_fresh.ndim != 3 or v_fresh.shape != k_fresh.shape
+            or k_fresh.shape[1:] != (g, hd) or k_fresh.shape[0] < pm
+            or k_fresh.shape[0] % pm):
+        raise ValueError(f"fresh envelope {tuple(k_fresh.shape)} / "
+                         f"{tuple(v_fresh.shape)} does not fit q "
+                         f"{tuple(q.shape)}: want (F * pm, g, hd), F >= 1, "
+                         f"pm = {pm}")
+    if k_fresh.dtype != q.dtype or v_fresh.dtype != q.dtype:
+        raise TypeError("fresh envelope must have the query's dtype")
+    if not 0 <= fresh_len <= k_fresh.shape[0]:
+        raise ValueError(f"fresh_len {fresh_len} outside the envelope's "
+                         f"{k_fresh.shape[0]} rows")
+    if row_pos.shape != (rows,) or row_slot.shape != (rows,):
+        raise ValueError(f"row_pos {tuple(row_pos.shape)} / row_slot "
+                         f"{tuple(row_slot.shape)} do not fit {rows} rows")
+    if row_pos.dtype != torch.int32 or row_slot.dtype != torch.int32:
+        raise TypeError("row_pos and row_slot must be int32")
+    ld = k_dec.shape[1] if k_dec.ndim == 3 else -1
+    n_dec = (ld // c_d) * pn if ld > 0 and c_d > 0 and pn > 0 else -1
+    if (k_dec.shape != (g, ld, hd) or v_dec.shape != k_dec.shape
+            or dec_bias.shape != (1, ld) or ld % c_d
+            or not 0 <= n_dec <= rows):
+        raise ValueError(f"decode arm {tuple(k_dec.shape)}, bias "
+                         f"{tuple(dec_bias.shape)} do not fit q "
+                         f"{tuple(q.shape)} with c_d={c_d}, pn={pn}")
+    if k_dec.dtype != q.dtype or v_dec.dtype != q.dtype:
+        raise TypeError("decode arm must have the query's dtype")
+    if dec_bias.dtype != torch.float32:
+        raise TypeError("dec_bias must be float32")
+    return ld, n_dec
+
+
+def _packed_launch(name, q, pool, fresh, page_tables, paths, ops, ld,
+                   n_dec, fresh_len, fresh_start, scale, c_d, pn):
+    _check_kernel_operands(q, *pool, *fresh, *ops[-3:])
+    n_pages, g, pm, hd = pool[0].shape
+    n_segs, ppn = page_tables.shape
+    out = torch.empty_like(q)
+    _launch(name, q.device, *(t.data_ptr() for t in ops), out.data_ptr(),
+            n_pages, n_segs, ppn, pm, paths.shape[0], g, q.shape[1], n_dec,
+            ld, hd, c_d, pn, int(fresh_len), int(fresh_start), float(scale))
+    return out
+
+
+def packed_fused_bifurcated_decode(q, k_pages, v_pages, k_fresh, v_fresh,
+                                   page_tables, seg_lens, paths, row_pos,
+                                   row_slot, k_dec, v_dec, dec_bias, *,
+                                   fresh_len: int, fresh_start: int,
+                                   scale: float, c_d: int, pn: int
+                                   ) -> torch.Tensor:
+    """One packed heterogeneous step; returns the normalised (g, rows, hd).
+
+      q:             (g, rows, hd): the b * pn decode rows (row r of slot
+                     r // pn), then the chunk rows
+      k_pages/v_pages: (P, g, pm, hd) one layer's page pool, q's dtype
+      k_fresh/v_fresh: (F * pm, g, hd) the chunk's KV envelope, q's dtype;
+                     its first ``fresh_len`` rows are live, row j at
+                     absolute position ``fresh_start + j``
+      page_tables:   (N, ppn) int32; seg_lens (N,) int32
+      paths:         (depth + 1, rows) int32: the segment each row reads at
+                     each level, -1 unused; the pseudo-segment id N marks
+                     the rows that read the fresh envelope
+      row_pos:       (rows,) int32: a chunk row sees envelope row j iff
+                     fresh_start + j <= row_pos[row]
+      row_slot:      (rows,) int32: the decode slot of each row, -1 none
+      k_dec/v_dec:   (g, b * c_d, hd); dec_bias (1, b * c_d) f32
+    Each row attends its path's live pages, the envelope (causal) if its
+    path holds N, and its own slot's decode arm. With no chunk rows the
+    result is ``paged_fused_bifurcated_decode``'s, bit for bit. Rows whose
+    path holds an id outside [-1, N], or a segment whose live pages name
+    an id outside [-1, P), come out NaN."""
+    _check_paged(q, k_pages, v_pages, page_tables, seg_lens, paths)
+    ld, n_dec = _check_packed(q, k_pages, k_fresh, v_fresh, row_pos,
+                              row_slot, k_dec, v_dec, dec_bias, fresh_len,
+                              c_d, pn)
+    ops = (q, k_pages, v_pages, k_fresh, v_fresh, page_tables, seg_lens,
+           paths, row_pos, row_slot, k_dec, v_dec, dec_bias)
+    _check_contiguous(*ops)
+    kw = dict(fresh_len=fresh_len, fresh_start=fresh_start, scale=scale,
+              c_d=c_d, pn=pn)
+    if not _on_cuda(*ops):
+        return packed_fused_bifurcated_decode_plain(*ops, **kw)
+    out = _packed_launch("packed_fused_bifurcated_decode", q,
+                         (k_pages, v_pages), (k_fresh, v_fresh),
+                         page_tables, paths,
+                         ops, ld, n_dec, **kw)
+    packed_fused_bifurcated_decode.launches += 1
+    return out
+
+
+packed_fused_bifurcated_decode.launches = 0
+
+
+def packed_fused_bifurcated_decode_q8(q, k_pages_q, v_pages_q, k_scale_pages,
+                                      v_scale_pages, k_fresh, v_fresh,
+                                      page_tables, seg_lens, paths, row_pos,
+                                      row_slot, k_dec, v_dec, dec_bias, *,
+                                      fresh_len: int, fresh_start: int,
+                                      scale: float, c_d: int, pn: int
+                                      ) -> torch.Tensor:
+    """``packed_fused_bifurcated_decode`` over an int8 pool (P, g, pm, hd)
+    and f32 scale pages (P, g, pm), ``k_scale_pages`` with the logit scale
+    pre-folded; the fresh envelope stays in q's dtype (``scale`` applies
+    to it and to the decode arm)."""
+    _check_paged(q, k_pages_q, v_pages_q, page_tables, seg_lens, paths,
+                 k_scale_pages, v_scale_pages)
+    ld, n_dec = _check_packed(q, k_pages_q, k_fresh, v_fresh, row_pos,
+                              row_slot, k_dec, v_dec, dec_bias, fresh_len,
+                              c_d, pn)
+    ops = (q, k_pages_q, v_pages_q, k_scale_pages, v_scale_pages, k_fresh,
+           v_fresh, page_tables, seg_lens, paths, row_pos, row_slot, k_dec,
+           v_dec, dec_bias)
+    _check_contiguous(*ops)
+    kw = dict(fresh_len=fresh_len, fresh_start=fresh_start, scale=scale,
+              c_d=c_d, pn=pn)
+    if not _on_cuda(*ops):
+        return packed_fused_bifurcated_decode_q8_plain(*ops, **kw)
+    out = _packed_launch("packed_fused_bifurcated_decode_q8", q,
+                         (k_pages_q, v_pages_q), (k_fresh, v_fresh),
+                         page_tables, paths,
+                         ops, ld, n_dec, **kw)
+    packed_fused_bifurcated_decode_q8.launches += 1
+    return out
+
+
+packed_fused_bifurcated_decode_q8.launches = 0
+
 # every kernel wrapper of this module, for code that reads or resets the
 # launch counts
 KERNELS = (fused_bifurcated_decode, context_flash_partials,
            fused_bifurcated_decode_q8, grouped_fused_bifurcated_decode,
            grouped_fused_bifurcated_decode_q8, tree_fused_bifurcated_decode,
            tree_fused_bifurcated_decode_q8, paged_fused_bifurcated_decode,
-           paged_fused_bifurcated_decode_q8)
+           paged_fused_bifurcated_decode_q8, packed_fused_bifurcated_decode,
+           packed_fused_bifurcated_decode_q8)

@@ -4,7 +4,8 @@
 // (bifurcated_decode.cu: the single-prefix bf16 kernels;
 // forest_q8_decode.cu: the int8-context and multi-prefix kernels;
 // tree_decode.cu: the prefix-trie kernels; paged_decode.cu: the paged-pool
-// kernels). All take bf16 queries.
+// kernels; packed_decode.cu: the packed heterogeneous-step kernels). All
+// take bf16 queries.
 //
 // One CTA of kThreads threads serves a tile of kRowTile query rows of one
 // kv head (and, in the grouped kernels, one context segment; in the tree
@@ -50,16 +51,24 @@ constexpr int kPad = 8;                 // bf16 padding per smem row (16 B)
 
 // How a kernel's rows find their context: one shared context (kSingle),
 // one segment per row (kGrouped), every node on a row's trie path (kTree),
-// or every segment on a row's path, stored in pool pages (kPaged).
-enum : int { kSingle = 0, kGrouped = 1, kTree = 2, kPaged = 3 };
+// every segment on a row's path, stored in pool pages (kPaged), or kPaged
+// plus a prefill chunk's KV envelope for the rows whose path holds the
+// pseudo-segment id N (kPacked).
+enum : int { kSingle = 0, kGrouped = 1, kTree = 2, kPaged = 3, kPacked = 4 };
+// What stream_arm reads of a row besides its query: nothing (kRowNone), a
+// position for a causal mask (kRowCausal: key col sits at pos0 + col), or
+// its decode slot, -1 for none (kRowSlot: the decode arm).
+enum : int { kRowNone = 0, kRowCausal = 1, kRowSlot = 2 };
 constexpr int kMaxDepth = 32;           // tree, paged: path-table height
 constexpr int kMaxNodes = 65536;        // tree, paged: node-set bitmap, 8 KB
 
 // Where the keys of one paged segment lie: its page-table row (ppn pool
 // page ids, -1 = unallocated) over a (P, g, pm, HD) pool of one layer.
-// Key `col` of kv head gi is row col % pm of page row[col / pm]. krow is
-// shared memory for the row indices of the two staged blocks (2 x kBlockN
-// ints), filled once per block by stream_arm.
+// Key `col` of kv head gi is row col % pm of page row[col / pm]. With no
+// table row (row == nullptr) the keys lie in a dense sequence-major
+// (m, g, HD) slab, key `col` at row col * g + gi (the packed kernels'
+// fresh envelope). krow is shared memory for the row indices of the two
+// staged blocks (2 x kBlockN ints), filled once per block by stream_arm.
 struct PageMap {
   const int* row;
   int pm, g, gi, n_pages;
@@ -69,6 +78,7 @@ struct PageMap {
   // -1 for a hole (-1) or an id outside [0, P): such a key is never read
   // and its logit is masked.
   __device__ __forceinline__ int key_row(int col) const {
+    if (row == nullptr) return col * g + gi;
     const int pid = row[col / pm];
     return (pid < 0 || pid >= n_pages) ? -1 : (pid * g + gi) * pm + col % pm;
   }
@@ -251,15 +261,21 @@ struct WarpState {
 // pools): each block's row table is computed once into pg.krow (one
 // division per key, then a barrier) before its copies are issued, and a
 // key on a hole or an id outside the pool is masked like a key past
-// col_end.
-template <int HD, bool DECODE, bool Q8, bool PAGED = false>
+// col_end. ROWV: rv0 / rv1 are this thread's rows' values (gr, gr + 8):
+// kRowCausal masks key col unless pos0 + col <= rv; kRowSlot (the decode
+// arm) replaces the sample test row / pn == col / c_d by rv == col / c_d.
+template <int HD, bool DECODE, bool Q8, bool PAGED = false,
+          int ROWV = kRowNone>
 __device__ __forceinline__ void stream_arm(
     WarpState<HD>& st, unsigned char* smem_raw, const void* k, const void* v,
     const float* ks, const float* vs, int col_begin, int col_end, int limit,
     float scale, const float* bias, int c_d, int pn, int wrow0,
-    unsigned row_on = 3u, const PageMap& pg = PageMap{}) {
+    unsigned row_on = 3u, const PageMap& pg = PageMap{}, int rv0 = 0,
+    int rv1 = 0, int pos0 = 0) {
   static_assert(!(DECODE && Q8), "the decode arm is bf16");
   static_assert(!(DECODE && PAGED), "the decode arm is dense");
+  static_assert(ROWV != kRowSlot || DECODE, "row slots key the decode arm");
+  static_assert(ROWV != kRowCausal || !DECODE, "the decode arm is not causal");
   constexpr int SROW = HD + kPad;
   constexpr int STAGE = kBlockN * SROW;
   const int lane = threadIdx.x & 31;
@@ -380,9 +396,11 @@ __device__ __forceinline__ void stream_arm(
             float x = s[nt][2 * i + e] * (Q8 ? kss[j] : scale);
             bool valid = col < col_end && ((row_on >> i) & 1u) &&
                          ((col_ok >> (2 * nt + e)) & 1u);
+            if (ROWV == kRowCausal) valid = valid && pos0 + col <= (i ? rv1 : rv0);
             if (DECODE && valid) {
               x += bias[col];
-              valid = (row / pn) == (col / c_d);
+              valid = (ROWV == kRowSlot ? (i ? rv1 : rv0) : row / pn) ==
+                      (col / c_d);
             }
             x = valid ? x : kNegInf;
             s[nt][2 * i + e] = x;
@@ -457,10 +475,18 @@ struct Params {
   float* acc;             // (g, rows, HD) f32 (partials)
   float* m;               // (g, rows) f32 (partials)
   float* l;
+  const void* k_fresh;    // (F * pm, g, HD) bf16 chunk KV envelope (packed)
+  const void* v_fresh;
+  const int* row_pos;     // (rows,) i32 chunk rows' positions (packed)
+  const int* row_slot;    // (rows,) i32 decode slot per row, -1 (packed)
   int n_groups, g, rows, m_c, ld, c_d, pn;  // n_groups: G or N
-  int depth;              // path-table height (tree, paged)
+  int depth;              // path-table height (tree, paged; packed: the
+                          // trie's depth + 1)
   int ppn, page_m, n_pages;  // paged: table width, page size, pool pages;
                              // m_c = ppn * page_m
+  int n_dec;              // packed: decode rows (b * pn), first in q
+  int fresh_len, fresh_start;  // packed: live envelope rows, position of
+                               // envelope row 0
   float scale;
 };
 
@@ -525,16 +551,19 @@ inline Params fused_params(const void* q, const void* k_ctx,
   return a;
 }
 
-// Dynamic shared memory of one CTA: the stream's plan, then in the tree
-// and paged kernels the tile's bad-row mask (2 words), path table (depth x
-// kRowTile ids) and node-set bitmap (one bit per node or segment), then in
-// the paged kernels the two staged blocks' row tables (2 x kBlockN ints).
+// Dynamic shared memory of one CTA: the stream's plan, then in the tree,
+// paged and packed kernels the tile's bad-row mask (2 words), path table
+// (depth x kRowTile ids) and node-set bitmap (one bit per node or
+// segment), then in the paged and packed kernels the two staged blocks'
+// row tables (2 x kBlockN ints), then in the packed kernels one word: does
+// a row of the tile read the fresh envelope.
 template <int HD, bool Q8, int MODE>
 int smem_bytes(const Params& a) {
   int bytes = Smem<HD>::bytes(Q8);
-  if (MODE == kTree || MODE == kPaged)
+  if (MODE == kTree || MODE == kPaged || MODE == kPacked)
     bytes += 4 * (2 + a.depth * kRowTile + (a.n_groups + 31) / 32);
-  if (MODE == kPaged) bytes += 4 * 2 * kBlockN;
+  if (MODE == kPaged || MODE == kPacked) bytes += 4 * 2 * kBlockN;
+  if (MODE == kPacked) bytes += 4;
   return bytes;
 }
 
@@ -561,12 +590,23 @@ int smem_bytes(const Params& a) {
 // inside a segment's live length is a hole: its keys are masked, never
 // read. A live entry outside [-1, P) is never read either, and every row
 // whose path holds its segment is written as NaN.
+// kPacked: kPaged over a path table one level higher, whose id N (the
+// pseudo-segment) marks the rows of a prefill chunk; ids outside [-1, N]
+// give NaN rows. After the segment walk, if a row of the tile holds N and
+// fresh_len > 0, the fresh arm: keys [0, fresh_len) of the chunk's dense
+// (F * pm, g, HD) envelope, a row taking part only if its path holds N
+// and only in the keys at positions fresh_start + col <= row_pos[row].
+// Then the decode arm over the slots of the tile's decode rows (the first
+// n_dec rows), each row keyed by row_slot (-1: none) instead of row / pn.
+// With no chunk rows every step is kPaged's, so the bits are #8's / #9's.
 template <int HD, bool FUSED, bool Q8, int MODE>
 __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
   static_assert(FUSED || (!Q8 && MODE == kSingle),
                 "partials: bf16, one segment");
   constexpr bool GROUPED = MODE == kGrouped;
-  constexpr bool PATHS = MODE == kTree || MODE == kPaged;
+  constexpr bool PACKED = MODE == kPacked;
+  constexpr bool PAGES = MODE == kPaged || PACKED;
+  constexpr bool PATHS = MODE == kTree || PAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int gi = blockIdx.y;
   const int grp = GROUPED ? blockIdx.z : 0;
@@ -601,23 +641,30 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
       reinterpret_cast<unsigned*>(s_path + p.depth * kRowTile);
   const int node_words = (p.n_groups + 31) / 32;
   int* s_krow = reinterpret_cast<int*>(s_nodes + node_words);   // paged
+  int* s_fresh = s_krow + 2 * kBlockN;                           // packed
   if (PATHS) {
     for (int w = threadIdx.x; w < node_words; w += kThreads) s_nodes[w] = 0u;
     if (threadIdx.x < 2) s_bad[threadIdx.x] = 0u;
+    if (PACKED && threadIdx.x == 0) *s_fresh = 0;
     __syncthreads();
+    // the largest id a path may hold: N - 1, or packed the pseudo id N
+    const int max_id = PACKED ? p.n_groups : p.n_groups - 1;
     for (int e = threadIdx.x; e < p.depth * kRowTile; e += kThreads) {
       const int r = e % kRowTile, row = row0 + r;
       int id = row < rows ? p.paths[(e / kRowTile) * rows + row] : -1;
-      if (id < -1 || id >= p.n_groups) {
+      if (id < -1 || id > max_id) {
         atomicOr(&s_bad[r >> 5], 1u << (r & 31));
         id = -1;
       }
       s_path[e] = id;
-      if (id >= 0) atomicOr(&s_nodes[id >> 5], 1u << (id & 31));
+      if (id >= 0 && id < p.n_groups)
+        atomicOr(&s_nodes[id >> 5], 1u << (id & 31));
+      else if (PACKED && id == p.n_groups)
+        *s_fresh = 1;
     }
     __syncthreads();
   }
-  if (MODE == kPaged) {
+  if (PAGES) {
     // a segment whose live pages name an id outside [-1, P) poisons the
     // rows on it (the set is read by every thread alike: uniform loop)
     for (int w = 0; w < node_words; ++w) {
@@ -669,7 +716,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
           on |= s_path[lvl * kRowTile + lb] == node ? 2u : 0u;
         }
         const int len = min(max(p.ctx_lens[node], 0), p.m_c);
-        if constexpr (MODE == kPaged)
+        if constexpr (PAGES)
           stream_paged<HD, Q8>(st, smem_raw, p, node, gi, len, wrow0, on,
                                s_krow);
         else
@@ -680,17 +727,47 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
     stream_segment<HD, Q8>(st, smem_raw, p, grp, gi, ctx_len, wrow0, 3u);
   }
 
+  if constexpr (PACKED) {
+    // the fresh arm: the chunk's envelope, causal per row; bf16 also in the
+    // q8 kernel (its plan holds the bf16 one from offset 0)
+    if (*s_fresh && p.fresh_len > 0) {
+      const int la = ra - row0, lb = rb - row0;
+      unsigned on = 0u;
+      for (int lvl = 0; lvl < p.depth; ++lvl) {
+        on |= s_path[lvl * kRowTile + la] == p.n_groups ? 1u : 0u;
+        on |= s_path[lvl * kRowTile + lb] == p.n_groups ? 2u : 0u;
+      }
+      const PageMap fresh{nullptr, 1, p.g, gi, 0, s_krow};
+      stream_arm<HD, false, false, true, kRowCausal>(
+          st, smem_raw, p.k_fresh, p.v_fresh, nullptr, nullptr, 0,
+          p.fresh_len, p.fresh_len, p.scale, nullptr, 1, 1, wrow0, on, fresh,
+          ra < rows ? p.row_pos[ra] : -1, rb < rows ? p.row_pos[rb] : -1,
+          p.fresh_start);
+    }
+  }
+
   if (FUSED) {
-    // decode slots of the samples in this CTA's row tile
-    const int last_row = min(row0 + kRowTile, rows) - 1;
-    const int col_begin = (row0 / p.pn) * p.c_d;
-    const int col_end = min(p.ld, (last_row / p.pn + 1) * p.c_d);
-    const size_t dec_off = static_cast<size_t>(gi) * p.ld * HD;
-    stream_arm<HD, true, false>(
-        st, smem_raw, static_cast<const __nv_bfloat16*>(p.k_dec) + dec_off,
-        static_cast<const __nv_bfloat16*>(p.v_dec) + dec_off, nullptr,
-        nullptr, col_begin, col_end, p.ld, p.scale, p.dec_bias, p.c_d, p.pn,
-        wrow0);
+    // decode slots of the samples in this CTA's row tile (packed: of its
+    // decode rows, the first n_dec; a tile of chunk rows only has none)
+    const int last_row = min(row0 + kRowTile, PACKED ? p.n_dec : rows) - 1;
+    if (!PACKED || last_row >= row0) {
+      const int col_begin = (row0 / p.pn) * p.c_d;
+      const int col_end = min(p.ld, (last_row / p.pn + 1) * p.c_d);
+      const size_t dec_off = static_cast<size_t>(gi) * p.ld * HD;
+      const __nv_bfloat16* kd =
+          static_cast<const __nv_bfloat16*>(p.k_dec) + dec_off;
+      const __nv_bfloat16* vd =
+          static_cast<const __nv_bfloat16*>(p.v_dec) + dec_off;
+      if constexpr (PACKED)
+        stream_arm<HD, true, false, false, kRowSlot>(
+            st, smem_raw, kd, vd, nullptr, nullptr, col_begin, col_end, p.ld,
+            p.scale, p.dec_bias, p.c_d, p.pn, wrow0, 3u, PageMap{},
+            ra < rows ? p.row_slot[ra] : -1, rb < rows ? p.row_slot[rb] : -1);
+      else
+        stream_arm<HD, true, false>(st, smem_raw, kd, vd, nullptr, nullptr,
+                                    col_begin, col_end, p.ld, p.scale,
+                                    p.dec_bias, p.c_d, p.pn, wrow0);
+    }
   }
 
 #pragma unroll
@@ -745,9 +822,13 @@ template <bool FUSED, bool Q8, int MODE>
 cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
   if (a.g <= 0 || a.rows <= 0 || a.m_c <= 0 || a.pn <= 0 || a.c_d <= 0 ||
       a.n_groups <= 0 || (MODE == kGrouped && a.n_groups > 65535) ||
-      ((MODE == kTree || MODE == kPaged) &&
+      ((MODE == kTree || MODE == kPaged || MODE == kPacked) &&
        (a.n_groups > kMaxNodes || a.depth < 1 || a.depth > kMaxDepth)) ||
-      (MODE == kPaged && (a.page_m < 1 || a.ppn < 1 || a.n_pages < 1)))
+      ((MODE == kPaged || MODE == kPacked) &&
+       (a.page_m < 1 || a.ppn < 1 || a.n_pages < 1)) ||
+      (MODE == kPacked && (a.n_dec < 0 || a.n_dec > a.rows ||
+                           a.fresh_len < 0 || a.ld % a.c_d != 0 ||
+                           a.ld / a.c_d * a.pn != a.n_dec)))
     return cudaErrorInvalidValue;
   switch (hd) {
     case 16: return launch<16, FUSED, Q8, MODE>(a, stream);

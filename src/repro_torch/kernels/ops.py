@@ -50,6 +50,16 @@ in place of its lane-replicated (depth, rows, 128) table. The kernels read
 the page tables and lengths themselves; ``live_page_list`` (the
 reference's scalar-prefetched page list) is what their plain versions
 walk.
+
+``packed_bifurcated_decode_attention`` / ``..._q8`` are the PACKED
+dispatchers of the heterogeneous step: the paged decode batch and one
+request's suffix-prefill chunk in one launch. The chunk's query rows join
+the decode rows, its KV arrives as a contiguous fresh envelope read
+causally per row, and its ancestors' pages are the same pool pages the
+decode rows read. ``packed_work_queue`` (the reference's work queue: live
+pages, then fresh tiles) is what the plain versions walk;
+``_packed_operands`` builds the rows, the path table with its extra
+pseudo-segment level, the per-row positions and decode slots.
 """
 from __future__ import annotations
 
@@ -63,6 +73,10 @@ from repro_torch.kernels.bifurcated_decode import (
     fused_bifurcated_decode_q8,
     grouped_fused_bifurcated_decode,
     grouped_fused_bifurcated_decode_q8,
+    packed_fused_bifurcated_decode,
+    packed_fused_bifurcated_decode_plain,
+    packed_fused_bifurcated_decode_q8,
+    packed_fused_bifurcated_decode_q8_plain,
     paged_fused_bifurcated_decode,
     paged_fused_bifurcated_decode_q8,
     tree_fused_bifurcated_decode,
@@ -465,3 +479,263 @@ def paged_bifurcated_decode_attention_q8(
         seg_lens.to(torch.int32).contiguous(), path_rows, kd, vd, bias,
         scale=scale, c_d=c_d, pn=p * n)
     return _from_rows(out, q)
+
+
+# ---------------------------------------------------------------------------
+# Packed dispatchers: one launch for decode + a piggybacked prefill chunk
+# ---------------------------------------------------------------------------
+
+def packed_work_queue(page_tables, seg_lens, page_m: int, *, fresh_len,
+                      fresh_start, num_fresh_tiles: int, pseudo_seg: int):
+    """Work queue of (kind, seg, page/offset) descriptors — tensor data.
+
+    Generalizes ``live_page_list``: the first ``n_live`` entries are the
+    live pool pages in the paged kernels' (segment, page) order (which
+    keeps decode-only queues bit-comparable), followed by
+    ``ceil(fresh_len / page_m)`` FRESH prefill-chunk tiles positioned at
+    absolute offset ``fresh_start`` and owned by the ``pseudo_seg`` id that
+    only the chunk rows' extra path level carries. Returns
+
+      ent_kind (max_q,) int32 — 0 pool page / 1 fresh tile;
+      ent_seg  (max_q,) int32 — owning (pseudo-)segment per entry;
+      ent_pdma (max_q,) int32 — pool page; fresh and tail entries repeat
+               the last live page;
+      ent_fdma (max_q,) int32 — fresh tile; page entries hold tile 0,
+               tail entries the last fresh tile;
+      ent_pos  (max_q,) int32 — absolute position of the entry's column 0
+               (pages: 0 — their masking is bias and membership only);
+      n_ent    (1,) int32     — live entry count;
+      ent_bias (max_q, page_m) f32 — ragged-tail / chunk-length bias.
+
+    ``max_q = page_tables.numel() + num_fresh_tiles``. With
+    ``fresh_len == 0`` the queue is the live-page list."""
+    pm = int(page_m)
+    fcap = int(num_fresh_tiles)
+    dev = page_tables.device
+    ids, segs, n_live, page_bias = live_page_list(page_tables, seg_lens, pm)
+    max_pages = ids.shape[0]
+    max_q = max_pages + fcap
+    j = torch.arange(max_q, device=dev)
+    nl = n_live[0].long()
+    fresh_len = torch.as_tensor(fresh_len, device=dev).long()
+    nf = (fresh_len + pm - 1) // pm                          # ceil
+    is_page = j < nl
+    fidx = j - nl
+    is_fresh = (~is_page) & (fidx < nf)
+    n_ent = (nl + nf).to(torch.int32).reshape(1)
+
+    # extend the (max_pages,) page-list arrays to max_q; live_page_list
+    # already repeats its last live entry, so the extension keeps it
+    ext = torch.clamp(j, max=max_pages - 1)
+    ids_x, segs_x, bias_x = ids[ext], segs[ext], page_bias[ext]
+
+    ent_kind = is_fresh.to(torch.int32)
+    ent_seg = torch.where(is_fresh, pseudo_seg, segs_x).to(torch.int32)
+    ent_pdma = ids_x.to(torch.int32)
+    f_cl = torch.clamp(fidx, 0, fcap - 1)
+    ent_fdma = torch.where(
+        is_fresh, f_cl,
+        torch.where(is_page, 0, torch.clamp(nf - 1, 0, fcap - 1)),
+    ).to(torch.int32)
+    start = torch.as_tensor(fresh_start, device=dev).long()
+    ent_pos = torch.where(is_fresh, start + fidx * pm, 0).to(torch.int32)
+    fcols = f_cl[:, None] * pm + torch.arange(pm, device=dev)[None, :]
+    fresh_bias = torch.where(fcols < fresh_len, 0.0, NEG_INF
+                             ).to(torch.float32)
+    ent_bias = torch.where(is_fresh[:, None], fresh_bias, bias_x)
+    return ent_kind, ent_seg, ent_pdma, ent_fdma, ent_pos, n_ent, ent_bias
+
+
+def _packed_operands(q, paths, k_dec, v_dec, dec_mask, q_fresh, fresh_pos,
+                     fresh_path, pseudo_seg):
+    """Packed-dispatch plumbing: decode rows ++ chunk rows in one
+    kernel-major q (g, rows, hd); the (depth + 1, rows) int32 path table,
+    whose extra level holds the pseudo-segment for chunk rows and -1 for
+    decode rows; per-row absolute positions (rows,) for the chunk's causal
+    mask (decode rows 0); the decode-arm slot of each row (rows,) (chunk
+    rows -1, so the decode arm contributes nothing to them); and the
+    group-major decode arm with its slot bias. The reference's tables are
+    lane-replicated (rows, 128); the function computed is the same."""
+    b, g, p, n, hd = q.shape
+    cp = q_fresh.shape[0]
+    depth = paths.shape[0]
+    nd = b * p * n
+    dev = q.device
+    qk = torch.cat([
+        q.permute(1, 0, 2, 3, 4).reshape(g, nd, hd),
+        q_fresh.permute(1, 0, 2, 3).reshape(g, cp * p, hd).to(q.dtype),
+    ], dim=1).contiguous()                                    # (g, rows, hd)
+    i32 = dict(dtype=torch.int32, device=dev)
+    pr = paths.to(torch.int32).repeat_interleave(p * n, dim=1)  # (depth, nd)
+    dec_path = torch.cat([pr, torch.full((1, nd), -1, **i32)])
+    fr = fresh_path.to(torch.int32)[:, None].expand(depth, cp * p)
+    fr_path = torch.cat([fr, torch.full((1, cp * p), pseudo_seg, **i32)])
+    path_rows = torch.cat([dec_path, fr_path], dim=1).contiguous()
+    row_pos = torch.cat([torch.zeros(nd, **i32),
+                         fresh_pos.to(torch.int32).repeat_interleave(p)])
+    row_slot = torch.cat([torch.arange(nd, **i32) // (p * n),
+                          torch.full((cp * p,), -1, **i32)])
+    kd, vd, bias = _decode_operands(k_dec, v_dec, dec_mask)
+    return (qk, path_rows, row_pos.contiguous(), row_slot.contiguous(), kd,
+            vd, bias)
+
+
+def _fresh_tiles(k_fresh, v_fresh, pm, g, hd):
+    """(F*pm, g, hd) contiguous chunk envelope -> (F, g, pm, hd) tiles."""
+    fcap = k_fresh.shape[0] // pm
+    kf = k_fresh.reshape(fcap, pm, g, hd).transpose(1, 2)
+    vf = v_fresh.reshape(fcap, pm, g, hd).transpose(1, 2)
+    return kf, vf, fcap
+
+
+def _packed_launches(packed_fn, queue, ent_bias, cap, kd_args):
+    """Split a queue across chained walks of at most ``cap`` entries each:
+    every walk but the last returns raw fp32 (acc, m, l) partials which
+    seed the next — exact, so the chained output is bit-identical to one
+    walk. (The reference chains kernel launches this way when a queue
+    exceeds one grid envelope; on the card one launch serves any queue, so
+    only the plain versions chain.)"""
+    ent_kind, ent_seg, ent_pdma, ent_fdma, ent_pos, n_ent = queue
+    max_q = ent_kind.shape[0]
+    n_launch = -(-max_q // cap)
+    carry = None
+    for t in range(n_launch):
+        lo = t * cap
+        hi = min(lo + cap, max_q)
+        q_t = (ent_kind[lo:hi], ent_seg[lo:hi], ent_pdma[lo:hi],
+               ent_fdma[lo:hi], ent_pos[lo:hi],
+               torch.clamp(n_ent - lo, 0, hi - lo))
+        last = t == n_launch - 1
+        res = packed_fn(*q_t, ent_bias[lo:hi],
+                        kd_args if last else (None, None, None),
+                        carry=carry, emit_partials=not last)
+        if last:
+            return res
+        carry = res
+
+
+def _packed_dispatch(q, pool, page_tables, seg_lens, paths, k_dec, v_dec,
+                     dec_mask, q_fresh, k_fresh, v_fresh, fresh_len,
+                     fresh_start, fresh_pos, fresh_path, scale,
+                     entries_per_launch):
+    """The packed dispatchers' shared body; ``pool`` is (k_pages, v_pages)
+    or, int8, (k_pages, v_pages, k_scale_pages, v_scale_pages)."""
+    b, g, p, n, hd = q.shape
+    c_d = k_dec.shape[1]
+    pm = pool[0].shape[2]
+    depth = paths.shape[0]
+    scale = hd**-0.5 if scale is None else scale
+    dev = q.device
+    if q_fresh is None:
+        q_fresh = q.new_zeros((0, g, p, hd))
+        fresh_pos = torch.zeros(0, dtype=torch.int32, device=dev)
+    if k_fresh is None:
+        k_fresh = k_dec.new_zeros((pm, g, hd))
+        v_fresh = v_dec.new_zeros((pm, g, hd))
+    if fresh_path is None:
+        fresh_path = torch.full((depth,), -1, dtype=torch.int32, device=dev)
+    cp = q_fresh.shape[0]
+    qk, path_rows, row_pos, row_slot, kd, vd, bias = _packed_operands(
+        q, paths, k_dec, v_dec, dec_mask, q_fresh, fresh_pos, fresh_path,
+        page_tables.shape[0])
+    ops = (qk, *(t.contiguous() for t in pool), k_fresh.contiguous(),
+           v_fresh.contiguous(), page_tables.to(torch.int32).contiguous(),
+           seg_lens.to(torch.int32).contiguous(), path_rows, row_pos,
+           row_slot, kd, vd, bias)
+    kw = dict(fresh_len=0 if fresh_len is None else int(fresh_len),
+              fresh_start=0 if fresh_start is None else int(fresh_start),
+              scale=scale, c_d=c_d, pn=p * n)
+    quant = len(pool) == 4
+    if entries_per_launch is None:
+        kern = (packed_fused_bifurcated_decode_q8 if quant
+                else packed_fused_bifurcated_decode)
+        out = kern(*ops, **kw)
+    elif qk.is_cuda:
+        raise ValueError(
+            "entries_per_launch chains the plain versions' queue walks; on "
+            "the card one launch of the packed kernel serves any queue: "
+            "pass entries_per_launch=None")
+    else:
+        plain = (packed_fused_bifurcated_decode_q8_plain if quant
+                 else packed_fused_bifurcated_decode_plain)
+        out = plain(*ops, entries_per_launch=entries_per_launch, **kw)
+    nd = b * p * n
+    out_dec = out[:, :nd].reshape(g, b, p, n, hd).permute(1, 0, 2, 3, 4)
+    out_fresh = out[:, nd:].reshape(g, cp, p, hd).permute(1, 0, 2, 3)
+    return out_dec.to(q.dtype), out_fresh.to(q.dtype)
+
+
+def packed_bifurcated_decode_attention(
+    q: torch.Tensor,           # (b, g, p, n, hd) — framework decode layout
+    k_pages: torch.Tensor,     # (P, g, pm, hd) — head-major page pool
+    v_pages: torch.Tensor,
+    page_tables: torch.Tensor, # (N, ppn) int32 — pool pages per segment
+    seg_lens: torch.Tensor,    # (N,) int32
+    paths: torch.Tensor,       # (depth, b) int32 — -1 = level unused
+    k_dec: torch.Tensor,       # (b, c_d, g, hd)
+    v_dec: torch.Tensor,
+    dec_mask: torch.Tensor,    # (b, c_d) bool
+    q_fresh: Optional[torch.Tensor] = None,  # (cp, g, p, hd) chunk rows
+    k_fresh: Optional[torch.Tensor] = None,  # (F*pm, g, hd) chunk KV
+    v_fresh: Optional[torch.Tensor] = None,  #   envelope
+    fresh_len: Optional[int] = None,    # live envelope rows
+    fresh_start: Optional[int] = None,  # absolute position of row 0
+    fresh_pos: Optional[torch.Tensor] = None,   # (cp,) int32 per chunk row
+    fresh_path: Optional[torch.Tensor] = None,  # (depth,) int32 ancestors
+    *,
+    scale: Optional[float] = None,
+    entries_per_launch: Optional[int] = None,
+):
+    """PACKED heterogeneous-step dispatcher: ONE launch of the packed
+    kernel serves the decode batch's page walk AND a piggybacked
+    suffix-prefill chunk. The chunk's query rows join the decode rows, its
+    KV is read from the envelope's first ``fresh_len`` rows, causally per
+    row (column j sits at position ``fresh_start + j``, row r sees it iff
+    that is <= ``fresh_pos`` of its chunk row), and its ancestors' pages
+    are the same pool pages the decode rows read, once for both.
+
+    Returns ``(out_dec (b, g, p, n, hd), out_fresh (cp, g, p, hd))``. With
+    no chunk (``q_fresh=None``) ``out_dec`` is bit-identical to
+    ``paged_bifurcated_decode_attention``'s. ``entries_per_launch`` chains
+    the plain versions' queue walks (bit-identical to one walk, as the
+    reference's chained launches are); on CUDA tensors it raises
+    ``ValueError``: one launch serves any queue there."""
+    return _packed_dispatch(
+        q, (k_pages, v_pages), page_tables, seg_lens, paths, k_dec, v_dec,
+        dec_mask, q_fresh, k_fresh, v_fresh, fresh_len, fresh_start,
+        fresh_pos, fresh_path, scale, entries_per_launch)
+
+
+def packed_bifurcated_decode_attention_q8(
+    q: torch.Tensor,           # (b, g, p, n, hd) — framework decode layout
+    k_pages_q: torch.Tensor,   # (P, g, pm, hd) int8 — quantized page pool
+    v_pages_q: torch.Tensor,
+    k_scale_pages: torch.Tensor,  # (P, g, pm) f32 — logit scale PRE-FOLDED
+    v_scale_pages: torch.Tensor,  # (P, g, pm) f32
+    page_tables: torch.Tensor, # (N, ppn) int32
+    seg_lens: torch.Tensor,    # (N,) int32
+    paths: torch.Tensor,       # (depth, b) int32
+    k_dec: torch.Tensor,       # (b, c_d, g, hd)
+    v_dec: torch.Tensor,
+    dec_mask: torch.Tensor,    # (b, c_d) bool
+    q_fresh: Optional[torch.Tensor] = None,
+    k_fresh: Optional[torch.Tensor] = None,  # (F*pm, g, hd), the chunk's
+    v_fresh: Optional[torch.Tensor] = None,  #   KV in the activation dtype
+    fresh_len: Optional[int] = None,
+    fresh_start: Optional[int] = None,
+    fresh_pos: Optional[torch.Tensor] = None,
+    fresh_path: Optional[torch.Tensor] = None,
+    *,
+    scale: Optional[float] = None,
+    entries_per_launch: Optional[int] = None,
+):
+    """Int8 twin of ``packed_bifurcated_decode_attention``: int8 pool pages
+    with f32 scale pages (k pre-folded with the logit scale; ``scale``
+    touches the decode arm and the fresh envelope only), the chunk's KV in
+    the activation dtype. With no chunk ``out_dec`` is bit-identical to
+    ``paged_bifurcated_decode_attention_q8``'s."""
+    return _packed_dispatch(
+        q, (k_pages_q, v_pages_q, k_scale_pages, v_scale_pages),
+        page_tables, seg_lens, paths, k_dec, v_dec, dec_mask, q_fresh,
+        k_fresh, v_fresh, fresh_len, fresh_start, fresh_pos, fresh_path,
+        scale, entries_per_launch)

@@ -36,6 +36,8 @@ from repro_torch.kernels.ops import (
     bifurcated_decode_attention_q8,
     grouped_bifurcated_decode_attention,
     grouped_bifurcated_decode_attention_q8,
+    packed_bifurcated_decode_attention,
+    packed_bifurcated_decode_attention_q8,
     paged_bifurcated_decode_attention,
     paged_bifurcated_decode_attention_q8,
     tree_bifurcated_decode_attention,
@@ -153,6 +155,7 @@ def chunked_attention(
     *,
     window: Optional[int] = None,
     chunk: int = 512,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Memory-bounded causal attention (optionally sliding-window): a loop
     over query chunks.
@@ -161,6 +164,11 @@ def chunked_attention(
     broadcast over the group dimension inside the einsum (no materialized
     repeat). Logits for one chunk are (b, h, chunk, m), so the peak
     activation is n/chunk times smaller than the full logits tensor.
+
+    ``q_offset`` shifts the queries' absolute positions for the causal and
+    window masks: query row i sits at position q_offset + i while the keys
+    stay at 0..m-1 (the suffix-prefill case, where the first q_offset keys
+    are a cached prefix every query may attend to).
     """
     b, n, h, hd = q.shape
     m, g = k.shape[1], k.shape[2]
@@ -174,7 +182,7 @@ def chunked_attention(
         c = qc.shape[1]
         qc = qc.reshape(b, c, g, p, hd).permute(0, 2, 3, 1, 4)  # (b,g,p,c,hd)
         logits = torch.einsum("bgpck,bmgk->bgpcm", qc, k).float() * scale
-        q_pos = start + torch.arange(c, device=q.device)[:, None]
+        q_pos = q_offset + start + torch.arange(c, device=q.device)[:, None]
         mask = k_pos <= q_pos
         if window is not None:
             mask = mask & (k_pos > q_pos - window)
@@ -185,11 +193,15 @@ def chunked_attention(
     return torch.cat(outs, dim=1)
 
 
+def _check_train_attn(cfg: ModelConfig):
+    if cfg.train_attn != "chunked":
+        raise NotImplementedError(f"train_attn={cfg.train_attn!r} is not ported")
+
+
 def attention_train(cfg: ModelConfig, params, x: torch.Tensor,
                     positions: torch.Tensor) -> torch.Tensor:
     """Full-sequence causal self-attention (prefill)."""
-    if cfg.train_attn != "chunked":
-        raise NotImplementedError(f"train_attn={cfg.train_attn!r} is not ported")
+    _check_train_attn(cfg)
     q, k, v = _project_qkv(cfg, params, x)
     if cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -208,6 +220,42 @@ def attention_prefill_kv(cfg: ModelConfig, params, x: torch.Tensor,
     if cfg.rope_theta > 0:
         k = apply_rope(k, positions, cfg.rope_theta)
     return k, v
+
+
+def attention_prefill_suffix(
+    cfg: ModelConfig,
+    params,
+    x: torch.Tensor,
+    k_anc: torch.Tensor,
+    v_anc: torch.Tensor,
+    *,
+    positions: torch.Tensor,
+    chunk: int = 512,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Bifurcated SUFFIX prefill for one layer: the n fresh suffix tokens
+    (``x``: (b, n, d), absolute ``positions`` m_anc..m_anc+n-1) attend over
+    [cached ancestor KV ∥ their own fresh KV]. ``k_anc``/``v_anc``:
+    (b, m_anc, g, hd), already rotated at their absolute positions: they
+    come out of the serve cache and are never recomputed (admission costs
+    O(n), not O(m_anc + n)).
+
+    Returns (attention output (b, n, d), k_new, v_new): the fresh K/V are
+    the tensors a full prefill would produce at ``positions``."""
+    _check_train_attn(cfg)
+    q, k_new, v_new = _project_qkv(cfg, params, x)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    m_anc = k_anc.shape[1]
+    k_full = torch.cat([k_anc.to(k_new.dtype), k_new], dim=1)
+    v_full = torch.cat([v_anc.to(v_new.dtype), v_new], dim=1)
+    # absolute-position causal mask: query row i is position m_anc + i, so
+    # every row sees the whole cached prefix and its own causal suffix
+    o = chunked_attention(q, k_full, v_full, window=cfg.sliding_window,
+                          chunk=chunk, q_offset=m_anc)
+    b, n = o.shape[:2]
+    o = o.reshape(b, n, cfg.n_heads_padded * cfg.kq_dim)
+    return o @ params["wo"].to(x.dtype), k_new, v_new
 
 
 def attention_decode(
@@ -544,3 +592,88 @@ def attention_decode_paged(
 
     o = o.permute(0, 3, 1, 2, 4).reshape(b, n, cfg.n_heads_padded * hd)
     return o @ params["wo"].to(x.dtype)
+
+
+def attention_decode_packed(
+    cfg: ModelConfig,
+    params,
+    x: torch.Tensor,            # (b, n, d) — the decode tokens' hidden state
+    x_chunk: torch.Tensor,      # (1, cp, d) — the prefill chunk's
+    layer_cache: dict,
+    *,
+    page_tables: torch.Tensor,  # (N, ppn) int32
+    seg_lens: torch.Tensor,     # (N,) int32
+    paths: torch.Tensor,        # (depth, b) int32
+    ctx_lens_b: torch.Tensor,   # (b,) int32
+    dec_lens: torch.Tensor,     # (b,) int32
+    buf_len: int,               # valid tokens already in the fresh envelope
+    chunk_valid: int,           # live tokens of this chunk
+    fresh_start: int,           # absolute position of envelope column 0
+    fresh_pos: torch.Tensor,    # (cp,) int32 — per chunk row
+    fresh_path: torch.Tensor,   # (depth,) int32 — the chunk's ancestors
+    entries_per_launch: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One PACKED heterogeneous step for one layer over the paged store:
+    the decode batch's attention AND one request's suffix-prefill chunk in
+    a single launch of the packed kernel. ``layer_cache`` is the paged
+    layer cache plus {"k_fresh", "v_fresh"}: the (F*pm, g, hd) fresh-KV
+    envelope of the pending node, whose first ``buf_len`` rows hold its
+    already-prefilled tokens. This chunk's rotated K/V are written into it
+    at ``buf_len``, in place; the rows of a padded last chunk that would
+    run past the envelope are not written (the reference's
+    ``dynamic_update_slice`` would clamp the start and shift the valid
+    rows instead; the port never moves a valid row). The chunk rows attend
+    [their ancestors' pages ⊕ the envelope, causal]; the decode rows are
+    untouched by them. The decode arms are written in place too. Returns
+    (decode output (b, n, d), chunk output (1, cp, d))."""
+    if cfg.sliding_window is not None:
+        raise NotImplementedError(
+            "packed decoding does not support sliding-window configs")
+    b, n = x.shape[:2]
+    cp = x_chunk.shape[1]
+    g, hd = cfg.n_kv_heads_padded, cfg.kq_dim
+    p = cfg.n_heads_padded // g
+    dev = x.device
+    q, k_new, v_new = _project_qkv(cfg, params, x)
+    pos_b = ctx_lens_b + dec_lens                                # (b,)
+    qc, kc, vc = _project_qkv(cfg, params, x_chunk)
+    chunk_pos = fresh_start + buf_len + torch.arange(cp, device=dev)
+    if cfg.rope_theta > 0:
+        pos = pos_b[:, None] + torch.arange(n, device=dev)[None, :]  # (b, n)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k_new = apply_rope(k_new, pos, cfg.rope_theta)
+        qc = apply_rope(qc, chunk_pos, cfg.rope_theta)
+        kc = apply_rope(kc, chunk_pos, cfg.rope_theta)
+    q = q.reshape(b, n, g, p, hd).permute(0, 2, 3, 1, 4)  # (b,g,p,n,hd)
+    q_fresh = qc[0].reshape(cp, g, p, hd)
+
+    k_buf, v_buf = layer_cache["k_fresh"], layer_cache["v_fresh"]
+    fit = min(cp, k_buf.shape[0] - buf_len)
+    k_buf[buf_len:buf_len + fit] = kc[0, :fit].to(k_buf.dtype)
+    v_buf[buf_len:buf_len + fit] = vc[0, :fit].to(v_buf.dtype)
+
+    k_dec = _scatter_decode_slots(layer_cache["k_dec"], k_new, dec_lens)
+    v_dec = _scatter_decode_slots(layer_cache["v_dec"], v_new, dec_lens)
+    cap = k_dec.shape[1]
+    slot = torch.arange(cap, device=dev)[None, :]
+    dec_valid = slot <= dec_lens[:, None] + n - 1                 # (b, C_d)
+
+    fresh = dict(q_fresh=q_fresh, k_fresh=k_buf, v_fresh=v_buf,
+                 fresh_len=buf_len + chunk_valid, fresh_start=fresh_start,
+                 fresh_pos=fresh_pos, fresh_path=fresh_path,
+                 entries_per_launch=entries_per_launch)
+    k_pages, v_pages = layer_cache["k_pages"], layer_cache["v_pages"]
+    if "k_scale_pages" in layer_cache:
+        o, o_chunk = packed_bifurcated_decode_attention_q8(
+            q, k_pages, v_pages, layer_cache["k_scale_pages"],
+            layer_cache["v_scale_pages"], page_tables, seg_lens, paths,
+            k_dec, v_dec, dec_valid, **fresh)
+    else:
+        o, o_chunk = packed_bifurcated_decode_attention(
+            q, k_pages, v_pages, page_tables, seg_lens, paths, k_dec, v_dec,
+            dec_valid, **fresh)
+
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, n, cfg.n_heads_padded * hd)
+    oc = o_chunk.reshape(1, cp, cfg.n_heads_padded * hd)
+    wo = params["wo"].to(x.dtype)
+    return o @ wo, oc @ wo

@@ -8,6 +8,9 @@ batched KV cache, the paper's ``BifurcatedCache`` or its int8 twin
 ``GroupedQuantBifurcatedCache``), a trie cache (``PrefixTreeCache`` /
 ``QuantPrefixTreeCache``) or one of the paged families over a page pool
 (``core/paged.PAGED_CACHE_FAMILIES``) — the cache TYPE selects the path.
+``prefill_suffix`` prefills a suffix over a cached prefix's K/V, and
+``decode_step_packed`` runs a decode step of a paged trie cache and one
+suffix-prefill chunk through the same launches.
 """
 from __future__ import annotations
 
@@ -118,6 +121,37 @@ class TransformerLM:
         logits = self._unembed(params, x[:, -1:])[:, 0]
         cache = DecodeCache(k=torch.stack(ks), v=torch.stack(vs),
                             length=x.shape[1])
+        return logits, cache
+
+    def prefill_suffix(self, params, tokens, k_anc, v_anc, *, start: int):
+        """Suffix-only prefill: ``tokens`` (b, n) continue a cached prefix
+        of ``start`` tokens whose per-layer rotated K/V ``k_anc``/``v_anc``
+        (L, b, start, g, hd), what ``prefill`` would have stacked, are fed
+        as the context of each layer's attention. Only the n suffix tokens
+        are embedded, projected and attended; the cached prefix is read,
+        never recomputed.
+
+        Returns (last-position logits (b, V), DecodeCache over the SUFFIX
+        only: k/v (L, b, n, g, hd) at absolute positions
+        start..start+n-1, ``length`` start + n)."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        positions = start + torch.arange(x.shape[1], device=x.device)
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            layer = _layer(params["layers"], i)
+            h = apply_norm(cfg, layer["ln1"], x)
+            a, k, v = blocks.attention_prefill_suffix(
+                cfg, layer["attn"], h, k_anc[i], v_anc[i],
+                positions=positions)
+            ks.append(k)
+            vs.append(v)
+            x = x + a
+            x = x + apply_mlp(cfg, layer["mlp"], apply_norm(cfg, layer["ln2"], x))
+        x = apply_norm(cfg, params["final_norm"], x)
+        logits = self._unembed(params, x[:, -1:])[:, 0]
+        cache = DecodeCache(k=torch.stack(ks), v=torch.stack(vs),
+                            length=start + x.shape[1])
         return logits, cache
 
     # ---- decode ----
@@ -248,6 +282,59 @@ class TransformerLM:
         x = apply_norm(cfg, params["final_norm"], x)
         logits = self._unembed(params, x)
         return logits, cache.advance_decode(tokens.shape[1])
+
+    def decode_step_packed(self, params, cache, tokens, chunk_tokens, *,
+                           k_fresh, v_fresh, buf_len: int, chunk_valid: int,
+                           fresh_start: int, fresh_pos, fresh_path,
+                           entries_per_launch=None):
+        """One PACKED heterogeneous step over a paged trie cache: the decode
+        batch (``tokens`` (b, 1)) and ONE request's suffix-prefill chunk
+        (``chunk_tokens`` (1, cp)) through every layer, each layer-step one
+        launch of the packed kernel (``blocks.attention_decode_packed``).
+
+        ``k_fresh``/``v_fresh``: the per-layer (L, F*pm, g, hd) fresh-KV
+        envelopes of the pending node (its already-prefilled tokens in
+        ``[:buf_len]``); the chunk's rotated K/V are written into them at
+        ``buf_len``, in place, as the decode arms are. ``buf_len``,
+        ``chunk_valid`` and ``fresh_start`` are host ints; ``fresh_pos``
+        (cp,) and ``fresh_path`` (depth,) int32 tensors.
+
+        Returns (logits_dec (b, 1, V), logits_chunk (1, cp, V),
+        cache.advance_decode(n), k_fresh, v_fresh)."""
+        cfg = self.cfg
+        store = cache.store
+        names = {"k_pages": store.k_pages, "v_pages": store.v_pages,
+                 "k_dec": cache.k_dec, "v_dec": cache.v_dec,
+                 "k_fresh": k_fresh, "v_fresh": v_fresh}
+        if hasattr(store, "k_scale_pages"):
+            names.update(k_scale_pages=store.k_scale_pages,
+                         v_scale_pages=store.v_scale_pages)
+        paths = cache.slot_paths()                  # (depth, b)
+        dec_lens = cache.slot_dec_lens()            # (b,)
+        ctx_lens_b = cache.slot_context_lens()      # (b,), once per step
+        x = self._embed(params, tokens)
+        x_c = self._embed(params, chunk_tokens)
+        for i in range(cfg.n_layers):
+            layer = _layer(params["layers"], i)
+            lcache = {name: t[i] for name, t in names.items()}
+            a, a_c = blocks.attention_decode_packed(
+                cfg, layer["attn"], apply_norm(cfg, layer["ln1"], x),
+                apply_norm(cfg, layer["ln1"], x_c), lcache,
+                page_tables=store.page_tables, seg_lens=store.seg_lens,
+                paths=paths, ctx_lens_b=ctx_lens_b, dec_lens=dec_lens,
+                buf_len=buf_len, chunk_valid=chunk_valid,
+                fresh_start=fresh_start, fresh_pos=fresh_pos,
+                fresh_path=fresh_path, entries_per_launch=entries_per_launch)
+            x = x + a
+            x_c = x_c + a_c
+            x = x + apply_mlp(cfg, layer["mlp"], apply_norm(cfg, layer["ln2"], x))
+            x_c = x_c + apply_mlp(cfg, layer["mlp"],
+                                  apply_norm(cfg, layer["ln2"], x_c))
+        logits = self._unembed(params, apply_norm(cfg, params["final_norm"], x))
+        logits_c = self._unembed(params,
+                                 apply_norm(cfg, params["final_norm"], x_c))
+        return (logits, logits_c, cache.advance_decode(tokens.shape[1]),
+                k_fresh, v_fresh)
 
     def make_paged_cache(self, slots, n_segments, depth, node_capacity,
                          page_m=128, num_pages=None, dec_capacity=None,

@@ -49,6 +49,7 @@ from repro_torch.configs.base import (
 from repro_torch.core.errors import (
     DecodeCapacityExceeded,
     PoolExhausted,
+    PrefillInFlight,
     SegmentCapacityExceeded,
     SegmentsExhausted,
     SlotsExhausted,
@@ -83,7 +84,13 @@ def sample_tokens(logits, temperature: float, top_p: float, *,
         probs = torch.softmax(sorted_logits, dim=-1)
         cum = torch.cumsum(probs, dim=-1)
         cutoff_idx = torch.sum(cum < top_p, dim=-1)  # first index past p
-        cutoff = torch.gather(sorted_logits, -1, cutoff_idx[:, None])
+        # where the fp32 cumsum ends below top_p the index is V: the
+        # reference gathers NaN there and masks nothing; the index is
+        # clamped so that no out-of-range gather reaches the device
+        v = sorted_logits.shape[-1]
+        cutoff = torch.gather(sorted_logits, -1,
+                              torch.clamp(cutoff_idx, max=v - 1)[:, None])
+        cutoff = torch.where(cutoff_idx[:, None] >= v, -torch.inf, cutoff)
         logits = torch.where(logits < cutoff, -1e30, logits)
     if noise is None:
         u = torch.rand(logits.shape, generator=generator, device=logits.device)
@@ -289,18 +296,24 @@ class _SlotTableEngine:
         self.paged = ecfg.ctx_store == "paged"
 
     # ---- decode ----
-    def _decode_one(self, params, state: ForestState):
+    def _decode_one(self, params, state: ForestState, noise=None):
         """One slot-table decode step: advance every slot one token, gate
         the emission and the slot-table updates on each slot's live bit.
         Runs on the device with no host sync; updates ``state`` in place
-        and returns (tok, logp, emit), each (b,)."""
-        ecfg = self.ecfg
+        and returns (tok, logp, emit), each (b,). ``noise`` (b, V): the
+        step's Gumbel draws (default: from ``state.generator``)."""
         logits, _ = self.model.decode_step(
             params, state.cache, state.tokens,
-            impl="kernel" if ecfg.use_kernel else "einsum")
-        logits = logits[:, -1]
+            impl="kernel" if self.ecfg.use_kernel else "einsum")
+        return self._emit_step(state, logits[:, -1], noise)
+
+    def _emit_step(self, state: ForestState, logits, noise=None):
+        """Sample each slot's next token from its step ``logits`` (b, V)
+        and gate the emission and the slot-table updates on its live bit,
+        in place; returns (tok, logp, emit), each (b,)."""
+        ecfg = self.ecfg
         sampled = sample_tokens(logits, ecfg.temperature, ecfg.top_p,
-                                generator=state.generator)
+                                generator=state.generator, noise=noise)
         tok_logp = _token_logprob(logits, sampled)
         emit = state.active.clone()
         tok = torch.where(emit, sampled, torch.full_like(sampled,
@@ -311,27 +324,40 @@ class _SlotTableEngine:
         state.steps += emit.to(torch.int32)
         return tok, tok_logp, emit
 
-    def step_chunk(self, params, state: ForestState, n_steps: int):
-        """Run ``n_steps`` decode steps for the whole slot table. The loop
-        keeps every state tensor on the device; the host reads the state
-        once before the chunk (the capacity guard) and once after it (the
-        emitted tokens), never inside it. Appends each live slot's emitted
-        tokens to the host-side output lists and returns the state.
-
-        Raises if the chunk would push any LIVE slot past its decode
-        capacity (the per-slot KV write would clamp at the last slot and
-        corrupt that slot's decode arm); slots admitted mid-lifetime sit at
-        different depths, so the guard tracks the deepest live one."""
+    def _check_decode_capacity(self, state: ForestState, n_steps: int,
+                               what: str):
+        """Raise if ``n_steps`` more steps would push any LIVE slot past
+        its decode capacity (the per-slot KV write would clamp at the last
+        slot and corrupt that slot's decode arm); slots admitted
+        mid-lifetime sit at different depths, so the guard tracks the
+        deepest live one. One host read of the state."""
         active = state.active.cpu()
         if bool(active.any()):
             deepest = int(state.cache.dec_lens.cpu()[active].max())
             cap = state.cache.decode_capacity
             if deepest + n_steps > cap:
                 raise DecodeCapacityExceeded(
-                    f"chunk of {n_steps} steps would overflow "
-                    f"decode_capacity={cap} (deepest live slot at "
-                    f"{deepest}); retire slots or shorten the chunk")
-        outs = [self._decode_one(params, state) for _ in range(n_steps)]
+                    f"{what} would overflow decode_capacity={cap} "
+                    f"(deepest live slot at {deepest}); retire slots or "
+                    f"shorten the chunk")
+
+    def step_chunk(self, params, state: ForestState, n_steps: int,
+                   noise=None):
+        """Run ``n_steps`` decode steps for the whole slot table. The loop
+        keeps every state tensor on the device; the host reads the state
+        once before the chunk (the capacity guard) and once after it (the
+        emitted tokens), never inside it. Appends each live slot's emitted
+        tokens to the host-side output lists and returns the state.
+        ``noise`` (n_steps, b, V): the Gumbel draws of every step, as
+        ``ServeEngine.generate`` takes them (default: ``state.generator``).
+
+        Raises ``DecodeCapacityExceeded`` if the chunk would push any live
+        slot past its decode capacity."""
+        self._check_decode_capacity(state, n_steps,
+                                    f"chunk of {n_steps} steps")
+        outs = [self._decode_one(params, state,
+                                 None if noise is None else noise[i])
+                for i in range(n_steps)]
         self.decode_dispatches += 1
         if outs:
             toks, lps, emits = (torch.stack(x) for x in zip(*outs))
@@ -358,14 +384,15 @@ class _SlotTableEngine:
                 self.outputs[s].append(int(toks[t, s]))
                 self.logps[s].append(float(lps[t, s]))
 
-    def _sample_first(self, generator, logits0, n_samples):
+    def _sample_first(self, generator, logits0, n_samples, noise=None):
         """Sample each fanned-out slot's first token from the shared
         prefill logits; returns (tokens (n,), logps (n,), live (n,) bool)
-        with EOS-at-step-0 already folded into ``live``."""
+        with EOS-at-step-0 already folded into ``live``. ``noise`` (n, V):
+        the Gumbel draws (default: from ``generator``)."""
         ecfg = self.ecfg
-        logits_b = logits0.expand(n_samples, logits0.shape[-1])
+        logits_b = logits0.reshape(1, -1).expand(n_samples, logits0.shape[-1])
         tok = sample_tokens(logits_b, ecfg.temperature, ecfg.top_p,
-                            generator=generator)
+                            generator=generator, noise=noise)
         lp = _token_logprob(logits_b, tok)
         live = (tok != ecfg.eos_token if ecfg.eos_token >= 0
                 else torch.ones_like(tok, dtype=torch.bool))
@@ -502,13 +529,15 @@ class ForestServeEngine(_SlotTableEngine):
                     or not self.group_live[self.slot_group[s]])]
 
     def admit(self, params, state: ForestState, context_tokens,
-              n_samples: int) -> tuple:
+              n_samples: int, noise=None) -> tuple:
         """Admit one request: prefill its context into a free segment, fan
         ``n_samples`` slots out over it, sample their first token from the
         prefill logits. Returns (state, slot_ids). A rejected admission
         raises its typed error before anything is mutated. EOS-at-step-0:
         a first token equal to ``eos_token`` retires the slot before it
-        ever decodes (its emitted sequence is just the EOS)."""
+        ever decodes (its emitted sequence is just the EOS). ``noise``
+        (n_samples, V): the first tokens' Gumbel draws (default: from
+        ``state.generator``)."""
         fcfg = self.fcfg
         m_new = int(context_tokens.shape[1])
         if m_new > fcfg.ctx_capacity:
@@ -554,7 +583,7 @@ class ForestServeEngine(_SlotTableEngine):
         cache.assign_slots(slot_mask, gidx)
 
         tok, lp, live = self._sample_first(state.generator, logits0,
-                                           n_samples)
+                                           n_samples, noise)
         state.tokens[slot_ids, 0] = tok
         state.active[slot_ids] = live
         state.steps[slot_ids] = 0
@@ -655,8 +684,29 @@ class TreeServeEngine(_SlotTableEngine):
     pages (a reused ancestor costs none), a node's pages return to the
     allocator when its refcount reaches zero, and ``release_retired``
     empties freed nodes' table rows (every admission runs it before
-    allocating). Not ported here: the cross-request prefix cache,
-    suffix-only prefill, the packed step (``TreeConfig`` knobs that raise
+    allocating).
+
+    ``suffix_prefill``: on a prefix hit, the matched ancestors' cached K/V
+    is the context of a prefill of the new levels' tokens only
+    (``model.prefill_suffix``), instead of the whole path.
+
+    ``step_mode="packed"``: an admission with new trie levels becomes a
+    PENDING prefill (nodes and pages reserved, nothing computed); its
+    suffix goes through the model in chunks of ``prefill_chunk`` tokens,
+    one per decode step of the whole slot table, never crossing a node
+    (``_packed_step``). On the paged store with ``use_kernel`` each
+    layer-step of such a step is ONE launch of the packed kernel, which
+    serves the decode rows and the chunk rows together and reads the
+    shared ancestors' pages once for both; otherwise the decode step and
+    a suffix prefill of the chunk run one after the other. A node goes
+    live when its last chunk lands; the request activates (its slots get
+    their path and first token) when its last node does. Until then its
+    slots emit nothing, ``retire_requests`` skips it, ``cancel_request``
+    aborts it, and an admission whose first new level collides with a
+    pending node raises ``PrefillInFlight``.
+
+    Not ported here: the cross-request prefix cache and its eviction
+    (``prefix_cache``, ``evict_policy``: ``TreeConfig`` knobs that raise
     ``NotImplementedError``), and the integrity and durability surface of
     the reference engine (segment checksums, ``audit_state``,
     ``host_state``).
@@ -666,11 +716,12 @@ class TreeServeEngine(_SlotTableEngine):
         _check_ctx_store(tcfg.ctx_store)
         for knob, value, ported in (
                 ("prefix_cache", tcfg.prefix_cache, False),
-                ("suffix_prefill", tcfg.suffix_prefill, False),
-                ("step_mode", tcfg.step_mode, "decode"),
                 ("evict_policy", tcfg.evict_policy, "lru")):
             if value != ported:
                 raise NotImplementedError(f"{knob}={value!r} is not ported")
+        if tcfg.step_mode not in ("decode", "packed"):
+            raise ValueError(f"unknown step_mode {tcfg.step_mode!r}: "
+                             f"'decode' or 'packed'")
         super().__init__(model, cfg, tcfg)
         self.tcfg = tcfg
         # host-side trie mirrors (admission policy only — the decode math
@@ -699,6 +750,11 @@ class TreeServeEngine(_SlotTableEngine):
             # node id -> pool page ids; an ancestor's pages are allocated
             # at its first admission and freed with the node itself
             self.node_pages = {}
+        # packed mode: rid -> pending-prefill record, and the node ids its
+        # prefills reserved: not live (no KV yet; an empty table row in the
+        # paged store), not free (identity and pages claimed)
+        self._pending = {}
+        self.node_pending = set()
 
     # ---- lifecycle ----
     def init_state(self, device="cuda") -> ForestState:
@@ -731,7 +787,8 @@ class TreeServeEngine(_SlotTableEngine):
         )
 
     def free_nodes(self):
-        return [i for i, live in enumerate(self.node_live) if not live]
+        return [i for i, live in enumerate(self.node_live)
+                if not live and i not in self.node_pending]
 
     def free_slots(self, state: ForestState, active=None):
         """Slots safe to (re)assign: never admitted, or belonging to a
@@ -794,16 +851,75 @@ class TreeServeEngine(_SlotTableEngine):
         return {"ctx_bytes": int(sum(io["per_node"].values())),
                 "total": int(io["total"]), "slots": len(paths)}
 
+    def _node_kv(self, cache, nid: int, m: int):
+        """One resident node's first ``m`` live tokens of K/V as
+        (L, m, g, hd) tensors in the decode arm's dtype, read from the
+        serve cache: dense slab slices or pool-page gathers; int8 nodes
+        dequantize (the k scales carry the logit scale hd**-0.5 folded in,
+        so K unfolds it by hd**0.5)."""
+        hd = self.cfg.kq_dim
+        store = getattr(cache, "store", None)
+        if store is not None:
+            ids = torch.as_tensor(self.node_pages[nid], dtype=torch.long,
+                                  device=store.k_pages.device)
+
+            def pages(t):   # (L, P, g, pm[, hd]) -> (L, m, g[, hd])
+                x = t.index_select(1, ids).transpose(2, 3)
+                return x.reshape(x.shape[0], -1, *x.shape[3:])[:, :m]
+
+            k, v = pages(store.k_pages), pages(store.v_pages)
+            if hasattr(store, "k_scale_pages"):
+                k = k.float() * pages(store.k_scale_pages)[..., None] * hd**0.5
+                v = v.float() * pages(store.v_scale_pages)[..., None]
+        else:
+            gmk = cache.ctx_layout == "gmk"
+
+            def node(t):    # (L, N, g, m_c[, hd]) | (L, N, m_c, g[, hd])
+                x = t[:, nid]
+                return x[:, :, :m].transpose(1, 2) if gmk else x[:, :m]
+
+            k, v = node(cache.k_ctx), node(cache.v_ctx)
+            if hasattr(cache, "k_scale"):
+                k = k.float() * node(cache.k_scale)[..., None] * hd**0.5
+                v = v.float() * node(cache.v_scale)[..., None]
+        dtype = cache.k_dec.dtype
+        return k.to(dtype), v.to(dtype)
+
+    def _gather_path_kv(self, state: ForestState, path, cut: int):
+        """Per-layer K/V of the matched path's first ``cut`` tokens in the
+        prefill layout (L, 1, cut, g, hd): the cached context fed to
+        ``model.prefill_suffix`` so that admission never recomputes it."""
+        ks, vs = [], []
+        got = 0
+        for nid in path:
+            if got >= cut:
+                break
+            m = min(self.node_len[nid], cut - got)
+            k, v = self._node_kv(state.cache, nid, m)
+            ks.append(k)
+            vs.append(v)
+            got += m
+        return torch.cat(ks, dim=1)[:, None], torch.cat(vs, dim=1)[:, None]
+
     def admit(self, params, state: ForestState, segments,
-              n_samples: int) -> tuple:
+              n_samples: int, noise=None) -> tuple:
         """Admit one request given as a PATH of ``segments`` — a list of
         (1, m_i) token tensors, outermost shared level first; 1 <= len <=
         ``depth``. The longest matching prefix of the path is reused from
-        the trie; the full concatenation is prefilled ONCE and only the
-        new levels' KV slices are written. ``n_samples`` free slots fan out
-        over the path. Returns (state, slot_ids). A rejected admission
-        raises its typed error before anything is mutated; EOS at step 0
-        retires a slot before it ever decodes."""
+        the trie; the full concatenation is prefilled ONCE (with
+        ``suffix_prefill``, only the new levels' tokens over the matched
+        ancestors' cached K/V) and only the new levels' KV slices are
+        written. ``n_samples`` free slots fan out over the path. Returns
+        (state, slot_ids). A rejected admission raises its typed error
+        before anything is mutated; EOS at step 0 retires a slot before it
+        ever decodes. ``noise`` (n_samples, V): the first tokens' Gumbel
+        draws (default: from ``state.generator``; a packed admission
+        samples them when it activates, from the generator).
+
+        In packed mode an admission with new levels only reserves them and
+        returns at once: its slots start decoding after its chunks land
+        (``step_chunk``). An admission whose first new level is being
+        prefilled by a pending request raises ``PrefillInFlight``."""
         tcfg = self.tcfg
         dev = state.active.device
         segments = [torch.as_tensor(s, device=dev) for s in segments]
@@ -818,6 +934,18 @@ class TreeServeEngine(_SlotTableEngine):
                     f"segment of {seg.shape[1]} tokens > node capacity {cap}")
         path, matched = self.match_prefix(segments)
         new_segs = segments[matched:]
+        if new_segs:
+            # the first new level's (parent, tokens) identity may be
+            # reserved by a pending packed prefill: its KV is not written,
+            # so it can be neither reused nor duplicated (deeper new levels
+            # hang off nodes this admission creates)
+            key0 = (path[-1] if path else -1, _tokens_key(new_segs[0]))
+            nid0 = self.node_index.get(key0)
+            if nid0 is not None and nid0 in self.node_pending:
+                raise PrefillInFlight(
+                    f"trie level is being prefilled by a pending packed "
+                    f"admission (node {nid0}) — retry after its chunks "
+                    f"land")
         free_n = self.free_nodes()
         free_s = self.free_slots(state)
         if len(new_segs) > len(free_n):
@@ -842,13 +970,29 @@ class TreeServeEngine(_SlotTableEngine):
             # stale table rows first (after the rejections)
             state = self.release_retired(state)
         slots = free_s[:n_samples]
+        if self.tcfg.step_mode == "packed" and new_segs:
+            return self._admit_packed(state, segments, slots, path, matched,
+                                      free_n)
 
         total = sum(int(s.shape[1]) for s in segments)
         offset = sum(int(s.shape[1]) for s in segments[:matched])
-        # ONE prefill of the full concatenation: reused ancestors are
-        # recomputed (identical values) but not rewritten; each new node
-        # gets its token slice
-        logits0, cache1 = self.model.prefill(params, torch.cat(segments, 1))
+        cut = 0
+        if tcfg.suffix_prefill and matched:
+            # SUFFIX-ONLY prefill: the matched ancestors' cached KV is the
+            # context; only the new levels' tokens run through the model.
+            # On a full-path hit the last cached token re-runs as a
+            # one-token suffix, so that the first-token logits are defined
+            cut = min(offset, total - 1)
+            k_anc, v_anc = self._gather_path_kv(state, path, cut)
+            suffix = torch.cat(segments, 1)[:, cut:]
+            logits0, cache1 = self.model.prefill_suffix(
+                params, suffix, k_anc, v_anc, start=cut)
+        else:
+            # ONE prefill of the full concatenation: reused ancestors are
+            # recomputed (identical values) but not rewritten; each new
+            # node gets its token slice
+            logits0, cache1 = self.model.prefill(params,
+                                                 torch.cat(segments, 1))
         stats = self.prefix_stats
         stats["admits"] += 1
         if matched == len(segments):
@@ -857,14 +1001,14 @@ class TreeServeEngine(_SlotTableEngine):
             stats["partial_hits"] += 1
         stats["reused_tokens"] += offset
         stats["new_tokens"] += total - offset
-        stats["computed_tokens"] += total
+        stats["computed_tokens"] += total - cut
         cache = state.cache
         parent = path[-1] if path else -1
         for seg in new_segs:
             nid = free_n.pop(0)
             m = int(seg.shape[1])
-            k = cache1.k[:, 0, offset:offset + m]
-            v = cache1.v[:, 0, offset:offset + m]
+            k = cache1.k[:, 0, offset - cut:offset - cut + m]
+            v = cache1.v[:, 0, offset - cut:offset - cut + m]
             if self.paged:
                 ids = self.page_alloc.alloc(pages_needed(m, tcfg.page_size))
                 self.node_pages[nid] = ids
@@ -890,7 +1034,7 @@ class TreeServeEngine(_SlotTableEngine):
         cache.assign_paths(slot_mask, path_col)
 
         tok, lp, live = self._sample_first(state.generator, logits0,
-                                           n_samples)
+                                           n_samples, noise)
         state.tokens[slot_ids, 0] = tok
         state.active[slot_ids] = live
         state.steps[slot_ids] = 0
@@ -910,19 +1054,281 @@ class TreeServeEngine(_SlotTableEngine):
         self._compact_requests()
         return state, slots
 
+    # ---- packed heterogeneous stepping (step_mode="packed") ----
+    def _prefill_chunk(self) -> int:
+        return self.tcfg.prefill_chunk or self.tcfg.page_size
+
+    def _admit_packed(self, state: ForestState, segments, slots, path,
+                      matched, free_n) -> tuple:
+        """Packed-mode admission of a request with new trie levels, after
+        the rejections: reserve a node (and in paged mode its pages) for
+        every new level and register the request as PENDING; nothing is
+        computed or written. The suffix is prefilled in chunks by the
+        following steps (``_packed_step``); the slots activate when the
+        last chunk lands. Until then the request is live (its slots are
+        not free) but decodes nothing."""
+        tcfg = self.tcfg
+        new_segs = segments[matched:]
+        total = sum(int(s.shape[1]) for s in segments)
+        offset = sum(int(s.shape[1]) for s in segments[:matched])
+        stats = self.prefix_stats
+        stats["admits"] += 1
+        if matched:
+            stats["partial_hits"] += 1
+        stats["reused_tokens"] += offset
+        stats["new_tokens"] += total - offset
+        stats["computed_tokens"] += total - offset
+
+        parent = path[-1] if path else -1
+        new_nodes = []
+        for seg in new_segs:
+            nid = free_n.pop(0)
+            m = int(seg.shape[1])
+            if self.paged:
+                self.node_pages[nid] = self.page_alloc.alloc(
+                    pages_needed(m, tcfg.page_size))
+            key = (parent, _tokens_key(seg))
+            self.node_index[key] = nid
+            self.node_key[nid] = key
+            self.node_len[nid] = m
+            self.node_pending.add(nid)
+            new_nodes.append((nid, m))
+            path.append(nid)
+            parent = nid
+        for nid in path:
+            self.node_refs[nid] += 1
+
+        rid = self.next_rid
+        self.next_rid += 1
+        self.last_rid = rid
+        self.requests[rid] = {"path": list(path), "slots": list(slots),
+                              "live": True}
+        for s in slots:
+            self.slot_request[s] = rid
+            self.outputs[s] = []
+            self.logps[s] = []
+            self.corrupt_slots.discard(s)
+        suffix = torch.cat([seg[0] for seg in new_segs]).cpu()
+        self._pending[rid] = {
+            "path": list(path), "slots": list(slots), "matched": matched,
+            "new": new_nodes, "suffix": suffix, "cut": offset, "done": 0,
+            "node_i": 0, "buf_len": 0, "fresh_start": offset,
+            # kernel path: the per-layer fresh-KV envelopes (made at the
+            # first chunk); reference path: the suffix KV prefilled so far
+            "k_fresh": None, "v_fresh": None, "kbuf": None, "vbuf": None,
+        }
+        self._compact_requests()
+        return state, slots
+
+    def step_chunk(self, params, state: ForestState, n_steps: int,
+                   noise=None):
+        """Packed mode: while a prefill is pending, run single packed steps,
+        each advancing the whole slot table one token and the oldest
+        pending prefill one chunk; the rest of the chunk (all of it when
+        nothing is pending) runs as in decode mode. ``noise`` as in
+        ``_SlotTableEngine.step_chunk`` (the activations' first tokens
+        draw from ``state.generator``)."""
+        if self.tcfg.step_mode != "packed":
+            return super().step_chunk(params, state, n_steps, noise)
+        done = 0
+        while done < n_steps:
+            if not self._pending:
+                return super().step_chunk(
+                    params, state, n_steps - done,
+                    None if noise is None else noise[done:])
+            state = self._packed_step(
+                params, state, None if noise is None else noise[done])
+            done += 1
+        return state
+
+    def _packed_step(self, params, state: ForestState,
+                     noise=None) -> ForestState:
+        """ONE packed heterogeneous step: the whole slot table advances one
+        decode token AND the oldest pending prefill advances one chunk of
+        at most ``prefill_chunk`` tokens, never crossing a node. A node's
+        last chunk writes its KV into the cache; the request's last node
+        activates it from the final chunk's last logits. ``noise`` (b, V):
+        the decode step's Gumbel draws. Raises
+        ``DecodeCapacityExceeded`` first if a live slot has no decode slot
+        left."""
+        rid = min(self._pending)
+        pend = self._pending[rid]
+        nid, m_node = pend["new"][pend["node_i"]]
+        cv = min(self._prefill_chunk(), m_node - pend["buf_len"])
+        chunk = pend["suffix"][pend["done"]:pend["done"] + cv]
+        self._check_decode_capacity(state, 1, "packed step")
+        if self.paged and self.tcfg.use_kernel:
+            out, logits_last = self._packed_step_kernel(
+                params, state, pend, chunk, cv, noise)
+        else:
+            out, logits_last = self._packed_step_ref(
+                params, state, pend, chunk, noise)
+        self.decode_dispatches += 1
+        self._collect_emitted(*out)
+        pend["buf_len"] += cv
+        pend["done"] += cv
+        if pend["buf_len"] == m_node:
+            self._complete_node(state, pend, nid, m_node)
+        if pend["node_i"] == len(pend["new"]):
+            state = self._activate_pending(state, rid, logits_last)
+        return state
+
+    def _packed_step_kernel(self, params, state: ForestState, pend, chunk,
+                            cv, noise):
+        """The kernel path: ``model.decode_step_packed``, every layer-step
+        one launch of the packed kernel over the decode rows and the chunk
+        (padded to ``prefill_chunk`` rows), whose K/V land in the pending
+        node's envelopes at ``buf_len``. Returns the step's emissions and
+        the chunk's last live row's logits."""
+        cfg = self.cfg
+        cp = self._prefill_chunk()
+        dev = state.active.device
+        if pend["k_fresh"] is None:
+            shape = (cfg.n_layers, self.pages_per_seg * self.tcfg.page_size,
+                     cfg.n_kv_heads_padded, cfg.kq_dim)
+            pend["k_fresh"] = state.cache.k_dec.new_zeros(shape)
+            pend["v_fresh"] = state.cache.k_dec.new_zeros(shape)
+        buf = torch.zeros((1, cp), dtype=torch.long)
+        buf[0, :cv] = chunk
+        fpath = pend["path"] + [-1] * (self.tcfg.depth - len(pend["path"]))
+        start = pend["fresh_start"] + pend["buf_len"]
+        logits, logits_c, _, _, _ = self.model.decode_step_packed(
+            params, state.cache, state.tokens, buf.to(dev),
+            k_fresh=pend["k_fresh"], v_fresh=pend["v_fresh"],
+            buf_len=pend["buf_len"], chunk_valid=cv,
+            fresh_start=pend["fresh_start"],
+            fresh_pos=torch.arange(start, start + cp, dtype=torch.int32,
+                                   device=dev),
+            fresh_path=torch.tensor(fpath, dtype=torch.int32, device=dev))
+        out = self._emit_step(state, logits[:, -1], noise)
+        return out, logits_c[0, cv - 1]
+
+    def _packed_step_ref(self, params, state: ForestState, pend, chunk,
+                         noise):
+        """The reference path (dense store, or ``use_kernel=False``): the
+        decode step of decode mode, then a prefill of the chunk over
+        [matched ancestors ⊕ the suffix KV prefilled so far] (a suffix
+        prefill, or a plain prefill at position 0), row for row what the
+        one-shot suffix prefill computes. Returns the step's emissions and
+        the chunk's last logits."""
+        out = self._decode_one(params, state, noise)
+        start = pend["cut"] + pend["done"]
+        chunk_t = chunk.to(state.active.device)[None, :]
+        if start == 0:
+            logits_c, cache_c = self.model.prefill(params, chunk_t)
+        else:
+            k_anc, v_anc = self._pending_context(state, pend, start)
+            logits_c, cache_c = self.model.prefill_suffix(
+                params, chunk_t, k_anc, v_anc, start=start)
+        k_new, v_new = cache_c.k[:, 0], cache_c.v[:, 0]  # (L, cv, g, hd)
+        for name, new in (("kbuf", k_new), ("vbuf", v_new)):
+            pend[name] = (new if pend[name] is None
+                          else torch.cat([pend[name], new], dim=1))
+        return out, logits_c
+
+    def _pending_context(self, state: ForestState, pend, start: int):
+        """The pending request's first ``start`` tokens of per-layer K/V in
+        the prefill layout (L, 1, start, g, hd): the matched ancestors read
+        from the cache ⊕ the suffix tokens prefilled by earlier chunks."""
+        ks, vs = [], []
+        if pend["cut"]:
+            k_m, v_m = self._gather_path_kv(
+                state, pend["path"][:pend["matched"]], pend["cut"])
+            ks.append(k_m[:, 0])
+            vs.append(v_m[:, 0])
+        if pend["done"]:
+            ks.append(pend["kbuf"])
+            vs.append(pend["vbuf"])
+        dtype = ks[-1].dtype
+        return (torch.cat([k.to(dtype) for k in ks], dim=1)[:, None],
+                torch.cat([v.to(dtype) for v in vs], dim=1)[:, None])
+
+    def _complete_node(self, state: ForestState, pend, nid: int, m: int):
+        """All of node ``nid``'s tokens are prefilled: write its KV into the
+        serve cache (quantized and transposed once, in place, as a
+        synchronous admission writes it) and flip the node live, so that
+        later chunks and requests read it."""
+        if pend["k_fresh"] is not None:
+            k, v = pend["k_fresh"][:, :m], pend["v_fresh"][:, :m]
+        else:
+            lo = pend["done"] - m
+            k = pend["kbuf"][:, lo:lo + m]
+            v = pend["vbuf"][:, lo:lo + m]
+        if self.paged:
+            state.cache.write_node(k, v, nid, self.node_pages[nid])
+        else:
+            state.cache.write_node(k, v, nid)
+        self.node_live[nid] = True
+        self.node_pending.discard(nid)
+        pend["node_i"] += 1
+        pend["buf_len"] = 0
+        pend["fresh_start"] += m
+
+    def _activate_pending(self, state: ForestState, rid: int, logits0,
+                          noise=None) -> ForestState:
+        """The pending request's last chunk landed: point its reserved
+        slots at the now live path and sample their first token from the
+        last chunk's last logits, as a synchronous admission samples from
+        its prefill's. ``noise`` (n_samples, V): the Gumbel draws."""
+        tcfg = self.tcfg
+        pend = self._pending.pop(rid)
+        path, slots = pend["path"], pend["slots"]
+        dev = state.active.device
+        path_col = torch.tensor(path + [-1] * (tcfg.depth - len(path)),
+                                dtype=torch.int32, device=dev)
+        slot_ids = torch.as_tensor(slots, dtype=torch.long, device=dev)
+        slot_mask = torch.zeros(tcfg.slots, dtype=torch.bool, device=dev)
+        slot_mask[slot_ids] = True
+        state.cache.assign_paths(slot_mask, path_col)
+        tok, lp, live = self._sample_first(state.generator, logits0,
+                                           len(slots), noise)
+        state.tokens[slot_ids, 0] = tok
+        state.active[slot_ids] = live
+        state.steps[slot_ids] = 0
+        tok_h, lp_h = tok.tolist(), lp.tolist()
+        for i, s in enumerate(slots):
+            self.outputs[s] = [int(tok_h[i])]
+            self.logps[s] = [float(lp_h[i])]
+        return state
+
+    def _abort_pending(self, state: ForestState, rid: int) -> ForestState:
+        """Abort an in-flight packed prefill (cancellation): its unwritten
+        reserved nodes free at once (trie identity dropped, pages
+        released; nothing of them was ever written to the cache), and its
+        matched ancestors and completed nodes release through the
+        refcounted path of retirement."""
+        pend = self._pending.pop(rid)
+        self.requests[rid]["live"] = False
+        for nid, _ in pend["new"][pend["node_i"]:]:
+            self.node_pending.discard(nid)
+            self.node_refs[nid] -= 1
+            self.node_index.pop(self.node_key[nid], None)
+            self.node_key[nid] = None
+            self.node_len[nid] = 0
+            if self.paged:
+                self.page_alloc.release(self.node_pages.pop(nid, []))
+        self._release_path(pend["path"][:pend["matched"] + pend["node_i"]])
+        self._compact_requests()
+        return state
+
     # ---- retire ----
     def retire_requests(self, state: ForestState, active=None):
         """Free every request whose slots have all gone inactive. Node
         refcounts drop along the retired paths; a node's segment (and its
         trie-index entry) frees only at refcount zero — an ancestor shared
-        with a still-live request survives. Returns the retired request
-        ids; their slots become reusable by the next ``admit``.
-        ``active`` optionally supplies a host copy of ``state.active``."""
+        with a still-live request survives. A request whose packed
+        prefill is pending is skipped: its slots are inactive until it
+        activates, and it ends only by ``cancel_request``. Returns the
+        retired request ids; their slots become reusable by the next
+        ``admit``. ``active`` optionally supplies a host copy of
+        ``state.active``."""
         if active is None:
             active = state.active.cpu()
         retired = []
         for rid in sorted(self.requests):
             req = self.requests[rid]
+            if rid in self._pending:
+                continue
             if req["live"] and not any(bool(active[s]) for s in req["slots"]):
                 req["live"] = False
                 retired.append(rid)
@@ -971,10 +1377,15 @@ class TreeServeEngine(_SlotTableEngine):
     def cancel_request(self, state: ForestState, rid: int) -> ForestState:
         """Deactivate every slot of a LIVE request (preemption / deadline /
         client cancellation); its nodes free through ``retire_requests``,
-        shared ancestors survive. A compacted or retired rid is a no-op."""
+        shared ancestors survive. A compacted or retired rid is a no-op. A
+        request whose packed prefill is pending has no active slot: its
+        prefill is aborted instead (``_abort_pending``), its unwritten
+        nodes and their pages freed at once."""
         req = self.requests.get(rid)
         if req is None or not req["live"]:
             return state
+        if rid in self._pending:
+            return self._abort_pending(state, rid)
         return self.deactivate_slots(state, req["slots"])
 
     def request_sharing(self, rid: int) -> int:

@@ -509,3 +509,160 @@ def test_paged_serve_paths_launch_the_paged_kernel(cuda, engine,
         assert all(len(eng.outputs[s]) == 5 for s in a + b)
     assert {k.__name__: k.launches for k in bd.KERNELS if k.launches} == {
         kern.__name__: cfg.n_layers * 4}
+
+
+# ---- packed heterogeneous-step kernels ----
+
+def _packed_inputs(y, pn, cp, fresh_len, fresh_start, fresh_path, seed,
+                   env=None):
+    """The paged operands ``y`` (of ``_paged_inputs``) with a chunk of
+    ``cp`` positions (``pn`` rows each) after the decode rows: its rows'
+    path [fresh_path..., N] on one more level (decode rows -1 there), its
+    envelope of ``env`` rows (default two pages) holding ``fresh_len`` live
+    rows from position ``fresh_start``, the chunk at its last ``cp`` live
+    rows; cp = 0 gives a decode-only call. Returns (args, kwargs) of the
+    packed wrappers."""
+    quant = y[1].dtype == torch.int8
+    n_pool = 4 if quant else 2
+    q, pool = y[0], y[1:1 + n_pool]
+    tables, lens, paths = y[1 + n_pool:4 + n_pool]
+    kd, vd, bias = y[4 + n_pool:]
+    g, nd, hd = q.shape
+    dev = q.device
+    pm, n_segs, depth = pool[0].shape[2], tables.shape[0], paths.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qc = torch.randn(g, cp * pn, hd, generator=gen, device=dev).to(q.dtype)
+    env = env or 2 * pm
+    kf, vf = (torch.randn(env, g, hd, generator=gen, device=dev
+                          ).to(torch.bfloat16) for _ in range(2))
+    fp = torch.tensor(list(fresh_path) + [-1] * (depth - len(fresh_path))
+                      + [n_segs], dtype=torch.int32, device=dev)
+    path_rows = torch.cat([
+        torch.cat([paths, torch.full((1, nd), -1, dtype=torch.int32,
+                                     device=dev)]),
+        fp[:, None].expand(depth + 1, cp * pn)], dim=1).contiguous()
+    pos = fresh_start + fresh_len - cp + torch.arange(cp, device=dev)
+    row_pos = torch.cat([torch.zeros(nd, dtype=torch.int32, device=dev),
+                         pos.to(torch.int32).repeat_interleave(pn)])
+    row_slot = torch.cat([
+        torch.arange(nd, dtype=torch.int32, device=dev) // pn,
+        torch.full((cp * pn,), -1, dtype=torch.int32, device=dev)])
+    args = ((torch.cat([q, qc], 1).contiguous(),) + tuple(pool)
+            + (kf, vf, tables, lens, path_rows, row_pos.contiguous(),
+               row_slot.contiguous(), kd, vd, bias))
+    return args, dict(fresh_len=fresh_len, fresh_start=fresh_start)
+
+
+# (paged shape, page size, cp, fresh_len, fresh_start, fresh path): the
+# main trie with a 100-position chunk under the root and first template
+# (rows off the tile, a tile of decode and chunk rows), the ragged trie
+# with a chunk at position 0 and no ancestors, hd 80 with fresh_len 65
+PACKED_SHAPES = [(0, 100, 165, 6144, [0, 1]), (2, 7, 7, 0, []),
+                 (3, 20, 65, 200, [0])]
+
+
+@pytest.mark.parametrize("case", PACKED_SHAPES)
+@pytest.mark.parametrize("quant", [False, True])
+def test_packed_kernels_match_plain_and_paged_kernels(cuda, case, quant):
+    """#10/#11: a decode-only call bit-equal to #8/#9; with a chunk,
+    against their plain versions (decode and chunk rows); an id outside
+    [-1, N] on the chunk's path gives NaN chunk rows and leaves the decode
+    rows' bits; fresh_len 0 and the pseudo id N alone poison nothing."""
+    i, cp, fl, fs, fpath = case
+    shape, pm = PAGED_SHAPES[i]
+    hd, c_d, pn = shape[2], shape[6], shape[1]
+    x = _tree_inputs(cuda, shape, seed=hd + shape[3], quant=quant)
+    y = _paged_inputs(x, quant, pm, seed=1, fill=float("nan"))
+    kw = dict(scale=hd**-0.5, c_d=c_d, pn=pn)
+    kern = (bd.packed_fused_bifurcated_decode_q8 if quant
+            else bd.packed_fused_bifurcated_decode)
+    plain = (bd.packed_fused_bifurcated_decode_q8_plain if quant
+             else bd.packed_fused_bifurcated_decode_plain)
+    paged = (bd.paged_fused_bifurcated_decode_q8 if quant
+             else bd.paged_fused_bifurcated_decode)
+    env = -(-max(fl, 1) // pm) * pm + pm
+    a0, k0 = _packed_inputs(y, pn, 0, 0, 0, fpath, seed=2, env=env)
+    n0 = kern.launches
+    dec_only = kern(*a0, **k0, **kw)
+    assert kern.launches == n0 + 1
+    assert torch.equal(dec_only, paged(*y, **kw))
+    a, k = _packed_inputs(y, pn, cp, fl, fs, fpath, seed=2, env=env)
+    out = kern(*a, **k, **kw)
+    assert torch.isfinite(out.float()).all()
+    _assert_within(out, plain(*a, **k, **kw), 2e-2)
+    nd = y[0].shape[1]
+    assert torch.equal(out[:, :nd], dec_only)
+    empty = kern(*a, **dict(k, fresh_len=0), **kw)
+    assert torch.isfinite(empty.float()).all()
+    assert torch.equal(empty[:, :nd], dec_only)
+    bad = a[-6].clone()
+    bad[0, nd:] = a[-8].shape[0] + 1                 # N + 1
+    out_b = kern(*(a[:-6] + (bad,) + a[-5:]), **k, **kw)
+    assert torch.isnan(out_b[:, nd:].float()).all()
+    assert torch.equal(out_b[:, :nd], dec_only)
+
+
+def test_packed_kernels_take_bf16_and_one_launch_only(cuda):
+    """fp32 queries raise TypeError; entries_per_launch raises ValueError
+    on CUDA tensors (one launch serves any queue on the card)."""
+    from repro_torch.kernels.ops import packed_bifurcated_decode_attention
+
+    shape, pm = PAGED_SHAPES[2]
+    x = _tree_inputs(cuda, shape, seed=0, quant=False)
+    y = _paged_inputs(x, False, pm, seed=0, fill=0.0)
+    a, k = _packed_inputs(y, 2, 3, 3, 10, [0], seed=1)
+    f32 = tuple(t.float() if t.dtype == torch.bfloat16 else t for t in a)
+    with pytest.raises(TypeError, match="bfloat16"):
+        bd.packed_fused_bifurcated_decode(*f32, **k, scale=0.125, c_d=5,
+                                          pn=2)
+    g, rows, hd = y[0].shape
+    b = rows // 2
+    q = y[0].reshape(g, b, 2, 1, hd).permute(1, 0, 2, 3, 4)
+    arm = torch.zeros(b, 3, g, hd, dtype=torch.bfloat16, device=cuda)
+    n0 = [k.launches for k in bd.KERNELS]
+    with pytest.raises(ValueError, match="entries_per_launch"):
+        packed_bifurcated_decode_attention(
+            q, y[1], y[2], y[3], y[4], y[5][:, ::2], arm, arm,
+            torch.ones(b, 3, dtype=torch.bool, device=cuda),
+            entries_per_launch=2)
+    assert [k.launches for k in bd.KERNELS] == n0
+
+
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "int8"])
+def test_packed_serve_path_launches_the_packed_kernel(cuda, cache_dtype):
+    """TreeServeEngine(step_mode="packed") on the paged store: each step
+    with a pending chunk launches #10 (#11) n_layers times and no other
+    kernel; once nothing is pending, the decode-only steps launch #8 (#9);
+    the requests' tokens are in range."""
+    from repro_torch.configs import TreeConfig
+    from repro_torch.runtime.serve import TreeServeEngine
+
+    cfg, model, params = _reduced_model(cuda)
+    q8 = cache_dtype == "int8"
+    packed = (bd.packed_fused_bifurcated_decode_q8 if q8
+              else bd.packed_fused_bifurcated_decode)
+    paged = (bd.paged_fused_bifurcated_decode_q8 if q8
+             else bd.paged_fused_bifurcated_decode)
+    eng = TreeServeEngine(model, cfg, TreeConfig(
+        n_nodes=4, depth=2, slots=5, node_capacity=48, decode_capacity=16,
+        use_kernel=True, cache_dtype=cache_dtype, ctx_store="paged",
+        page_size=16, step_mode="packed", suffix_prefill=True,
+        prefill_chunk=16))
+    tok = lambda m: torch.randint(0, 500, (1, m), device=cuda)  # noqa: E731
+    root = tok(40)
+    st = eng.init_state(device=cuda)
+    st, a = eng.admit(params, st, [root, tok(9)], 3)     # 3 + 1 chunks
+    for k in bd.KERNELS:
+        k.launches = 0
+    st = eng.step_chunk(params, st, 4)
+    assert {k.__name__: k.launches for k in bd.KERNELS if k.launches} == {
+        packed.__name__: cfg.n_layers * 4}
+    st, b = eng.admit(params, st, [root, tok(7)], 2)     # 1 chunk
+    for k in bd.KERNELS:
+        k.launches = 0
+    st = eng.step_chunk(params, st, 3)
+    assert {k.__name__: k.launches for k in bd.KERNELS if k.launches} == {
+        packed.__name__: cfg.n_layers, paged.__name__: cfg.n_layers * 2}
+    assert not eng._pending
+    assert [len(eng.outputs[s]) for s in a + b] == [4, 4, 4, 3, 3]
+    assert all(0 <= t < cfg.vocab_size for s in a + b for t in eng.outputs[s])

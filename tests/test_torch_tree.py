@@ -536,7 +536,6 @@ def test_tree_engine_typed_rejections_mutate_nothing():
     assert eng.node_refs == [2, 2] and eng.prefix_stats["full_hits"] == 1
     for knob in (dict(ctx_store="paged", prefix_cache=True),
                  dict(prefix_cache=True),
-                 dict(suffix_prefill=True), dict(step_mode="packed"),
                  dict(evict_policy="sharing")):
         with pytest.raises(NotImplementedError):
             TreeServeEngine(TM, CFG_T, tconfigs.TreeConfig(**knob))

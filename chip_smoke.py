@@ -97,8 +97,13 @@ printing its result lines:
      logits against a synchronous admission of its path, and every node
      the chunks wrote against a full prefill, within max(2e-2 x max, 1.5 x
      a run of the plain versions); reused ancestors cost no page; no slot
-     emits before its request activates. Prints packed-step and
-     decode-only ms/step and each admission's time to its first token;
+     emits before its request activates. For bf16 nodes the same requests
+     and steps run again in fp32 (forward, nodes and decode arms; the
+     plain versions), where each request's packed first-token logits must
+     agree with its synchronous admission's within 1e-3 x max |logit|:
+     the bf16 gap is precision, not a fault of the chunk path. Prints
+     packed-step and decode-only ms/step and each admission's time to its
+     first token;
   4. time each kernel at the main path's shapes beside its bound, its plain
      version and, as a yardstick only, one scaled_dot_product_attention call
      computing the same function (the port never calls it); the paged
@@ -111,6 +116,7 @@ builds the kernels from its sources) and a CUDA device.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -2697,18 +2703,32 @@ def serve_packed(cfg, model, params, quant):
     pages = {n: -(-m // PAGE) for n, m in TREE_TOKENS.items()}
     envelope = TREE_NODES * (TREE_CAP // PAGE)
 
-    # the synchronous admissions of the same paths
-    sync = TreeServeEngine(model, cfg, TreeConfig(**base))
-    sync_first = _spy_first_logits(sync, "_sample_first")
-    st_s = sync.init_state(device=DEVICE)
-    sync_ms = []
-    for req in PACKED_REQUESTS:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st_s, _ = sync.admit(params, st_s, [toks[n] for n in req], per_req)
-        torch.cuda.synchronize()
-        sync_ms.append((time.perf_counter() - t0) * 1e3)
-    del sync, st_s
+    def init_state(eng, mdl, fp32):
+        st = eng.init_state(device=DEVICE)
+        if fp32:        # fp32 nodes and decode arms in place of bf16 ones
+            st = dataclasses.replace(st, cache=mdl.make_paged_cache(
+                BATCH, TREE_NODES, TREE_DEPTH, TREE_CAP, page_m=PAGE,
+                dec_capacity=TREE_DEC_CAP,
+                ctx_quant="int8" if quant else "none", dtype=torch.float32,
+                device=DEVICE))
+        return st
+
+    def sync_run(mdl, prm, fp32=False):
+        """The synchronous admissions of the same paths: each request's
+        first-token logits and wall time."""
+        sync = TreeServeEngine(mdl, cfg, TreeConfig(**base))
+        first = _spy_first_logits(sync, "_sample_first")
+        st_s = init_state(sync, mdl, fp32)
+        ms = []
+        for req in PACKED_REQUESTS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st_s, _ = sync.admit(prm, st_s, [toks[n] for n in req], per_req)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return first, ms
+
+    sync_first, sync_ms = sync_run(model, params)
 
     def chunks(*names):
         return sum(-(-TREE_TOKENS[n] // PACKED_CHUNK) for n in names)
@@ -2717,11 +2737,11 @@ def serve_packed(cfg, model, params, quant):
     n3, n4 = chunks("TPL_B", "B1"), chunks("B2")
     check(chunks("B1") >= 2 and n2 == n4 == 1, "phase 3f's workload")
 
-    def run(counted):
-        eng = TreeServeEngine(model, cfg, TreeConfig(
+    def run(counted, mdl=model, prm=params, fp32=False):
+        eng = TreeServeEngine(mdl, cfg, TreeConfig(
             **base, step_mode="packed", prefill_chunk=PACKED_CHUNK))
         first = _spy_first_logits(eng, "_activate_pending")
-        st = eng.init_state(device=DEVICE)
+        st = init_state(eng, mdl, fp32)
         rec = {"packed_ms": [], "decode_ms": [], "ttft_ms": {}, "err": 0.0,
                "free": []}
         admitted = {}
@@ -2729,8 +2749,7 @@ def serve_packed(cfg, model, params, quant):
         def admit(st, req):
             torch.cuda.synchronize()
             admitted[eng.next_rid] = time.perf_counter()
-            st, slots = eng.admit(params, st, [toks[n] for n in req],
-                                  per_req)
+            st, slots = eng.admit(prm, st, [toks[n] for n in req], per_req)
             rec["free"].append(eng.page_alloc.free_count())
             return st, slots
 
@@ -2739,7 +2758,7 @@ def serve_packed(cfg, model, params, quant):
                 packed = bool(eng._pending)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                st = eng.step_chunk(params, st, 1)
+                st = eng.step_chunk(prm, st, 1)
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
                 rec["packed_ms" if packed else "decode_ms"].append(
@@ -2765,7 +2784,7 @@ def serve_packed(cfg, model, params, quant):
                   set(eng.node_pending), set(eng._pending),
                   dict(eng.node_index), eng.next_rid)
         try:
-            eng.admit(params, st, [toks[n] for n in PACKED_REQUESTS[3]],
+            eng.admit(prm, st, [toks[n] for n in PACKED_REQUESTS[3]],
                       per_req)
         except PrefillInFlight:
             pass
@@ -2835,7 +2854,7 @@ def serve_packed(cfg, model, params, quant):
                                 [(eng, st), (eng_p, st_p)], toks, tag)
     del eng, st, eng_p, st_p
     names = ["+".join(str(TREE_TOKENS[n]) for n in r) for r in PACKED_REQUESTS]
-    worst = None
+    rel = []
     for r, (lk, lp, ls) in enumerate(zip(rec["first"], rec_p["first"],
                                          sync_first)):
         live = ls.abs() < 1e29
@@ -2846,17 +2865,18 @@ def serve_packed(cfg, model, params, quant):
               f"{tag}: request {r}'s first-token logits are {err_k:.3e} from "
               f"a synchronous admission's (max |logit| {top:.3f}, plain "
               f"versions {err_p:.3e})")
-        if worst is None or err_k / top > worst[0] / worst[1]:
-            worst = (err_k, top, err_p, r)
+        rel.append(f"R{r + 1} {err_k / top:.2e} (plain {err_p / top:.2e})")
     ttft = [rec["ttft_ms"][r] for r in range(len(PACKED_REQUESTS))]
     print(f"{tag}: first-token logits of each request (its last chunk's "
           f"last row) against a synchronous step_mode=\"decode\" admission of "
-          f"the same path, worst request {worst[3]}: {worst[0]:.3e} against "
-          f"max |logit| {worst[1]:.3f} (plain versions {worst[2]:.3e}; gate "
+          f"the same path, share of max |logit|: {', '.join(rel)} (gate "
           f"max(2e-2 x max |logit|, 1.5 x plain)); free pages "
           f"{envelope} -> {' -> '.join(map(str, rec['free']))} (reused "
           f"ancestors cost none); R4 raised PrefillInFlight while TPL_B was "
           f"pending and changed nothing")
+    if not quant:
+        packed_fp32_witness(cfg, model, params, sync_run, run, rec["first"],
+                            sync_first, tag)
     print(f"{tag}: packed step {np.mean(rec['packed_ms']):.2f} ms (min "
           f"{min(rec['packed_ms']):.2f}, max {max(rec['packed_ms']):.2f}) vs "
           f"decode-only step {np.mean(rec['decode_ms']):.2f} ms on "
@@ -2867,6 +2887,57 @@ def serve_packed(cfg, model, params, quant):
           + ", ".join(f"{t:.1f}" for t in sync_ms) + " ms (PR 15's four "
           "whole-path trie admissions: 1.70-1.78 s)")
     return counts[kname], counts[pname], max(rec["err"], 0.0), node_worst
+
+
+PACKED_FP32_TOL = 1e-3          # fp32 packed vs synchronous first tokens
+
+
+def packed_fp32_witness(cfg, model, params, sync_run, run, first_bf16,
+                        sync_bf16, tag):
+    """Phase 3f's bf16 first-token logits sit a few per cent of max
+    |logit| from the synchronous admission's. This tells precision from
+    a fault of the chunk path (rope positions, fresh_start, the envelope
+    rows): the same weights, the same requests and the same steps in
+    fp32 (fp32 forward, nodes and decode arms; the packed kernels' plain
+    versions, since the kernels take bf16 only, and no TF32), where each
+    request's packed first-token logits must agree with its synchronous
+    admission's within PACKED_FP32_TOL x max |logit|. Prints, beside it,
+    each bf16 run's distance from the fp32 synchronous logits."""
+    import torch
+    from repro_torch.convert import cast_weights
+    from repro_torch.kernels import bifurcated_decode as bd
+
+    model32 = type(model)(cfg)
+    model32._embed = lambda p, t: p["embed"][t]     # the forward in fp32
+    params32 = cast_weights(params, torch.float32)
+    t0 = time.perf_counter()
+    on_cuda = bd._on_cuda
+    bd._on_cuda = lambda *t: False
+    try:
+        sync32, _ = sync_run(model32, params32, fp32=True)
+        _, _, rec32 = run(False, model32, params32, fp32=True)
+    finally:
+        bd._on_cuda = on_cuda
+    del params32
+    rows = []
+    for r, (lp32, ls32, lk, ls) in enumerate(zip(rec32["first"], sync32,
+                                                 first_bf16, sync_bf16)):
+        live = ls32.abs() < 1e29
+        err32, top32 = gap(lp32[live], ls32[live])
+        check(err32 <= PACKED_FP32_TOL * top32,
+              f"{tag} fp32: request {r}'s packed first-token logits are "
+              f"{err32:.3e} from a synchronous admission's (max |logit| "
+              f"{top32:.3f}): a fault of the chunk path, not precision")
+        err_k, _ = gap(lk[live], ls32[live])
+        err_s, _ = gap(ls[live], ls32[live])
+        rows.append(f"R{r + 1} {err32 / top32:.2e} (bf16 packed kernel "
+                    f"{err_k / top32:.2e}, bf16 synchronous "
+                    f"{err_s / top32:.2e})")
+    print(f"{tag} fp32 witness ({time.perf_counter() - t0:.1f} s): packed "
+          f"vs synchronous first-token logits in fp32, share of max "
+          f"|logit|: {', '.join(rows)}: the bf16 runs' distances are from "
+          f"the fp32 synchronous logits (gate {PACKED_FP32_TOL:g} on the "
+          f"fp32 pair)")
 
 
 def _copy_outputs(eng):

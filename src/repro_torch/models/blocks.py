@@ -611,7 +611,6 @@ def attention_decode_packed(
     fresh_start: int,           # absolute position of envelope column 0
     fresh_pos: torch.Tensor,    # (cp,) int32 — per chunk row
     fresh_path: torch.Tensor,   # (depth,) int32 — the chunk's ancestors
-    entries_per_launch: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One PACKED heterogeneous step for one layer over the paged store:
     the decode batch's attention AND one request's suffix-prefill chunk in
@@ -660,8 +659,7 @@ def attention_decode_packed(
 
     fresh = dict(q_fresh=q_fresh, k_fresh=k_buf, v_fresh=v_buf,
                  fresh_len=buf_len + chunk_valid, fresh_start=fresh_start,
-                 fresh_pos=fresh_pos, fresh_path=fresh_path,
-                 entries_per_launch=entries_per_launch)
+                 fresh_pos=fresh_pos, fresh_path=fresh_path)
     k_pages, v_pages = layer_cache["k_pages"], layer_cache["v_pages"]
     if "k_scale_pages" in layer_cache:
         o, o_chunk = packed_bifurcated_decode_attention_q8(

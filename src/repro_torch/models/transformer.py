@@ -285,8 +285,7 @@ class TransformerLM:
 
     def decode_step_packed(self, params, cache, tokens, chunk_tokens, *,
                            k_fresh, v_fresh, buf_len: int, chunk_valid: int,
-                           fresh_start: int, fresh_pos, fresh_path,
-                           entries_per_launch=None):
+                           fresh_start: int, fresh_pos, fresh_path):
         """One PACKED heterogeneous step over a paged trie cache: the decode
         batch (``tokens`` (b, 1)) and ONE request's suffix-prefill chunk
         (``chunk_tokens`` (1, cp)) through every layer, each layer-step one
@@ -324,7 +323,7 @@ class TransformerLM:
                 paths=paths, ctx_lens_b=ctx_lens_b, dec_lens=dec_lens,
                 buf_len=buf_len, chunk_valid=chunk_valid,
                 fresh_start=fresh_start, fresh_pos=fresh_pos,
-                fresh_path=fresh_path, entries_per_launch=entries_per_launch)
+                fresh_path=fresh_path)
             x = x + a
             x_c = x_c + a_c
             x = x + apply_mlp(cfg, layer["mlp"], apply_norm(cfg, layer["ln2"], x))

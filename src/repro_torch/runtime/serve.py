@@ -1121,13 +1121,15 @@ class TreeServeEngine(_SlotTableEngine):
         return state, slots
 
     def step_chunk(self, params, state: ForestState, n_steps: int,
-                   noise=None):
+                   noise=None, first_noise=None):
         """Packed mode: while a prefill is pending, run single packed steps,
         each advancing the whole slot table one token and the oldest
         pending prefill one chunk; the rest of the chunk (all of it when
         nothing is pending) runs as in decode mode. ``noise`` as in
-        ``_SlotTableEngine.step_chunk`` (the activations' first tokens
-        draw from ``state.generator``)."""
+        ``_SlotTableEngine.step_chunk``. ``first_noise`` (n_steps, b, V):
+        at a step where a pending request activates, each of its slots'
+        first token draws from that slot's row (by default the first
+        tokens draw from ``state.generator``)."""
         if self.tcfg.step_mode != "packed":
             return super().step_chunk(params, state, n_steps, noise)
         done = 0
@@ -1137,18 +1139,20 @@ class TreeServeEngine(_SlotTableEngine):
                     params, state, n_steps - done,
                     None if noise is None else noise[done:])
             state = self._packed_step(
-                params, state, None if noise is None else noise[done])
+                params, state, None if noise is None else noise[done],
+                None if first_noise is None else first_noise[done])
             done += 1
         return state
 
-    def _packed_step(self, params, state: ForestState,
-                     noise=None) -> ForestState:
+    def _packed_step(self, params, state: ForestState, noise=None,
+                     first_noise=None) -> ForestState:
         """ONE packed heterogeneous step: the whole slot table advances one
         decode token AND the oldest pending prefill advances one chunk of
         at most ``prefill_chunk`` tokens, never crossing a node. A node's
         last chunk writes its KV into the cache; the request's last node
         activates it from the final chunk's last logits. ``noise`` (b, V):
-        the decode step's Gumbel draws. Raises
+        the decode step's Gumbel draws; ``first_noise`` (b, V): the
+        activated slots' first-token draws, by slot. Raises
         ``DecodeCapacityExceeded`` first if a live slot has no decode slot
         left."""
         rid = min(self._pending)
@@ -1170,7 +1174,9 @@ class TreeServeEngine(_SlotTableEngine):
         if pend["buf_len"] == m_node:
             self._complete_node(state, pend, nid, m_node)
         if pend["node_i"] == len(pend["new"]):
-            state = self._activate_pending(state, rid, logits_last)
+            state = self._activate_pending(
+                state, rid, logits_last,
+                None if first_noise is None else first_noise[pend["slots"]])
         return state
 
     def _packed_step_kernel(self, params, state: ForestState, pend, chunk,

@@ -660,15 +660,54 @@ def _chunk_noise(key, n_steps, shape):
     return torch.as_tensor(np.stack(out))
 
 
-@pytest.mark.parametrize("engine", ["forest", "tree"])
+def _packed_sampled_steps(je, js, jp, te, ts, n_steps, V):
+    """Step both packed engines one step at a time, the port fed the
+    reference's draws: each step splits the reference's key once for the
+    decode step and, where a pending request activates, once more for its
+    first tokens (drawn (n_samples, V), placed at its slots' rows)."""
+    b = te.tcfg.slots
+    for _ in range(n_steps):
+        key, dec = _gumbel(js.key, (b, V))
+        first = np.zeros((b, V), np.float32)
+        if te._pending:
+            slots = te._pending[min(te._pending)]["slots"]
+            first[slots] = _gumbel(key, (len(slots), V))[1]
+        js = je.step_chunk(jp, js, 1)
+        ts = te.step_chunk(TP, ts, 1, noise=torch.as_tensor(dec)[None],
+                           first_noise=torch.as_tensor(first)[None])
+    return js, ts
+
+
+@pytest.mark.parametrize("engine", ["forest", "tree", "tree_packed"])
 def test_sampled_slot_engines_match_under_shared_noise(engine):
     """Temperature 0.8, top-p 0.9: the forest and trie engines' tokens and
     log-probs equal the reference's when both draw the same Gumbel noise
-    (the port's ``noise`` hook on admit and step_chunk, fed the draws of
-    the reference engine's key sequence)."""
+    (the port's ``noise`` hook on admit and step_chunk, and in packed mode
+    ``first_noise`` for the activations' first tokens, fed the draws of
+    the reference engine's key sequence). The packed case runs the kernel
+    path on the paged store (the packed kernel's plain version here)."""
     jm, jp = _jax_model()
     V = CFG_J.padded_vocab
     common = dict(slots=5, decode_capacity=16, temperature=0.8, top_p=0.9)
+    if engine == "tree_packed":
+        kw = dict(slots=5, temperature=0.8, top_p=0.9, ctx_store="paged",
+                  use_kernel=True)
+        jcfg = JTreeConfig(**_tree_kw("packed", **kw))
+        je = JTreeEngine(jm, CFG_J, jcfg)
+        js = _jax_tree_state(je, jcfg)
+        te, ts = _torch_tree("packed", **kw)
+        for req, n in [([SYS, REQ_A], 3), ([SYS, TPL, REQ_B], 2)]:
+            js, _ = je.admit(jp, js, [jnp.asarray(x) for x in req], n)
+            ts, _ = te.admit(TP, ts, [torch.as_tensor(x) for x in req], n)
+            js, ts = _packed_sampled_steps(je, js, jp, te, ts, 6, V)
+        assert not te._pending and not je._pending
+        for s in range(5):
+            assert te.outputs[s] == je.outputs[s], s
+            assert_close(torch.tensor(te.logps[s]), np.array(je.logps[s]),
+                         "float32")
+        # SYS + REQ_A: 5 chunk steps, so a first token and 7 more
+        assert len(te.outputs[0]) == 8 and len(set(te.outputs[0])) > 1
+        return
     if engine == "forest":
         jcfg = JForestConfig(n_groups=2, ctx_capacity=32, **common)
         je = JForestEngine(jm, CFG_J, jcfg)

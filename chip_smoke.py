@@ -42,7 +42,15 @@ printing its result lines:
      dropped, another request's leaf read, another segment's page table
      read, the ragged tail of a page read, the chunk's causal mask dropped,
      fresh_start off by one, the decode arm leaking into the chunk rows or
-     the envelope leaking into the decode rows miss that gate by far;
+     the envelope leaking into the decode rows miss that gate by far.
+     Flash prefill (#12) runs at the main prefill shape (b 1, n 8192, h 16,
+     g 8, hd 128, causal), at phase 3h's suffix (A2's 500 tokens at
+     q_offset 6144 over [SYS, TPL_A]'s keys), with a window of 4096 at n
+     8192, g 1, hd 80, n and m off the tile, n 1, non-causal, and a window
+     of 512 whose softmax is decided at its edge key; fp32 raises
+     TypeError; plain versions with the causal mask dropped, q_offset
+     ignored, the window one key wider, or query head h on kv head h % g
+     miss the gate by far;
   3. serve internlm2-1.8b at its published width (seeded random weights)
      with ServeEngine.generate: bifurcated cache, fused kernel, batch 32,
      context 8192, 16 steps. The fused kernel must launch 24 layers x 15
@@ -104,11 +112,28 @@ printing its result lines:
      the bf16 gap is precision, not a fault of the chunk path. Prints
      packed-step and decode-only ms/step and each admission's time to its
      first token;
+  3g. ServeEngine.generate with train_attn="flash" at phase 3's workload:
+     #12 must launch 24 times per prefill and the fused decode kernel 24 x
+     15 times; prefill logits and the first decode step's logits against
+     the chunked path within max(2e-2 x max |logit|, 1.5 x the plain
+     versions' distance); prefill ms, flash beside chunked, in turns;
+  3h. TreeServeEngine(prefix_cache=True, suffix_prefill=True) under
+     train_attn="flash", dense and paged (pages of 128), bf16 and int8
+     nodes, 5 nodes (paged: 75 pages), phase 3d's prompts, beside an
+     evict-eagerly engine: [SYS, TPL_A, A1] admitted, 2 steps, retired (3
+     nodes cached, pages held); [SYS, TPL_A, A2] revives two levels, #12
+     launching 24 times at q_offset 6144, 6144 tokens reused, the revived
+     K/V bit-equal, first-token logits against the eager engine's within
+     the whole-step gate; then [SYS, TPL_B, B1] must evict A1's node and
+     [SYS, TPL_A, A3] A2's (and, paged, B1's for pages), and three fresh
+     levels must raise SegmentsExhausted and change nothing; prints the
+     revival's admission ms beside the eager engine's cold one;
   4. time each kernel at the main path's shapes beside its bound, its plain
      version and, as a yardstick only, one scaled_dot_product_attention call
      computing the same function (the port never calls it); the paged
      kernels at the single-prefix shape and on the paged trie, the packed
-     kernels at phase 2's main packed shape over phase 3e's paged trie;
+     kernels at phase 2's main packed shape over phase 3e's paged trie,
+     flash prefill at the main prefill shape and at phase 3h's suffix;
   5. print the kernels' JSON line, then the result line, last.
 
 Imports torch and the port only; needs a checkout of the repository (it
@@ -180,11 +205,12 @@ def build():
             if "Compiling entry function" in line:
                 m = re.search(r"decode_kernelILi(\d+)ELb([01])ELb([01])"
                               r"ELi(\d)E", line)
+                f = re.search(r"flash_prefill_kernelILi(\d+)E", line)
                 if m:
                     flags = "".join(m.group(2, 3, 4))
                     name = f"hd={m.group(1)} {kinds.get(flags, flags)}"
                 else:
-                    name = None
+                    name = f"hd={f.group(1)} flash prefill" if f else None
             elif name and "spill" in line:
                 spill = line.strip()
             elif name and "Used" in line:
@@ -1218,6 +1244,132 @@ def check_packed_kernels():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 2, #12: flash prefill
+# ---------------------------------------------------------------------------
+
+FLASH_WINDOW = 4096     # h2o-danube's sliding window
+
+
+def flash_inputs(b, n, m, h, g, hd, seed, dtype=None):
+    """Random q (b, n, h, hd) and k, v (b, m, g, hd), bf16 by default."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return [torch.randn(s, generator=gen, device=DEVICE).to(
+        dtype or torch.bfloat16)
+        for s in ((b, n, h, hd), (b, m, g, hd), (b, m, g, hd))]
+
+
+def window_edge_inputs(n, h, g, hd, window, seed, beta=24.0):
+    """Causal windowed inputs whose softmax is decided at the window's
+    edge: key j is beta x a unit vector u_j, and query i of every head is
+    sqrt(hd) x u_{i - window}, so its logit for key i - window (the first
+    key outside its window) is beta against ~N(0, (beta / sqrt(hd))^2) for
+    the others. A window one key wider takes that key and its value."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    u = torch.randn(n, hd, generator=gen, device=DEVICE)
+    u = u / u.norm(dim=-1, keepdim=True)
+    src = (torch.arange(n, device=DEVICE) - window) % n
+    q = (hd**0.5 * u[src])[None, :, None, :].expand(1, n, h, hd)
+    k = (beta * u)[None, :, None, :].expand(1, n, g, hd)
+    v = torch.randn(1, n, g, hd, generator=gen, device=DEVICE)
+    return [t.contiguous().to(torch.bfloat16) for t in (q, k, v)]
+
+
+def check_flash(name, x, causal=True, window=0, q_offset=0):
+    """#12 against its plain version on one case; returns the max abs
+    error and the plain output."""
+    import torch
+    from repro_torch.kernels import flash_prefill as fp
+
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out = fp.flash_prefill_attention(*x, **kw)
+    want = fp.flash_prefill_attention_plain(*x, **kw)
+    torch.cuda.synchronize()
+    ok, err, rel = within(out, want)
+    b, n, h, hd = x[0].shape
+    print(f"check {name} (b={b} n={n} m={x[1].shape[1]} h={h} "
+          f"g={x[1].shape[2]} hd={hd} causal={causal} window={window} "
+          f"q_offset={q_offset}): max_abs_err={err:.3e} ({rel:.1e} of max "
+          f"|out|, gate {TOL:g})")
+    check(ok, f"{name}: flash prefill kernel disagrees with its plain version")
+    check(torch.isfinite(out.float()).all().item(), f"{name}: non-finite")
+    return err, want
+
+
+def check_flash_fp32_raises(x, q_offset):
+    """fp32 operands raise TypeError on the card and launch nothing."""
+    from repro_torch.kernels import flash_prefill as fp
+
+    n0 = fp.flash_prefill_attention.launches
+    try:
+        fp.flash_prefill_attention(*(t.float() for t in x), q_offset=q_offset)
+    except TypeError:
+        pass
+    else:
+        raise AssertionError("the flash prefill kernel took fp32 queries")
+    check(fp.flash_prefill_attention.launches == n0,
+          "an fp32 call launched the flash prefill kernel")
+    print("check fp32 queries: TypeError from the flash prefill wrapper, "
+          "no launch")
+
+
+def check_flash_kernels():
+    """Phase 2's cases of #12; returns {kernel name: max abs error over the
+    main prefill and suffix cases}."""
+    import torch
+    from repro_torch.kernels import flash_prefill as fp
+
+    plain = fp.flash_prefill_attention_plain
+    anc = TREE_TOKENS["SYS"] + TREE_TOKENS["TPL_A"]
+    suf = TREE_TOKENS["A2"]
+    x_main = flash_inputs(1, CONTEXT, CONTEXT, 16, 8, 128, seed=60)
+    err_m, want_m = check_flash("main prefill", x_main)
+    x_suf = flash_inputs(1, suf, anc + suf, 16, 8, 128, seed=61)
+    err_s, want_s = check_flash(f"suffix A2 over [SYS, TPL_A]", x_suf,
+                                q_offset=anc)
+    check_flash(f"window {FLASH_WINDOW}",
+                flash_inputs(1, CONTEXT, CONTEXT, 16, 8, 128, seed=62),
+                window=FLASH_WINDOW)
+    for name, shape, kw in [
+            ("g=1 (MQA)", (1, 2000, 2000, 16, 1, 128), {}),
+            ("hd=80", (1, 1500, 1500, 32, 8, 80), {}),
+            ("n, m off the tile", (2, 1000, 1777, 16, 8, 128),
+             dict(q_offset=777, window=300)),
+            ("n=1", (4, 1, CONTEXT, 16, 8, 128), dict(q_offset=CONTEXT - 1)),
+            ("non-causal", (1, 777, 1333, 16, 8, 128), dict(causal=False))]:
+        check_flash(name, flash_inputs(*shape, seed=63 + len(name)), **kw)
+    x_edge = window_edge_inputs(2048, 16, 8, 128, 512, seed=70)
+    _, want_e = check_flash("window 512 decided at its edge", x_edge,
+                            window=512)
+
+    check_flash_fp32_raises(x_suf, anc)
+
+    # gate sensitivity: plain versions each with one fault
+    q, k, v = x_main
+    h, g = q.shape[2], k.shape[2]
+    wrong = torch.arange(h, device=DEVICE) % g      # right: h // (h / g)
+    faults = {
+        "causal mask dropped": (plain(*x_main, causal=False), want_m),
+        "q_offset ignored": (plain(*x_suf), want_s),
+        "window off by one": (plain(*x_edge, window=513), want_e),
+        "query head h on kv head h % g": (
+            plain(q, k[:, :, wrong].contiguous(), v[:, :, wrong].contiguous()),
+            want_m),
+    }
+    rels = {name: within(got, want)[2] for name, (got, want) in
+            faults.items()}
+    print("check flash prefill gate sensitivity: a faulty plain version's "
+          "error / max |out|: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in rels.items()))
+    for name, rel in rels.items():
+        check(rel >= 10 * TOL, f"the flash gate misses '{name}'")
+    return {"flash_prefill_attention": max(err_m, err_s)}
+
+
 def check_kernels():
     """Phase 2; returns {kernel name: max abs error over its main-shape
     cases}."""
@@ -1319,6 +1471,7 @@ def check_kernels():
     out.update(check_tree_kernels())
     out.update(check_paged_kernels())
     out.update(check_packed_kernels())
+    out.update(check_flash_kernels())
     return out
 
 
@@ -1330,26 +1483,37 @@ BATCH, CONTEXT, STEPS = 32, 8192, 16
 WARM_STEPS = 8      # decode steps before the step compared across paths
 
 
+def all_kernels():
+    """Every kernel wrapper of the port: the decode kernels (#1-#11) and
+    flash prefill (#12)."""
+    from repro_torch.kernels import bifurcated_decode as bd
+    from repro_torch.kernels import flash_prefill as fp
+
+    return bd.KERNELS + (fp.flash_prefill_attention,)
+
+
 def reset_launches():
     """Set every kernel's launch count to 0 (just before a path runs)."""
-    from repro_torch.kernels import bifurcated_decode as bd
-
-    for kern in bd.KERNELS:
+    for kern in all_kernels():
         kern.launches = 0
 
 
 def read_launches():
-    from repro_torch.kernels import bifurcated_decode as bd
+    return {kern.__name__: kern.launches for kern in all_kernels()}
 
-    return {kern.__name__: kern.launches for kern in bd.KERNELS}
+
+def expect_counts(counts, want):
+    """The path just run launched each kernel of ``want`` (name: count) as
+    often as it says, and no other kernel."""
+    for k, v in counts.items():
+        check(v == want.get(k, 0),
+              f"{k} launched {v} times, want {want.get(k, 0)}")
 
 
 def expect_launches(counts, name, want):
     """The path just run launched kernel ``name`` ``want`` times and no
     other kernel."""
-    for k, v in counts.items():
-        check(v == (want if k == name else 0),
-              f"{k} launched {v} times, want {want if k == name else 0}")
+    expect_counts(counts, {name: want})
 
 
 def serve():
@@ -2975,6 +3139,318 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
+# phase 3g: flash prefill on the serving path
+# ---------------------------------------------------------------------------
+
+class plain_versions:
+    """Route every kernel wrapper to its plain version on the card, for
+    the duration of a ``with`` block."""
+
+    def __enter__(self):
+        from repro_torch.kernels import bifurcated_decode as bd
+        from repro_torch.kernels import flash_prefill as fp
+
+        self.mods = (bd, fp)
+        self.saved = [m._on_cuda for m in self.mods]
+        for m in self.mods:
+            m._on_cuda = lambda *t: False
+
+    def __exit__(self, *exc):
+        for m, f in zip(self.mods, self.saved):
+            m._on_cuda = f
+
+
+def gate_logits(tag, what, got, want, plain):
+    """The whole-step gate: ``got`` within max(2e-2 x max |want|, 1.5 x the
+    distance of ``plain``, the same path on the plain versions) of
+    ``want``, over the live (unpadded) vocabulary; returns the relative
+    error."""
+    import torch
+
+    live = want.abs() < 1e29
+    for other in (got, plain):
+        check(bool((other.abs() < 1e29).eq(live).all()), "padded vocab logits")
+    check(bool(torch.isfinite(got.float()[live]).all()), "non-finite logits")
+    err, scale = gap(got[live], want[live])
+    err_p, _ = gap(plain[live], want[live])
+    print(f"{tag}: {what}: max_abs_err {err:.3e} ({err / scale:.2e} of max "
+          f"|logit| {scale:.3f}), plain versions {err_p:.3e} (gate max(2e-2 "
+          f"x max |logit|, 1.5 x plain))")
+    check(err <= max(TOL * scale, 1.5 * err_p), f"{tag}: {what} disagree")
+    return err / scale
+
+
+def serve_flash(cfg, params, ctx):
+    """Phase 3g: ServeEngine.generate with train_attn="flash" at phase 3's
+    workload: #12 launches once per layer per prefill and the decode kernel
+    as in phase 3; prefill and first-step logits against the chunked path
+    within the whole-step gate; prefill ms, flash beside chunked. Returns
+    #12's launch count of one prefill."""
+    import torch
+    from repro_torch.configs import ServeConfig
+    from repro_torch.models import get_model
+    from repro_torch.runtime.serve import ServeEngine
+
+    tag = "serve flash"
+    cfg_f = dataclasses.replace(cfg, train_attn="flash")
+    scfg = ServeConfig(batch=BATCH, context_len=CONTEXT,
+                       decode_capacity=max(16, STEPS + 8), bifurcated=True,
+                       use_kernel=True)
+    eng_f = ServeEngine(get_model(cfg_f), cfg_f, scfg)
+    eng_c = ServeEngine(get_model(cfg), cfg, scfg)
+    eng_f.generate(params, ctx, n_steps=2)      # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    result = eng_f.generate(params, ctx, n_steps=STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    print(f"{tag}: generate (batch {BATCH}, context {CONTEXT}, {STEPS} "
+          f"steps) {wall * 1e3:.1f} ms; launches {counts}")
+    expect_counts(counts, {"flash_prefill_attention": cfg.n_layers,
+                           "fused_bifurcated_decode":
+                               cfg.n_layers * (STEPS - 1)})
+    toks = result.tokens
+    check(tuple(toks.shape) == (BATCH, STEPS)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+          and bool(torch.isfinite(result.logprobs).all()),
+          f"{tag}: tokens or log-probs out of range")
+
+    # prefill ms, in turns: chunked, flash, flash, chunked
+    times = {"chunked": [], "flash": []}
+    out = {}
+    for name in ("chunked", "flash", "flash", "chunked"):
+        eng = eng_f if name == "flash" else eng_c
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = eng.prefill_shared(params, ctx, BATCH)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+    print(f"{tag}: prefill of {CONTEXT} tokens, flash "
+          + " / ".join(f"{t:.1f}" for t in times["flash"]) + " ms, chunked "
+          + " / ".join(f"{t:.1f}" for t in times["chunked"])
+          + f" ms (in turns, on {CARD[0]})")
+    with plain_versions():
+        out["plain"] = eng_f.prefill_shared(params, ctx, BATCH)
+    gate_logits(tag, "prefill logits, flash vs chunked", out["flash"][0],
+                out["chunked"][0], out["plain"][0])
+    tok = toks[:, :1]
+    model = eng_c.model
+    steps = {}
+    for name, (_, cache) in out.items():
+        if name == "plain":
+            with plain_versions():
+                steps[name] = model.decode_step(params, cache, tok,
+                                                impl="kernel")[0]
+        else:
+            steps[name] = model.decode_step(params, cache, tok,
+                                            impl="kernel")[0]
+    torch.cuda.synchronize()
+    gate_logits(tag, "first decode-step logits, flash vs chunked prefill",
+                steps["flash"], steps["chunked"], steps["plain"])
+    return counts["flash_prefill_attention"]
+
+
+# ---------------------------------------------------------------------------
+# phase 3h: the trie's prefix cache, revivals through #12
+# ---------------------------------------------------------------------------
+
+# phase 3h's trie: 5 nodes, so that [SYS, TPL_B, B1] meets node pressure;
+# on pages of 128, a 75-page pool, so that [SYS, TPL_A, A3] meets page
+# pressure too
+CACHE_NODES, CACHE_PAGES = 5, 75
+CACHE_REQUESTS = (("SYS", "TPL_A", "A1"), ("SYS", "TPL_A", "A2"),
+                  ("SYS", "TPL_B", "B1"), ("SYS", "TPL_A", "A3"))
+
+
+def serve_prefix_cache(cfg, params, store, quant):
+    """Phase 3h: TreeServeEngine(prefix_cache=True, suffix_prefill=True)
+    with train_attn="flash" on phase 3d's prompts, beside an evict-eagerly
+    engine (chunked prefill) on the same admissions. R1 = [SYS, TPL_A, A1]
+    (8 samples), 2 steps, retired: its 3 nodes cached, their pages held.
+    R2 = [SYS, TPL_A, A2] revives two levels: #12 launches once per layer
+    at q_offset 6144 over the cached keys, 6144 tokens reused, the revived
+    K/V bit-equal to what they held; first-token logits against the eager
+    engine's cold admission within the whole-step gate. Retired, then R3 =
+    [SYS, TPL_B, B1] must evict A1's node (the oldest childless entry),
+    and R4 = [SYS, TPL_A, A3] A2's node (node pressure) and, paged, B1's
+    (page pressure); an admission of three fresh levels, which no eviction
+    can serve, must raise and change nothing."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import TreeConfig
+    from repro_torch.core.errors import SegmentsExhausted
+    from repro_torch.models import blocks, get_model
+    from repro_torch.runtime.serve import TreeServeEngine
+
+    paged = store == "paged"
+    tag = f"serve prefix cache {store}{' int8' if quant else ''}"
+    cfg_f = dataclasses.replace(cfg, train_attn="flash")
+    kw = dict(n_nodes=CACHE_NODES, depth=TREE_DEPTH, slots=BATCH,
+              node_capacity=TREE_CAP, decode_capacity=TREE_DEC_CAP,
+              use_kernel=True, cache_dtype="int8" if quant else "bfloat16",
+              ctx_store=store)
+    if paged:
+        kw.update(page_size=PAGE, num_pages=CACHE_PAGES)
+    model_f = get_model(cfg_f)
+    eng = TreeServeEngine(model_f, cfg_f, TreeConfig(
+        prefix_cache=True, suffix_prefill=True, **kw))
+    base = TreeServeEngine(get_model(cfg), cfg, TreeConfig(**kw))
+    rng = np.random.RandomState(2)       # phase 3d's prompts
+    toks = {name: torch.as_tensor(rng.randint(0, cfg.vocab_size, (1, m)),
+                                  device=DEVICE)
+            for name, m in TREE_TOKENS.items()}
+    per_req = BATCH // len(TREE_REQUESTS)
+    firsts = {e: _spy_first_logits(e, "_sample_first") for e in (eng, base)}
+    st = eng.init_state(device=DEVICE)
+    sb = base.init_state(device=DEVICE)
+    calls = []
+    flash = blocks.flash_prefill_attention
+
+    def spy(q, k, v, **fkw):
+        calls.append((q.shape[1], k.shape[1], fkw.get("q_offset", 0)))
+        return flash(q, k, v, **fkw)
+
+    def admit(e, state, req):
+        """Admit ``req``; returns the state, its slots, the ms it took and
+        the launch counts of the admission."""
+        calls.clear()
+        reset_launches()
+        blocks.flash_prefill_attention = spy
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, slots = e.admit(params, state, [toks[n] for n in req],
+                                   per_req)
+            torch.cuda.synchronize()
+        finally:
+            blocks.flash_prefill_attention = flash
+        return state, slots, (time.perf_counter() - t0) * 1e3, read_launches()
+
+    def retire(e, state, slots):
+        state = e.deactivate_slots(state, slots)
+        e.retire_requests(state)
+        return state
+
+    def key(name_path):
+        """The trie-index key of the last level of ``name_path``."""
+        parent = -1
+        for name in name_path[:-1]:
+            parent = eng.node_index[(parent, tuple(toks[name][0].tolist()))]
+        return parent, tuple(toks[name_path[-1]][0].tolist())
+
+    def node(name_path):
+        return eng.node_index[key(name_path)]
+
+    n_layers = cfg.n_layers
+    # R1, cold on both
+    st, s1, ms_r1, counts = admit(eng, st, CACHE_REQUESTS[0])
+    expect_launches(counts, "flash_prefill_attention", n_layers)
+    r1_len = sum(TREE_TOKENS[n] for n in CACHE_REQUESTS[0])
+    check(calls == [(r1_len, r1_len, 0)] * n_layers, f"R1's prefill {calls}")
+    sb, b1, ms_b1, _ = admit(base, sb, CACHE_REQUESTS[0])
+    st = eng.step_chunk(params, st, 2)
+    sb = base.step_chunk(params, sb, 2)
+    anc = [node(CACHE_REQUESTS[0][:i + 1]) for i in range(2)]
+    snap = [eng._node_kv(st.cache, n, eng.node_len[n]) for n in anc]
+    snap = [(k.clone(), v.clone()) for k, v in snap]
+    free0 = eng.page_alloc.free_count() if paged else None
+    st = retire(eng, st, s1)
+    sb = retire(base, sb, b1)
+    occ = eng.occupancy(st)
+    pages = {n: -(-TREE_TOKENS[n] // PAGE) for n in TREE_TOKENS}
+    check(occ["nodes_cached"] == 3 and eng.cached_nodes() == sorted(
+        node(CACHE_REQUESTS[0][:i + 1]) for i in range(3)),
+          f"{tag}: after R1's retirement {occ}")
+    if paged:
+        check(eng.page_alloc.free_count() == free0 and occ["pages_cached"]
+              == sum(pages[n] for n in CACHE_REQUESTS[0]),
+              f"{tag}: the cached nodes' pages {occ}")
+
+    # R2: the revival, a suffix prefill at q_offset 6144
+    stats = dict(eng.prefix_stats)
+    st, s2, ms_r2, counts = admit(eng, st, CACHE_REQUESTS[1])
+    cut = TREE_TOKENS["SYS"] + TREE_TOKENS["TPL_A"]
+    a2 = TREE_TOKENS["A2"]
+    expect_launches(counts, "flash_prefill_attention", n_layers)
+    check(calls == [(a2, cut + a2, cut)] * n_layers,
+          f"{tag}: R2's suffix prefill calls {calls[:2]}...")
+    ps = eng.prefix_stats
+    check(ps["reused_tokens"] - stats["reused_tokens"] == cut
+          and ps["partial_hits"] == stats["partial_hits"] + 1
+          and ps["computed_tokens"] - stats["computed_tokens"] == a2,
+          f"{tag}: prefix_stats {ps}")
+    same = all(torch.equal(k, k2) and torch.equal(v, v2)
+               for (k, v), (k2, v2) in zip(snap, (eng._node_kv(
+                   st.cache, n, eng.node_len[n]) for n in anc)))
+    check(same, f"{tag}: the revived nodes' K/V moved")
+    del snap
+    sb, b2, ms_b2, _ = admit(base, sb, CACHE_REQUESTS[1])
+    with plain_versions():
+        k_anc, v_anc = eng._gather_path_kv(st, anc, cut)
+        plain, _ = model_f.prefill_suffix(params, toks["A2"], k_anc, v_anc,
+                                          start=cut)
+    del k_anc, v_anc
+    rel = gate_logits(tag, "R2's first-token logits, revived (flash suffix "
+                      "prefill) vs the eager engine's cold admission",
+                      firsts[eng][-1], firsts[base][-1], plain[0].float())
+    agree = eng.outputs[s2[0]][0] == base.outputs[b2[0]][0]
+    print(f"{tag}: R1 cold {ms_r1:.1f} ms (flash; eager chunked "
+          f"{ms_b1:.1f} ms); R2 revived {ms_r2:.1f} ms against the eager "
+          f"engine's cold {ms_b2:.1f} ms, on {CARD[0]}; {cut} tokens reused, "
+          f"K/V bit-equal {same}, first token equal to the eager engine's "
+          f"{agree}")
+
+    # node and page pressure
+    st = retire(eng, st, s2)
+    leaves = {r[-1]: key(r) for r in CACHE_REQUESTS[:2]}
+    ev = eng.prefix_stats["evictions"]
+    st, s3, ms_r3, _ = admit(eng, st, CACHE_REQUESTS[2])
+    leaves["B1"] = key(CACHE_REQUESTS[2])
+
+    def evicted():
+        return [n for n, k in leaves.items() if k not in eng.node_index]
+
+    check(evicted() == ["A1"] and eng.prefix_stats["evictions"] == ev + 1,
+          f"{tag}: R3 evicted {evicted()}, want A1's node alone")
+    st = retire(eng, st, s3)
+    st, s4, ms_r4, _ = admit(eng, st, CACHE_REQUESTS[3])
+    want = ["A1", "A2", "B1"] if paged else ["A1", "A2"]
+    check(evicted() == want
+          and eng.prefix_stats["evictions"] == ev + len(want),
+          f"{tag}: after R4 {evicted()} evicted, want {want}")
+    print(f"{tag}: R3 [SYS, TPL_B, B1] evicted A1's node ({ms_r3:.1f} ms), "
+          f"R4 [SYS, TPL_A, A3] evicted {'A2 (nodes), B1 (pages)' if paged else 'A2'}"
+          f" ({ms_r4:.1f} ms); occupancy {eng.occupancy(st)}")
+
+    # a demand no eviction can meet: three fresh levels
+    fresh = [torch.as_tensor(rng.randint(0, cfg.vocab_size, (1, 16)),
+                             device=DEVICE) for _ in range(3)]
+
+    def host():
+        return (dict(eng.node_cached), dict(eng.prefix_stats),
+                list(eng.node_live), eng.free_nodes(),
+                eng.page_alloc.free_pages() if paged else None)
+
+    before = host()
+    try:
+        eng.admit(params, st, fresh, 1)
+    except SegmentsExhausted:
+        pass
+    else:
+        raise AssertionError(f"{tag}: an unsatisfiable demand was admitted")
+    check(host() == before, f"{tag}: the refused admission changed the "
+                            f"engine")
+    print(f"{tag}: an admission of 3 fresh levels raised SegmentsExhausted "
+          f"and changed nothing")
+    for s in s4:
+        check(len(eng.outputs[s]) == 1
+              and 0 <= eng.outputs[s][0] < cfg.vocab_size, "R4's tokens")
+    return rel
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 
@@ -3001,9 +3477,10 @@ def time_ms(fn, n_inputs, reps=3, iters=48):
 
 
 def _timed_entry(name, source, line, kern, plain, lib, nbytes, flop,
-                 launches, err, n_inputs):
+                 launches, err, n_inputs, module="bifurcated_decode.py"):
     """Time one kernel, its plain version and its library yardstick over
-    ``n_inputs`` input sets; returns its JSON entry."""
+    ``n_inputs`` input sets; returns its JSON entry (``module``: the
+    Pallas kernel's file under src/repro/kernels)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flop = flop / BF16_FLOP_PER_S * 1e3
     ms = time_ms(kern, n_inputs)
@@ -3012,7 +3489,7 @@ def _timed_entry(name, source, line, kern, plain, lib, nbytes, flop,
     entry = {
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{source}",
-        "replaces": f"src/repro/kernels/bifurcated_decode.py:{line}",
+        "replaces": f"src/repro/kernels/{module}:{line}",
         "launches": launches, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_flop),
@@ -3599,6 +4076,64 @@ def time_packed_kernels(cfg, pcaches, launches, errs):
     return entries
 
 
+def time_flash_kernel(launches, errs):
+    """#12 at the main prefill shape (b 1, n 8192, h 16, g 8, hd 128,
+    causal) and at phase 3h's revival (A2's 500 tokens at q_offset 6144
+    over 6644 keys), beside its bound, its plain version and one
+    scaled_dot_product_attention call computing the same function (the
+    main shape causal; the suffix with an explicit boolean mask, since
+    SDPA's is_causal aligns top-left when n != m)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_prefill as fp
+
+    anc = TREE_TOKENS["SYS"] + TREE_TOKENS["TPL_A"]
+    suf = TREE_TOKENS["A2"]
+    entries = []
+    for name, (n, m, off) in (("main prefill", (CONTEXT, CONTEXT, 0)),
+                              ("suffix", (suf, anc + suf, anc))):
+        b, h, g, hd = 1, 16, 8, 128
+        # 3 input sets: 100 MB each at the main shape, so L2 holds none
+        xs = [flash_inputs(b, n, m, h, g, hd, seed=80 + i) for i in range(3)]
+        mask = (torch.arange(m, device=DEVICE)[None, :]
+                <= off + torch.arange(n, device=DEVICE)[:, None])
+
+        def kern(i, xs=xs, off=off):
+            return fp.flash_prefill_attention(*xs[i], q_offset=off)
+
+        def plain(i, xs=xs, off=off):
+            return fp.flash_prefill_attention_plain(*xs[i], q_offset=off)
+
+        def lib(i, xs=xs, mask=mask, n=n, m=m):
+            q, k, v = (t.transpose(1, 2) for t in xs[i])
+            if n == m:
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        ok, _, rel = within(lib(0).transpose(1, 2), kern(0))
+        print(f"time: library yardstick vs flash_prefill_attention ({name}) "
+              f"{rel:.2e} of max |out| (gate 2e-2)")
+        check(ok, "flash_prefill_attention: library yardstick computes "
+                  "another function")
+        # q and the output, k and v once; 4 hd operations per (query head,
+        # visible key): each row i sees keys 0..off + i
+        pairs = n * off + n * (n + 1) // 2
+        nbytes = 2 * b * n * h * hd * 2 + 2 * b * m * g * hd * 2
+        flop = 4 * hd * b * h * pairs
+        print(f"time: flash_prefill_attention at the {name} shape (b={b} "
+              f"n={n} m={m} h={h} g={g} hd={hd} q_offset={off})")
+        entries.append(_timed_entry(
+            "flash_prefill_attention", "flash_prefill.cu", 108, kern, plain,
+            lib, nbytes, flop, launches, errs["flash_prefill_attention"], 3,
+            module="flash_prefill.py"))
+        del xs
+    # one JSON entry per kernel: its main path's prefill shape; the
+    # suffix's times are printed above
+    return entries[:1]
+
+
 def main():
     try:
         import torch
@@ -3650,9 +4185,14 @@ def main():
         kname = _packed_kname(quant)
         launches[kname], _, e4, _ = serve_packed(cfg, model, params, quant)
         errs[kname] = max(errs[kname], e4)
+    launches["flash_prefill_attention"] = serve_flash(cfg, params, ctx)
+    for store in ("dense", "paged"):
+        for quant in (False, True):
+            serve_prefix_cache(cfg, params, store, quant)
     entries = time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches,
                            launches, errs)
     entries += time_packed_kernels(cfg, pcaches, launches, errs)
+    entries += time_flash_kernel(launches["flash_prefill_attention"], errs)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))

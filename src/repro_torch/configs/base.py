@@ -180,10 +180,17 @@ class TreeConfig:
     ``suffix_prefill`` prefills only a request's new levels over its
     matched ancestors' cached K/V; ``step_mode="packed"`` defers that
     prefill to chunks of ``prefill_chunk`` tokens riding on the decode
-    steps. The fields of the prefix cache, not ported yet, keep the
-    reference's defaults: ``TreeServeEngine`` raises
-    ``NotImplementedError`` for ``prefix_cache`` and any ``evict_policy``
-    but "lru".
+    steps.
+
+    ``prefix_cache`` keeps refcount-zero trie nodes RESIDENT (K/V, pages
+    and trie-index entry held) so that a later request with the same
+    prefix revives them at no prefill and no new page; they are evicted
+    lazily, children first, only under node or page pressure, in the
+    order ``evict_policy`` names: "lru" (oldest stamp first, smallest
+    subtree breaking ties) or "sharing" (fewest ancestor-shared bytes
+    first: cold private tails go before leaves under hot shared
+    ancestors; the stamp breaks ties). Off: the evict-eagerly behaviour,
+    exactly.
     """
 
     n_nodes: int = 8             # trie-node segments (N)
@@ -205,8 +212,8 @@ class TreeConfig:
     page_size: int = 128         # paged mode: tokens per pool page
     # paged mode: pool size in pages; None = the full table envelope
     num_pages: Optional[int] = None
-    # cross-request prefix cache (refcount-zero nodes kept resident):
-    # not ported
+    # cross-request prefix cache: refcount-zero nodes kept resident and
+    # revived by a matching admission, evicted lazily under pressure
     prefix_cache: bool = False
     # suffix-only prefill on a prefix hit: the matched ancestors' cached
     # KV is the context of a prefill of the new levels' tokens only
@@ -217,6 +224,7 @@ class TreeConfig:
     # packed mode: suffix tokens prefilled per piggybacked chunk; 0 =
     # page_size. Chunks never cross trie-node boundaries.
     prefill_chunk: int = 0
-    # prefix-cache eviction order: "lru" | "sharing"
+    # prefix-cache eviction order: "lru" (oldest stamp first) | "sharing"
+    # (least ancestor-shared bytes first, the stamp breaking ties)
     evict_policy: str = "lru"
     seed: int = 0

@@ -1,7 +1,7 @@
 """Build and load the CUDA kernels of the port.
 
 ``library()`` compiles each source of ``SOURCES`` (``csrc/*.cu``, sharing
-``csrc/decode_common.cuh``) with ``nvcc`` for ``sm_90a`` into a shared
+the helpers of ``csrc/decode_common.cuh``) with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at first use, into ``build/kernels/`` at
 the root of the checkout, and loads them with ``ctypes``. The sources
 compile in parallel, one ``nvcc`` each, all started together. A library's
@@ -83,6 +83,11 @@ SIGNATURES = {
         # v_fresh, page_tables, seg_lens, paths, row_pos, row_slot, k_dec,
         # v_dec, dec_bias, out, then the ints, scale and stream as above
         "packed_fused_bifurcated_decode_q8": [_P] * 16 + [_I] * 14 + [_F, _P],
+    },
+    "flash_prefill": {
+        # q, k, v, out, b, n, m, h, g, hd, q_offset, window, causal, scale,
+        # stream
+        "flash_prefill_attention": [_P] * 4 + [_I] * 9 + [_F, _P],
     },
 }
 SOURCES = {name: CSRC / f"{name}.cu" for name in SIGNATURES}

@@ -31,6 +31,7 @@ from repro_torch.core.quantized import (
     tree_bifurcated_attention_q8,
 )
 from repro_torch.core.rotary import apply_rope
+from repro_torch.kernels.flash_prefill import flash_prefill_attention
 from repro_torch.kernels.ops import (
     bifurcated_decode_attention,
     bifurcated_decode_attention_q8,
@@ -193,8 +194,31 @@ def chunked_attention(
     return torch.cat(outs, dim=1)
 
 
+def flash_chunked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    window: Optional[int] = None,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Online-softmax (flash) attention: fp32 (m, l, acc) running state over
+    key blocks, never the (n x m) logits. Shapes as ``chunked_attention``:
+    q (b, n, h, hd), k/v (b, m, g, hd); query row i sits at position
+    ``q_offset`` + i. A CUDA tensor runs kernel #12
+    (``kernels/flash_prefill.flash_prefill_attention``, its own tiles), a
+    CPU tensor its plain version in ``q_chunk`` x ``kv_chunk`` blocks. A
+    window needs ``causal`` (see the kernel module)."""
+    return flash_prefill_attention(
+        q, k, v, causal=causal, window=window or 0, q_offset=q_offset,
+        block_q=q_chunk, block_k=kv_chunk)
+
+
 def _check_train_attn(cfg: ModelConfig):
-    if cfg.train_attn != "chunked":
+    if cfg.train_attn not in ("chunked", "flash"):
         raise NotImplementedError(f"train_attn={cfg.train_attn!r} is not ported")
 
 
@@ -206,7 +230,11 @@ def attention_train(cfg: ModelConfig, params, x: torch.Tensor,
     if cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    o = chunked_attention(q, k, v, window=cfg.sliding_window)
+    if cfg.train_attn == "flash":
+        o = flash_chunked_attention(q, k, v, causal=True,
+                                    window=cfg.sliding_window)
+    else:
+        o = chunked_attention(q, k, v, window=cfg.sliding_window)
     b, n = o.shape[:2]
     o = o.reshape(b, n, cfg.n_heads_padded * cfg.kq_dim)
     return o @ params["wo"].to(x.dtype)
@@ -251,8 +279,13 @@ def attention_prefill_suffix(
     v_full = torch.cat([v_anc.to(v_new.dtype), v_new], dim=1)
     # absolute-position causal mask: query row i is position m_anc + i, so
     # every row sees the whole cached prefix and its own causal suffix
-    o = chunked_attention(q, k_full, v_full, window=cfg.sliding_window,
-                          chunk=chunk, q_offset=m_anc)
+    if cfg.train_attn == "flash":
+        o = flash_chunked_attention(q, k_full, v_full, causal=True,
+                                    window=cfg.sliding_window, q_chunk=chunk,
+                                    q_offset=m_anc)
+    else:
+        o = chunked_attention(q, k_full, v_full, window=cfg.sliding_window,
+                              chunk=chunk, q_offset=m_anc)
     b, n = o.shape[:2]
     o = o.reshape(b, n, cfg.n_heads_padded * cfg.kq_dim)
     return o @ params["wo"].to(x.dtype), k_new, v_new

@@ -677,6 +677,14 @@ class TreeServeEngine(_SlotTableEngine):
                 refcounts drop along their paths and a node (and its
                 trie-index entry) frees only when NO live request
                 references it: shared ancestors survive their children.
+                With ``prefix_cache`` a refcount-zero node is not freed: it
+                becomes CACHED (its K/V, pages and index entry stay
+                resident, LRU-stamped), and a later admission that matches
+                it revives it at no prefill and no new page. Cached nodes
+                are evicted lazily, children first, only when an admission
+                lacks free nodes or pages (``_evict_cached``): oldest stamp
+                first, or under ``evict_policy="sharing"`` the ones with
+                the fewest ancestor-shared bytes first.
 
     With every request a single segment (depth-1 paths) this engine serves
     the flat forest's workload. With ``ctx_store="paged"`` the nodes live in
@@ -705,20 +713,15 @@ class TreeServeEngine(_SlotTableEngine):
     aborts it, and an admission whose first new level collides with a
     pending node raises ``PrefillInFlight``.
 
-    Not ported here: the cross-request prefix cache and its eviction
-    (``prefix_cache``, ``evict_policy``: ``TreeConfig`` knobs that raise
-    ``NotImplementedError``), and the integrity and durability surface of
-    the reference engine (segment checksums, ``audit_state``,
-    ``host_state``).
+    Not ported here: the integrity and durability surface of the
+    reference engine (segment checksums, ``audit_state``, ``host_state``).
     """
 
     def __init__(self, model, cfg: ModelConfig, tcfg: TreeConfig):
         _check_ctx_store(tcfg.ctx_store)
-        for knob, value, ported in (
-                ("prefix_cache", tcfg.prefix_cache, False),
-                ("evict_policy", tcfg.evict_policy, "lru")):
-            if value != ported:
-                raise NotImplementedError(f"{knob}={value!r} is not ported")
+        if tcfg.evict_policy not in ("lru", "sharing"):
+            raise ValueError(f"unknown evict_policy {tcfg.evict_policy!r}: "
+                             f"'lru' or 'sharing'")
         if tcfg.step_mode not in ("decode", "packed"):
             raise ValueError(f"unknown step_mode {tcfg.step_mode!r}: "
                              f"'decode' or 'packed'")
@@ -739,8 +742,14 @@ class TreeServeEngine(_SlotTableEngine):
         self.requests = {}
         self.next_rid = 0
         self.last_rid = -1      # rid of the most recent admit
-        # per-admission accounting of path tokens reused from live trie
-        # nodes vs written fresh, and tokens run through prefill
+        # cross-request prefix cache (tcfg.prefix_cache): refcount-zero nodes
+        # stay resident (node_live True, pages held, index entry kept),
+        # stamped here for LRU eviction; a later admission matching one pops
+        # its stamp and bumps its refcount
+        self.node_cached = {}   # node id -> LRU stamp
+        self.lru_clock = 0
+        # per-admission accounting of path tokens reused from resident trie
+        # nodes vs written fresh, tokens run through prefill, evictions
         self.prefix_stats = {"admits": 0, "full_hits": 0,
                              "partial_hits": 0, "reused_tokens": 0,
                              "new_tokens": 0, "computed_tokens": 0,
@@ -851,6 +860,98 @@ class TreeServeEngine(_SlotTableEngine):
         return {"ctx_bytes": int(sum(io["per_node"].values())),
                 "total": int(io["total"]), "slots": len(paths)}
 
+    # ---- cross-request prefix cache (tcfg.prefix_cache) ----
+    def cached_nodes(self):
+        """Refcount-zero trie nodes held resident as cache entries (sorted
+        node ids)."""
+        return sorted(self.node_cached)
+
+    def _eviction_order(self, protect=()):
+        """Cached nodes outside ``protect`` in eviction order. A candidate
+        has no resident child (evicting a parent first would leave its
+        descendants' (parent, tokens) keys dangling across node reuse);
+        among candidates the oldest LRU stamp goes first, then the fewest
+        live tokens, then the lowest id. A live descendant pins its
+        ancestors' refcounts, so a cached node's resident descendants are
+        cached too and the childless-first peeling reaches every candidate.
+        Under ``evict_policy="sharing"`` the first key is the candidate's
+        ancestor-shared bytes (``_ancestor_shared_bytes``): cold private
+        tails go before leaves under hot shared ancestors, whatever their
+        stamps."""
+        protect = set(protect)
+        remaining = {n for n in self.node_cached if n not in protect}
+        if self.tcfg.evict_policy == "sharing":
+            def key(n):
+                return (self._ancestor_shared_bytes(n), self.node_cached[n],
+                        self.node_len[n], n)
+        else:
+            def key(n):
+                return (self.node_cached[n], self.node_len[n], n)
+        order = []
+        while remaining:
+            blocked = {self.node_key[n][0] for n in remaining}
+            nid = min((n for n in remaining if n not in blocked), key=key)
+            order.append(nid)
+            remaining.discard(nid)
+        return order
+
+    def _ancestor_shared_bytes(self, nid: int) -> int:
+        """Per-layer context bytes of ``nid``'s resident ancestors that are
+        SHARED: pinned by a live request (refcount > 0) or parent of two or
+        more resident children. A node under a private chain scores 0."""
+        children = {}
+        for n in range(self.tcfg.n_nodes):
+            if self.node_live[n] and self.node_key[n] is not None:
+                parent = self.node_key[n][0]
+                if parent >= 0:
+                    children[parent] = children.get(parent, 0) + 1
+        per_tok = 2 * self.cfg.n_kv_heads * self.cfg.kq_dim * 2
+        total, n = 0, nid
+        while True:
+            key = self.node_key[n]
+            if key is None or key[0] < 0:
+                return total
+            parent = key[0]
+            if self.node_refs[parent] > 0 or children.get(parent, 0) >= 2:
+                total += self.node_len[parent] * per_tok
+            n = parent
+
+    def _evict_cached(self, state: ForestState, *, need_nodes: int = 0,
+                      need_pages: int = 0, protect=()) -> ForestState:
+        """Evict cached nodes, in ``_eviction_order``, until ``need_nodes``
+        free nodes and ``need_pages`` allocatable pool pages exist. A
+        demand that evicting every candidate cannot meet evicts nothing:
+        the caller's capacity error fires and the cache keeps its
+        contents. A victim frees as at eager retirement (index entry and
+        length dropped); in paged mode its page-table row is cleared
+        before its pages return to the allocator, so no page is ever named
+        by two nodes. Returns ``state`` (updated in place)."""
+        order = self._eviction_order(protect)
+        victims = []
+        if self.paged and need_pages:
+            plan = self.page_alloc.plan_eviction(
+                need_pages,
+                [(n, len(self.node_pages.get(n, ()))) for n in order])
+            if plan is None:
+                return state
+            victims = list(plan)
+        short = need_nodes - len(self.free_nodes()) - len(victims)
+        if short > 0:
+            if len(victims) + short > len(order):
+                return state
+            victims = order[:len(victims) + short]
+        for nid in victims:
+            self.node_live[nid] = False
+            self.node_cached.pop(nid, None)
+            self.node_index.pop(self.node_key[nid], None)
+            self.node_key[nid] = None
+            self.node_len[nid] = 0
+            if self.paged:
+                state.cache.free_node(nid)
+                self.page_alloc.release(self.node_pages.pop(nid, []))
+        self.prefix_stats["evictions"] += len(victims)
+        return state
+
     def _node_kv(self, cache, nid: int, m: int):
         """One resident node's first ``m`` live tokens of K/V as
         (L, m, g, hd) tensors in the decode arm's dtype, read from the
@@ -946,6 +1047,11 @@ class TreeServeEngine(_SlotTableEngine):
                     f"trie level is being prefilled by a pending packed "
                     f"admission (node {nid0}) — retry after its chunks "
                     f"land")
+        if tcfg.prefix_cache and len(new_segs) > len(self.free_nodes()):
+            # node pressure: evict cached nodes; the matched path is
+            # protected, this admission revives it
+            state = self._evict_cached(state, need_nodes=len(new_segs),
+                                       protect=path)
         free_n = self.free_nodes()
         free_s = self.free_slots(state)
         if len(new_segs) > len(free_n):
@@ -960,6 +1066,11 @@ class TreeServeEngine(_SlotTableEngine):
             # work: reused ancestors cost zero new pages
             n_pg = sum(pages_needed(int(s.shape[1]), tcfg.page_size)
                        for s in new_segs)
+            if tcfg.prefix_cache and n_pg > self.page_alloc.free_count():
+                # page pressure: the same lazy eviction, the victims
+                # planned by the allocator against its free list
+                state = self._evict_cached(state, need_pages=n_pg,
+                                           protect=path)
             if n_pg > self.page_alloc.free_count():
                 raise PoolExhausted(
                     f"request needs {n_pg} pool pages for "
@@ -1025,6 +1136,7 @@ class TreeServeEngine(_SlotTableEngine):
             offset += m
         for nid in path:
             self.node_refs[nid] += 1
+            self.node_cached.pop(nid, None)  # revival: cached -> live
 
         path_col = torch.tensor(path + [-1] * (tcfg.depth - len(path)),
                                 dtype=torch.int32, device=dev)
@@ -1097,6 +1209,7 @@ class TreeServeEngine(_SlotTableEngine):
             parent = nid
         for nid in path:
             self.node_refs[nid] += 1
+            self.node_cached.pop(nid, None)  # revival: cached -> live
 
         rid = self.next_rid
         self.next_rid += 1
@@ -1322,7 +1435,8 @@ class TreeServeEngine(_SlotTableEngine):
         """Free every request whose slots have all gone inactive. Node
         refcounts drop along the retired paths; a node's segment (and its
         trie-index entry) frees only at refcount zero — an ancestor shared
-        with a still-live request survives. A request whose packed
+        with a still-live request survives; with ``prefix_cache`` it is
+        cached instead (``_release_path``). A request whose packed
         prefill is pending is skipped: its slots are inactive until it
         activates, and it ends only by ``cancel_request``. Returns the
         retired request ids; their slots become reusable by the next
@@ -1346,11 +1460,18 @@ class TreeServeEngine(_SlotTableEngine):
     def _release_path(self, path):
         """Drop one reference from every node on ``path`` and free, leaf
         first, every node whose refcount reaches zero (in paged mode with
-        its pages: an ancestor's pages free only with the node)."""
+        its pages: an ancestor's pages free only with the node). With
+        ``prefix_cache`` such a node goes live -> CACHED instead: its K/V,
+        pages and index entry stay, stamped for LRU eviction."""
         for nid in path:
             self.node_refs[nid] -= 1
         for nid in reversed(path):
             if self.node_refs[nid] == 0 and self.node_live[nid]:
+                if self.tcfg.prefix_cache:
+                    if nid not in self.node_cached:
+                        self.lru_clock += 1
+                        self.node_cached[nid] = self.lru_clock
+                    continue
                 self.node_live[nid] = False
                 self.node_index.pop(self.node_key[nid], None)
                 self.node_key[nid] = None
@@ -1404,10 +1525,10 @@ class TreeServeEngine(_SlotTableEngine):
 
     def occupancy(self, state: ForestState) -> dict:
         """Live slot count, the pool's pages in paged mode, and the trie
-        nodes (and their pages) held resident with no live request (always
-        0: the prefix cache is not ported)."""
+        nodes (and their pages) held resident as cache entries."""
         occ = super().occupancy(state)
-        occ["nodes_cached"] = 0
+        occ["nodes_cached"] = len(self.node_cached)
         if self.paged:
-            occ["pages_cached"] = 0
+            occ["pages_cached"] = sum(
+                len(self.node_pages.get(n, ())) for n in self.node_cached)
         return occ

@@ -666,3 +666,84 @@ def test_packed_serve_path_launches_the_packed_kernel(cuda, cache_dtype):
     assert not eng._pending
     assert [len(eng.outputs[s]) for s in a + b] == [4, 4, 4, 3, 3]
     assert all(0 <= t < cfg.vocab_size for s in a + b for t in eng.outputs[s])
+
+
+# ---- flash prefill (#12) ----
+
+# (b, n, m, h, g, hd, causal, window, q_offset): a main-path-like prefill,
+# a suffix at an offset off the tile, a window cutting whole tiles, MQA,
+# hd=80, n and m off the tile, one query row, bidirectional
+FLASH_SHAPES = [
+    (1, 2048, 2048, 16, 8, 128, True, 0, 0),
+    (1, 500, 2548, 16, 8, 128, True, 0, 2048),
+    (1, 2048, 2048, 16, 8, 128, True, 512, 0),
+    (2, 333, 333, 8, 1, 64, True, 0, 0),
+    (2, 300, 300, 4, 2, 80, True, 0, 0),
+    (1, 77, 1000, 4, 2, 128, True, 100, 923),
+    (3, 1, 129, 4, 4, 16, True, 0, 128),
+    (1, 200, 130, 4, 2, 64, False, 0, 0),
+]
+
+
+def _flash_inputs(dev, b, n, m, h, g, hd, seed, dtype=torch.bfloat16):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=gen, device=dev).to(dtype)
+            for s in ((b, n, h, hd), (b, m, g, hd), (b, m, g, hd))]
+
+
+@pytest.mark.parametrize("case", FLASH_SHAPES)
+def test_flash_prefill_kernel_matches_plain_version(cuda, case):
+    """#12 against its plain version on the card within 2e-2 of max |out|,
+    one launch per call."""
+    from repro_torch.kernels import flash_prefill as fp
+
+    b, n, m, h, g, hd, causal, window, off = case
+    q, k, v = _flash_inputs(cuda, b, n, m, h, g, hd, seed=sum(case))
+    kw = dict(causal=causal, window=window, q_offset=off)
+    n0 = fp.flash_prefill_attention.launches
+    out = fp.flash_prefill_attention(q, k, v, **kw)
+    want = fp.flash_prefill_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fp.flash_prefill_attention.launches == n0 + 1
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert torch.isfinite(out.float()).all()
+    _assert_within(out, want, 2e-2)
+
+
+def test_flash_prefill_kernel_takes_bf16_only(cuda):
+    from repro_torch.kernels import flash_prefill as fp
+
+    q, k, v = _flash_inputs(cuda, 1, 64, 64, 4, 2, 64, 0, torch.float32)
+    n0 = fp.flash_prefill_attention.launches
+    with pytest.raises(TypeError, match="bfloat16"):
+        fp.flash_prefill_attention(q, k, v)
+    q, k, v = _flash_inputs(cuda, 1, 64, 64, 4, 2, 24, 0)    # hd=24
+    with pytest.raises(ValueError, match="head_dim"):
+        fp.flash_prefill_attention(q, k, v)
+    assert fp.flash_prefill_attention.launches == n0
+
+
+def test_flash_prefill_serve_path_launches_the_kernel(cuda):
+    """Under train_attn="flash" a prefill launches #12 once per layer, and
+    the generate that follows launches the fused decode kernel as before."""
+    import dataclasses
+
+    from repro_torch.configs import ServeConfig
+    from repro_torch.core.policy import BifurcationPolicy
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.models import get_model
+    from repro_torch.runtime.serve import ServeEngine
+
+    cfg, _, params = _reduced_model(cuda)
+    cfg = dataclasses.replace(cfg, train_attn="flash")
+    model = get_model(cfg)
+    eng = ServeEngine(model, cfg, ServeConfig(batch=4, decode_capacity=8,
+                                              use_kernel=True),
+                      policy=BifurcationPolicy(min_io_saving_bytes=0))
+    ctx = torch.randint(0, cfg.vocab_size, (1, 40), device=cuda)
+    fp.flash_prefill_attention.launches = 0
+    bd.fused_bifurcated_decode.launches = 0
+    res = eng.generate(params, ctx, n_steps=5)
+    assert fp.flash_prefill_attention.launches == cfg.n_layers
+    assert bd.fused_bifurcated_decode.launches == cfg.n_layers * 4
+    assert res.tokens.shape == (4, 5) and torch.isfinite(res.logprobs).all()

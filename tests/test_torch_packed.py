@@ -606,10 +606,17 @@ def test_packed_step_capacity_guard():
 
 
 def test_unported_tree_knobs_still_raise():
+    """The prefix-cache knobs, once unported, now construct an engine that
+    holds no cache entry yet (in packed mode too); an unknown step_mode
+    or evict_policy still raises."""
     for knob in (dict(prefix_cache=True), dict(evict_policy="sharing"),
-                 dict(ctx_store="paged", prefix_cache=True)):
-        with pytest.raises(NotImplementedError):
-            TreeServeEngine(TM, CFG_T, tconfigs.TreeConfig(**knob))
+                 dict(ctx_store="paged", prefix_cache=True),
+                 dict(prefix_cache=True, step_mode="packed",
+                      suffix_prefill=True)):
+        eng = TreeServeEngine(TM, CFG_T, tconfigs.TreeConfig(**knob))
+        assert eng.cached_nodes() == [] and eng.node_cached == {}
+    with pytest.raises(ValueError, match="evict_policy"):
+        TreeServeEngine(TM, CFG_T, tconfigs.TreeConfig(evict_policy="fifo"))
     with pytest.raises(ValueError, match="step_mode"):
         TreeServeEngine(TM, CFG_T, tconfigs.TreeConfig(step_mode="fused"))
 

@@ -534,11 +534,12 @@ def test_tree_engine_typed_rejections_mutate_nothing():
     assert eng.peek_prefix(_segs(SYS, REQ_A)) == ([0, 1], 2, 12 + 9)
     st, s = eng.admit(TP, st, _segs(SYS, REQ_A), 1)
     assert eng.node_refs == [2, 2] and eng.prefix_stats["full_hits"] == 1
+    # the prefix-cache knobs construct an engine with an empty cache
     for knob in (dict(ctx_store="paged", prefix_cache=True),
                  dict(prefix_cache=True),
                  dict(evict_policy="sharing")):
-        with pytest.raises(NotImplementedError):
-            TreeServeEngine(TM, CFG_T, tconfigs.TreeConfig(**knob))
+        assert TreeServeEngine(
+            TM, CFG_T, tconfigs.TreeConfig(**knob)).cached_nodes() == []
 
 
 def test_tree_engine_retire_frees_shared_root_last():

@@ -107,18 +107,15 @@ def flash_prefill_attention_plain(q, k, v, *, causal=True, window=0,
     return out
 
 
-def flash_prefill_attention(q, k, v, *, causal=True, window=0, q_offset=0,
-                            block_q=BLOCK_Q, block_k=BLOCK_K):
+def flash_prefill_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     """Flash attention of q (b, n, h, hd) over k, v (b, m, g, hd), query row
     i at position ``q_offset`` + i; returns (b, n, h, hd) in q's dtype.
-    ``window`` 0: none. ``block_q``/``block_k`` are the plain version's
-    blocks (CPU tensors); the kernel's tiles are its own."""
+    ``window`` 0: none."""
     _check(q, k, v, causal, window, q_offset)
     _check_contiguous(q, k, v)
     if not _on_cuda(q, k, v):
         return flash_prefill_attention_plain(
-            q, k, v, causal=causal, window=window, q_offset=q_offset,
-            block_q=block_q, block_k=block_k)
+            q, k, v, causal=causal, window=window, q_offset=q_offset)
     _check_kernel_operands(q, k, v)
     b, n, h, hd = q.shape
     m, g = k.shape[1], k.shape[2]

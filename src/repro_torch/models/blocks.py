@@ -31,7 +31,10 @@ from repro_torch.core.quantized import (
     tree_bifurcated_attention_q8,
 )
 from repro_torch.core.rotary import apply_rope
-from repro_torch.kernels.flash_prefill import flash_prefill_attention
+from repro_torch.kernels.flash_prefill import (
+    flash_prefill_attention,
+    flash_prefill_attention_plain,
+)
 from repro_torch.kernels.ops import (
     bifurcated_decode_attention,
     bifurcated_decode_attention_q8,
@@ -209,10 +212,14 @@ def flash_chunked_attention(
     key blocks, never the (n x m) logits. Shapes as ``chunked_attention``:
     q (b, n, h, hd), k/v (b, m, g, hd); query row i sits at position
     ``q_offset`` + i. A CUDA tensor runs kernel #12
-    (``kernels/flash_prefill.flash_prefill_attention``, its own tiles), a
-    CPU tensor its plain version in ``q_chunk`` x ``kv_chunk`` blocks. A
-    window needs ``causal`` (see the kernel module)."""
-    return flash_prefill_attention(
+    (``kernels/flash_prefill.flash_prefill_attention``), whose tiles are its
+    own: ``q_chunk`` and ``kv_chunk`` are the reference's blocks, and only
+    the plain version that a CPU tensor runs takes them. A window needs
+    ``causal`` (see the kernel module)."""
+    if q.is_cuda:
+        return flash_prefill_attention(q, k, v, causal=causal,
+                                       window=window or 0, q_offset=q_offset)
+    return flash_prefill_attention_plain(
         q, k, v, causal=causal, window=window or 0, q_offset=q_offset,
         block_q=q_chunk, block_k=kv_chunk)
 

@@ -693,8 +693,10 @@ def _flash_inputs(dev, b, n, m, h, g, hd, seed, dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("case", FLASH_SHAPES)
 def test_flash_prefill_kernel_matches_plain_version(cuda, case):
-    """#12 against its plain version on the card within 2e-2 of max |out|,
-    one launch per call."""
+    """#12 against its plain version on the card, row by row: each (batch,
+    query, head) row's max error within 2e-2 of that row's max |out| (a
+    causal prefill's late rows are much smaller than its first); one
+    launch per call."""
     from repro_torch.kernels import flash_prefill as fp
 
     b, n, m, h, g, hd, causal, window, off = case
@@ -707,7 +709,8 @@ def test_flash_prefill_kernel_matches_plain_version(cuda, case):
     assert fp.flash_prefill_attention.launches == n0 + 1
     assert out.shape == q.shape and out.dtype == q.dtype
     assert torch.isfinite(out.float()).all()
-    _assert_within(out, want, 2e-2)
+    err = (out.float() - want.float()).abs().amax(-1)
+    assert (err <= 2e-2 * want.float().abs().amax(-1)).all(), err.max()
 
 
 def test_flash_prefill_kernel_takes_bf16_only(cuda):

@@ -79,7 +79,7 @@ def test_plain_matches_pallas_kernel(case, dtype):
     want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                    causal=causal, window=window, block_q=bq, block_k=bk,
                    interpret=True)
-    got = tfp.flash_prefill_attention(
+    got = tfp.flash_prefill_attention_plain(
         to_torch(q), to_torch(k), to_torch(v), causal=causal, window=window,
         block_q=bq, block_k=bk)
     assert got.dtype == DTYPES[dtype][1] and got.shape == (b, n, h, hd)
@@ -179,8 +179,9 @@ def _models(dtype, cj=CFG_J, ct=CFG_T, params=PARAMS_NP):
 
 
 class Spy:
-    """Counts the prefill attention calls: #12's plain version (what the
-    wrapper runs on CPU tensors) and the chunked path."""
+    """Counts the prefill attention calls: #12's plain version (what
+    ``flash_chunked_attention`` runs on CPU tensors) and the chunked
+    path."""
 
     def __init__(self, monkeypatch):
         self.flash = self.chunked = 0
@@ -195,7 +196,8 @@ class Spy:
             self.chunked += 1
             return chunked(*a, **kw)
 
-        monkeypatch.setattr(tfp, "flash_prefill_attention_plain", flash_spy)
+        monkeypatch.setattr(tblocks, "flash_prefill_attention_plain",
+                            flash_spy)
         monkeypatch.setattr(tblocks, "chunked_attention", chunked_spy)
 
     def take(self):

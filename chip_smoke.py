@@ -53,7 +53,18 @@ printing its result lines:
      its first; fp32 raises TypeError; plain versions with the causal mask
      dropped, q_offset ignored, the window one key wider, query head h on
      kv head h % g, and, past n / 2 only, l x 1.5 or each tile's own key
-     block dropped miss that gate by far;
+     block dropped miss that gate by far. #1/#2/#3 also run at zamba2's
+     shared-block shape (32 kv heads of hd 112, 32 rows each, m_c 8192 and
+     1000). Chunked linear attention (#13) runs at the slice's shape (b 1,
+     n 8192, 112 heads, dk = dv = 64, chunk 256, q and k head-broadcast
+     views as Mamba2 hands them), at n 8000, 33 and 1, dk 32 / dv 16, with
+     the normaliser column, from an initial state, at b 4 and at the
+     reduced config's 8-wide heads; its gate is per (batch, position,
+     head) row of the output and per head of the final state; fp32 raises
+     TypeError; plain versions with the state not carried across chunks,
+     the inter-chunk term without e^{A_i}, an exclusive cumsum, the causal
+     mask dropped, or the padded rows given a nonzero decay (the state
+     gate) miss it by far;
   3. serve internlm2-1.8b at its published width (seeded random weights)
      with ServeEngine.generate: bifurcated cache, fused kernel, batch 32,
      context 8192, 16 steps. The fused kernel must launch 24 layers x 15
@@ -131,12 +142,30 @@ printing its result lines:
      [SYS, TPL_A, A3] A2's (and, paged, B1's for pages), and three fresh
      levels must raise SegmentsExhausted and change nothing; prints the
      revival's admission ms beside the eager engine's cold one;
-  4. time each kernel at the main path's shapes beside its bound, its plain
+  4. (first, then phase 3's model and caches are freed) time each kernel
+     at the main path's shapes beside its bound, its plain
      version and, as a yardstick only, one scaled_dot_product_attention call
      computing the same function (the port never calls it); the paged
      kernels at the single-prefix shape and on the paged trie, the packed
      kernels at phase 2's main packed shape over phase 3e's paged trie,
      flash prefill at the main prefill shape and at phase 3h's suffix;
+  3i. serve zamba2-7b at its published width (81 Mamba2 layers, d 3584,
+     the shared attention block applied 13 times, hd 112; seeded random
+     weights made on the card) with ServeEngine.generate: bifurcated
+     cache, fused kernels, batch 32, context 8192, 16 steps, bf16 and int8
+     context. Each generate must launch #13 exactly 81 times (its prefill)
+     and the fused kernel (int8: its q8 twin) 13 x 15 times, no other
+     kernel; #13's output and final state at Mamba2 layers 0, 40 and 80 of
+     the prefill against its plain version on the same inputs (per-row
+     gate); prefill logits and the first decode step's logits of the
+     kernel path against an fp32 run of the same path on the plain
+     versions (weights widened from the same bf16), within max(2e-2 x
+     max |logit|, 1.5 x the bf16 plain versions' distance from it); prints
+     prefill ms and decode ms/step;
+  4i. time #13 on phase 3i's recorded inputs (three layers of the bf16
+     prefill) beside its bound and its plain version (no library call
+     computes it), and #1 and #3 at the hybrid's shape over its 13 served
+     context caches;
   5. print the kernels' JSON line, then the result line, last.
 
 Imports torch and the port only; needs a checkout of the repository (it
@@ -146,6 +175,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -223,11 +253,14 @@ def build():
                 m = re.search(r"decode_kernelILi(\d+)ELb([01])ELb([01])"
                               r"ELi(\d)E", line)
                 f = re.search(r"flash_prefill_kernelILi(\d+)E", line)
+                c = re.search(r"chunked_linear_kernelILi(\d+)E", line)
                 if m:
                     flags = "".join(m.group(2, 3, 4))
                     name = f"hd={m.group(1)} {kinds.get(flags, flags)}"
+                elif f:
+                    name = f"hd={f.group(1)} flash prefill"
                 else:
-                    name = f"hd={f.group(1)} flash prefill" if f else None
+                    name = f"d={c.group(1)} chunked linear" if c else None
             elif name and "spill" in line:
                 spill = line.strip()
             elif name and "Used" in line:
@@ -1398,6 +1431,166 @@ def check_flash_kernels():
     return {"flash_prefill_attention": max(err_m, err_s)}
 
 
+# ---------------------------------------------------------------------------
+# phase 2, #13: chunked linear attention
+# ---------------------------------------------------------------------------
+
+# the slice's shape: zamba2-7b's Mamba2 layer over an 8192-token prefill
+# (b 1, n 8192, 112 heads, dk = state 64, dv = head 64, chunk 256)
+SSM_HEADS, SSM_DK, SSM_DV, SSM_CHUNK = 112, 64, 64, 256
+
+
+def chunked_inputs(b, n, H, dk, dv, seed, bcast=False, init=False,
+                   dtype=None):
+    """Random q, k (b, n, H, dk), v (b, n, H, dv), bf16 by default; q and k
+    as stride-0 views over the heads when ``bcast`` (as Mamba2 hands them
+    over); the log-decay <= 0, slow to fast over the heads as Mamba2's
+    dt_bias spreads them; an fp32 initial state when ``init``."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    dtype = dtype or torch.bfloat16
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    if bcast:
+        q, k = (r(b, n, 1, dk).to(dtype).expand(b, n, H, dk) for _ in range(2))
+    else:
+        q, k = (r(b, n, H, dk).to(dtype) for _ in range(2))
+    v = r(b, n, H, dv).to(dtype)
+    a = -F.softplus(r(b, n, H) + torch.linspace(-4.0, 1.0, H, device=DEVICE))
+    return q, k, v, a, (r(b, H, dk, dv) if init else None)
+
+
+def check_chunked(name, x, chunk, normalize=False):
+    """#13 against its plain version on one case, row by row: each (batch,
+    position, head) row of the output within 2e-2 of that row's max
+    |plain|, each head's final state within 2e-2 of its max |plain|.
+    Returns the output's max abs error."""
+    import torch
+    from repro_torch.kernels import chunked_linear as cl
+
+    q, k, v, a, s0 = x
+    kw = dict(chunk=chunk, normalize=normalize, initial_state=s0)
+    out, st = cl.chunked_linear_attention(q, k, v, a, **kw)
+    want, st_p = cl.chunked_linear_attention_plain(q, k, v, a, **kw)
+    torch.cuda.synchronize()
+    ok_o, err_o, rel_o = within_rows(out, want)
+    ok_s, err_s, rel_s = within_rows(st.flatten(2), st_p.flatten(2))
+    b, n, H, dk = q.shape
+    print(f"check {name} (b={b} n={n} H={H} dk={dk} dv={v.shape[-1]} "
+          f"chunk={chunk} normalize={normalize} initial state "
+          f"{s0 is not None} q/k strides {tuple(q.stride())}): output "
+          f"max_abs_err={err_o:.3e}, worst row {rel_o:.1e}; state "
+          f"max_abs_err={err_s:.3e}, worst head {rel_s:.1e} (gate {TOL:g} "
+          f"per row / head)")
+    check(ok_o and ok_s, f"{name}: #13 disagrees with its plain version")
+    check(bool(torch.isfinite(out.float()).all()
+               and torch.isfinite(st).all()), f"{name}: non-finite")
+    return err_o
+
+
+def faulty_chunked_plain(q, k, v, a, chunk, fault):
+    """The plain version's walk (fp32, zero initial state) with one planted
+    fault: the state not carried across chunks, the inter-chunk term
+    without e^{A_i}, an exclusive cumsum, the in-chunk causal mask dropped,
+    or the padded rows given a nonzero decay (None: no fault)."""
+    import torch
+    import torch.nn.functional as F
+
+    b, n, H, dk = q.shape
+    c = min(chunk, n)
+    pad = (-n) % c
+    q, k, v = (F.pad(t.float(), (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    a = F.pad(a.float(), (0, 0, 0, pad),
+              value=-1.0 if fault == "padded rows decay" else 0.0)
+    S = torch.zeros(b, H, dk, v.shape[-1], device=q.device)
+    mask = torch.ones(c, c, device=q.device)
+    if fault != "causal mask dropped":
+        mask = torch.tril(mask)
+    out = []
+    for c0 in range(0, n + pad, c):
+        if fault == "state not carried":
+            S = torch.zeros_like(S)
+        qf, kf, vf = q[:, c0:c0 + c], k[:, c0:c0 + c], v[:, c0:c0 + c]
+        A = torch.cumsum(a[:, c0:c0 + c], dim=1)
+        if fault == "exclusive cumsum":
+            A = A - a[:, c0:c0 + c]
+        D = (torch.exp(torch.clamp(A[:, :, None] - A[:, None], max=0.0))
+             * mask[None, :, :, None])
+        o = torch.einsum("bijh,bjhv->bihv",
+                         torch.einsum("bihk,bjhk->bijh", qf, kf) * D, vf)
+        e_a = 1.0 if fault == "inter without e^A" else torch.exp(A)[..., None]
+        out.append(o + torch.einsum("bihk,bhkv->bihv", qf * e_a, S))
+        a_last = A[:, -1]
+        S = S * torch.exp(a_last)[..., None, None] + torch.einsum(
+            "bjhk,bjhv->bhkv", kf * torch.exp(a_last[:, None] - A)[..., None],
+            vf)
+    return torch.cat(out, dim=1)[:, :n], S
+
+
+def check_chunked_kernels():
+    """Phase 2's cases of #13; returns {kernel name: max abs error over the
+    main shape's cases}."""
+    import torch
+    from repro_torch.kernels import chunked_linear as cl
+
+    H, dk, dv, C = SSM_HEADS, SSM_DK, SSM_DV, SSM_CHUNK
+    err = check_chunked("main (the slice's shape)",
+                        chunked_inputs(1, CONTEXT, H, dk, dv, 90, bcast=True),
+                        C)
+    for i, (name, shape, kw, chunk, norm) in enumerate([
+            ("n off the chunk", (1, 8000, H, dk, dv), {}, C, False),
+            ("n 33", (1, 33, H, dk, dv), {}, C, False),
+            ("n 1", (1, 1, H, dk, dv), {}, C, False),
+            ("dk != dv", (2, 1000, 8, 32, 16), {}, 64, False),
+            ("normalize", (1, 2048, 8, dk, dv), {}, C, True),
+            ("initial state", (1, 4096, H, dk, dv),
+             dict(init=True, bcast=True), C, False),
+            ("b > 1", (4, 2048, 16, dk, dv), {}, C, False),
+            ("reduced config's 8-wide heads", (2, 100, 16, 8, 8), {}, 16,
+             False)]):
+        x = chunked_inputs(*shape, seed=91 + i, **kw)
+        if norm:
+            x = x[:4] + (None,)
+        check_chunked(name, x, chunk, normalize=norm)
+
+    # fp32 raises TypeError, launching nothing
+    n0 = cl.chunked_linear_attention.launches
+    try:
+        cl.chunked_linear_attention(*chunked_inputs(
+            1, 64, 2, dk, dv, 0, dtype=torch.float32)[:4])
+    except TypeError:
+        pass
+    else:
+        raise AssertionError("#13 took fp32 operands")
+    check(cl.chunked_linear_attention.launches == n0,
+          "an fp32 call launched #13")
+    print("check fp32 operands: TypeError from the #13 wrapper, no launch")
+
+    # gate sensitivity: a faulty plain version misses the per-row gate by
+    # far (the padded rows' decay moves only the final state)
+    q, k, v, a, _ = chunked_inputs(1, 1000, 16, dk, dv, seed=99)
+    out, st = cl.chunked_linear_attention(q, k, v, a, chunk=C)
+    rels = {}
+    for fault in ("state not carried", "inter without e^A",
+                  "exclusive cumsum", "causal mask dropped",
+                  "padded rows decay"):
+        bad, st_bad = faulty_chunked_plain(q, k, v, a, C, fault)
+        rels[fault] = (within_rows(st.flatten(2), st_bad.flatten(2))[2]
+                       if fault == "padded rows decay"
+                       else within_rows(out, bad)[2])
+    print("check #13 gate sensitivity (n 1000, chunk 256, 16 heads): a "
+          "faulty plain version's worst row (padded decay: head state) "
+          "error / its max: " + ", ".join(f"{k} {r:.2f}"
+                                          for k, r in rels.items()))
+    for fault, rel in rels.items():
+        check(rel >= 10 * TOL, f"the #13 gate misses '{fault}'")
+    return {"chunked_linear_attention": err}
+
+
 def check_kernels():
     """Phase 2; returns {kernel name: max abs error over its main-shape
     cases}."""
@@ -1417,6 +1610,11 @@ def check_kernels():
         ("n=2 p=2 m_c=1000 bf16", (8, 8, 2, 2, 128, 1000, 5, 2)),
         ("rows=6 g=2 m_c=77 bf16", (2, 3, 2, 1, 128, 77, 3, 3)),
         ("hd=80 rows=96 m_c=700 bf16", (8, 48, 2, 1, 80, 700, 9, 4)),
+        # zamba2's shared block: 32 kv heads of hd 112, p 1, 32 rows each
+        ("hd=112 g=32 rows=32 m_c=8192 bf16", (32, 32, 1, 1, 112, 8192, 24,
+                                              7)),
+        ("hd=112 g=32 rows=32 m_c=1000 bf16", (32, 32, 1, 1, 112, 1000, 24,
+                                              8)),
     ]
     for name, (g, b, p, n, hd, m_c, c_d, seed) in ragged:
         check_case(name, kernel_inputs(g, b, p, n, hd, m_c, c_d, bf16, seed,
@@ -1434,7 +1632,9 @@ def check_kernels():
             ("m_c=8191 masked-arm int8", (8, 32, 2, 1, 128, 8191, 24, 11)),
             ("n=2 p=2 m_c=1000 int8", (8, 8, 2, 2, 128, 1000, 5, 12)),
             ("rows=6 g=2 m_c=77 int8", (2, 3, 2, 1, 128, 77, 3, 13)),
-            ("hd=80 rows=96 m_c=700 int8", (8, 48, 2, 1, 80, 700, 9, 14))]:
+            ("hd=80 rows=96 m_c=700 int8", (8, 48, 2, 1, 80, 700, 9, 14)),
+            ("hd=112 g=32 rows=32 m_c=8192 int8", (32, 32, 1, 1, 112, 8192,
+                                                   24, 15))]:
         check_q8(name, quantized(kernel_inputs(g, b, p, n, hd, m_c, c_d, bf16,
                                                seed, masked=True)))
     out["fused_bifurcated_decode_q8"] = err_q
@@ -1500,6 +1700,7 @@ def check_kernels():
     out.update(check_paged_kernels())
     out.update(check_packed_kernels())
     out.update(check_flash_kernels())
+    out.update(check_chunked_kernels())
     return out
 
 
@@ -1511,23 +1712,18 @@ BATCH, CONTEXT, STEPS = 32, 8192, 16
 WARM_STEPS = 8      # decode steps before the step compared across paths
 
 
-def all_kernels():
-    """Every kernel wrapper of the port: the decode kernels (#1-#11) and
-    flash prefill (#12)."""
-    from repro_torch.kernels import bifurcated_decode as bd
-    from repro_torch.kernels import flash_prefill as fp
-
-    return bd.KERNELS + (fp.flash_prefill_attention,)
-
-
 def reset_launches():
     """Set every kernel's launch count to 0 (just before a path runs)."""
-    for kern in all_kernels():
+    from repro_torch.kernels import KERNELS
+
+    for kern in KERNELS:
         kern.launches = 0
 
 
 def read_launches():
-    return {kern.__name__: kern.launches for kern in all_kernels()}
+    from repro_torch.kernels import KERNELS
+
+    return {kern.__name__: kern.launches for kern in KERNELS}
 
 
 class plain_versions:
@@ -1538,9 +1734,10 @@ class plain_versions:
 
     def __enter__(self):
         from repro_torch.kernels import bifurcated_decode as bd
+        from repro_torch.kernels import chunked_linear as cl
         from repro_torch.kernels import flash_prefill as fp
 
-        self.mods = (bd, fp)
+        self.mods = (bd, fp, cl)
         self.saved = [m._on_cuda for m in self.mods]
         self.counts = read_launches()
         for m in self.mods:
@@ -3116,13 +3313,17 @@ def profile_step(model, params, cache, tok, top=8):
         model.decode_step(params, cache, tok, impl="kernel")
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [(getattr(e, "self_device_time_total", 0.0), e.count, e.key)
+    rows = [(getattr(e, "self_device_time_total", 0.0), e.count, e.key,
+             str(getattr(e, "device_type", "")).endswith("CUDA"))
             for e in prof.key_averages()]
     rows = sorted((r for r in rows if r[0] > 0), reverse=True)
     busy = sum(r[0] for r in rows)
+    kern = [r for r in rows if r[3]]
     print(f"profile: one decode step, wall {wall_us:.0f} us under the "
-          f"profiler, device busy {busy:.0f} us ({len(rows)} kernel names)")
-    for us, n, key in rows[:top]:
+          f"profiler, device busy {busy:.0f} us ({len(rows)} kernel names; "
+          f"the device-side rows alone {sum(r[0] for r in kern):.0f} us in "
+          f"{sum(r[1] for r in kern)} launches)")
+    for us, n, key, _ in rows[:top]:
         print(f"profile:   {us:9.1f} us  {n:4d}x  {key[:90]}")
 
 
@@ -3429,6 +3630,187 @@ def serve_prefix_cache(cfg, params, store, quant):
 
 
 # ---------------------------------------------------------------------------
+# phase 3i: the zamba2 hybrid served
+# ---------------------------------------------------------------------------
+
+HYBRID_SAMPLE_LAYERS = (0, 40, 80)   # Mamba2 layers whose #13 call is checked
+
+
+class record_chunked:
+    """Keep the inputs and results of #13's calls at the Mamba2 layers
+    ``layers`` (in call order) for the duration of a ``with`` block."""
+
+    def __init__(self, layers):
+        self.layers, self.calls, self.n = set(layers), [], 0
+
+    def __enter__(self):
+        from repro_torch.models import mamba
+
+        self.real = mamba.chunked_linear_attention
+
+        def rec(q, k, v, a, **kw):
+            out, S = self.real(q, k, v, a, **kw)
+            if self.n in self.layers:
+                self.calls.append((self.n, (q, k, v, a), kw, out, S))
+            self.n += 1
+            return out, S
+
+        mamba.chunked_linear_attention = rec
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import mamba
+
+        mamba.chunked_linear_attention = self.real
+
+
+def serve_hybrid():
+    """Phase 3i: ServeEngine.generate on zamba2-7b at its published width
+    (seeded random weights made on the card), bifurcated cache, fused
+    kernels, bf16 and int8 context. Returns ({kernel name: launches} of the
+    bf16 run, #13's max abs error over the sampled layers, #13's recorded
+    inputs of the bf16 prefill, the served bf16 and int8 attention caches)
+    for phase 4."""
+    import gc
+
+    import torch
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.convert import cast_weights
+    from repro_torch.kernels import chunked_linear as cl
+    from repro_torch.models import get_model
+    from repro_torch.runtime.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_config("zamba2-7b")
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"serve hybrid: {cfg.name} {cfg.n_layers} Mamba2 layers (d "
+          f"{cfg.d_model}, {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim}"
+          f" SSD heads, state {cfg.ssm.state_dim}, chunk {cfg.ssm.chunk}), "
+          f"shared block x {model.n_super} (h={cfg.n_heads} g="
+          f"{cfg.n_kv_heads} hd={cfg.kq_dim} d_ff={cfg.d_ff}), vocab "
+          f"{cfg.padded_vocab}: {n_params / 1e9:.3f} B params, init "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = torch.Generator(device=DEVICE).manual_seed(5)
+    ctx = torch.randint(0, cfg.vocab_size, (1, CONTEXT), generator=rng,
+                        device=DEVICE)
+    want_13 = cfg.n_layers
+    params32 = None
+    out = {}
+    for quant in (False, True):
+        tag = "serve hybrid int8" if quant else "serve hybrid"
+        kname = ("fused_bifurcated_decode_q8" if quant
+                 else "fused_bifurcated_decode")
+        scfg = ServeConfig(batch=BATCH, context_len=CONTEXT,
+                           decode_capacity=max(16, STEPS + 8),
+                           bifurcated=True, use_kernel=True,
+                           cache_dtype="int8" if quant else "bfloat16")
+        engine = ServeEngine(model, cfg, scfg)
+        check(engine.should_bifurcate(BATCH, CONTEXT),
+              "policy did not bifurcate")
+        engine.generate(params, ctx, n_steps=2)          # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        result = engine.generate(params, ctx, n_steps=STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        print(f"{tag}: generate launches {counts}")
+        expect_counts(counts, {"chunked_linear_attention": want_13,
+                               kname: model.n_super * (STEPS - 1)})
+        if not quant:
+            out["launches"] = {"chunked_linear_attention": want_13,
+                               kname: counts[kname]}
+        toks, lps = result.tokens, result.logprobs
+        check(tuple(toks.shape) == (BATCH, STEPS), f"tokens {tuple(toks.shape)}")
+        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              "token range")
+        check(bool(torch.isfinite(lps).all() and (lps <= 0).all()),
+              "logprobs")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.prefill_shared(params, ctx, BATCH)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        print(f"{tag}: generate {wall * 1e3:.1f} ms = prefill "
+              f"{prefill_s * 1e3:.1f} ms + {STEPS - 1} decode steps at "
+              f"{(wall - prefill_s) / (STEPS - 1) * 1e3:.2f} ms/step (batch "
+              f"{BATCH}, context {CONTEXT})")
+
+        # the kernel path's prefill, #13's calls at the sampled layers kept,
+        # and its first decode step on the first sampled tokens
+        tok = toks[:, :1]
+        with record_chunked(HYBRID_SAMPLE_LAYERS) as rec:
+            lk_pre, cache = engine.prefill_shared(params, ctx, BATCH)
+        check(rec.n == cfg.n_layers, f"#13 called {rec.n} times")
+        attn = cache["attn"]
+        lk_dec, _ = model.decode_step(params, cache, tok, impl="kernel")
+        out["attn_q8" if quant else "attn"] = attn
+        if not quant:   # where a step's time goes (it advances the cache)
+            profile_step(model, params, cache, toks[:, 1:2], top=10)
+        del cache
+        errs = []
+        for layer, ops, kw, o, S in rec.calls:
+            want, S_p = cl.chunked_linear_attention_plain(*ops, **kw)
+            ok_o, err_o, rel_o = within_rows(o, want)
+            ok_s, _, rel_s = within_rows(S.flatten(2), S_p.flatten(2))
+            check(ok_o and ok_s, f"{tag}: layer {layer}: #13 disagrees with "
+                                 f"its plain version")
+            errs.append((layer, err_o, rel_o, rel_s))
+        print(f"{tag}: #13 against its plain version on the served inputs, "
+              f"per (layer: max_abs_err, worst row, worst head state): "
+              + ", ".join(f"{li}: {e:.2e} {r:.1e} {rs:.1e}"
+                          for li, e, r, rs in errs)
+              + f" (gate {TOL:g} per row / head)")
+        if not quant:
+            out["err"] = max(e for _, e, _, _ in errs)
+            out["calls"] = [ops for _, ops, _, _, _ in rec.calls]
+        del rec
+
+        # the plain versions in bf16, and the fp32 witness on the plain
+        # versions: the same path, weights widened from the same bf16
+        with plain_versions():
+            lp_pre, cache = engine.prefill_shared(params, ctx, BATCH)
+            lp_dec, _ = model.decode_step(params, cache, tok, impl="kernel")
+        del cache
+        if params32 is None:
+            params32 = cast_weights(params, torch.float32)
+        with plain_versions():
+            lw_pre, cache = engine.prefill_shared(params32, ctx, BATCH)
+            lw_dec, _ = model.decode_step(params32, cache, tok, impl="kernel")
+        del cache
+        gc.collect()
+        torch.cuda.synchronize()
+        for what, lk, lp, lw in (("prefill", lk_pre, lp_pre, lw_pre),
+                                 ("first decode step", lk_dec, lp_dec,
+                                  lw_dec)):
+            live = lw.abs() < 1e29
+            check(bool(torch.isfinite(lk.float()[live]).all()),
+                  f"{tag}: non-finite {what} logits")
+            err_kw, scale = gap(lk[live], lw[live])
+            err_pw, _ = gap(lp[live], lw[live])
+            err_kp, _ = gap(lk[live], lp[live])
+            print(f"{tag}: {what} logits, max_abs_err kernel path vs fp32 "
+                  f"witness {err_kw:.3e} ({err_kw / scale:.2e} of max "
+                  f"|logit| {scale:.3f}), bf16 plain versions vs witness "
+                  f"{err_pw:.3e}, kernel vs plain {err_kp:.3e} (gate "
+                  f"max(2e-2 x max |logit|, 1.5 x plain vs witness))")
+            check(err_kw <= max(TOL * scale, 1.5 * err_pw),
+                  f"{tag}: {what} logits of the kernel path disagree with "
+                  f"the fp32 witness")
+        del engine, result
+    del params, params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve hybrid: phase 3i took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 
@@ -3463,7 +3845,7 @@ def _timed_entry(name, source, line, kern, plain, lib, nbytes, flop,
     t_flop = flop / BF16_FLOP_PER_S * 1e3
     ms = time_ms(kern, n_inputs)
     plain_ms = time_ms(plain, n_inputs, reps=1, iters=n_inputs)
-    lib_ms = time_ms(lib, n_inputs)
+    lib_ms = None if lib is None else time_ms(lib, n_inputs)
     entry = {
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -3477,7 +3859,9 @@ def _timed_entry(name, source, line, kern, plain, lib, nbytes, flop,
     print(f"time: {name}: {ms * 1e3:.1f} us/launch, bound "
           f"{entry['bound_ms'] * 1e3:.1f} us ({entry['bound_by']}: "
           f"{nbytes / 1e6:.1f} MB, {flop / 1e9:.2f} GFLOP), plain "
-          f"{plain_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} us")
+          f"{plain_ms * 1e3:.1f} us, library "
+          + ("- (none computes it)" if lib is None
+             else f"{lib_ms * 1e3:.1f} us"))
     return entry
 
 
@@ -4112,6 +4496,101 @@ def time_flash_kernel(launches, errs):
     return entries[:1]
 
 
+def time_chunked_kernel(calls, launches, err):
+    """#13 at the slice's shape on phase 3i's recorded inputs (three Mamba2
+    layers of the bf16 prefill: q and k the model's head-broadcast views),
+    beside its bound, its plain version; no one PyTorch call computes
+    chunked linear attention, so the library column is null."""
+    from repro_torch.kernels import chunked_linear as cl
+
+    def kern(i):
+        return cl.chunked_linear_attention(*calls[i], chunk=SSM_CHUNK)
+
+    def plain(i):
+        return cl.chunked_linear_attention_plain(*calls[i], chunk=SSM_CHUNK)
+
+    q, k, v, a = calls[0]
+    b, n, H, dk = q.shape
+    dv = v.shape[-1]
+    # the bytes as the model hands them: q and k (b, n, dk) views read once,
+    # v and the output, the log-decay, the final state
+    nbytes = (2 * b * n * dk * 2 + 2 * b * n * H * dv * 2 + b * n * H * 4
+              + b * H * dk * dv * 4)
+    # per chunk of C: q.k^T and P.v over the causal half (C^2 (dk + dv)),
+    # q.S and the state update (2 C dk dv each); 2 operations a product
+    n_chunks = -(-n // SSM_CHUNK)
+    c = min(SSM_CHUNK, n)
+    flop = b * H * n_chunks * (c * c * (dk + dv) + 4 * c * dk * dv)
+    print(f"time: chunked_linear_attention at the slice's shape (b={b} n={n} "
+          f"H={H} dk={dk} dv={dv} chunk={SSM_CHUNK}, q/k strides "
+          f"{tuple(q.stride())}; no library call computes it)")
+    return _timed_entry("chunked_linear_attention", "chunked_linear.cu", 83,
+                        kern, plain, None, nbytes, flop, launches, err,
+                        len(calls), module="chunked_linear.py")
+
+
+def time_hybrid_decode(cfg_h, attn, attn_q8):
+    """#1 and #3 at the hybrid's shape (32 kv heads of hd 112, p 1, 32
+    rows, m_c 8192, 32 x 24 decode slots) over phase 3i's 13 served context
+    caches, beside their bounds, plain versions and SDPA yardsticks
+    (printed; the JSON entries of #1/#3 are phase 3's shape)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import bifurcated_decode as bd
+
+    L, g, m_c, hd = attn.k_ctx.shape
+    b, c_d, p = BATCH, attn.decode_capacity, cfg_h.n_heads // cfg_h.n_kv_heads
+    rows, ld = b * p, b * c_d
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    q = torch.randn(g, rows, hd, generator=gen, device=DEVICE).to(torch.bfloat16)
+    kd, vd, bias, live = _decode_arm_operands(L, g, b, c_d, hd, seed=13)
+    scale = hd**-0.5
+    fkw = dict(scale=scale, c_d=c_d, pn=p)
+    row_s = torch.arange(rows, device=DEVICE)[:, None] // p
+    col_s = torch.arange(ld, device=DEVICE)[None, :] // c_d
+    mask = torch.cat([torch.ones(rows, m_c, dtype=torch.bool, device=DEVICE),
+                      (row_s == col_s) & live.reshape(1, ld)], dim=1)
+    n_live = int(live.sum())
+    io_bytes = 2 * g * rows * hd * 2 + 2 * g * n_live * hd * 2 + ld * 4
+    flop = 4 * g * rows * m_c * hd + 4 * g * p * n_live * hd
+    kc, vc = attn.k_ctx, attn.v_ctx
+    kq, vq, ks, vs = (attn_q8.k_ctx, attn_q8.v_ctx, attn_q8.k_scale,
+                      attn_q8.v_scale)
+    k_all = [torch.cat([kc[i], kd[i]], dim=1)[None] for i in range(L)]
+    v_all = [torch.cat([vc[i], vd[i]], dim=1)[None] for i in range(L)]
+    kq_all = [torch.cat([_dequantized(kq[i], ks[i]),
+                         (kd[i].float() * scale).to(torch.bfloat16)],
+                        dim=1)[None] for i in range(L)]
+    vq_all = [torch.cat([_dequantized(vq[i], vs[i]), vd[i]], dim=1)[None]
+              for i in range(L)]
+    cases = (
+        ("fused_bifurcated_decode",
+         lambda i: bd.fused_bifurcated_decode(q, kc[i], vc[i], kd[i], vd[i],
+                                              bias, **fkw),
+         lambda i: bd.fused_bifurcated_decode_plain(q, kc[i], vc[i], kd[i],
+                                                    vd[i], bias, **fkw),
+         lambda i: F.scaled_dot_product_attention(
+             q[None], k_all[i], v_all[i], attn_mask=mask, scale=scale),
+         io_bytes + 2 * g * m_c * hd * 2),
+        ("fused_bifurcated_decode_q8",
+         lambda i: bd.fused_bifurcated_decode_q8(
+             q, kq[i], vq[i], ks[i], vs[i], kd[i], vd[i], bias, **fkw),
+         lambda i: bd.fused_bifurcated_decode_q8_plain(
+             q, kq[i], vq[i], ks[i], vs[i], kd[i], vd[i], bias, **fkw),
+         lambda i: F.scaled_dot_product_attention(
+             q[None], kq_all[i], vq_all[i], attn_mask=mask, scale=1.0),
+         io_bytes + 2 * g * m_c * hd + 2 * g * m_c * 4))
+    for name, kern, plain, lib, nbytes in cases:
+        ok, _, rel = within(lib(0)[0], kern(0))
+        ok_p, _, rel_p = within(kern(0), plain(0))
+        print(f"time: {name} at the hybrid's shape (g={g} rows={rows} hd={hd}"
+              f" m_c={m_c} ld={ld}, {n_live} live slots): library yardstick "
+              f"vs kernel {rel:.2e}, kernel vs plain {rel_p:.2e} of max "
+              f"|out| (gate 2e-2)")
+        check(ok and ok_p, f"{name} at hd {hd}: yardstick or kernel wrong")
+        _timed_entry(name, "", 0, kern, plain, lib, nbytes, flop, 0, 0.0, L)
+
+
 def main():
     try:
         import torch
@@ -4167,10 +4646,24 @@ def main():
     for store in ("dense", "paged"):
         for quant in (False, True):
             serve_prefix_cache(cfg, params, store, quant)
+    # phase 4 for #1-#12 on phase 3's caches, which are then freed with
+    # phase 3's model to make room for the hybrid's
+    del model, params
     entries = time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches,
                            launches, errs)
     entries += time_packed_kernels(cfg, pcaches, launches, errs)
     entries += time_flash_kernel(launches["flash_prefill_attention"], errs)
+    del cache, q8cache, fcaches, tcaches, pcaches
+    gc.collect()
+    torch.cuda.empty_cache()
+    hyb = serve_hybrid()
+    errs["chunked_linear_attention"] = max(errs["chunked_linear_attention"],
+                                           hyb["err"])
+    entries.append(time_chunked_kernel(
+        hyb["calls"], hyb["launches"]["chunked_linear_attention"],
+        errs["chunked_linear_attention"]))
+    from repro_torch.configs import get_config
+    time_hybrid_decode(get_config("zamba2-7b"), hyb["attn"], hyb["attn_q8"])
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))

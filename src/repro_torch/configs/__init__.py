@@ -2,10 +2,11 @@ from repro_torch.configs.base import (
     ForestConfig,
     ModelConfig,
     ServeConfig,
+    SSMConfig,
     TreeConfig,
 )
 from repro_torch.configs.registry import ARCH_IDS, get_config, reduced_config
 
 __all__ = [
-    "ForestConfig", "ModelConfig", "ServeConfig", "TreeConfig", "ARCH_IDS", "get_config", "reduced_config",
+    "ForestConfig", "ModelConfig", "ServeConfig", "SSMConfig", "TreeConfig", "ARCH_IDS", "get_config", "reduced_config",
 ]

@@ -2,9 +2,10 @@
 
 The port's own copy of the reference's configuration (``repro/configs``):
 the same fields, defaults and derived properties, so a config built here
-describes the same model as its counterpart there. Only the dense family
-is ported, so the fields and classes that only the other families read
-(mixture-of-experts, state-space, encoder-decoder, vision) are left out.
+describes the same model as its counterpart there. The dense family and
+the zamba2 hybrid (its ``SSMConfig`` and ``attn_period``) are ported; the
+fields and classes that only the other families read (mixture-of-experts,
+encoder-decoder, vision) are left out until their slices port them.
 """
 from __future__ import annotations
 
@@ -19,9 +20,23 @@ def round_up(x: int, multiple: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Chunked linear-attention substrate config (mLSTM / Mamba2-SSD)."""
+
+    state_dim: int = 64          # key/state dim per head (Mamba2 N)
+    head_dim: int = 64           # value dim per head
+    n_heads: int = 0             # 0 -> derive from d_inner / head_dim
+    expand: int = 2              # d_inner = expand * d_model
+    conv_width: int = 4
+    chunk: int = 256
+    kind: str = "mamba2"         # "mamba2" | "mlstm" | "slstm"
+    slstm_every: int = 0         # xLSTM: every k-th layer is an sLSTM block
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # "dense": the one family ported
+    family: str                  # "dense" | "hybrid": the families ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -35,6 +50,10 @@ class ModelConfig:
     norm: str = "rmsnorm"        # rmsnorm | layernorm
     act: str = "swiglu"          # swiglu | geglu | gelu
     tie_embeddings: bool = False
+    ssm: Optional[SSMConfig] = None
+    # hybrid (zamba2): one globally-shared attention block applied every
+    # `attn_period` ssm layers (Zamba-style parameter sharing).
+    attn_period: int = 0
     # full-sequence attention implementation: "chunked" materializes
     # (chunk x m) logit rows (baseline); "flash" is the online-softmax
     # nested-scan path (beyond-paper prefill optimization, §Perf).

@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig, plus reduced
 smoke-test variants and the paper's own model configs (Table 1/4).
 
-Only the dense architectures the port serves are registered; each other
-family's configs arrive with the slice that ports that family."""
+Only the architectures the port serves are registered (the dense ones and
+the zamba2 hybrid); each other family's configs arrive with the slice that
+ports that family."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,6 +15,7 @@ _ARCH_MODULES = {
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
     "qwen1.5-32b": "repro_torch.configs.qwen1_5_32b",
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)
@@ -62,11 +64,10 @@ def get_config(arch: str) -> ModelConfig:
 
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:
-    """Shrink a full dense config to a CPU-smoke-test size, same topology."""
+    """Shrink a full config to a CPU-smoke-test size, same family/topology."""
     h = 4
     kv = max(1, min(cfg.n_kv_heads, h // max(1, cfg.n_heads // cfg.n_kv_heads)))
     kw = dict(
-        n_layers=2,
         d_model=64,
         n_heads=h,
         n_kv_heads=kv,
@@ -77,6 +78,11 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         head_pad_multiple=1,
         decode_capacity=16,
     )
+    if cfg.family == "hybrid":
+        kw.update(n_layers=5, attn_period=2,
+                  ssm=dataclasses.replace(cfg.ssm, state_dim=8, head_dim=8, chunk=16))
+    else:
+        kw.update(n_layers=2)
     if cfg.sliding_window:
         kw["sliding_window"] = 8
     return dataclasses.replace(cfg, **kw)

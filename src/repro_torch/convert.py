@@ -2,10 +2,11 @@
 
 ``params_from_numpy`` takes the reference's param pytree (the dict that
 ``repro.models.TransformerLM.init`` returns, layers stacked under
-``params["layers"]`` with a leading L axis) with every leaf given as a numpy
-array, and returns the same tree of torch tensors, which the port's
-``TransformerLM`` takes as its weights. This module imports no jax: the
-caller hands it numpy.
+``params["layers"]`` with a leading L axis, or ``repro.models.HybridModel
+.init``'s, Mamba2 layers stacked under ``params["mamba"]`` /
+``["mamba_tail"]``) with every leaf given as a numpy array, and returns the
+same tree of torch tensors, which the port's model takes as its weights.
+This module imports no jax: the caller hands it numpy.
 """
 from __future__ import annotations
 
@@ -14,8 +15,12 @@ import torch
 
 from repro_torch import resolve_device
 
-# Norm params are applied in float32 (models/blocks.apply_norm) and stay so.
-NORM_KEYS = ("ln1", "ln2", "final_norm")
+# Leaves the reference applies in float32, kept so: the norm params
+# (blocks.apply_norm, rms_normalize: ln1, ln2, final_norm, the Mamba2 "ln"
+# and "norm_scale") and the Mamba2 leaves its float32 arithmetic reads
+# (A_log, dt_bias, the conv's conv_w and conv_b; models/mamba.py).
+FP32_KEYS = ("ln1", "ln2", "final_norm", "ln", "norm_scale", "A_log",
+             "dt_bias", "conv_w", "conv_b")
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
@@ -25,14 +30,14 @@ def _to_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy())
 
 
-def cast_weights(tree, dtype, _in_norm: bool = False):
-    """Cast every floating leaf outside ``NORM_KEYS`` to ``dtype``: the
+def cast_weights(tree, dtype, _keep: bool = False):
+    """Cast every floating leaf outside ``FP32_KEYS`` to ``dtype``: the
     reference casts each matmul weight to the activation dtype at every
     use; casting once at load gives the same bits."""
     if isinstance(tree, dict):
-        return {k: cast_weights(v, dtype, _in_norm or k in NORM_KEYS)
+        return {k: cast_weights(v, dtype, _keep or k in FP32_KEYS)
                 for k, v in tree.items()}
-    if _in_norm or dtype is None or not tree.is_floating_point():
+    if _keep or dtype is None or not tree.is_floating_point():
         return tree
     return tree.to(dtype)
 
@@ -40,7 +45,7 @@ def cast_weights(tree, dtype, _in_norm: bool = False):
 def params_from_numpy(tree, *, device="cuda", dtype=torch.bfloat16):
     """The reference's param tree (numpy leaves) as the port's weights on
     ``device``; matmul weights cast to ``dtype`` (None keeps each leaf's
-    dtype), norm params kept as given."""
+    dtype), the ``FP32_KEYS`` leaves kept as given."""
     dev = resolve_device(device)
 
     def conv(t):

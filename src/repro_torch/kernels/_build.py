@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # library name -> {C function: argtypes}; each C function returns the CUDA
 # error of its launch (0 when it was accepted)
@@ -88,6 +89,11 @@ SIGNATURES = {
         # q, k, v, out, b, n, m, h, g, hd, q_offset, window, causal, scale,
         # stream
         "flash_prefill_attention": [_P] * 4 + [_I] * 9 + [_F, _P],
+    },
+    "chunked_linear": {
+        # q, k, v, log_decay, s0, out, s_out, the strides (batch, position,
+        # head) of q, k and v, b, n, H, dk, dv, d, chunk, stream
+        "chunked_linear_attention": [_P] * 7 + [_L] * 9 + [_I] * 7 + [_P],
     },
 }
 SOURCES = {name: CSRC / f"{name}.cu" for name in SIGNATURES}

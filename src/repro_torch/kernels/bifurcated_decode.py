@@ -85,7 +85,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 BLOCK_M = 512        # context keys per block of the plain versions
-KERNEL_HEAD_DIMS = (16, 64, 80, 128)
+KERNEL_HEAD_DIMS = (16, 64, 80, 112, 128)
 MAX_TREE_DEPTH = 32         # the tree kernels' path-table height
 MAX_TREE_NODES = 65536      # and node count (their shared-memory bitmap)
 

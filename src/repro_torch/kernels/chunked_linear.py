@@ -1,0 +1,186 @@
+"""Chunked scalar-decay linear attention: the CUDA kernel and its plain
+version.
+
+``chunked_linear_attention`` — the Mamba2-SSD / mLSTM substrate
+  (``models/linear_scan.chunked_linear_attention``): for every (batch,
+  head), over chunks of ``chunk`` rows, with A the inclusive cumulative
+  log-decay of a row within its chunk,
+
+    out_i = sum_{j <= i in its chunk} (q_i . k_j) e^{min(A_i - A_j, 0)} v_j
+            + e^{A_i} q_i . S
+    S    <- e^{A_last} S + sum_j e^{A_last - A_j} k_j v_j^T
+
+  with the fp32 (dk, dv) state S carried from chunk to chunk (zero, or
+  ``initial_state``). q, k: (b, n, H, dk); v: (b, n, H, dv); log_decay:
+  (b, n, H), <= 0. A ragged last chunk is zero-padded (zero decay there, so
+  A_last is the last real row's). ``normalize`` appends a ones column to v
+  and divides by max(|that column's output|, 1), in v's dtype, as the
+  reference's wrapper does. Returns (out (b, n, H, dv) in v's dtype, final
+  state (b, H, dk, dv[+1]) fp32). Written in CUDA C++ for Hopper
+  (``csrc/chunked_linear.cu``, built by ``_build.py``; its bound, design and
+  the precision of its four products are written at the top of the
+  source). Replaces ``repro/kernels/chunked_linear.py:
+  chunked_linear_attention_kernel`` (Pallas, ``_chunk_kernel``), which has
+  no initial state.
+
+The wrapper takes CPU tensors to the plain version and CUDA tensors to the
+kernel, which takes bf16 q, k, v only (fp32 raises ``TypeError`` there),
+dk and dv up to 128 (larger raise ``ValueError``; a size that is not a
+multiple of 8 is zero-padded here), q, k and v through their strides with
+the last dim contiguous (the model's head-broadcast q and k go in as
+views), and a chunk whose cumulative log-decay fits the CTA's shared
+memory with the state (up to ~4,000 rows at 128-wide heads; a larger one
+is refused at launch). It never falls back.
+``chunked_linear_attention.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.bifurcated_decode import _launch, _on_cuda
+
+KERNEL_MAX_DIM = 128
+KERNEL_DIMS = (16, 32, 64, 128)      # the kernel's padded sizes
+
+
+def _check(q, k, v, log_decay, chunk, initial_state, normalize):
+    if q.ndim != 4 or k.shape != q.shape or v.ndim != 4 or \
+            v.shape[:3] != q.shape[:3] or log_decay.shape != q.shape[:3]:
+        raise ValueError(f"want q = k (b, n, H, dk), v (b, n, H, dv), "
+                         f"log_decay (b, n, H); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(log_decay.shape)}")
+    if min(q.shape) < 1 or v.shape[-1] < 1 or chunk < 1:
+        raise ValueError(f"empty operand or chunk {chunk} < 1")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("k and v must have q's dtype")
+    if initial_state is not None:
+        b, _, H, dk = q.shape
+        want = (b, H, dk, v.shape[-1] + (1 if normalize else 0))
+        if tuple(initial_state.shape) != want:
+            raise ValueError(f"initial_state {tuple(initial_state.shape)} "
+                             f"is not {want}")
+
+
+def _ones_column(v):
+    return torch.cat([v, torch.ones(*v.shape[:-1], 1, dtype=v.dtype,
+                                    device=v.device)], dim=-1)
+
+
+def _normalized(out):
+    """num / max(|den|, 1) in out's dtype, den the last column."""
+    num, den = out[..., :-1], out[..., -1]
+    return num / torch.clamp(den.float().abs(), min=1.0).to(out.dtype)[..., None]
+
+
+def chunked_linear_attention_plain(q, k, v, log_decay, *, chunk=256,
+                                   normalize=False, initial_state=None):
+    """Plain PyTorch version of ``chunked_linear_attention``: the chunks in
+    order, each chunk's in-chunk products, its inter-chunk term against the
+    fp32 state and the state update, all in fp32."""
+    _check(q, k, v, log_decay, chunk, initial_state, normalize)
+    b, n, H, dk = q.shape
+    if normalize:
+        v = _ones_column(v)
+    dv = v.shape[-1]
+    c = min(chunk, n)
+    pad = (-n) % c
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        log_decay = F.pad(log_decay, (0, 0, 0, pad))
+    dev = q.device
+    S = (torch.zeros(b, H, dk, dv, dtype=torch.float32, device=dev)
+         if initial_state is None else initial_state.float().clone())
+    out = torch.empty(b, n + pad, H, dv, dtype=torch.float32, device=dev)
+    causal = torch.tril(torch.ones(c, c, dtype=torch.bool, device=dev))
+    for c0 in range(0, n + pad, c):
+        qf, kf, vf = (t[:, c0:c0 + c].float() for t in (q, k, v))
+        A = torch.cumsum(log_decay[:, c0:c0 + c].float(), dim=1)  # (b, c, H)
+        diff = A[:, :, None, :] - A[:, None, :, :]                # (b, i, j, H)
+        D = torch.where(causal[None, :, :, None],
+                        torch.exp(torch.clamp(diff, max=0.0)), 0.0)
+        scores = torch.einsum("bihk,bjhk->bijh", qf, kf) * D
+        intra = torch.einsum("bijh,bjhv->bihv", scores, vf)
+        inter = torch.einsum("bihk,bhkv->bihv",
+                             qf * torch.exp(A)[..., None], S)
+        out[:, c0:c0 + c] = intra + inter
+        a_last = A[:, -1]                                         # (b, H)
+        k_scaled = kf * torch.exp(a_last[:, None] - A)[..., None]
+        S = (S * torch.exp(a_last)[..., None, None]
+             + torch.einsum("bjhk,bjhv->bhkv", k_scaled, vf))
+    out = out[:, :n].to(v.dtype)
+    if normalize:
+        out = _normalized(out)
+    return out, S
+
+
+def _padded_dim(d: int) -> int:
+    return next(s for s in KERNEL_DIMS if s >= d)
+
+
+def _kernel_operand(x, width):
+    """x with its last dim zero-padded to ``width`` (a copy) where it is
+    not already; a view stays a view."""
+    if x.shape[-1] == width:
+        return x
+    return F.pad(x, (0, width - x.shape[-1]))
+
+
+def chunked_linear_attention(q, k, v, log_decay, *, chunk=256,
+                             normalize=False, initial_state=None):
+    """Chunked linear attention of q, k (b, n, H, dk), v (b, n, H, dv)
+    under log_decay (b, n, H); returns (out (b, n, H, dv) in v's dtype,
+    final state (b, H, dk, dv[+1]) fp32)."""
+    _check(q, k, v, log_decay, chunk, initial_state, normalize)
+    if initial_state is None:
+        ops = (q, k, v, log_decay)
+    else:
+        ops = (q, k, v, log_decay, initial_state)
+    if not _on_cuda(*ops):
+        return chunked_linear_attention_plain(
+            q, k, v, log_decay, chunk=chunk, normalize=normalize,
+            initial_state=initial_state)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the kernel takes bfloat16 q, k, v on CUDA, not "
+                        f"{q.dtype}; float32 runs on the CPU's plain path")
+    b, n, H, dk = q.shape
+    if normalize:
+        v = _ones_column(v)
+    dv = v.shape[-1]
+    if max(dk, dv) > KERNEL_MAX_DIM:
+        raise ValueError(f"the kernel takes dk and dv up to "
+                         f"{KERNEL_MAX_DIM}, not {dk} and {dv}: a state of "
+                         f"that size does not fit one CTA's shared memory")
+    dk8, dv8 = -(-dk // 8) * 8, -(-dv // 8) * 8
+    d = _padded_dim(max(dk8, dv8))
+    c = min(chunk, n)
+    qk = [_kernel_operand(t, dk8) for t in (q, k)]
+    vk = _kernel_operand(v, dv8)
+    for t in qk + [vk]:
+        if (t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3])
+                or t.data_ptr() % 16):
+            raise ValueError("q, k, v must have a contiguous last dim, "
+                             "strides that are multiples of 8 and 16-byte "
+                             "aligned rows")
+    a = log_decay.float().contiguous()
+    s0 = None
+    if initial_state is not None:
+        s0 = F.pad(initial_state.float(),
+                   (0, dv8 - dv, 0, dk8 - dk)).contiguous()
+    out = torch.empty(b, n, H, dv8, dtype=torch.bfloat16, device=q.device)
+    state = torch.empty(b, H, dk8, dv8, dtype=torch.float32, device=q.device)
+    strides = [s for t in (qk[0], qk[1], vk) for s in t.stride()[:3]]
+    _launch("chunked_linear_attention", q.device, qk[0].data_ptr(),
+            qk[1].data_ptr(), vk.data_ptr(), a.data_ptr(),
+            None if s0 is None else s0.data_ptr(), out.data_ptr(),
+            state.data_ptr(), *strides, b, n, H, dk8, dv8, d, c)
+    chunked_linear_attention.launches += 1
+    out, state = out[..., :dv], state[:, :, :dk, :dv]
+    if normalize:
+        out = _normalized(out)
+    return out, state
+
+
+chunked_linear_attention.launches = 0
+

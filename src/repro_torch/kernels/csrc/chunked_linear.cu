@@ -1,0 +1,499 @@
+// Chunked scalar-decay linear attention for Hopper (sm_90a), with a plain C
+// interface for ctypes (kernels/_build.py builds this file with nvcc,
+// kernels/chunked_linear.py binds and launches it).
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/chunked_linear.py:
+// chunked_linear_attention_kernel (_chunk_kernel), the Mamba2-SSD / mLSTM
+// substrate. For every (batch, head), over the sequence cut into chunks of
+// C rows (the last zero-padded: q, k, v and the log-decay 0 there), with
+// A_i the inclusive cumulative log-decay of row i within its chunk:
+//
+//   out_i = sum_{j <= i} (q_i . k_j) e^{min(A_i - A_j, 0)} v_j
+//           + e^{A_i} q_i . S
+//   S    <- e^{A_last} S + sum_j e^{A_last - A_j} k_j v_j^T
+//
+// with S the fp32 (dk, dv) state carried from chunk to chunk (zero, or the
+// caller's initial state, at the start), out in bf16 and the final S in
+// fp32. One generalisation: the initial state (the Pallas kernel starts
+// from zero; the reference's chunked_linear_attention takes one).
+//
+// What bounds it on an H100: bytes. Mamba2 in zamba2-7b hands it q and k as
+// head-broadcast views of (b, n, 64) (2 MB at n 8192), v and out (b, n,
+// 112, 64) bf16 (235 MB), the log-decay (3.7 MB) and the state (1.8 MB):
+// 242.5 MB, 72.4 us at 3.35 TB/s, against ~45 GFLOP (the causal half of
+// the in-chunk products), ~46 us at 989 TFLOP/s.
+//
+// What the design does about it (a first, simple design):
+//   * one CTA of 4 warps per (batch, head) walks the chunks in order with
+//     S resident in shared memory (fp32, plus a bf16 hi/lo split of it for
+//     the tensor cores), so the state never leaves the chip until the end;
+//   * each chunk is cut into 64-row query tiles, each against the 64-key
+//     tiles j <= i of its chunk: the (C x C) score block is never formed
+//     (256 KB at C 256), only one (64 x 64) tile per warp quad in registers;
+//   * key tiles (K and V, zero-filled past the chunk or n) are staged by
+//     cp.async into a two-stage ring, one step ahead of the tile computed;
+//     q fragments are read straight from device memory into registers;
+//   * q, k and v are read through their strides (last dim contiguous): the
+//     model's head-broadcast q/k (stride 0 over heads) are never
+//     materialised, and their 2 MB stays in L2 for the 112 CTAs.
+// The four products, all on mma.sync m16n8k16 (bf16 in, fp32 accumulate);
+// every operand that is not an input is an fp32 value x split into
+// x_hi = bf16(x) and x_lo = bf16(x - x_hi), two products, ~16 bits of x:
+//   (1) q . k^T: bf16 operands, exact products, fp32 sums;
+//   (2) (scores x decay) . v: P = the decay-weighted scores, split. Flash
+//       attention rounds its P to bf16 once, but its weights are >= 0;
+//       these scores are signed and cancel, so one rounding (2^-9 of each
+//       term) can be a large share of a small row (measured: a
+//       normalised row off by more than 2e-2 of its max);
+//   (3) q . S: S split; e^{A_i} applied to the fp32 result;
+//   (4) (e^{A_last - A_j} k_j)^T . v: the decay-weighted keys split,
+//       accumulated onto e^{A_last} S in fp32.
+// Later work (ROADMAP): wgmma and TMA, a split over dv to fill more than
+// the 112 of 132 SMs, reading the head-broadcast q/k once per CTA group.
+//
+// bf16 only: the wrapper raises TypeError for any other dtype on the card
+// (float32 runs the plain version on the CPU).
+
+#include "decode_common.cuh"
+
+namespace chunked_linear {
+
+using bifurcated::cp_async16;
+using bifurcated::cp_async_commit;
+using bifurcated::cp_async_wait_1;
+using bifurcated::kPad;
+using bifurcated::kThreads;
+using bifurcated::kWarps;
+using bifurcated::ldmatrix_x4_trans;
+using bifurcated::load_pair;
+using bifurcated::mma_bf16;
+using bifurcated::pack_bf16;
+
+constexpr int kTile = 64;   // rows per query tile and per key tile
+
+struct Params {
+  const __nv_bfloat16* q;   // (b, n, H, dk) through strides
+  const __nv_bfloat16* k;   // (b, n, H, dk) through strides
+  const __nv_bfloat16* v;   // (b, n, H, dv) through strides
+  const float* a;           // (b, n, H) log-decay, contiguous
+  const float* s0;          // (b, H, dk, dv) initial state or nullptr
+  __nv_bfloat16* out;       // (b, n, H, dv) contiguous
+  float* s_out;             // (b, H, dk, dv) contiguous
+  long long qs[3], ks[3], vs[3];   // element strides of b, n, H
+  int b, n, H, dk, dv, chunk;
+};
+
+// Shared-memory plan (bytes) at padded size D: the K and V ring (two
+// stages each of kTile rows of D + kPad bf16), the state's bf16 hi and lo
+// (D rows of D + kPad), the fp32 state (D x D), the chunk's cumulative
+// log-decay (C floats) and the scan's warp totals.
+template <int D>
+struct Smem {
+  static constexpr int SROW = D + kPad;
+  static constexpr int STAGE = kTile * SROW;   // bf16 elements
+  static constexpr int RING = 4 * STAGE * 2;
+  static constexpr int SPLIT = 2 * D * SROW * 2;
+  static constexpr int STATE = D * D * 4;
+  __host__ __device__ static constexpr long long bytes(int chunk) {
+    return RING + SPLIT + STATE + 4LL * chunk + 4 * kWarps;
+  }
+};
+
+// One step of a CTA's walk: in chunk c, the intra product of query tile qt
+// with key tile kt (kt <= qt), or (st) the state update of state rows
+// [64 part, 64 part + 64) from key tile kt.
+struct Step {
+  int c, qt, kt, part;
+  bool st;
+};
+
+__device__ __forceinline__ bool next_step(Step& s, int T, int NP, int nc) {
+  if (!s.st) {
+    if (s.kt < s.qt) { ++s.kt; return true; }
+    if (s.qt + 1 < T) { ++s.qt; s.kt = 0; return true; }
+    s.st = true; s.part = 0; s.kt = 0;
+    return true;
+  }
+  if (s.kt + 1 < T) { ++s.kt; return true; }
+  if (s.part + 1 < NP) { ++s.part; s.kt = 0; return true; }
+  if (s.c + 1 < nc) { s = Step{s.c + 1, 0, 0, 0, false}; return true; }
+  return false;
+}
+
+// bf16 value with the low / high half of a packed pair
+__device__ __forceinline__ float lo_f(uint32_t x) {
+  return __uint_as_float(x << 16);
+}
+__device__ __forceinline__ float hi_f(uint32_t x) {
+  return __uint_as_float(x & 0xffff0000u);
+}
+
+// x ~ hi + lo, both bf16: the pair's hi and lo halves packed
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack_bf16(x0, x1);
+  lo = pack_bf16(x0 - lo_f(hi), x1 - hi_f(hi));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) chunked_linear_kernel(
+    const Params p) {
+  using SM = Smem<D>;
+  constexpr int SROW = SM::SROW;
+  constexpr int STAGE = SM::STAGE;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sV = sK + 2 * STAGE;
+  __nv_bfloat16* sHi = sK + 4 * STAGE;
+  __nv_bfloat16* sLo = sHi + D * SROW;
+  float* sS = reinterpret_cast<float*>(sLo + D * SROW);
+  float* sA = sS + D * D;
+  float* sTot = sA + p.chunk;
+
+  const int bh = blockIdx.x;
+  const int bi = bh / p.H, h = bh % p.H;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int C = p.chunk;
+  const int nc = (p.n + C - 1) / C;
+  const int T = (C + kTile - 1) / kTile;
+  const int NP = (D + 63) / 64;
+  const int dk = p.dk, dv = p.dv;
+
+  const __nv_bfloat16* qb = p.q + bi * p.qs[0] + h * p.qs[2];
+  const __nv_bfloat16* kb = p.k + bi * p.ks[0] + h * p.ks[2];
+  const __nv_bfloat16* vb = p.v + bi * p.vs[0] + h * p.vs[2];
+  const size_t sbase = static_cast<size_t>(bh) * dk * dv;
+
+  // the state: the caller's (or zero), fp32 and split
+  for (int e = tid; e < D * D; e += kThreads) {
+    const int r = e / D, c = e % D;
+    float s = 0.f;
+    if (p.s0 != nullptr && r < dk && c < dv) s = p.s0[sbase + r * dv + c];
+    sS[e] = s;
+    const __nv_bfloat16 hi = __float2bfloat16_rn(s);
+    sHi[r * SROW + c] = hi;
+    sLo[r * SROW + c] = __float2bfloat16_rn(s - __bfloat162float(hi));
+  }
+
+  // stage key tile kt of chunk c (K and V rows, zero past the chunk and n)
+  auto stage = [&](int slot, const Step& s) {
+    constexpr int CH = D / 8;   // 16-byte chunks per row
+    __nv_bfloat16* dK = sK + slot * STAGE;
+    __nv_bfloat16* dV = sV + slot * STAGE;
+    for (int e = tid; e < kTile * CH; e += kThreads) {
+      const int r = e / CH, ch = e % CH;
+      const int j = s.kt * kTile + r;
+      const long long t = static_cast<long long>(s.c) * C + j;
+      const bool row_ok = j < C && t < p.n;
+      const bool k_ok = row_ok && ch * 8 < dk, v_ok = row_ok && ch * 8 < dv;
+      cp_async16(dK + r * SROW + ch * 8,
+                 k_ok ? kb + t * p.ks[1] + ch * 8 : kb, k_ok);
+      cp_async16(dV + r * SROW + ch * 8,
+                 v_ok ? vb + t * p.vs[1] + ch * 8 : vb, v_ok);
+    }
+  };
+
+  uint32_t qf[D / 16][4];   // A fragments of the warp's 16 query rows
+  float o[D / 8][4];        // fp32 output rows, or the warp's state rows
+  float ai[2];              // A of this thread's query rows gr, gr + 8
+
+  Step cur{0, 0, 0, 0, false};
+  stage(0, cur);
+  cp_async_commit();
+  for (int slot = 0;; slot ^= 1) {
+    Step nxt = cur;
+    const bool more = next_step(nxt, T, NP, nc);
+    if (more) stage(slot ^ 1, nxt);
+    cp_async_commit();
+
+    const long long c0 = static_cast<long long>(cur.c) * C;
+    if (!cur.st && cur.qt == 0 && cur.kt == 0) {
+      // the chunk's inclusive cumulative log-decay: each thread sums a
+      // run of rows, the runs' totals are scanned across the CTA
+      const int per = (C + kThreads - 1) / kThreads;
+      const int lo = tid * per, hi = min(lo + per, C);
+      float run = 0.f;
+      for (int j = lo; j < hi; ++j) {
+        const long long t = c0 + j;
+        run += t < p.n ? p.a[(static_cast<long long>(bi) * p.n + t) * p.H + h]
+                       : 0.f;
+        sA[j] = run;
+      }
+      float incl = run;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float y = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += y;
+      }
+      if (lane == 31) sTot[warp] = incl;
+      __syncthreads();
+      float base = incl - run;
+      for (int w = 0; w < warp; ++w) base += sTot[w];
+      for (int j = lo; j < hi; ++j) sA[j] += base;
+      __syncthreads();
+    }
+
+    cp_async_wait_1();   // every group but the newest is done: this step's
+    __syncthreads();
+    const __nv_bfloat16* Ks = sK + slot * STAGE;
+    const __nv_bfloat16* Vs = sV + slot * STAGE;
+    const int mi = lane >> 3, rr = lane & 7;
+
+    if (!cur.st) {
+      // ---- intra: query tile qt against key tile kt ----
+      const int i0 = cur.qt * kTile + warp * 16 + gr;   // chunk-local rows
+      const int irow[2] = {i0, i0 + 8};
+      if (cur.kt == 0) {
+        // the tile's q fragments, then o = e^{A_i} q_i . (S_hi + S_lo)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          ai[i] = irow[i] < C ? sA[irow[i]] : 0.f;
+        }
+        const bool va = i0 < C && c0 + i0 < p.n;
+        const bool vb8 = i0 + 8 < C && c0 + i0 + 8 < p.n;
+        const __nv_bfloat16* qa = qb + (c0 + i0) * p.qs[1];
+        const __nv_bfloat16* qc = qb + (c0 + i0 + 8) * p.qs[1];
+#pragma unroll
+        for (int kt = 0; kt < D / 16; ++kt) {
+          const int c = kt * 16 + 2 * tq;
+          qf[kt][0] = load_pair(qa + c, va && c < dk);
+          qf[kt][1] = load_pair(qc + c, vb8 && c < dk);
+          qf[kt][2] = load_pair(qa + c + 8, va && c + 8 < dk);
+          qf[kt][3] = load_pair(qc + c + 8, vb8 && c + 8 < dk);
+        }
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt)
+          o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+#pragma unroll
+        for (int kt = 0; kt < D / 16; ++kt) {
+          const int key = kt * 16 + rr + ((mi & 1) ? 8 : 0);
+#pragma unroll
+          for (int nt = 0; nt < D / 8; nt += 2) {
+            const int col = nt * 8 + ((mi & 2) ? 8 : 0);
+            uint32_t bh4[4], bl4[4];
+            ldmatrix_x4_trans(bh4, sHi + key * SROW + col);
+            ldmatrix_x4_trans(bl4, sLo + key * SROW + col);
+            mma_bf16(o[nt], qf[kt], bh4[0], bh4[1]);
+            mma_bf16(o[nt + 1], qf[kt], bh4[2], bh4[3]);
+            mma_bf16(o[nt], qf[kt], bl4[0], bl4[1]);
+            mma_bf16(o[nt + 1], qf[kt], bl4[2], bl4[3]);
+          }
+        }
+        const float ea = expf(ai[0]), eb = expf(ai[1]);
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt) {
+          o[nt][0] *= ea;
+          o[nt][1] *= ea;
+          o[nt][2] *= eb;
+          o[nt][3] *= eb;
+        }
+      }
+      // scores of the warp's 16 rows against the tile's 64 keys
+      const int j0 = cur.kt * kTile;
+      if (j0 <= cur.qt * kTile + warp * 16 + 15) {   // a key j <= i exists
+        float s[kTile / 8][4];
+#pragma unroll
+        for (int nt = 0; nt < kTile / 8; ++nt) {
+          s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+          for (int kt = 0; kt < D / 16; ++kt) {
+            const __nv_bfloat16* kp = Ks + (nt * 8 + gr) * SROW + kt * 16 + 2 * tq;
+            mma_bf16(s[nt], qf[kt], *reinterpret_cast<const uint32_t*>(kp),
+                     *reinterpret_cast<const uint32_t*>(kp + 8));
+          }
+        }
+        // x e^{min(A_i - A_j, 0)}, 0 unless j <= i
+#pragma unroll
+        for (int nt = 0; nt < kTile / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = j0 + nt * 8 + 2 * tq + e;
+            const float aj = j < C ? sA[j] : 0.f;
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const float d =
+                  j <= irow[i] ? expf(fminf(ai[i] - aj, 0.f)) : 0.f;
+              s[nt][2 * i + e] *= d;
+            }
+          }
+        }
+        // o += P V, P split into bf16 hi and lo as A operands from
+        // registers: the scores are signed, so a P rounded once to bf16
+        // would lose to cancellation what softmax weights keep
+#pragma unroll
+        for (int kt = 0; kt < kTile / 16; ++kt) {
+          uint32_t ahi[4], alo[4];
+          split_pair(s[2 * kt][0], s[2 * kt][1], ahi[0], alo[0]);
+          split_pair(s[2 * kt][2], s[2 * kt][3], ahi[1], alo[1]);
+          split_pair(s[2 * kt + 1][0], s[2 * kt + 1][1], ahi[2], alo[2]);
+          split_pair(s[2 * kt + 1][2], s[2 * kt + 1][3], ahi[3], alo[3]);
+          const int key = kt * 16 + rr + ((mi & 1) ? 8 : 0);
+#pragma unroll
+          for (int nt = 0; nt < D / 8; nt += 2) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, Vs + key * SROW + nt * 8 + ((mi & 2) ? 8 : 0));
+            mma_bf16(o[nt], ahi, b[0], b[1]);
+            mma_bf16(o[nt + 1], ahi, b[2], b[3]);
+            mma_bf16(o[nt], alo, b[0], b[1]);
+            mma_bf16(o[nt + 1], alo, b[2], b[3]);
+          }
+        }
+      }
+      if (cur.kt == cur.qt) {   // the tile's last key tile: write its rows
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const long long t = c0 + irow[i];
+          if (irow[i] >= C || t >= p.n) continue;
+          __nv_bfloat16* orow =
+              p.out + ((static_cast<long long>(bi) * p.n + t) * p.H + h) * dv;
+#pragma unroll
+          for (int nt = 0; nt < D / 8; ++nt) {
+            const int c = nt * 8 + 2 * tq;
+            if (c < dv)
+              *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+                  __floats2bfloat162_rn(o[nt][2 * i], o[nt][2 * i + 1]);
+          }
+        }
+      }
+    } else {
+      // ---- state: rows m0..m0+15 of S += (w_j k_j)^T v_j over tile kt ----
+      const int m0 = cur.part * 64 + warp * 16;
+      const float a_last = sA[C - 1];
+      if (m0 < D) {
+        if (cur.kt == 0) {   // o = e^{A_last} S, the warp's rows
+          const float dec = expf(a_last);
+#pragma unroll
+          for (int nt = 0; nt < D / 8; ++nt) {
+            const int c = nt * 8 + 2 * tq;
+            o[nt][0] = sS[(m0 + gr) * D + c] * dec;
+            o[nt][1] = sS[(m0 + gr) * D + c + 1] * dec;
+            o[nt][2] = sS[(m0 + gr + 8) * D + c] * dec;
+            o[nt][3] = sS[(m0 + gr + 8) * D + c + 1] * dec;
+          }
+        }
+        const int j0 = cur.kt * kTile;
+#pragma unroll
+        for (int ks = 0; ks < kTile / 16; ++ks) {
+          // A = (w K)^T: K rows are keys, so the transposing load gives the
+          // (state row, key) fragment; keys 2tq, 2tq + 1 (+8) per register
+          uint32_t ar[4];
+          ldmatrix_x4_trans(ar, Ks + (ks * 16 + rr + ((mi & 2) ? 8 : 0)) * SROW +
+                                    m0 + ((mi & 1) ? 8 : 0));
+          float w[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = j0 + ks * 16 + 2 * tq + (e & 1) + ((e & 2) ? 8 : 0);
+            w[e] = j < C ? expf(a_last - sA[j]) : 0.f;
+          }
+          uint32_t ahi[4], alo[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int e = (r & 2) ? 2 : 0;   // registers 2, 3: keys + 8
+            split_pair(lo_f(ar[r]) * w[e], hi_f(ar[r]) * w[e + 1], ahi[r],
+                       alo[r]);
+          }
+          const int key = ks * 16 + rr + ((mi & 1) ? 8 : 0);
+#pragma unroll
+          for (int nt = 0; nt < D / 8; nt += 2) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, Vs + key * SROW + nt * 8 + ((mi & 2) ? 8 : 0));
+            mma_bf16(o[nt], ahi, b[0], b[1]);
+            mma_bf16(o[nt + 1], ahi, b[2], b[3]);
+            mma_bf16(o[nt], alo, b[0], b[1]);
+            mma_bf16(o[nt + 1], alo, b[2], b[3]);
+          }
+        }
+        if (cur.kt == T - 1) {   // the warp's rows of the new state
+#pragma unroll
+          for (int nt = 0; nt < D / 8; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = m0 + gr + ((e & 2) ? 8 : 0);
+              const int c = nt * 8 + 2 * tq + (e & 1);
+              const float x = o[nt][e];
+              sS[r * D + c] = x;
+              const __nv_bfloat16 hi = __float2bfloat16_rn(x);
+              sHi[r * SROW + c] = hi;
+              sLo[r * SROW + c] = __float2bfloat16_rn(x - __bfloat162float(hi));
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();   // the slot is refilled next; the state is read next
+    if (!more) break;
+    cur = nxt;
+  }
+
+  // the final state
+  for (int e = tid; e < dk * dv; e += kThreads) {
+    const int r = e / dv, c = e % dv;
+    p.s_out[sbase + e] = sS[r * D + c];
+  }
+}
+
+template <int D>
+cudaError_t launch(const Params& a, cudaStream_t stream) {
+  const long long smem = Smem<D>::bytes(a.chunk);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  auto kern = chunked_linear_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kern<<<a.b * a.H, kThreads, static_cast<int>(smem), stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace chunked_linear
+
+extern "C" {
+
+// q, k (b, n, H, dk) and v (b, n, H, dv) bf16, their last dim contiguous,
+// read through the element strides (batch, position, head) q_s*, k_s*, v_s*
+// (each a multiple of 8, rows 16-byte aligned); log_decay (b, n, H) f32
+// contiguous; s0 (b, H, dk, dv) f32 contiguous or null; out (b, n, H, dv)
+// bf16 and s_out (b, H, dk, dv) f32, contiguous. dk, dv multiples of 8 up
+// to d, d in 16, 32, 64, 128; 1 <= chunk <= n. Returns the CUDA error of
+// the launch (0 when it was accepted).
+int chunked_linear_attention(const void* q, const void* k, const void* v,
+                             const void* log_decay, const void* s0, void* out,
+                             void* s_out, long long q_sb, long long q_sn,
+                             long long q_sh, long long k_sb, long long k_sn,
+                             long long k_sh, long long v_sb, long long v_sn,
+                             long long v_sh, int b, int n, int H, int dk,
+                             int dv, int d, int chunk, void* stream) {
+  using chunked_linear::Params;
+  if (b <= 0 || n <= 0 || H <= 0 || dk <= 0 || dv <= 0 || dk % 8 ||
+      dv % 8 || dk > d || dv > d || chunk < 1 || chunk > n ||
+      static_cast<long long>(b) * H > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params a{};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.a = static_cast<const float*>(log_decay);
+  a.s0 = static_cast<const float*>(s0);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.s_out = static_cast<float*>(s_out);
+  a.qs[0] = q_sb; a.qs[1] = q_sn; a.qs[2] = q_sh;
+  a.ks[0] = k_sb; a.ks[1] = k_sn; a.ks[2] = k_sh;
+  a.vs[0] = v_sb; a.vs[1] = v_sn; a.vs[2] = v_sh;
+  a.b = b;
+  a.n = n;
+  a.H = H;
+  a.dk = dk;
+  a.dv = dv;
+  a.chunk = chunk;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 16: return static_cast<int>(chunked_linear::launch<16>(a, s));
+    case 32: return static_cast<int>(chunked_linear::launch<32>(a, s));
+    case 64: return static_cast<int>(chunked_linear::launch<64>(a, s));
+    case 128: return static_cast<int>(chunked_linear::launch<128>(a, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // extern "C"

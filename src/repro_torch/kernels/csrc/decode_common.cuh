@@ -817,7 +817,9 @@ cudaError_t launch(const Params& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Head dims 16, 64, 80 and 128.
+// Head dims 16, 64, 80, 112 and 128 (zamba2's 112: 7 k-steps of the
+// m16n8k16 product, 14 n-tiles, 14 16-byte chunks per bf16 row and 7 per
+// int8 row; nothing in the template needs a power of two).
 template <bool FUSED, bool Q8, int MODE>
 cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
   if (a.g <= 0 || a.rows <= 0 || a.m_c <= 0 || a.pn <= 0 || a.c_d <= 0 ||
@@ -834,6 +836,7 @@ cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
     case 16: return launch<16, FUSED, Q8, MODE>(a, stream);
     case 64: return launch<64, FUSED, Q8, MODE>(a, stream);
     case 80: return launch<80, FUSED, Q8, MODE>(a, stream);
+    case 112: return launch<112, FUSED, Q8, MODE>(a, stream);
     case 128: return launch<128, FUSED, Q8, MODE>(a, stream);
   }
   return cudaErrorInvalidValue;

@@ -32,6 +32,7 @@ from repro_torch.kernels.bifurcated_decode import (
 )
 
 NEG_INF = -1e30
+FLASH_HEAD_DIMS = (16, 64, 80, 128)     # the kernel's instances
 BLOCK_Q = 512       # the plain version's default query and key blocks
 BLOCK_K = 512       # (the Pallas kernel's defaults)
 
@@ -118,6 +119,9 @@ def flash_prefill_attention(q, k, v, *, causal=True, window=0, q_offset=0):
             q, k, v, causal=causal, window=window, q_offset=q_offset)
     _check_kernel_operands(q, k, v)
     b, n, h, hd = q.shape
+    if hd not in FLASH_HEAD_DIMS:
+        raise ValueError(f"the flash prefill kernel takes head_dim in "
+                         f"{FLASH_HEAD_DIMS}, not {hd}")
     m, g = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     _launch("flash_prefill_attention", q.device, q.data_ptr(), k.data_ptr(),

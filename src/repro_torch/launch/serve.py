@@ -3,12 +3,16 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
       --batch 16 --context 512 --steps 32 [--no-bifurcated] [--kernel]
 
+``--arch zamba2-7b`` serves the Mamba2 hybrid: its prefill runs kernel
+#13 (``chunked_linear_attention``) in every Mamba2 layer, and with
+``--kernel`` its shared attention block decodes through the fused kernels.
+
 Takes the flags of ``python -m repro.launch.serve``, plus ``--device``
 (default cuda). Reduced config by default; --full serves the published
 width, with seeded random weights. ``--cache-dtype int8`` quantizes the
 shared context once and decodes it with the fused q8 kernel. Prints the
 reference's banner plus the device and the kernel launch counts of the
-run.
+run (the decode kernels' and #13's).
 """
 from __future__ import annotations
 
@@ -20,12 +24,13 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ServeConfig, get_config, reduced_config
+from repro_torch.kernels import KERNELS
 from repro_torch.kernels.bifurcated_decode import (
-    KERNELS,
     context_flash_partials,
     fused_bifurcated_decode,
     fused_bifurcated_decode_q8,
 )
+from repro_torch.kernels.chunked_linear import chunked_linear_attention
 from repro_torch.models import get_model
 from repro_torch.runtime.serve import ServeEngine, rank_by_mean_logprob
 
@@ -78,7 +83,9 @@ def main(argv=None):
           f"fused_bifurcated_decode_launches={fused_bifurcated_decode.launches} "
           f"context_flash_partials_launches={context_flash_partials.launches} "
           f"fused_bifurcated_decode_q8_launches="
-          f"{fused_bifurcated_decode_q8.launches}")
+          f"{fused_bifurcated_decode_q8.launches} "
+          f"chunked_linear_attention_launches="
+          f"{chunked_linear_attention.launches}")
     print(f"wall {dt*1e3:.1f} ms  ({dt/args.steps*1e3:.2f} ms/step incl. prefill)")
     best = rank_by_mean_logprob(result, top_k=args.top_k)
     print(f"top-{args.top_k} by mean logprob: samples {best} "

@@ -15,6 +15,10 @@ def get_model(cfg: ModelConfig):
         from repro_torch.models.transformer import TransformerLM
 
         return TransformerLM(cfg)
-    if cfg.family in ("moe", "vlm", "xlstm", "hybrid", "encdec"):
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import HybridModel
+
+        return HybridModel(cfg)
+    if cfg.family in ("moe", "vlm", "xlstm", "encdec"):
         raise NotImplementedError(f"model family {cfg.family!r} is not ported")
     raise ValueError(f"unknown model family: {cfg.family}")

@@ -79,6 +79,26 @@ def apply_norm(cfg: ModelConfig, params, x, eps: float = 1e-5):
     return out.to(x.dtype)
 
 
+def rms_normalize(x, scale, eps: float = 1e-5):
+    """The float32 mean-square norm of the Mamba2 layers (no bias)."""
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def unembed(cfg: ModelConfig, params, x):
+    """Logits over the padded vocabulary (padding at -1e30), from the
+    ``lm_head`` table or, tied, the embedding."""
+    table = params.get("lm_head", params["embed"])
+    logits = x @ table.T.to(x.dtype)
+    if cfg.padded_vocab > cfg.vocab_size:
+        pad_bias = torch.where(
+            torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size,
+            0.0, -1e30).to(logits.dtype)
+        logits = logits + pad_bias
+    return logits
+
+
 # ---------------------------------------------------------------------------
 # Dense MLP
 # ---------------------------------------------------------------------------

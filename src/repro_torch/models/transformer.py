@@ -91,15 +91,7 @@ class TransformerLM:
         return params["embed"][tokens].to(torch.bfloat16)
 
     def _unembed(self, params, x):
-        cfg = self.cfg
-        table = params.get("lm_head", params["embed"])
-        logits = x @ table.T.to(x.dtype)
-        if cfg.padded_vocab > cfg.vocab_size:
-            pad_bias = torch.where(
-                torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size,
-                0.0, -1e30).to(logits.dtype)
-            logits = logits + pad_bias
-        return logits
+        return blocks.unembed(self.cfg, params, x)
 
     # ---- prefill (batched, standard cache out) ----
     def prefill(self, params, tokens):

@@ -12,6 +12,11 @@ Pipeline (paper Figure 1, bottom):
      for tiny workloads (paper FAQ #4), so enabling the feature is never a
      loss.
 
+The zamba2 hybrid serves through the same engine: its cache is a dict of
+the shared attention block's cache (bifurcated, or the standard fallback),
+the Mamba2 states and the position; ``_broadcast_state`` fans the prefill's
+batch-1 states out to the samples.
+
 Also provides greedy/temperature sampling with top-p, and per-sample
 mean-logprob tracking used for pass@top-k style reranking (paper §5.4).
 
@@ -134,12 +139,23 @@ class ServeEngine:
     def prefill_shared(self, params, context_tokens, batch: int):
         """context_tokens: (1, m_c). Returns (first logits (batch, V), cache)."""
         cfg, model = self.cfg, self.model
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "hybrid"):
             raise NotImplementedError(f"family {cfg.family!r} is not ported")
         m_c = context_tokens.shape[1]
-        logits, cache1 = model.prefill(params, context_tokens)
         quant = "int8" if self.scfg.cache_dtype == "int8" else "none"
         bifurcated = self.should_bifurcate(batch, m_c)
+        if cfg.family == "hybrid":
+            # the policy's decision and the cache dtype pick the shared
+            # block's cache family (its one quantizable arm); the decode arm
+            # is sized from the serve config. ctx_store is not read, as in
+            # the reference: the hybrid's context stays a dense slab.
+            logits, cache1 = model.prefill(
+                params, context_tokens, bifurcated=bifurcated,
+                dec_capacity=self.scfg.decode_capacity,
+                ctx_quant=quant if bifurcated else "none")
+            return (logits.expand(batch, logits.shape[-1]),
+                    self._broadcast_state(cache1, batch))
+        logits, cache1 = model.prefill(params, context_tokens)
         if bifurcated and self.scfg.ctx_store == "paged":
             # the context lands in a page pool of exactly
             # ceil(m_c / page_size) pages; decode reads it through the page
@@ -166,6 +182,25 @@ class ServeEngine:
             v[:, :, :m] = cache1.v
             cache = DecodeCache(k=k, v=v, length=cache1.length)
         return logits.expand(batch, logits.shape[-1]), cache
+
+    def _broadcast_state(self, cache, batch):
+        """A hybrid prefill's cache (batch 1) for ``batch`` samples: the
+        Mamba2 states and the shared block's per-sample arm (bifurcated: the
+        decode arm; standard: the whole cache) copied per sample, since
+        decode updates them in place; a bifurcated context (and its scales)
+        stays unbatched."""
+        def fan(x):
+            return x.expand(x.shape[0], batch, *x.shape[2:]).contiguous()
+
+        attn = cache["attn"]
+        if isinstance(attn, DecodeCache):
+            attn = DecodeCache(k=fan(attn.k), v=fan(attn.v), length=attn.length)
+        else:
+            attn = dataclasses.replace(attn, k_dec=fan(attn.k_dec),
+                                       v_dec=fan(attn.v_dec))
+        return {"attn": attn,
+                "mamba": {k: fan(x) for k, x in cache["mamba"].items()},
+                "position": cache["position"]}
 
     def _decode_body(self, params, cache, tokens, *, generator, noise):
         logits, cache = self.model.decode_step(

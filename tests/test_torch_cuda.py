@@ -49,7 +49,8 @@ def _assert_within(got, want, tol):
 # (g, b, pn, hd, m_c, c_d, dec_boost): main-path-like, the same with a
 # dominant decode arm, ragged m_c, rows off the tile
 SHAPES = [(8, 32, 2, 128, 4096, 24, 0.0), (8, 32, 2, 128, 4096, 24, 3.0),
-          (2, 3, 4, 64, 333, 5, 0.0), (4, 9, 2, 80, 130, 3, 0.0)]
+          (2, 3, 4, 64, 333, 5, 0.0), (4, 9, 2, 80, 130, 3, 0.0),
+          (32, 32, 1, 112, 2048, 24, 0.0)]   # zamba2's shared block, hd 112
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -124,7 +125,8 @@ def _q8(k, v):
 
 # (g, b, pn, hd, m_c, c_d, dec_boost)
 Q8_SHAPES = [(8, 32, 2, 128, 4096, 24, 0.0), (8, 32, 2, 128, 4096, 24, 3.0),
-             (2, 3, 4, 64, 333, 5, 0.0), (4, 9, 2, 80, 130, 3, 0.0)]
+             (2, 3, 4, 64, 333, 5, 0.0), (4, 9, 2, 80, 130, 3, 0.0),
+             (32, 32, 1, 112, 2048, 24, 0.0)]
 
 
 @pytest.mark.parametrize("shape", Q8_SHAPES)
@@ -749,4 +751,174 @@ def test_flash_prefill_serve_path_launches_the_kernel(cuda):
     res = eng.generate(params, ctx, n_steps=5)
     assert fp.flash_prefill_attention.launches == cfg.n_layers
     assert bd.fused_bifurcated_decode.launches == cfg.n_layers * 4
+    assert res.tokens.shape == (4, 5) and torch.isfinite(res.logprobs).all()
+
+
+# ---- chunked linear attention (#13) and the zamba2 hybrid ----
+
+# (b, n, H, dk, dv, chunk, normalize, initial state, head-broadcast q/k):
+# Mamba2's shape at a shorter n, n off the chunk with a state, dk != dv,
+# n 1, the normaliser column, the reduced config's 8-wide heads, 128-wide
+# heads, q and k as stride-0 views over the heads (as the model hands them)
+CHUNKED_SHAPES = [
+    (1, 2048, 8, 64, 64, 256, False, False, False),
+    (1, 1000, 4, 64, 64, 256, False, True, False),
+    (2, 333, 3, 32, 16, 64, False, False, False),
+    (1, 1, 2, 64, 64, 256, False, True, False),
+    (1, 300, 2, 64, 64, 64, True, False, False),
+    (2, 100, 4, 8, 8, 16, False, True, False),
+    (1, 200, 2, 128, 128, 128, False, True, False),
+    (2, 777, 16, 64, 64, 256, False, False, True),
+]
+
+
+def _chunked_inputs(dev, b, n, H, dk, dv, seed, init=False, bcast=False,
+                    dtype=torch.bfloat16):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    if bcast:
+        q, k = (r(b, n, 1, dk).to(dtype).expand(b, n, H, dk) for _ in range(2))
+    else:
+        q, k = (r(b, n, H, dk).to(dtype) for _ in range(2))
+    v = r(b, n, H, dv).to(dtype)
+    # <= 0, slow to fast over the heads, as Mamba2's dt_bias spreads them
+    a = -torch.nn.functional.softplus(
+        r(b, n, H) + torch.linspace(-4.0, 1.0, H, device=dev))
+    s0 = r(b, H, dk, dv) if init else None
+    return q, k, v, a, s0
+
+
+def _rows_within(got, want, tol=2e-2):
+    """Every row's (last axis) max |err| within tol x its max |want|."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    return bool((err <= tol * want.float().abs().amax(-1)).all())
+
+
+def _faulty_chunked_plain(q, k, v, a, chunk, fault, s0=None):
+    """The plain version's walk with one planted fault (fp32)."""
+    import torch.nn.functional as F
+
+    b, n, H, dk = q.shape
+    c = min(chunk, n)
+    pad = (-n) % c
+    q, k, v = (F.pad(t.float(), (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    a = F.pad(a.float(), (0, 0, 0, pad),
+              value=-1.0 if fault == "padded rows decay" else 0.0)
+    S0 = (torch.zeros(b, H, dk, v.shape[-1], device=q.device)
+          if s0 is None else s0.float())
+    S = S0
+    mask = torch.ones(c, c, device=q.device)
+    if fault != "causal mask dropped":
+        mask = torch.tril(mask)
+    out = []
+    for c0 in range(0, n + pad, c):
+        if fault == "state not carried":
+            S = S0
+        qf, kf, vf, ac = q[:, c0:c0 + c], k[:, c0:c0 + c], v[:, c0:c0 + c], \
+            a[:, c0:c0 + c]
+        A = torch.cumsum(ac, dim=1)
+        if fault == "exclusive cumsum":
+            A = A - ac
+        D = torch.exp(torch.clamp(A[:, :, None] - A[:, None], max=0.0)) \
+            * mask[None, :, :, None]
+        o = torch.einsum("bijh,bjhv->bihv",
+                         torch.einsum("bihk,bjhk->bijh", qf, kf) * D, vf)
+        e_a = 1.0 if fault == "inter without e^A" else torch.exp(A)[..., None]
+        out.append(o + torch.einsum("bihk,bhkv->bihv", qf * e_a, S))
+        a_last = A[:, -1]
+        S = S * torch.exp(a_last)[..., None, None] + torch.einsum(
+            "bjhk,bjhv->bhkv", kf * torch.exp(a_last[:, None] - A)[..., None],
+            vf)
+    return torch.cat(out, dim=1)[:, :n], S
+
+
+@pytest.mark.parametrize("case", CHUNKED_SHAPES)
+def test_chunked_linear_kernel_matches_plain_version(cuda, case):
+    """#13 against its plain version on the card: each (batch, position,
+    head) row of the output within 2e-2 of that row's max |plain|, and the
+    final state of each head within 2e-2 of its max |plain|; one launch per
+    call."""
+    from repro_torch.kernels import chunked_linear as cl
+
+    b, n, H, dk, dv, chunk, normalize, init, bcast = case
+    q, k, v, a, s0 = _chunked_inputs(cuda, b, n, H, dk, dv, sum(case[:6]),
+                                     init=init, bcast=bcast)
+    if normalize and s0 is not None:
+        s0 = torch.nn.functional.pad(s0, (0, 1))
+    kw = dict(chunk=chunk, normalize=normalize, initial_state=s0)
+    n0 = cl.chunked_linear_attention.launches
+    out, st = cl.chunked_linear_attention(q, k, v, a, **kw)
+    want, st_p = cl.chunked_linear_attention_plain(q, k, v, a, **kw)
+    torch.cuda.synchronize()
+    assert cl.chunked_linear_attention.launches == n0 + 1
+    assert out.shape == want.shape and out.dtype == v.dtype
+    assert st.shape == st_p.shape and st.dtype == torch.float32
+    assert torch.isfinite(out.float()).all() and torch.isfinite(st).all()
+    assert _rows_within(out, want)
+    assert _rows_within(st.flatten(2), st_p.flatten(2))
+
+
+@pytest.mark.parametrize("fault", ["state not carried", "inter without e^A",
+                                   "exclusive cumsum", "causal mask dropped",
+                                   "padded rows decay"])
+def test_chunked_linear_gate_catches_faulty_plain_versions(cuda, fault):
+    """The per-row gate of the test above misses a plain version with any
+    one of five faults by far: the kernel's output (or final state, for
+    the padded rows' decay, which moves only the state) against it."""
+    from repro_torch.kernels import chunked_linear as cl
+
+    q, k, v, a, _ = _chunked_inputs(cuda, 1, 1000, 4, 64, 64, seed=5)
+    out, st = cl.chunked_linear_attention(q, k, v, a, chunk=256)
+    good, st_good = _faulty_chunked_plain(q, k, v, a, 256, None)
+    bad, st_bad = _faulty_chunked_plain(q, k, v, a, 256, fault)
+    assert _rows_within(out, good) and _rows_within(st.flatten(2),
+                                                    st_good.flatten(2))
+    if fault == "padded rows decay":
+        assert torch.equal(bad, good)
+        assert not _rows_within(st.flatten(2), st_bad.flatten(2), 0.2)
+    else:
+        assert not _rows_within(out, bad, 0.2)
+
+
+def test_chunked_linear_kernel_takes_bf16_and_small_heads_only(cuda):
+    from repro_torch.kernels import chunked_linear as cl
+
+    n0 = cl.chunked_linear_attention.launches
+    q, k, v, a, _ = _chunked_inputs(cuda, 1, 64, 2, 64, 64, 0,
+                                    dtype=torch.float32)
+    with pytest.raises(TypeError, match="bfloat16"):
+        cl.chunked_linear_attention(q, k, v, a)
+    q, k, v, a, _ = _chunked_inputs(cuda, 1, 64, 2, 256, 64, 0)   # xLSTM-like
+    with pytest.raises(ValueError, match="up to"):
+        cl.chunked_linear_attention(q, k, v, a)
+    assert cl.chunked_linear_attention.launches == n0
+
+
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "int8"])
+def test_hybrid_serve_path_launches_its_kernels(cuda, cache_dtype):
+    """A reduced zamba2 generate: every Mamba2 layer of the prefill
+    launches #13 once, every shared-attention application of every decode
+    step the fused (int8: q8) decode kernel, and nothing else."""
+    from repro_torch.configs import ServeConfig, get_config, reduced_config
+    from repro_torch.core.policy import BifurcationPolicy
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import get_model
+    from repro_torch.runtime.serve import ServeEngine
+
+    cfg = reduced_config(get_config("zamba2-7b"))
+    model = get_model(cfg)
+    params = model.init(0, device=cuda)
+    eng = ServeEngine(model, cfg, ServeConfig(batch=4, decode_capacity=8,
+                                              use_kernel=True,
+                                              cache_dtype=cache_dtype),
+                      policy=BifurcationPolicy(min_io_saving_bytes=0))
+    ctx = torch.randint(0, cfg.vocab_size, (1, 40), device=cuda)
+    for kern in KERNELS:
+        kern.launches = 0
+    res = eng.generate(params, ctx, n_steps=5)
+    dec = ("fused_bifurcated_decode_q8" if cache_dtype == "int8"
+           else "fused_bifurcated_decode")
+    assert {k.__name__: k.launches for k in KERNELS if k.launches} == {
+        "chunked_linear_attention": cfg.n_layers,
+        dec: model.n_super * 4}
     assert res.tokens.shape == (4, 5) and torch.isfinite(res.logprobs).all()

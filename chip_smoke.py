@@ -1351,6 +1351,50 @@ def check_flash(name, x, causal=True, window=0, q_offset=0):
     return err, want
 
 
+def dense_attention(q, k, v, visible, q_offset=0, chunk=512):
+    """fp32 softmax attention of q (b, n, h, hd) over k, v (b, m, g, hd),
+    key k visible to query position t where ``visible(t, k)`` (broadcast
+    index tensors): a faulty version for the gate check of #12."""
+    import torch
+
+    b, n, h, hd = q.shape
+    m, g = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(h // g, dim=2)
+    vf = v.float().repeat_interleave(h // g, dim=2)
+    k_pos = torch.arange(m, device=q.device)[None, :]
+    out = torch.empty_like(q)
+    for qs in range(0, n, chunk):
+        qe = min(qs + chunk, n)
+        s = torch.einsum("bnhd,bmhd->bhnm", q[:, qs:qe].float(), kf) * hd**-0.5
+        t = q_offset + torch.arange(qs, qe, device=q.device)[:, None]
+        s = s.masked_fill(~visible(t, k_pos), float("-inf"))
+        out[:, qs:qe] = torch.einsum("bhnm,bmhd->bnhd", s.softmax(-1),
+                                     vf).to(q.dtype)
+    return out
+
+
+def merge_without_rescale(q, k, v, q_offset, parts):
+    """Causal attention over key ranges ``parts``, each part's (acc, l)
+    taken against its own max and summed without the factor e^(m_i - m):
+    the fault a key-split merge can make."""
+    import torch
+
+    b, n, h, hd = q.shape
+    g = k.shape[2]
+    kf = k.float().repeat_interleave(h // g, dim=2)
+    vf = v.float().repeat_interleave(h // g, dim=2)
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), kf) * hd**-0.5
+    t = q_offset + torch.arange(n, device=q.device)[:, None]
+    s = s.masked_fill(torch.arange(k.shape[1], device=q.device)[None, :] > t,
+                      float("-inf"))
+    acc, l = 0.0, 0.0
+    for lo, hi in parts:
+        e = (s[..., lo:hi] - s[..., lo:hi].amax(-1, keepdim=True)).exp()
+        l = l + e.sum(-1, keepdim=True)
+        acc = acc + torch.einsum("bhnm,bmhd->bhnd", e, vf[:, lo:hi])
+    return (acc / l).permute(0, 2, 1, 3).to(q.dtype)
+
+
 def check_flash_fp32_raises(x, q_offset):
     """fp32 operands raise TypeError on the card and launch nothing."""
     from repro_torch.kernels import flash_prefill as fp
@@ -1391,16 +1435,33 @@ def check_flash_kernels():
             ("n, m off the tile", (2, 1000, 1777, 16, 8, 128),
              dict(q_offset=777, window=300)),
             ("n=1", (4, 1, CONTEXT, 16, 8, 128), dict(q_offset=CONTEXT - 1)),
-            ("non-causal", (1, 777, 1333, 16, 8, 128), dict(causal=False))]:
+            ("non-causal", (1, 777, 1333, 16, 8, 128), dict(causal=False)),
+            ("p=2, n odd", (1, 1999, 1999, 16, 8, 128), {}),
+            ("p=3, tiles of 126 rows", (1, 1001, 1001, 24, 8, 128), {}),
+            ("hd=112, zamba2's shared block", (1, CONTEXT, CONTEXT, 32, 32,
+                                               112), {}),
+            ("hd=16", (2, 700, 700, 8, 4, 16), {}),
+            ("hd=64", (1, 3000, 3000, 16, 4, 64), {})]:
         check_flash(name, flash_inputs(*shape, seed=63 + len(name)), **kw)
     x_edge = window_edge_inputs(2048, 16, 8, 128, 512, seed=70)
     _, want_e = check_flash("window 512 decided at its edge", x_edge,
                             window=512)
+    # 8 (batch, kv head, tile) items: the wrapper splits their keys
+    split_off = CONTEXT - 64
+    x_split = flash_inputs(1, 64, CONTEXT, 16, 8, 128, seed=71)
+    sms = (torch.cuda.get_device_properties(0).multi_processor_count
+           if DEVICE == "cuda" else 132)
+    splits = fp.split_count(1, 64, CONTEXT, 8, 2, causal=True, window=0,
+                            q_offset=split_off, sms=sms)
+    check(splits > 1, "the key-split case does not split")
+    _, want_sp = check_flash(f"key split in {splits} (n 64 over "
+                             f"{CONTEXT} keys)", x_split, q_offset=split_off)
 
     check_flash_fp32_raises(x_suf, anc)
 
-    # gate sensitivity: plain versions each with one fault; the last two
-    # touch only the query tiles past n / 2, whose rows are small
+    # gate sensitivity: plain versions each with one fault; "l x 1.5" and
+    # "last key block dropped" touch only the query tiles past n / 2, whose
+    # rows are small
     q, k, v = x_main
     n, h, g = q.shape[1], q.shape[2], k.shape[2]
     wrong = torch.arange(h, device=DEVICE) % g      # right: h // (h / g)
@@ -1410,6 +1471,10 @@ def check_flash_kernels():
     for qs in range(n // 2, n, 128):
         late_drop[:, qs:qs + 128] = plain(q[:, qs:qs + 128], k[:, :qs],
                                           v[:, :qs], q_offset=qs)
+    nblk = -(-CONTEXT // fp.KEY_BLOCK)     # the split case's key blocks
+    parts = [(i * nblk // splits * fp.KEY_BLOCK,
+              min(CONTEXT, (i + 1) * nblk // splits * fp.KEY_BLOCK))
+             for i in range(splits)]
     faults = {
         "causal mask dropped": (plain(*x_main, causal=False), want_m),
         "q_offset ignored": (plain(*x_suf), want_s),
@@ -1419,6 +1484,11 @@ def check_flash_kernels():
             want_m),
         "l x 1.5 past n/2": (late_l, want_m),
         "last key block dropped past n/2": (late_drop, want_m),
+        "split merge without the e^(m_i - m) rescale": (
+            merge_without_rescale(*x_split, split_off, parts), want_sp),
+        "causal mask per key block": (
+            dense_attention(q, k, v, lambda t, kp: kp // fp.KEY_BLOCK
+                            <= t // fp.KEY_BLOCK), want_m),
     }
     rels = {name: (within_rows(got, want)[2], within(got, want)[2])
             for name, (got, want) in faults.items()}

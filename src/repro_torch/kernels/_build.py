@@ -86,9 +86,9 @@ SIGNATURES = {
         "packed_fused_bifurcated_decode_q8": [_P] * 16 + [_I] * 14 + [_F, _P],
     },
     "flash_prefill": {
-        # q, k, v, out, b, n, m, h, g, hd, q_offset, window, causal, scale,
-        # stream
-        "flash_prefill_attention": [_P] * 4 + [_I] * 9 + [_F, _P],
+        # q, k, v, out, part, b, n, m, h, g, hd, q_offset, window, causal,
+        # splits, scale, stream
+        "flash_prefill_attention": [_P] * 5 + [_I] * 10 + [_F, _P],
     },
     "chunked_linear": {
         # q, k, v, log_decay, s0, out, s_out, the strides (batch, position,

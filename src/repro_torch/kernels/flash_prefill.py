@@ -7,8 +7,9 @@
   device memory. Query row i sits at position ``q_offset`` + i (keys at
   0..m-1), so a suffix of n tokens attends its cached prefix and its own
   causal past. Written in CUDA C++ for Hopper (``csrc/flash_prefill.cu``,
-  built by ``_build.py``; its bound and design are written at the top of
-  the source). Replaces ``repro/kernels/flash_prefill.py:
+  built by ``_build.py``: TMA-fed K/V, wgmma, a producer warp and two
+  consumer warpgroups; its bound and design are written at the top of the
+  source). Replaces ``repro/kernels/flash_prefill.py:
   flash_prefill_attention`` (Pallas, ``_flash_kernel``), which has no
   ``q_offset``.
 
@@ -17,10 +18,17 @@ masks one side there (``k_pos > q_pos - window``) and the reference's
 ``flash_chunked_attention`` both (``|k_pos - q_pos| < window``), and
 nothing in either package calls it. The wrapper takes CPU tensors to the
 plain version and CUDA tensors to the kernel, which takes bf16 only (fp32
-raises ``TypeError`` there); it never falls back. ``flash_prefill_attention
-.launches`` counts kernel launches.
+raises ``TypeError`` there); it never falls back. When the (batch, kv
+head, 128-row tile) items cannot fill the card's SMs (a short suffix, a
+single query), the wrapper splits each tile's keys (``split_count``): the
+kernel writes fp32 partials to scratch the wrapper allocates, and a
+second kernel merges them. ``flash_prefill_attention.launches`` counts
+the calls that launch on the card, one per call whether the keys are
+split or not.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -32,7 +40,9 @@ from repro_torch.kernels.bifurcated_decode import (
 )
 
 NEG_INF = -1e30
-FLASH_HEAD_DIMS = (16, 64, 80, 128)     # the kernel's instances
+FLASH_HEAD_DIMS = (16, 64, 80, 112, 128)    # the kernel's instances
+TILE_ROWS = 128     # the kernel's query rows per CTA: 128 // p positions
+KEY_BLOCK = 128     # and keys per K/V tile
 BLOCK_Q = 512       # the plain version's default query and key blocks
 BLOCK_K = 512       # (the Pallas kernel's defaults)
 
@@ -108,6 +118,26 @@ def flash_prefill_attention_plain(q, k, v, *, causal=True, window=0,
     return out
 
 
+def split_count(b, n, m, g, p, *, causal, window, q_offset, sms):
+    """Key splits per tile: 1 when the kernel's b * g * tiles items fill
+    the ``sms`` SMs (one CTA each), else as many as fill them, at most one
+    per key block of the longest (last) tile."""
+    tile_pos = TILE_ROWS // p
+    tiles = -(-n // tile_pos)
+    ctas = b * g * tiles
+    if ctas >= sms:
+        return 1
+    pos0 = (tiles - 1) * tile_pos
+    end = min(m, q_offset + n) if causal else m
+    blk0 = max(0, q_offset + pos0 - window + 1) // KEY_BLOCK if window else 0
+    return max(1, min(sms // ctas, -(-end // KEY_BLOCK) - blk0))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def flash_prefill_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     """Flash attention of q (b, n, h, hd) over k, v (b, m, g, hd), query row
     i at position ``q_offset`` + i; returns (b, n, h, hd) in q's dtype.
@@ -123,10 +153,23 @@ def flash_prefill_attention(q, k, v, *, causal=True, window=0, q_offset=0):
         raise ValueError(f"the flash prefill kernel takes head_dim in "
                          f"{FLASH_HEAD_DIMS}, not {hd}")
     m, g = k.shape[1], k.shape[2]
+    p = h // g
+    if p > TILE_ROWS:
+        raise ValueError(f"the flash prefill kernel takes at most {TILE_ROWS} "
+                         f"query heads per kv head, not {p}")
+    splits = split_count(b, n, m, g, p, causal=causal, window=window,
+                         q_offset=q_offset, sms=_sm_count(q.device.index))
+    part = None
+    if splits > 1:      # fp32 (acc, max, sum) of every split's tile rows
+        tiles = -(-n // (TILE_ROWS // p))
+        part = torch.empty(splits * b * g * tiles * TILE_ROWS * (hd + 2),
+                           dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     _launch("flash_prefill_attention", q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), b, n, m, h, g, hd, int(q_offset),
-            int(window), int(bool(causal)), float(hd**-0.5))
+            v.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), b, n, m, h, g, hd,
+            int(q_offset), int(window), int(bool(causal)), splits,
+            float(hd**-0.5))
     flash_prefill_attention.launches += 1
     return out
 

@@ -684,6 +684,9 @@ FLASH_SHAPES = [
     (1, 77, 1000, 4, 2, 128, True, 100, 923),
     (3, 1, 129, 4, 4, 16, True, 0, 128),
     (1, 200, 130, 4, 2, 64, False, 0, 0),
+    (1, 64, 8192, 16, 8, 128, True, 0, 8128),   # 8 CTAs: keys split
+    (1, 1024, 1024, 32, 32, 112, True, 0, 0),   # zamba2's shared block
+    (1, 1001, 1001, 24, 8, 128, True, 0, 0),    # p 3: tiles of 126 rows
 ]
 
 
@@ -711,6 +714,24 @@ def test_flash_prefill_kernel_matches_plain_version(cuda, case):
     assert fp.flash_prefill_attention.launches == n0 + 1
     assert out.shape == q.shape and out.dtype == q.dtype
     assert torch.isfinite(out.float()).all()
+    err = (out.float() - want.float()).abs().amax(-1)
+    assert (err <= 2e-2 * want.float().abs().amax(-1)).all(), err.max()
+
+
+def test_flash_prefill_key_split_is_one_launch(cuda):
+    """A call whose tiles cannot fill the card splits their keys (the split
+    kernel and its merge) and still counts one launch."""
+    from repro_torch.kernels import flash_prefill as fp
+
+    q, k, v = _flash_inputs(cuda, 1, 64, 8192, 16, 8, 128, seed=5)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert fp.split_count(1, 64, 8192, 8, 2, causal=True, window=0,
+                          q_offset=8128, sms=sms) > 1
+    n0 = fp.flash_prefill_attention.launches
+    out = fp.flash_prefill_attention(q, k, v, q_offset=8128)
+    want = fp.flash_prefill_attention_plain(q, k, v, q_offset=8128)
+    torch.cuda.synchronize()
+    assert fp.flash_prefill_attention.launches == n0 + 1
     err = (out.float() - want.float()).abs().amax(-1)
     assert (err <= 2e-2 * want.float().abs().amax(-1)).all(), err.max()
 

@@ -34,7 +34,15 @@ printing its result lines:
      a tile of decode and chunk rows) fresh_len 0/1/63/64/65, a chunk at
      position 0 with no ancestors, an id outside [-1, N] on the chunk's
      path (its rows NaN; N itself poisons nothing). fp32 queries must
-     raise TypeError (the kernels take bf16 only).
+     raise TypeError (the kernels take bf16 only). The int8 trie and paged
+     kernels (#7, #9) run split (their default: S = split_count CTAs per
+     row tile and kv head) against their plain versions at the same S;
+     #9 = #7 bit for bit at the default split on every trie above; the
+     gates against kernels that are not split (#3, #5, #11) call them at
+     splits=1; the default split lies within the gate of splits=1 at the
+     main shapes; S = 64 on the ragged trie (pages of 48) against plain
+     and #9 = #7 there; and a merge without the rescale exp(m_s - m) or
+     with a row's last piece dropped misses the gate by far.
      Every gate is max |kernel - plain| <= tol x max |plain| (bf16 2e-2),
      and the script shows that plain versions with the decode arm
      dropped, its mask ignored, another sample's slots read, another
@@ -105,7 +113,9 @@ printing its result lines:
      it, into freed pages filled with NaN first), TreeServeEngine on phase
      3d's trie (reused ancestors cost no page). Each must launch the paged
      kernel 24 x 15 times, hold per layer against its plain versions, and
-     give the dense engines' tokens bit for bit;
+     give the dense engines' tokens bit for bit (the int8 forest's
+     comparison with phase 3c's grouped kernel replays both runs with #9
+     at splits=1, #5 being a single walk);
   3f. TreeServeEngine(step_mode="packed", suffix_prefill=True,
      prefill_chunk=512) on the paged store (pages of 128), bf16 and int8
      nodes, phase 3d's prompts: [SYS, TPL_A, A1] is prefilled in 15 chunks
@@ -148,7 +158,10 @@ printing its result lines:
      computing the same function (the port never calls it); the paged
      kernels at the single-prefix shape and on the paged trie, the packed
      kernels at phase 2's main packed shape over phase 3e's paged trie,
-     flash prefill at the main prefill shape and at phase 3h's suffix;
+     flash prefill at the main prefill shape and at phase 3h's suffix. #7
+     and #9 (split, faster than their wrapper's host work) and their
+     yardsticks are timed by CUDA graph replay, with a sweep over S = 1,
+     4, 8, 16, 32 and the default on one line per kernel and shape;
   3i. serve zamba2-7b at its published width (81 Mamba2 layers, d 3584,
      the shared attention block applied 13 times, hd 112; seeded random
      weights made on the card) with ServeEngine.generate: bifurcated
@@ -597,6 +610,39 @@ def tree_inputs(n_nodes, g, b, p, n, hd, cap, lens, slot_paths, c_d, seed,
     return x
 
 
+def default_splits(q):
+    """The share count #7 / #9 take by default for queries ``q`` on this
+    card (``split_count``)."""
+    from repro_torch.kernels import bifurcated_decode as bd
+
+    return bd.split_count(q.shape[1], q.shape[0],
+                          sms=bd._sm_count(q.device.index))
+
+
+def split_kw(x, quant, splits=None):
+    """#7 / #9's ``splits`` keyword (none for the bf16 kernels): ``splits``,
+    or the default split, so that a plain version walks the kernel's
+    shares."""
+    if not quant:
+        return {}
+    return {"splits": default_splits(x["q"]) if splits is None else splits}
+
+
+@contextlib.contextmanager
+def single_walk():
+    """#7 and #9 at splits=1 for the duration of a ``with`` block (their
+    wrappers' default split forced to 1): for the comparisons, bit for bit,
+    with a kernel that is not split."""
+    from repro_torch.kernels import bifurcated_decode as bd
+
+    saved = bd.split_count
+    bd.split_count = lambda *a, **k: 1
+    try:
+        yield
+    finally:
+        bd.split_count = saved
+
+
 def tree_args(x, quant):
     ctx = ((x["kc"], x["vc"], x["ks"], x["vs"]) if quant
            else (x["kc"], x["vc"]))
@@ -618,13 +664,15 @@ def tree_plain(quant):
             else bd.tree_fused_bifurcated_decode_plain)
 
 
-def check_tree(name, x, quant):
-    """A tree kernel vs its plain version on one case: both NaN on the rows
-    whose path holds an id outside [-1, N) and nowhere else, within the
-    gate on the others; returns the max abs error."""
+def check_tree(name, x, quant, splits=None):
+    """A tree kernel vs its plain version on one case (#7 at ``splits``,
+    default the default split, its plain version at the same S): both NaN
+    on the rows whose path holds an id outside [-1, N) and nowhere else,
+    within the gate on the others; returns the max abs error."""
     import torch
 
-    kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"])
+    kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"],
+              **split_kw(x, quant, splits))
     out_k = tree_kernel(quant)(*tree_args(x, quant), **kw)
     out_p = tree_plain(quant)(*tree_args(x, quant), **kw)
     torch.cuda.synchronize()
@@ -640,7 +688,8 @@ def check_tree(name, x, quant):
           f"{name}: non-finite")
     ok, err, rel = within(out_k[:, ~bad], out_p[:, ~bad])
     print(f"check {name}: {'tree q8' if quant else 'tree'} "
-          f"max_abs_err={err:.3e} ({rel:.1e} of max |out|, gate 2e-2)"
+          + (f"S={kw['splits']} " if quant else "")
+          + f"max_abs_err={err:.3e} ({rel:.1e} of max |out|, gate 2e-2)"
           + (f"; {int(bad.sum())} rows of an id outside [-1, N) NaN"
              if bad.any() else ""))
     check(ok, f"{name}: tree kernel disagrees with its plain version")
@@ -706,7 +755,9 @@ def check_tree_depth_one(quant):
     x = tree_inputs(4, 8, 32, 2, 1, 128, 2049, (2049, 0, 77, 1000),
                     slot_paths, 24, seed=26, masked=True, quant=quant)
     kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"])
-    tree = tree_kernel(quant)(*tree_args(x, quant), **kw)
+    # #5 is not split: against #7's single walk
+    tree = tree_kernel(quant)(*tree_args(x, quant), **kw,
+                              **split_kw(x, quant, 1))
     ctx = tree_args(x, quant)[:-5]
     grouped = (bd.grouped_fused_bifurcated_decode_q8 if quant
                else bd.grouped_fused_bifurcated_decode)(
@@ -716,7 +767,8 @@ def check_tree_depth_one(quant):
     same = bool(torch.equal(tree, grouped))
     err = within(tree, grouped)[1]
     print(f"check {'int8 ' if quant else ''}depth-1 trie N=4 lens "
-          f"2049/0/77/1000: tree vs grouped kernel bit-equal {same} "
+          f"2049/0/77/1000: tree{' (splits=1)' if quant else ''} vs grouped "
+          f"kernel bit-equal {same} "
           f"(max_abs_err={err:.3e})")
     check(same, "depth 1: the tree kernel is not the grouped kernel")
 
@@ -862,13 +914,15 @@ def paged_bad_rows(y):
             | (inside & poisoned[paths.clamp(0, n_segs - 1)])).any(0)
 
 
-def check_paged(name, y, quant):
-    """A paged kernel vs its plain version on one case: both NaN on the
-    rows of ``paged_bad_rows`` and nowhere else, within the gate on the
-    others. Returns (max abs error, the kernel's output)."""
+def check_paged(name, y, quant, splits=None):
+    """A paged kernel vs its plain version on one case (#9 at ``splits``,
+    default the default split, its plain version at the same S): both NaN
+    on the rows of ``paged_bad_rows`` and nowhere else, within the gate on
+    the others. Returns (max abs error, the kernel's output)."""
     import torch
 
-    kw = dict(scale=y["scale"], c_d=y["c_d"], pn=y["pn"])
+    kw = dict(scale=y["scale"], c_d=y["c_d"], pn=y["pn"],
+              **split_kw(y, quant, splits))
     out_k = paged_kernel(quant)(*paged_args(y, quant), **kw)
     out_p = paged_plain(quant)(*paged_args(y, quant), **kw)
     torch.cuda.synchronize()
@@ -883,7 +937,8 @@ def check_paged(name, y, quant):
           f"{name}: non-finite")
     ok, err, rel = within(out_k[:, ~bad], out_p[:, ~bad])
     print(f"check {name}: {'paged q8' if quant else 'paged'} "
-          f"max_abs_err={err:.3e} ({rel:.1e} of max |out|, gate 2e-2)"
+          + (f"S={kw['splits']} " if quant else "")
+          + f"max_abs_err={err:.3e} ({rel:.1e} of max |out|, gate 2e-2)"
           + (f"; {int(bad.sum())} rows of bad ids NaN" if bad.any() else ""))
     check(ok, f"{name}: paged kernel disagrees with its plain version")
     return err, out_k
@@ -957,14 +1012,17 @@ def check_paged_kernels():
         if quant:
             xq = quantized(x1)
             one = bd.fused_bifurcated_decode_q8(*q8_args(xq), **kw)
+            # #3 is not split: against #9's single walk
+            out1 = kern(*paged_args(y1, quant), **kw, splits=1)
         else:
             one = bd.fused_bifurcated_decode(x1["q"], x1["kc"], x1["vc"],
                                              x1["kd"], x1["vd"], x1["bias"],
                                              **kw)
         torch.cuda.synchronize()
         same = bool(torch.equal(out1, one))
-        print(f"check {tag}single prefix: paged vs "
-              f"{'fused q8' if quant else 'fused'} kernel bit-equal {same}")
+        print(f"check {tag}single prefix: paged{' (splits=1)' if quant else ''}"
+              f" vs {'fused q8' if quant else 'fused'} kernel bit-equal "
+              f"{same}")
         check(same, "the paged kernel is not the single-prefix kernel")
         # phase 3d's trie in an oversubscribed pool (112 pages against an
         # envelope of 256), free pages NaN, against the same pool with
@@ -1043,6 +1101,91 @@ def check_paged_kernels():
     print("check fp32 queries: TypeError from the paged wrapper, no launch")
     check_paged_gate_sensitivity(yt0, yr0)
     return out
+
+
+def faulty_merges():
+    """Two faulty merges of a row's split-walk partials [(acc, m, l), ...]:
+    the pieces summed without the rescale exp(m_s - m), and the row's last
+    piece (a decode piece) dropped."""
+    import torch
+
+    def no_rescale(parts):
+        acc = sum(p[0] for p in parts)
+        return acc / torch.clamp(sum(p[2] for p in parts), min=1e-30)
+
+    def one_dropped(parts):
+        from repro_torch.kernels import bifurcated_decode as bd
+
+        return bd.merge_partials(parts[:-1])
+
+    return {"merge without the rescale": no_rescale,
+            "a piece dropped": one_dropped}
+
+
+def check_split_kernels():
+    """Phase 2's split cases of #7 and #9: the default split against the
+    single walk (splits=1) on the main shapes; a forced S = 64 on the
+    ragged trie (most shares empty or masked), each kernel against its
+    plain version at that S and #9 = #7 bit for bit; two faulty merges of
+    #7's plain version on the decode-dominant main trie missing the gate."""
+    import torch
+    from repro_torch.kernels import bifurcated_decode as bd
+
+    nan = float("nan")
+    lens, req_paths = served_trie()
+    slot_paths = [req_paths[s * len(req_paths) // BATCH]
+                  for s in range(BATCH)]
+    x1 = quantized(kernel_inputs(8, 32, 2, 1, 128, 8192, 24,
+                                 torch.bfloat16, seed=60))
+    y1 = paged_case(single_case(x1, False), True, 128, seed=61)
+    xt = tree_inputs(TREE_NODES, 8, BATCH, 2, 1, 128, TREE_CAP, lens,
+                     slot_paths, TREE_DEC_CAP, seed=62, quant=True)
+    yt = paged_case(xt, True, 128, seed=63)
+    for name, kern, args, x in (
+            ("#9 main single prefix", paged_kernel(True),
+             paged_args(y1, True), y1),
+            ("#9 main trie", paged_kernel(True), paged_args(yt, True), yt),
+            ("#7 main trie", tree_kernel(True), tree_args(xt, True), xt)):
+        kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"])
+        split = kern(*args, **kw)
+        single = kern(*args, **kw, splits=1)
+        torch.cuda.synchronize()
+        ok, err, rel = within(split, single)
+        print(f"check {name}: default split (S={default_splits(x['q'])}) vs "
+              f"splits=1 max_abs_err={err:.3e} ({rel:.1e} of max |out|, "
+              f"gate 2e-2)")
+        check(ok, f"{name}: the split walk disagrees with the single walk")
+    # forced S = 64 on the ragged trie: ids outside [-1, N), lengths
+    # 0/1/63/64/65/200/130, pages of 48 (a block straddles pages)
+    ragged = [[5, 1, 2], [3], [5, 4, 4], [0, 3, 6], [2, 2], [6, 1],
+              [5, 1, 2], [7], [4, -2, 1]]
+    xr = tree_inputs(7, 8, 9, 2, 1, 128, 200, (0, 1, 63, 64, 65, 200, 130),
+                     ragged, 5, seed=64, masked=True, quant=True)
+    yr = paged_case(xr, True, 48, seed=65, spare=5, fill=nan)
+    tag = "N=7 lens 0/1/63/64/65/200/130, ids outside [-1, N), S=64"
+    check_tree(f"int8 {tag}", xr, True, splits=64)
+    _, out_p = check_paged(f"int8 {tag}, pages of 48", yr, True, splits=64)
+    out_t = tree_kernel(True)(*tree_args(xr, True), scale=xr["scale"],
+                              c_d=xr["c_d"], pn=xr["pn"], splits=64)
+    torch.cuda.synchronize()
+    same = same_bits(out_p, out_t)
+    print(f"check int8 ragged trie S=64: paged (pages of 48) vs tree kernel "
+          f"bit-equal {same}")
+    check(same, "S=64: the paged kernel is not the tree kernel")
+    # the gate catches a faulty merge
+    xd = tree_inputs(TREE_NODES, 8, BATCH, 2, 1, 128, TREE_CAP, lens,
+                     slot_paths, TREE_DEC_CAP, seed=66, masked=True,
+                     dec_boost=3.0, quant=True)
+    kw = dict(scale=xd["scale"], c_d=xd["c_d"], pn=xd["pn"],
+              block_m=bd.BLOCK_M, splits=default_splits(xd["q"]))
+    want = bd._tree_plain(*tree_args(xd, True), **kw)
+    rels = {k: within(bd._tree_plain(*tree_args(xd, True), **kw, merge=f),
+                      want)[2] for k, f in faulty_merges().items()}
+    print(f"check #7 split merge, main trie decode-dominant masked "
+          f"S={kw['splits']}: a faulty merge's error / max |out|: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in rels.items()))
+    for k, v in rels.items():
+        check(v >= 10 * TOL, f"split merge: the gate misses '{k}'")
 
 
 def packed_case(y, quant, cp, buf, fresh_start, fresh_path, env, seed):
@@ -1223,13 +1366,14 @@ def check_packed_kernels():
                         TREE_CAP, 52)
         out_d = packed_kernel(quant)(*packed_args(dec_only, quant),
                                      **packed_kw(dec_only))
+        # #11 is not split: against #9's single walk
         paged = paged_kernel(quant)(*paged_args(yt, quant),
                                     scale=yt["scale"], c_d=yt["c_d"],
-                                    pn=yt["pn"])
+                                    pn=yt["pn"], **split_kw(yt, quant, 1))
         torch.cuda.synchronize()
         same = bool(torch.equal(out_d, paged))
-        print(f"check {tag}main trie, decode only: packed vs paged kernel "
-              f"bit-equal {same}")
+        print(f"check {tag}main trie, decode only: packed vs paged kernel"
+              f"{' (splits=1)' if quant else ''} bit-equal {same}")
         check(same, "decode only: the packed kernel is not the paged kernel")
         err, out_z = check_packed(
             f"main {tag}trie on pages of 128 + a {PACKED_CHUNK}-position "
@@ -1768,6 +1912,7 @@ def check_kernels():
                                   x_q, x_g)
     out.update(check_tree_kernels())
     out.update(check_paged_kernels())
+    check_split_kernels()
     out.update(check_packed_kernels())
     out.update(check_flash_kernels())
     out.update(check_chunked_kernels())
@@ -2823,8 +2968,26 @@ def serve_paged_forest(cfg, model, params, quant, dense_outs):
     check(all(np.isfinite(eng.logps[s]).all() and
               len(eng.outputs[s]) == FOREST_MORE + 1 for s in s_new),
           "readmitted slots' outputs")
-    dense_same = (first_same and _copy_outputs(eng) == dense_outs["a"]
-                  and _copy_outputs(eng_b) == dense_outs["b"])
+    outs = (first_same, _copy_outputs(eng), _copy_outputs(eng_b))
+    if quant:
+        # #5 is not split: the comparison with the dense forest's tokens
+        # replays both runs on #9's single walk
+        with single_walk():
+            e_b, s_b, _ = start()
+            s_b = e_b.step_chunk(params, s_b, FOREST_STEPS)
+            e, s, _ = start()
+            s = e.step_chunk(params, s, FOREST_STEPS)
+            first = _copy_outputs(e) == dense_outs["first"]
+            s = e.cancel_group(s, 2)
+            check(e.retire_groups(s) == [2], "retire (single walk)")
+            s = e.release_retired(s)
+            s, _ = e.admit(params, s, new_ctx, BATCH // len(ctxs))
+            s = e.step_chunk(params, s, FOREST_MORE)
+            s_b = e_b.step_chunk(params, s_b, FOREST_MORE)
+            outs = (first, _copy_outputs(e), _copy_outputs(e_b))
+            del e, s, e_b, s_b
+    dense_same = (outs[0] and outs[1] == dense_outs["a"]
+                  and outs[2] == dense_outs["b"])
     print(f"{tag}: a {READMIT_LEN}-token readmission on {free0} free pages "
           f"raised PoolExhausted and mutated nothing; group 2 cancelled and "
           f"retired (free pages {free0} -> {free1}), release_retired: live "
@@ -2833,7 +2996,8 @@ def serve_paged_forest(cfg, model, params, quant, dense_outs):
           f"(free {free2}, live {live3}); {FOREST_MORE} more steps: "
           f"untouched groups' tokens bit-identical to the run without "
           f"retirement: {same}; every token equal to phase 3c's dense "
-          f"forest: {dense_same}")
+          f"forest{' (#9 at splits=1, both runs replayed)' if quant else ''}:"
+          f" {dense_same}")
     check(same, "the retire and readmit moved another group's tokens")
     check(dense_same, "the paged forest's tokens differ from the dense "
                       "forest's")
@@ -3906,16 +4070,68 @@ def time_ms(fn, n_inputs, reps=3, iters=48):
     return best
 
 
+def time_ms_graph(fn, n_inputs, reps=3, replays=4):
+    """Mean ms per call of ``fn(i)`` over the ``n_inputs`` input sets,
+    captured once in a CUDA graph (after a warm-up pass on a side stream)
+    and replayed: no host work between the launches, so a kernel faster
+    than its wrapper's Python is timed and not the host. Best of ``reps``
+    timed runs of ``replays`` replays."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(n_inputs):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n_inputs):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        stop.record()
+        stop.synchronize()
+        best = min(best, start.elapsed_time(stop) / (replays * n_inputs))
+    del graph
+    return best
+
+
+def split_sweep(name, at_splits, n_inputs, default):
+    """One line: #7 / #9 (``at_splits(S)`` gives its call on input set i)
+    at S = 1, 4, 8, 16, 32 and the default, graph-timed."""
+    times = {S: time_ms_graph(at_splits(S), n_inputs)
+             for S in sorted({1, 4, 8, 16, 32, default})}
+    print(f"time (split sweep): {name}: "
+          + ", ".join(f"S={S}{' (default)' if S == default else ''} "
+                      f"{t * 1e3:.1f} us" for S, t in times.items()))
+
+
 def _timed_entry(name, source, line, kern, plain, lib, nbytes, flop,
-                 launches, err, n_inputs, module="bifurcated_decode.py"):
+                 launches, err, n_inputs, module="bifurcated_decode.py",
+                 graph=False):
     """Time one kernel, its plain version and its library yardstick over
     ``n_inputs`` input sets; returns its JSON entry (``module``: the
-    Pallas kernel's file under src/repro/kernels)."""
+    Pallas kernel's file under src/repro/kernels). ``graph``: the kernel
+    and the yardstick timed by CUDA graph replay (``time_ms_graph``); the
+    kernel's back-to-back eager time is printed beside it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flop = flop / BF16_FLOP_PER_S * 1e3
-    ms = time_ms(kern, n_inputs)
+    timer = time_ms_graph if graph else time_ms
+    ms = timer(kern, n_inputs)
     plain_ms = time_ms(plain, n_inputs, reps=1, iters=n_inputs)
-    lib_ms = None if lib is None else time_ms(lib, n_inputs)
+    lib_ms = None if lib is None else timer(lib, n_inputs)
+    if graph:
+        print(f"time (information): {name} eager back to back "
+              f"{time_ms(kern, n_inputs) * 1e3:.1f} us/call (CUDA events; "
+              f"the wrapper's host work between launches included)")
     entry = {
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -3926,7 +4142,8 @@ def _timed_entry(name, source, line, kern, plain, lib, nbytes, flop,
         "bound_by": "bytes" if t_bytes >= t_flop else "operations",
         "library_ms": lib_ms,
     }
-    print(f"time: {name}: {ms * 1e3:.1f} us/launch, bound "
+    print(f"time: {name}: {ms * 1e3:.1f} us/launch"
+          + (" (CUDA graph replay)" if graph else "") + ", bound "
           f"{entry['bound_ms'] * 1e3:.1f} us ({entry['bound_by']}: "
           f"{nbytes / 1e6:.1f} MB, {flop / 1e9:.2f} GFLOP), plain "
           f"{plain_ms * 1e3:.1f} us, library "
@@ -4090,13 +4307,16 @@ def time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches, launches,
         kern = getattr(bd, kname)
         plain = getattr(bd, kname + "_plain")
 
+        skw = {"splits": default_splits(q)} if quant else {}
+
         def paged(i, kern=kern, pools=pools, st=st):
             return kern(q, *(t[i] for t in pools), st.page_tables,
                         st.seg_lens, paths0, kd[i], vd[i], bias, **fkw)
 
-        def paged_plain(i, plain=plain, pools=pools, st=st):
+        def paged_plain(i, plain=plain, pools=pools, st=st, skw=skw):
             return plain(q, *(t[i] for t in pools), st.page_tables,
-                         st.seg_lens, paths0, kd[i], vd[i], bias, **fkw)
+                         st.seg_lens, paths0, kd[i], vd[i], bias, **fkw,
+                         **skw)
 
         ok, _, rel = within(lib(0)[0], paged(0))
         print(f"time: library yardstick vs {kname} at the single-prefix "
@@ -4107,7 +4327,15 @@ def time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches, launches,
         single_entries.append(_timed_entry(
             kname, "paged_decode.cu", line, paged, paged_plain, lib,
             nbytes + table_bytes, fused_flop, launches[kname], errs[kname],
-            L))
+            L, graph=quant))
+        if quant:
+            split_sweep(
+                f"{kname} single prefix",
+                lambda S, kern=kern, pools=pools, st=st: (
+                    lambda i: kern(q, *(t[i] for t in pools), st.page_tables,
+                                   st.seg_lens, paths0, kd[i], vd[i], bias,
+                                   **fkw, splits=S)),
+                L, skw["splits"])
 
     # #4, #5: the forest caches of phase 3c (live lengths FOREST_LENS, 8
     # slots per segment) with their own decode arms (32 slots of capacity
@@ -4303,6 +4531,7 @@ def time_tree_kernels(cfg, tcaches, pcaches, q, launches, errs):
         kern = getattr(bd, kname)
         plain = getattr(bd, kname + "_plain")
         tkw = dict(scale=scale, c_d=t_cd, pn=p)
+        pkw = dict(tkw, splits=default_splits(q)) if quant else tkw
         lens_arg = (tc.store.seg_lens,) if paged else ()
 
         def tree(i, kern=kern, ctx_ops=ctx_ops, kd=kd, vd=vd,
@@ -4314,12 +4543,12 @@ def time_tree_kernels(cfg, tcaches, pcaches, q, launches, errs):
                         t_bias, **tkw)
 
         def tree_plain_(i, plain=plain, ctx_ops=ctx_ops, kd=kd, vd=vd,
-                        lens_arg=lens_arg):
+                        lens_arg=lens_arg, pkw=pkw):
             if lens_arg:
                 return plain(q, *ctx_ops(i), *lens_arg, path_rows, kd[i],
-                             vd[i], t_bias, **tkw)
+                             vd[i], t_bias, **pkw)
             return plain(q, *ctx_ops(i), path_rows, node_lens, kd[i], vd[i],
-                         t_bias, **tkw)
+                         t_bias, **pkw)
 
         def tree_lib(i, t_k=t_k, t_v=t_v, mask=mask, lib_scale=lib_scale):
             return F.scaled_dot_product_attention(q4, t_k[i], t_v[i],
@@ -4347,7 +4576,19 @@ def time_tree_kernels(cfg, tcaches, pcaches, q, launches, errs):
         flop = 4 * g * p * (slot_keys + n_live) * hd
         entries.append(_timed_entry(
             kname, source, line, tree, tree_plain_, tree_lib, nbytes, flop,
-            launches[kname], errs[kname], L))
+            launches[kname], errs[kname], L, graph=quant))
+        if quant:
+            def at_splits(S, kern=kern, ctx_ops=ctx_ops, kd=kd, vd=vd,
+                          lens_arg=lens_arg):
+                if lens_arg:
+                    return lambda i: kern(q, *ctx_ops(i), *lens_arg,
+                                          path_rows, kd[i], vd[i], t_bias,
+                                          **tkw, splits=S)
+                return lambda i: kern(q, *ctx_ops(i), path_rows, node_lens,
+                                      kd[i], vd[i], t_bias, **tkw, splits=S)
+
+            split_sweep(f"{kname} {'paged ' if paged else ''}trie",
+                        at_splits, L, pkw["splits"])
         del t_k, t_v
     return entries
 

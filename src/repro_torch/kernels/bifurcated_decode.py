@@ -77,6 +77,7 @@ sources.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -88,6 +89,14 @@ BLOCK_M = 512        # context keys per block of the plain versions
 KERNEL_HEAD_DIMS = (16, 64, 80, 112, 128)
 MAX_TREE_DEPTH = 32         # the tree kernels' path-table height
 MAX_TREE_NODES = 65536      # and node count (their shared-memory bitmap)
+ROW_TILE = 64        # the decode kernels' query rows per CTA
+KEY_BLOCK = 64       # and keys per block: the unit a split walk cuts
+CTX_WEIGHT = 2       # an int8 context block's CTA time in decode blocks
+PIECE_BLOCKS = 4     # blocks of a split walk's piece (256 keys or slots)
+CTA_THREADS = 128    # the decode kernels' threads per CTA
+CTAS_PER_SM = 2      # split-walk CTAs an SM holds (registers, shared memory)
+DEFAULT_MAX_SPLITS = 64     # split_count's ceiling
+MAX_SPLITS = 1024    # shares per (row tile, kv head) the wrappers take
 
 
 def _online_update(s, v, acc, m, l, p_scale=None):
@@ -181,12 +190,184 @@ def fused_bifurcated_decode_q8_plain(q, k_ctx_q, v_ctx_q, k_scale, v_scale,
                                  scale=scale, c_d=c_d, pn=pn)
 
 
+def split_count(rows: int, g: int, *, sms: int) -> int:
+    """Shares per (64-row tile, kv head) of #7 and #9 (``splits=None`` on
+    the card): 1 when the ``ceil(rows / 64) * g`` CTAs of the single walk
+    already fill the ``sms`` SMs, else as many as make one wave of
+    CTAS_PER_SM CTAs an SM (33 at the main shapes: 1 tile x 8 kv heads on
+    132 SMs), at most DEFAULT_MAX_SPLITS. The shapes give no node lengths
+    without reading device memory back, so a short list leaves some shares
+    empty: such a CTA reads its tile's paths and writes empty partials."""
+    ctas = -(-rows // ROW_TILE) * g
+    if ctas >= sms:
+        return 1
+    return max(2, min(CTAS_PER_SM * sms // ctas, DEFAULT_MAX_SPLITS))
+
+
+def split_shares(node_blocks, n_dec: int, splits: int):
+    """The ``splits`` >= 2 shares of one (row tile, kv head), as the kernel
+    cuts them: the tile's pieces are each node's blocks (``node_blocks``,
+    in ascending node id) in runs of PIECE_BLOCKS from its first key, then
+    the ``n_dec`` decode blocks likewise, weighted CTX_WEIGHT per context
+    block and 1 per decode block; the shares take consecutive runs of
+    pieces, each run at most a weight ``cap``, the least cap (searched as
+    the kernel searches it: 128 candidates, then 128 below the first that
+    fits) for which ``splits`` runs hold them all. Returns [((i0, i1),
+    (b0, b1))]: each share's context blocks [i0, i1) of the tile's list
+    and decode blocks [b0, b1)."""
+    pieces = []                         # (weight, context?, first block)
+    first = 0
+    for nb in node_blocks:
+        pieces += [(CTX_WEIGHT * min(PIECE_BLOCKS, first + nb - b), True, b)
+                   for b in range(first, first + nb, PIECE_BLOCKS)]
+        first += nb
+    n_ctx = first
+    pieces += [(min(PIECE_BLOCKS, n_dec - b), False, b)
+               for b in range(0, n_dec, PIECE_BLOCKS)]
+    total = CTX_WEIGHT * n_ctx + n_dec
+
+    def runs(cap):
+        n, cur = 0, cap
+        for w, _, _ in pieces:
+            if cur + w > cap:
+                n, cur = n + 1, w
+            else:
+                cur += w
+        return n
+
+    w_max = max(CTX_WEIGHT * min(PIECE_BLOCKS, n_ctx) if n_ctx else 0,
+                min(PIECE_BLOCKS, n_dec))
+    cap0 = max(w_max, -(-total // splits))
+    step = max(1, (total - cap0 + CTA_THREADS - 2) // (CTA_THREADS - 1))
+    cap = min([cap0 + t * step for t in range(CTA_THREADS)
+               if total and runs(cap0 + t * step) <= splits]
+              + [max(total, 1)])
+    if step > 1:
+        cap = min([c for c in range(max(cap0, cap - step + 1),
+                                    max(cap0, cap - step + 1) + CTA_THREADS)
+                   if c < cap and runs(c) <= splits] + [cap])
+    shares = [[n_ctx, n_ctx, n_dec, n_dec] for _ in range(splits)]
+    n, cur = 0, cap
+    for w, ctx, b in pieces:
+        if cur + w > cap:
+            n, cur = n + 1, w
+        else:
+            cur += w
+        sh = shares[n - 1]
+        if ctx:
+            sh[0], sh[1] = min(sh[0], b), b + w // CTX_WEIGHT
+        else:
+            sh[2], sh[3] = min(sh[2], b), b + w
+    return [((i0, i1 if i0 < n_ctx else n_ctx),
+             (b0, b1 if b0 < n_dec else n_dec)) for i0, i1, b0, b1 in shares]
+
+
+def merge_partials(parts):
+    """The exact merge of a row's fp32 partials [(acc, m, l), ...] in its
+    merge order: m = max m_s, w_s = exp(m_s - m), l = sum l_s w_s, acc =
+    sum acc_s w_s; returns acc / max(l, 1e-30) in fp32."""
+    m = torch.stack([p[1] for p in parts]).amax(0)
+    acc, l = torch.zeros_like(parts[0][0]), torch.zeros_like(m)
+    for a, ms, ls in parts:
+        w = torch.exp(ms - m)
+        l = l + ls * w
+        acc = acc + a * w
+    return acc / torch.clamp(l, min=1e-30)
+
+
+def max_pieces(depth: int, m_c: int, c_d: int) -> int:
+    """The pieces a row may read: PIECE_BLOCKS * 64 keys of each of its
+    ``depth`` nodes of at most ``m_c`` keys, and the pieces its sample's
+    ``c_d`` decode slots touch."""
+    span = PIECE_BLOCKS * KEY_BLOCK
+    return depth * -(-m_c // span) + -(-c_d // span) + 1
+
+
+def _split_walk(q, fetch, n_nodes, node_len, paths, k_dec, v_dec, dec_bias,
+                bad, *, scale, c_d, pn, block_m, merge):
+    """The split walk of #7 / #9 (its result does not depend on S): per
+    64-row tile, each node's keys in pieces of PIECE_BLOCKS * 64 from its
+    first key, each summed from a fresh fp32 state over the rows on the
+    node (in ``block_m`` runs), then the decode arm's slots in pieces of
+    as many from the tile's first slot, over the rows whose sample has
+    slots there; ``merge`` (``merge_partials``) combines each row's pieces
+    in order: its nodes ascending, then its decode pieces. ``fetch(node,
+    a, b)`` gives keys [a, b) of a node: K, V (g, n, hd), their scales
+    (g, n) or None, and which keys are readable (n,)."""
+    g, rows, hd = q.shape
+    ld = k_dec.shape[1]
+    span = PIECE_BLOCKS * KEY_BLOCK
+    pr = paths.long()
+    qf = q.float()
+    neg = torch.full((), NEG_INF, device=q.device)
+    out = torch.empty_like(q)
+    for row0 in range(0, rows, ROW_TILE):
+        tile = slice(row0, min(row0 + ROW_TILE, rows))
+        tp = pr[:, tile]
+        parts = [[] for _ in range(tile.stop - row0)]   # per tile row
+
+        def keep(sel, st):      # each selected row's partial of a piece
+            for n, r in enumerate(sel.tolist()):
+                parts[r].append(tuple(t[:, n] for t in st))
+
+        for node in sorted(set(tp[(tp >= 0) & (tp < n_nodes)].tolist())):
+            on = torch.nonzero((tp == node).any(0))[:, 0]
+            length = node_len(node)
+            for a in range(0, length, span):
+                st = _init_state(q[:, tile][:, on])
+                for c in range(a, min(a + span, length), block_m):
+                    k, v, ks, vs, ok = fetch(node, c, min(c + block_m,
+                                                          a + span, length))
+                    s = torch.matmul(qf[:, tile][:, on],
+                                     k.float().transpose(1, 2))
+                    s = s * (scale if ks is None else ks[:, None, :])
+                    s = torch.where(ok[None, None, :], s, neg)
+                    v = v.masked_fill(~ok[None, :, None], 0)
+                    if ks is None:
+                        st = _online_update(s, v, *st)
+                    else:
+                        vs = vs.masked_fill(~ok[None, :], 0)
+                        st = _online_update(s, v.float(), *st,
+                                            p_scale=vs[:, None, :])
+                keep(on, st)
+        dec_lo = (row0 // pn) * c_d
+        dec_hi = min(ld, ((tile.stop - 1) // pn + 1) * c_d)
+        sample = torch.arange(row0, tile.stop, device=q.device) // pn
+        for c0 in range(dec_lo, dec_hi, span):
+            c1 = min(dec_hi, c0 + span)
+            sel = torch.nonzero((sample * c_d < c1)
+                                & ((sample + 1) * c_d > c0))[:, 0]
+            s = torch.matmul(qf[:, tile][:, sel],
+                             k_dec[:, c0:c1].float().transpose(1, 2))
+            s = s * scale + dec_bias[:, c0:c1].reshape(1, 1, -1)
+            col_s = torch.arange(c0, c1, device=q.device)[None, :] // c_d
+            s = torch.where(sample[sel][:, None] == col_s, s, neg)
+            keep(sel, _online_update(s, v_dec[:, c0:c1],
+                                     *_init_state(q[:, tile][:, sel])))
+        for r, row_parts in enumerate(parts):
+            out[:, row0 + r] = merge(row_parts).to(q.dtype)
+    return out.masked_fill(bad[None, :, None], float("nan"))
+
+
 def _tree_plain(q, k_ctx, v_ctx, k_scale, v_scale, paths, node_lens, k_dec,
-                v_dec, dec_bias, *, scale, c_d, pn, block_m):
+                v_dec, dec_bias, *, scale, c_d, pn, block_m, splits=1,
+                merge=merge_partials):
     n_nodes, _, m_c, _ = k_ctx.shape
-    acc, m, l = _init_state(q)
     pr = paths.long()
     lens = node_lens.tolist()
+    bad = ((pr < -1) | (pr >= n_nodes)).any(0)
+    if splits > 1:
+        def fetch(node, a, b):
+            sc = ((None, None) if k_scale is None
+                  else (k_scale[node][:, a:b], v_scale[node][:, a:b]))
+            return (k_ctx[node][:, a:b], v_ctx[node][:, a:b], *sc,
+                    torch.ones(b - a, dtype=torch.bool, device=q.device))
+
+        return _split_walk(
+            q, fetch, n_nodes, lambda n: min(max(int(lens[n]), 0), m_c),
+            paths, k_dec, v_dec, dec_bias, bad, scale=scale, c_d=c_d, pn=pn,
+            block_m=block_m, merge=merge)
+    acc, m, l = _init_state(q)
     # the distinct ids on any path, ascending: the kernel's node order and
     # the set semantics (a node repeated on one path counts once)
     for node in sorted(set(pr[(pr >= 0) & (pr < n_nodes)].tolist())):
@@ -200,7 +381,6 @@ def _tree_plain(q, k_ctx, v_ctx, k_scale, v_scale, paths, node_lens, k_dec,
         acc[:, rows_n], m[:, rows_n], l[:, rows_n] = a, mm, ll
     out = _decode_arm_and_flush(q, k_dec, v_dec, dec_bias, acc, m, l,
                                 scale=scale, c_d=c_d, pn=pn)
-    bad = ((pr < -1) | (pr >= n_nodes)).any(0)
     return out.masked_fill(bad[None, :, None], float("nan"))
 
 
@@ -258,12 +438,15 @@ def tree_fused_bifurcated_decode_q8_plain(q, k_ctx_q, v_ctx_q, k_scale,
                                           v_scale, paths, node_lens, k_dec,
                                           v_dec, dec_bias, *, scale: float,
                                           c_d: int, pn: int,
-                                          block_m: int = BLOCK_M
-                                          ) -> torch.Tensor:
-    """Plain PyTorch version of ``tree_fused_bifurcated_decode_q8``."""
+                                          block_m: int = BLOCK_M,
+                                          splits: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of ``tree_fused_bifurcated_decode_q8``: at
+    ``splits`` 1 the walk of the bf16 version; at S > 1 the kernel's
+    pieces, merged exactly per row (``_split_walk``; the same for any
+    S > 1)."""
     return _tree_plain(q, k_ctx_q, v_ctx_q, k_scale, v_scale, paths,
                        node_lens, k_dec, v_dec, dec_bias, scale=scale,
-                       c_d=c_d, pn=pn, block_m=block_m)
+                       c_d=c_d, pn=pn, block_m=block_m, splits=splits)
 
 
 def context_flash_partials_plain(q, k_ctx, v_ctx, *, scale: float,
@@ -316,6 +499,37 @@ def _check_context(q, k_ctx, v_ctx):
                          f"{tuple(q.shape)}")
     if k_ctx.dtype != q.dtype or v_ctx.dtype != q.dtype:
         raise TypeError("context must have the query's dtype")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _split_arg(splits, q, on_cuda):
+    """The shares of a split walk: ``split_count`` on the card and 1 on
+    the CPU when ``splits`` is None, else ``splits`` (1..MAX_SPLITS)."""
+    if splits is None:
+        if not on_cuda:
+            return 1
+        return split_count(q.shape[1], q.shape[0],
+                           sms=_sm_count(q.device.index))
+    if (isinstance(splits, bool) or not isinstance(splits, int)
+            or not 1 <= splits <= MAX_SPLITS):
+        raise ValueError(f"splits must be an int in 1..{MAX_SPLITS} or "
+                         f"None, not {splits!r}")
+    return splits
+
+
+def _split_scratch(q, splits, n_pieces):
+    """The split walk's f32 scratch, flat: acc (g, rows, n_pieces, hd),
+    (m, l) (g, rows, n_pieces, 2), then each row's piece count (int32);
+    None for the single walk."""
+    if splits == 1:
+        return None
+    g, rows, hd = q.shape
+    return torch.empty(g * rows * (n_pieces * (hd + 2) + 1),
+                       dtype=torch.float32, device=q.device)
 
 
 def _raise_on_error(name, err):
@@ -589,11 +803,14 @@ tree_fused_bifurcated_decode.launches = 0
 
 def tree_fused_bifurcated_decode_q8(q, k_ctx_q, v_ctx_q, k_scale, v_scale,
                                     paths, node_lens, k_dec, v_dec, dec_bias,
-                                    *, scale: float, c_d: int, pn: int
-                                    ) -> torch.Tensor:
+                                    *, scale: float, c_d: int, pn: int,
+                                    splits=None) -> torch.Tensor:
     """``tree_fused_bifurcated_decode`` over int8 nodes (N, g, m_c, hd) and
     f32 scales (N, g, m_c), ``k_scale`` with the logit scale pre-folded
-    (``scale`` applies to the decode arm only)."""
+    (``scale`` applies to the decode arm only). ``splits``: shares per
+    (64-row tile, kv head) of the work (None: ``split_count`` on the card,
+    1 on the CPU); 1 runs the single walk, S > 1 S CTAs per tile and head
+    and an exact merge, one launch either way."""
     lead = tuple(k_ctx_q.shape[:1])
     _check_q8_context(q, k_ctx_q, v_ctx_q, k_scale, v_scale, lead=lead)
     _check_paths(q, k_ctx_q, paths, node_lens)
@@ -601,16 +818,21 @@ def tree_fused_bifurcated_decode_q8(q, k_ctx_q, v_ctx_q, k_scale, v_scale,
     ops = (q, k_ctx_q, v_ctx_q, k_scale, v_scale, paths, node_lens, k_dec,
            v_dec, dec_bias)
     _check_contiguous(*ops)
-    if not _on_cuda(*ops):
-        return tree_fused_bifurcated_decode_q8_plain(*ops, scale=scale,
-                                                     c_d=c_d, pn=pn)
+    cuda = _on_cuda(*ops)
+    splits = _split_arg(splits, q, cuda)
+    if not cuda:
+        return tree_fused_bifurcated_decode_q8_plain(
+            *ops, scale=scale, c_d=c_d, pn=pn, splits=splits)
     _check_kernel_operands(q, k_ctx_q, v_ctx_q, k_dec, v_dec, dec_bias)
     n_nodes, g, m_c, hd = k_ctx_q.shape
     out = torch.empty_like(q)
+    n_pieces = max_pieces(paths.shape[0], m_c, c_d)
+    part = _split_scratch(q, splits, n_pieces)
     _launch("tree_fused_bifurcated_decode_q8", q.device,
-            *(t.data_ptr() for t in ops), out.data_ptr(), n_nodes,
-            paths.shape[0], g, q.shape[1], m_c, ld, hd, c_d, pn,
-            float(scale))
+            *(t.data_ptr() for t in ops), out.data_ptr(),
+            None if part is None else part.data_ptr(), n_nodes,
+            paths.shape[0], g, q.shape[1], m_c, ld, hd, c_d, pn, splits,
+            n_pieces, float(scale))
     tree_fused_bifurcated_decode_q8.launches += 1
     return out
 
@@ -637,16 +859,36 @@ def _paged_bad_rows(paths, page_tables, seg_lens, n_pages, pm, max_id):
 
 
 def _paged_plain(q, k_pages, v_pages, k_sp, v_sp, page_tables, seg_lens,
-                 paths, k_dec, v_dec, dec_bias, *, scale, c_d, pn):
+                 paths, k_dec, v_dec, dec_bias, *, scale, c_d, pn, splits=1,
+                 merge=merge_partials):
     from repro_torch.kernels.ops import live_page_list
 
     n_pages, _, pm, _ = k_pages.shape
-    n_segs = page_tables.shape[0]
+    n_segs, ppn = page_tables.shape
+    bad = _paged_bad_rows(paths, page_tables, seg_lens, n_pages, pm,
+                          n_segs - 1)
+    if splits > 1:
+        lens = seg_lens.tolist()
+
+        def fetch(seg, a, b):
+            # keys [a, b) of a segment through its page table: holes and
+            # ids outside the pool are not read (masked, values zeroed)
+            cols = torch.arange(a, b, device=q.device)
+            pid = page_tables[seg].long()[cols // pm]
+            ok = (pid >= 0) & (pid < n_pages)
+            pid, off = pid.clamp(0, n_pages - 1), cols % pm
+            sc = ((None, None) if k_sp is None
+                  else (k_sp[pid, :, off].T, v_sp[pid, :, off].T))
+            return (k_pages[pid, :, off].transpose(0, 1),
+                    v_pages[pid, :, off].transpose(0, 1), *sc, ok)
+
+        return _split_walk(
+            q, fetch, n_segs, lambda n: min(max(int(lens[n]), 0), ppn * pm),
+            paths, k_dec, v_dec, dec_bias, bad, scale=scale, c_d=c_d, pn=pn,
+            block_m=BLOCK_M, merge=merge)
     ids, segs, n_live, page_bias = live_page_list(page_tables, seg_lens, pm)
     n_live = int(n_live[0])
     pr = paths.long()
-    bad = _paged_bad_rows(paths, page_tables, seg_lens, n_pages, pm,
-                          n_segs - 1)
     qf = q.float()
     acc, m, l = _init_state(q)
     # the live pages in (segment, page) order, as the Pallas grid walks
@@ -694,14 +936,18 @@ def paged_fused_bifurcated_decode_q8_plain(q, k_pages_q, v_pages_q,
                                            k_scale_pages, v_scale_pages,
                                            page_tables, seg_lens, paths,
                                            k_dec, v_dec, dec_bias, *,
-                                           scale: float, c_d: int, pn: int
-                                           ) -> torch.Tensor:
-    """Plain PyTorch version of ``paged_fused_bifurcated_decode_q8``: the
-    page walk over int8 pages, the logits scaled by the page's k scales
-    (logit scale folded) and the weights by its v scales, ``l`` unscaled."""
+                                           scale: float, c_d: int, pn: int,
+                                           splits: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of ``paged_fused_bifurcated_decode_q8``: at
+    ``splits`` 1 the page walk over int8 pages, the logits scaled by the
+    page's k scales (logit scale folded) and the weights by its v scales,
+    ``l`` unscaled; at S > 1 the kernel's pieces, keys read through the
+    page tables, merged exactly per row (``_split_walk``; the same for any
+    S > 1)."""
     return _paged_plain(q, k_pages_q, v_pages_q, k_scale_pages,
                         v_scale_pages, page_tables, seg_lens, paths, k_dec,
-                        v_dec, dec_bias, scale=scale, c_d=c_d, pn=pn)
+                        v_dec, dec_bias, scale=scale, c_d=c_d, pn=pn,
+                        splits=splits)
 
 
 def _check_paged(q, k_pages, v_pages, page_tables, seg_lens, paths,
@@ -795,28 +1041,36 @@ paged_fused_bifurcated_decode.launches = 0
 def paged_fused_bifurcated_decode_q8(q, k_pages_q, v_pages_q, k_scale_pages,
                                      v_scale_pages, page_tables, seg_lens,
                                      paths, k_dec, v_dec, dec_bias, *,
-                                     scale: float, c_d: int, pn: int
-                                     ) -> torch.Tensor:
+                                     scale: float, c_d: int, pn: int,
+                                     splits=None) -> torch.Tensor:
     """``paged_fused_bifurcated_decode`` over an int8 pool (P, g, pm, hd)
     and f32 scale pages (P, g, pm), ``k_scale_pages`` with the logit scale
-    pre-folded (``scale`` applies to the decode arm only)."""
+    pre-folded (``scale`` applies to the decode arm only). ``splits`` as in
+    ``tree_fused_bifurcated_decode_q8``: the shares are cut by logical key
+    positions, so on one logical trie the two compute the same bits at the
+    same ``splits``, at any page size."""
     _check_paged(q, k_pages_q, v_pages_q, page_tables, seg_lens, paths,
                  k_scale_pages, v_scale_pages)
     ld = _check_decode_arm(q, k_dec, v_dec, dec_bias, c_d, pn)
     ops = (q, k_pages_q, v_pages_q, k_scale_pages, v_scale_pages,
            page_tables, seg_lens, paths, k_dec, v_dec, dec_bias)
     _check_contiguous(*ops)
-    if not _on_cuda(*ops):
-        return paged_fused_bifurcated_decode_q8_plain(*ops, scale=scale,
-                                                      c_d=c_d, pn=pn)
+    cuda = _on_cuda(*ops)
+    splits = _split_arg(splits, q, cuda)
+    if not cuda:
+        return paged_fused_bifurcated_decode_q8_plain(
+            *ops, scale=scale, c_d=c_d, pn=pn, splits=splits)
     _check_kernel_operands(q, k_pages_q, v_pages_q, k_dec, v_dec, dec_bias)
     n_pages, g, pm, hd = k_pages_q.shape
     n_segs, ppn = page_tables.shape
     out = torch.empty_like(q)
+    n_pieces = max_pieces(paths.shape[0], ppn * pm, c_d)
+    part = _split_scratch(q, splits, n_pieces)
     _launch("paged_fused_bifurcated_decode_q8", q.device,
-            *(t.data_ptr() for t in ops), out.data_ptr(), n_pages, n_segs,
-            ppn, pm, paths.shape[0], g, q.shape[1], ld, hd, c_d, pn,
-            float(scale))
+            *(t.data_ptr() for t in ops), out.data_ptr(),
+            None if part is None else part.data_ptr(), n_pages, n_segs,
+            ppn, pm, paths.shape[0], g, q.shape[1], ld, hd, c_d, pn, splits,
+            n_pieces, float(scale))
     paged_fused_bifurcated_decode_q8.launches += 1
     return out
 

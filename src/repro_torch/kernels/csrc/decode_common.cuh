@@ -32,6 +32,11 @@
 // here the weights p * s_v are rounded to bf16 for the tensor cores, a
 // rounding inside the bf16 tolerance. The s8 tensor-core MMA is not used:
 // it would need q quantised, which is another function.
+//
+// Split walk (#7 and #9 with splits > 1, the default on the card; end of
+// this file): the node set's blocks and the decode arm cut into pieces
+// spread over S CTAs per (row tile, kv head), fp32 partials per piece and
+// row, and an exact merge kernel; a row's bits depend on its own path only.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -488,6 +493,11 @@ struct Params {
   int fresh_len, fresh_start;  // packed: live envelope rows, position of
                                // envelope row 0
   float scale;
+  float* part;            // split walk: f32 scratch, (g, rows, max_pieces,
+                          // HD) acc, then (g, rows, max_pieces, 2) (m, l),
+                          // then (g, rows) i32 piece counts
+  int splits;             // split walk: S CTAs per (row tile, kv head)
+  int max_pieces;         // split walk: pieces a row may read, at most
 };
 
 // Stream the first `len` keys of context segment (or trie node) `seg` of
@@ -820,24 +830,932 @@ cudaError_t launch(const Params& a, cudaStream_t stream) {
 // Head dims 16, 64, 80, 112 and 128 (zamba2's 112: 7 k-steps of the
 // m16n8k16 product, 14 n-tiles, 14 16-byte chunks per bf16 row and 7 per
 // int8 row; nothing in the template needs a power of two).
+template <int MODE>
+bool params_ok(const Params& a) {
+  return !(a.g <= 0 || a.rows <= 0 || a.m_c <= 0 || a.pn <= 0 ||
+           a.c_d <= 0 || a.n_groups <= 0 ||
+           (MODE == kGrouped && a.n_groups > 65535) ||
+           ((MODE == kTree || MODE == kPaged || MODE == kPacked) &&
+            (a.n_groups > kMaxNodes || a.depth < 1 ||
+             a.depth > kMaxDepth)) ||
+           ((MODE == kPaged || MODE == kPacked) &&
+            (a.page_m < 1 || a.ppn < 1 || a.n_pages < 1)) ||
+           (MODE == kPacked && (a.n_dec < 0 || a.n_dec > a.rows ||
+                                a.fresh_len < 0 || a.ld % a.c_d != 0 ||
+                                a.ld / a.c_d * a.pn != a.n_dec)));
+}
+
 template <bool FUSED, bool Q8, int MODE>
 cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
-  if (a.g <= 0 || a.rows <= 0 || a.m_c <= 0 || a.pn <= 0 || a.c_d <= 0 ||
-      a.n_groups <= 0 || (MODE == kGrouped && a.n_groups > 65535) ||
-      ((MODE == kTree || MODE == kPaged || MODE == kPacked) &&
-       (a.n_groups > kMaxNodes || a.depth < 1 || a.depth > kMaxDepth)) ||
-      ((MODE == kPaged || MODE == kPacked) &&
-       (a.page_m < 1 || a.ppn < 1 || a.n_pages < 1)) ||
-      (MODE == kPacked && (a.n_dec < 0 || a.n_dec > a.rows ||
-                           a.fresh_len < 0 || a.ld % a.c_d != 0 ||
-                           a.ld / a.c_d * a.pn != a.n_dec)))
-    return cudaErrorInvalidValue;
+  if (!params_ok<MODE>(a)) return cudaErrorInvalidValue;
   switch (hd) {
     case 16: return launch<16, FUSED, Q8, MODE>(a, stream);
     case 64: return launch<64, FUSED, Q8, MODE>(a, stream);
     case 80: return launch<80, FUSED, Q8, MODE>(a, stream);
     case 112: return launch<112, FUSED, Q8, MODE>(a, stream);
     case 128: return launch<128, FUSED, Q8, MODE>(a, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The split int8 node-set walk: #7 (tree_fused_bifurcated_decode_q8) and #9
+// (paged_fused_bifurcated_decode_q8) with splits S > 1; S = 1 runs
+// decode_kernel's single walk.
+//
+// What bounds them: bytes (19.4 MB at the single-prefix shape, 26.6 MB on
+// the trie: 5.8 / 7.9 us at 3.35 TB/s), but the single walk is paced by
+// latency: one CTA of 4 warps per (64-row tile, kv head), 8 CTAs on 132
+// SMs at the main shapes, each block ~3 us of serial copy, convert and
+// product steps.
+//
+// What the design does about it:
+//   * More CTAs. The work of a (tile, kv head) is cut into pieces: each
+//     node's blocks in runs of kPieceBlocks from its first key (in
+//     ascending node id), then the tile's decode arm in runs of as many
+//     blocks from its first slot. S CTAs (blockIdx.z) take consecutive
+//     runs of pieces, a context block weighing kCtxWeight decode blocks,
+//     the heaviest run as light as S runs allow (split_kernel). At the
+//     main shapes S = 33: two CTAs an SM, one wave.
+//   * Pieces, not an even cut of the list. A piece's bounds depend on its
+//     own node's length alone, and each piece is summed from a fresh fp32
+//     state; so a row's keys fall into the same pieces whatever else the
+//     tile holds, and its bits do not move when another request is retired
+//     and readmitted (the engines' guarantee), nor with S, nor with the page
+//     size: #9 and #7 give the same bits on one logical trie.
+//   * An exact merge. Each piece writes the fp32 (acc, m, l) of its rows
+//     (the rows on its node; for a decode piece, the rows whose sample has
+//     slots in it) to the row's own slot of the wrapper's scratch, slots in
+//     the row's order: its nodes ascending, then its decode pieces.
+//     merge_kernel folds a row's slots in that order: m = max m_s, l = sum
+//     l_s exp(m_s - m), acc = sum acc_s exp(m_s - m), out = acc / max(l,
+//     1e-30) in bf16. Rows masked out of a whole piece (a hole) carry
+//     finite garbage under m = kNegInf there, weighed by exp(kNegInf - m)
+//     = 0 once the row has a live key anywhere; share 0 runs the path and
+//     page checks and marks a poisoned row's count -1: NaN.
+//   * Fewer steps per block. Context blocks stream through two int8
+//     cp.async stages and two converted bf16 stages with one barrier per
+//     block: each thread converts the 16-byte chunks it copied itself, as
+//     soon as its own copies of the next block landed, overlapping the
+//     products of the current one; the products read bf16 by ldmatrix. The
+//     decode arm stages its slot bias with the block (the single walk reads
+//     it from device memory inside the mask) and divides by multiply and
+//     shift: a decode block costs ~half a context block there (~5x in the
+//     single walk).
+// ---------------------------------------------------------------------------
+
+constexpr int kCtxWeight = 2;   // an int8 context block's CTA time in decode
+                                // blocks (bf16, staged bias)
+constexpr int kPieceBlocks = 4;  // blocks of a piece: 256 keys or slots
+// int8 stages of the context stream: 2 keep two CTAs an SM in shared memory
+constexpr int kQStages = 2;
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Shared-memory plan of the split walk: two int8 stages (K and V blocks
+// in unpadded rows, their f32 scales, one key flag each) that cp.async
+// fills, and two converted stages (the same block in bf16, rows padded by
+// kPad, and the scales and flags) that the products read.
+template <int HD>
+struct Ring {
+  static constexpr int SROW = HD + kPad;
+  static constexpr int CONV = kBlockN * SROW * 2;               // bytes
+  static constexpr int TAIL = 3 * kBlockN * 4;   // k scales, v scales, flags
+  static constexpr int CSTAGE = 2 * CONV + TAIL;
+  static constexpr int QSTAGE = 2 * kBlockN * HD + TAIL;
+  static constexpr int CHUNKS = HD / 16;        // 16-byte chunks per int8 row
+  static constexpr int PER_THREAD = (kBlockN * CHUNKS + kThreads - 1) / kThreads;
+  static constexpr int BYTES = 2 * CSTAGE + kQStages * QSTAGE;
+  // the decode arm: three stages of bf16 K, V and the slot bias
+  static constexpr int DSTAGE = 2 * CONV + kBlockN * 4;
+  static constexpr int PLAN = BYTES > 3 * DSTAGE ? BYTES : 3 * DSTAGE;
+};
+
+// n / d and n % d for 0 <= n < 2^31 by a multiply and a shift (d >= 1
+// fixed per launch: the page size): q = (umulhi(n, m) + n) >> s with
+// s = ceil(log2 d), m = floor(2^32 (2^s - d) / d) + 1.
+struct FastDiv {
+  unsigned d, m, s;
+  __device__ explicit FastDiv(int d_) : d(static_cast<unsigned>(d_)), s(0) {
+    while ((1u << s) < d) ++s;
+    m = static_cast<unsigned>(((1ull << 32) * ((1ull << s) - d)) / d + 1);
+  }
+  __device__ int div(int n) const {
+    return static_cast<int>((__umulhi(static_cast<unsigned>(n), m) + n) >> s);
+  }
+};
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* smem) {
+  unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2],
+                                            const void* smem) {
+  unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// Two int8 bytes of w as an exact bf16x2 (sel 0x4140: bytes 0 and 1,
+// 0x4342: bytes 2 and 3). With m the low 7 bits and s the sign bit of a byte b: the bf16
+// 0x4300 | m is 128 + m and 0xC300 | s << 7 is -128 - 128 s, and their sum
+// is b, exact (|b| <= 128 has 8 significant bits).
+__device__ __forceinline__ uint32_t i8x2_bf16(uint32_t w, unsigned sel) {
+  const uint32_t p = __byte_perm(w, 0x43434343u, sel);
+  const uint32_t x = p & 0xFF7FFF7Fu;
+  const uint32_t y = (p & 0x00800080u) | 0xC300C300u;
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(x), "r"(0x3F803F80u), "r"(y));
+  return d;
+}
+
+// s = q K^T of one staged bf16 block (rows of SROW elements), the B
+// fragments by ldmatrix: x4 covers two k-steps, x2 an odd last one.
+template <int HD>
+__device__ __forceinline__ void qk_block(const WarpState<HD>& st,
+                                         const __nv_bfloat16* Ks,
+                                         float (&s)[kBlockN / 8][4]) {
+  constexpr int SROW = HD + kPad;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int nt = 0; nt < kBlockN / 8; ++nt) {
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    const __nv_bfloat16* kr = Ks + (nt * 8 + (lane & 7)) * SROW;
+#pragma unroll
+    for (int kt = 0; kt < HD / 16; kt += 2) {
+      if (kt + 1 < HD / 16) {
+        uint32_t b[4];
+        ldmatrix_x4(b, kr + (kt + (lane >> 4)) * 16 + (lane & 8));
+        mma_bf16(s[nt], st.q[kt], b[0], b[1]);
+        mma_bf16(s[nt], st.q[kt + 1], b[2], b[3]);
+      } else {
+        uint32_t b[2];
+        ldmatrix_x2(b, kr + kt * 16 + (lane & 8));
+        mma_bf16(s[nt], st.q[kt], b[0], b[1]);
+      }
+    }
+  }
+}
+
+// The online update of row h (gr, gr + 8) over one block of masked logits
+// s: running max, correction, weights exp(s - m) (times vss[col] for the
+// value product when given; l unscaled) left in s.
+template <int HD>
+__device__ __forceinline__ void update_row(WarpState<HD>& st,
+                                           float (&s)[kBlockN / 8][4], int h,
+                                           const float* vss) {
+  const int tq = threadIdx.x & 3;
+  float mx = kNegInf;
+#pragma unroll
+  for (int nt = 0; nt < kBlockN / 8; ++nt)
+    mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+  const float m_new = fmaxf(st.m[h], mx);
+  const float corr = expf(st.m[h] - m_new);
+  float sum = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < kBlockN / 8; ++nt) {
+    const float p0 = expf(s[nt][2 * h] - m_new);
+    const float p1 = expf(s[nt][2 * h + 1] - m_new);
+    sum += p0;
+    sum += p1;
+    if (vss != nullptr) {
+      const float2 vs2 =
+          *reinterpret_cast<const float2*>(vss + nt * 8 + 2 * tq);
+      s[nt][2 * h] = p0 * vs2.x;
+      s[nt][2 * h + 1] = p1 * vs2.y;
+    } else {
+      s[nt][2 * h] = p0;
+      s[nt][2 * h + 1] = p1;
+    }
+  }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  st.l[h] = st.l[h] * corr + sum;
+  st.m[h] = m_new;
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt) {
+    st.o[nt][2 * h] *= corr;
+    st.o[nt][2 * h + 1] *= corr;
+  }
+}
+
+// acc += P V over one staged bf16 block, P cast to bf16 as the A operand
+// straight from registers, V's B fragments by ldmatrix.trans.
+template <int HD>
+__device__ __forceinline__ void pv_block(WarpState<HD>& st,
+                                         const __nv_bfloat16* Vs,
+                                         const float (&s)[kBlockN / 8][4]) {
+  constexpr int SROW = HD + kPad;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kt = 0; kt < kBlockN / 16; ++kt) {
+    uint32_t a[4];
+    a[0] = pack_bf16(s[2 * kt][0], s[2 * kt][1]);
+    a[1] = pack_bf16(s[2 * kt][2], s[2 * kt][3]);
+    a[2] = pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]);
+    a[3] = pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3]);
+    const int mi = lane >> 3, r = lane & 7;
+    const int key = kt * 16 + r + ((mi & 1) ? 8 : 0);
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; nt += 2) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, Vs + key * SROW + nt * 8 + ((mi & 2) ? 8 : 0));
+      mma_bf16(st.o[nt], a, b[0], b[1]);
+      mma_bf16(st.o[nt + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Decode blocks [b0, b1) of the tile's arm (64 slots each from dec_lo;
+// slots at or past dec_hi masked), bf16 K and V and the slot bias through
+// a ring of three stages, one barrier a block; `flush(jd)` after the last
+// block of decode piece jd. The single walk's semantics (stream_arm's
+// DECODE arm): logit s * scale + bias[col] where the row's sample owns
+// the slot, kNegInf elsewhere; a warp skips the blocks outside its
+// samples' slots. The sample tests use a multiply-shift divider and the
+// bias is staged with the block, so no mask step waits on device memory.
+template <int HD, typename Flush>
+__device__ __forceinline__ void stream_decode_split(
+    WarpState<HD>& st, unsigned char* smem_raw, const Params& p, int gi,
+    int dec_lo, int dec_hi, int b0, int b1, int wrow0, Flush flush) {
+  using R = Ring<HD>;
+  constexpr int SROW = R::SROW;
+  constexpr int CH = HD / 8;         // 16-byte chunks per bf16 row
+  const int nblk = b1 - b0;
+  if (nblk <= 0) return;
+  const int col_begin = dec_lo + b0 * kBlockN, col_end = dec_hi;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const size_t dec_off = static_cast<size_t>(gi) * p.ld * HD;
+  const __nv_bfloat16* kd = static_cast<const __nv_bfloat16*>(p.k_dec) + dec_off;
+  const __nv_bfloat16* vd = static_cast<const __nv_bfloat16*>(p.v_dec) + dec_off;
+  const FastDiv by_slot(p.c_d);
+  const int sample[2] = {(wrow0 + gr) / p.pn, (wrow0 + gr + 8) / p.pn};
+  const int wcol_lo = (wrow0 / p.pn) * p.c_d;
+  const int wcol_hi = ((wrow0 + 15) / p.pn + 1) * p.c_d;
+
+  auto stage = [&](int blk, int slot) {
+    unsigned char* base = smem_raw + slot * R::DSTAGE;
+    __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(base);
+    __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(base + R::CONV);
+    float* sBias = reinterpret_cast<float*>(base + 2 * R::CONV);
+    const int col0 = col_begin + blk * kBlockN;
+    for (int c = threadIdx.x; c < kBlockN * CH; c += kThreads) {
+      const int r = c / CH, ch = c % CH;
+      const bool ok = col0 + r < p.ld;
+      const size_t off = ok ? static_cast<size_t>(col0 + r) * HD + ch * 8 : 0;
+      cp_async16(sK + r * SROW + ch * 8, kd + off, ok);
+      cp_async16(sV + r * SROW + ch * 8, vd + off, ok);
+    }
+    for (int r = threadIdx.x; r < kBlockN; r += kThreads) {
+      const bool ok = col0 + r < p.ld;
+      cp_async4(sBias + r, p.dec_bias + (ok ? col0 + r : 0), ok);
+    }
+  };
+
+  stage(0, 0);
+  cp_async_commit();
+  if (nblk > 1) stage(1, 1);
+  cp_async_commit();
+  for (int blk = 0; blk < nblk; ++blk) {
+    cp_async_wait_1();    // this thread's copies of block blk
+    __syncthreads();      // everyone's; and block blk - 1 is done
+    if (blk + 2 < nblk) stage(blk + 2, (blk + 2) % 3);
+    cp_async_commit();
+    const int col0 = col_begin + blk * kBlockN;
+    // the piece of tile decode block b0 + blk ends here: its partials
+    const bool piece_end =
+        (b0 + blk + 1) % kPieceBlocks == 0 || blk + 1 == nblk;
+    if (col0 >= wcol_hi || col0 + kBlockN <= wcol_lo) {
+      if (piece_end) flush((b0 + blk) / kPieceBlocks);
+      continue;
+    }
+    const unsigned char* base = smem_raw + (blk % 3) * R::DSTAGE;
+    const float* sBias = reinterpret_cast<const float*>(base + 2 * R::CONV);
+    float s[kBlockN / 8][4];
+    qk_block<HD>(st, reinterpret_cast<const __nv_bfloat16*>(base), s);
+#pragma unroll
+    for (int nt = 0; nt < kBlockN / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = nt * 8 + 2 * tq + e;
+        const int col = col0 + j;
+        const int col_sample = by_slot.div(col);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float x = s[nt][2 * h + e] * p.scale;
+          bool valid = col < col_end;
+          if (valid) {
+            x += sBias[j];
+            valid = sample[h] == col_sample;
+          }
+          s[nt][2 * h + e] = valid ? x : kNegInf;
+        }
+      }
+    }
+    update_row<HD>(st, s, 0, nullptr);
+    update_row<HD>(st, s, 1, nullptr);
+    pv_block<HD>(st, reinterpret_cast<const __nv_bfloat16*>(base + R::CONV),
+                 s);
+    if (piece_end) flush((b0 + blk) / kPieceBlocks);
+  }
+}
+
+// Stream context blocks [i0, i1) of the tile's list (node k's blocks are
+// [first[k], first[k + 1]), its live length lens[k]) through the two
+// stages. Each thread converts exactly the 16-byte chunks it copied, so a
+// block is converted as soon as this thread's copies landed, with no
+// barrier of its own; the one barrier per block publishes the converted
+// block and frees the stages. Iteration i: barrier; the products of block
+// i; wait for this thread's copies of block i + 1; copies of block i + 2
+// into block i's int8 stage (paged: each key's page id read from its
+// node's table, the page divided out by multiply and shift); conversion
+// of block i + 1. `flush(k, j, on)` after the last block of node k's piece
+// j (`on`: which of this thread's two rows are on node k).
+template <int HD, bool PAGES, typename Flush>
+__device__ __forceinline__ void stream_split(
+    WarpState<HD>& st, unsigned char* smem_raw, const Params& p, int gi,
+    const int* s_ids, const int* s_lens, const int* s_first,
+    const int* s_path, int i0, int i1, int la, int lb, Flush flush) {
+  using R = Ring<HD>;
+  constexpr int SROW = R::SROW;
+  constexpr int CHUNKS = R::CHUNKS;
+  const int tq = threadIdx.x & 3;
+  const int8_t* kq = static_cast<const int8_t*>(p.k_ctx);
+  const int8_t* vq = static_cast<const int8_t*>(p.v_ctx);
+  unsigned char* conv = smem_raw;
+  unsigned char* raw = smem_raw + 2 * R::CSTAGE;
+
+  // the node of block i, first[k] <= i < first[k + 1] (i only grows)
+  struct Cursor {
+    int k = 0;
+    __device__ void seek(const int* first, int i) {
+      while (first[k + 1] <= i) ++k;
+    }
+  };
+  Cursor stage_at, comp_at;
+  const FastDiv by_page(PAGES ? p.page_m : 1);
+
+  auto stage = [&](int i, int slot) {
+    stage_at.seek(s_first, i);
+    const int k = stage_at.k;
+    const int node = s_ids[k], len = s_lens[k];
+    const int col0 = (i - s_first[k]) * kBlockN;
+    unsigned char* base = raw + slot * R::QSTAGE;
+    int8_t* sK = reinterpret_cast<int8_t*>(base);
+    int8_t* sV = sK + kBlockN * HD;
+    float* sKs = reinterpret_cast<float*>(sV + kBlockN * HD);
+    float* sVs = sKs + kBlockN;
+    int* sOk = reinterpret_cast<int*>(sVs + kBlockN);
+    const long long slab = (static_cast<long long>(node) * p.g + gi) * p.m_c;
+    const int* prow = PAGES ? p.page_tables + static_cast<size_t>(node) * p.ppn
+                            : nullptr;
+#pragma unroll
+    for (int t = 0; t < R::PER_THREAD; ++t) {
+      const int c = threadIdx.x + kThreads * t;
+      if (c >= kBlockN * CHUNKS) break;
+      const int r = c / CHUNKS, ch = c % CHUNKS;
+      const int col = col0 + r;
+      long long kr = -1;   // the key's row in the slab or pool; -1: not read
+      if constexpr (PAGES) {
+        // the page id of the key: a hole (-1) or an id outside [0, P) is
+        // not read; pool rows stay below 2^31 (the wrapper checks P g pm)
+        const int q = by_page.div(col);
+        const int pid = col < len ? prow[q] : -1;
+        if (pid >= 0 && pid < p.n_pages)
+          kr = (pid * p.g + gi) * p.page_m + col - q * p.page_m;
+      } else {
+        if (col < len) kr = slab + col;
+      }
+      const bool ok = kr >= 0;
+      const size_t row = ok ? static_cast<size_t>(kr) : 0;
+      cp_async16(sK + r * HD + ch * 16, kq + row * HD + ch * 16, ok);
+      cp_async16(sV + r * HD + ch * 16, vq + row * HD + ch * 16, ok);
+      if (ch == 0) {
+        cp_async4(sKs + r, p.k_scale + row, ok);
+        cp_async4(sVs + r, p.v_scale + row, ok);
+        sOk[r] = ok;
+      }
+    }
+  };
+  // this thread's chunks of the int8 stage `from` into converted stage `to`
+  auto convert = [&](int from, int to) {
+    const unsigned char* qb = raw + from * R::QSTAGE;
+    unsigned char* cb = conv + to * R::CSTAGE;
+#pragma unroll
+    for (int t = 0; t < R::PER_THREAD; ++t) {
+      const int c = threadIdx.x + kThreads * t;
+      if (c >= kBlockN * CHUNKS) break;
+      const int r = c / CHUNKS, ch = c % CHUNKS;
+#pragma unroll
+      for (int kv = 0; kv < 2; ++kv) {
+        const int4 w = *reinterpret_cast<const int4*>(
+            qb + kv * kBlockN * HD + r * HD + ch * 16);
+        const uint32_t ws[4] = {static_cast<uint32_t>(w.x),
+                                static_cast<uint32_t>(w.y),
+                                static_cast<uint32_t>(w.z),
+                                static_cast<uint32_t>(w.w)};
+        uint32_t o[8];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          o[2 * j] = i8x2_bf16(ws[j], 0x4140);
+          o[2 * j + 1] = i8x2_bf16(ws[j], 0x4342);
+        }
+        __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(
+                                 cb + kv * R::CONV) + r * SROW + ch * 16;
+        *reinterpret_cast<int4*>(dst) = make_int4(o[0], o[1], o[2], o[3]);
+        *reinterpret_cast<int4*>(dst + 8) = make_int4(o[4], o[5], o[6], o[7]);
+      }
+      if (ch == 0) {
+        const float* qs = reinterpret_cast<const float*>(
+            qb + 2 * kBlockN * HD);
+        float* cs = reinterpret_cast<float*>(cb + 2 * R::CONV);
+        cs[r] = qs[r];
+        cs[kBlockN + r] = qs[kBlockN + r];
+        reinterpret_cast<int*>(cs + 2 * kBlockN)[r] =
+            reinterpret_cast<const int*>(qs + 2 * kBlockN)[r];
+      }
+    }
+  };
+
+  if (i0 >= i1) return;
+  for (int t = 0; t < kQStages; ++t) {
+    if (i0 + t < i1) stage(i0 + t, t);
+    cp_async_commit();
+  }
+  cp_async_wait<kQStages - 1>();      // this thread's copies of block i0
+  convert(0, 0);
+  int kc = -1;
+  unsigned on = 0u;
+  bool warp_on = false;
+  for (int i = i0; i < i1; ++i) {
+    const int cur = (i - i0) & 1;
+    __syncthreads();      // block i converted; block i - 1's stages free
+    comp_at.seek(s_first, i);
+    if (comp_at.k != kc) {    // a new node: which of this thread's rows are on
+      kc = comp_at.k;
+      const int node = s_ids[kc];
+      on = 0u;
+      for (int lvl = 0; lvl < p.depth; ++lvl) {
+        on |= s_path[lvl * kRowTile + la] == node ? 1u : 0u;
+        on |= s_path[lvl * kRowTile + lb] == node ? 2u : 0u;
+      }
+      warp_on = __any_sync(0xffffffffu, on != 0u);
+    }
+    if (warp_on) {
+      const unsigned char* cb = conv + cur * R::CSTAGE;
+      const __nv_bfloat16* Ks = reinterpret_cast<const __nv_bfloat16*>(cb);
+      const __nv_bfloat16* Vs =
+          reinterpret_cast<const __nv_bfloat16*>(cb + R::CONV);
+      const float* kss = reinterpret_cast<const float*>(cb + 2 * R::CONV);
+      const float* vss = kss + kBlockN;
+      const int* sOk = reinterpret_cast<const int*>(vss + kBlockN);
+
+      float s[kBlockN / 8][4];
+      qk_block<HD>(st, Ks, s);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool row_on = (on >> h) & 1u;
+#pragma unroll
+        for (int nt = 0; nt < kBlockN / 8; ++nt) {
+          const int j = nt * 8 + 2 * tq;
+          const float2 ks2 = *reinterpret_cast<const float2*>(kss + j);
+          const int2 ok2 = *reinterpret_cast<const int2*>(sOk + j);
+          const float x0 = s[nt][2 * h] * ks2.x, x1 = s[nt][2 * h + 1] * ks2.y;
+          s[nt][2 * h] = row_on && ok2.x ? x0 : kNegInf;
+          s[nt][2 * h + 1] = row_on && ok2.y ? x1 : kNegInf;
+        }
+        update_row<HD>(st, s, h, vss);
+      }
+      pv_block<HD>(st, Vs, s);
+    }
+    // the piece of node kc's block i ends here: its partials
+    const int b = i - s_first[kc];
+    if ((b + 1) % kPieceBlocks == 0 || i + 1 == s_first[kc + 1])
+      flush(kc, b / kPieceBlocks, on);
+    if (i + 1 < i1) {
+      cp_async_wait<kQStages - 2>();     // this thread's copies of block i + 1
+      if (i + kQStages < i1) stage(i + kQStages, (i - i0) % kQStages);
+      cp_async_commit();
+      convert((i + 1 - i0) % kQStages, cur ^ 1);
+    }
+  }
+}
+
+// The pieces of a row, in its merge order: for each distinct node on its
+// path, ascending, the node's pieces (kPieceBlocks blocks each, from the
+// node's first key), then the decode pieces that hold slots of its sample.
+// Thread r < kRowTile fills row r's entries: the slot of the first piece of
+// the node at each path level (s_rbase, -1 for none), the slot of decode
+// piece 0 (s_rdec; a decode piece jd is the row's iff s_rdlo <= jd <
+// s_rdhi) and the row's piece count (s_rcnt).
+__device__ __forceinline__ void row_pieces(const Params& p, int row0,
+                                           int dec_lo, const int* s_path,
+                                           const int* s_ids,
+                                           const int* s_lens, int n_list,
+                                           int* s_rbase, int* s_rdec,
+                                           int* s_rdlo, int* s_rdhi,
+                                           int* s_rcnt) {
+  const int r = threadIdx.x;
+  if (r >= kRowTile) return;
+  const int row = row0 + r;
+  // the pieces of node id (found in the tile's sorted list)
+  auto pieces = [&](int id) {
+    int lo = 0, hi = n_list - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi) / 2;
+      if (s_ids[mid] < id) lo = mid + 1; else hi = mid;
+    }
+    const int nb = (s_lens[lo] + kBlockN - 1) / kBlockN;
+    return (nb + kPieceBlocks - 1) / kPieceBlocks;
+  };
+  unsigned firsts = 0u;    // the levels that first hold their (valid) id
+  for (int lvl = 0; lvl < p.depth; ++lvl) {
+    const int id = s_path[lvl * kRowTile + r];
+    bool first = id >= 0;
+    for (int l = 0; l < lvl && first; ++l)
+      first = s_path[l * kRowTile + r] != id;
+    firsts |= first ? 1u << lvl : 0u;
+  }
+  int total = 0;
+  for (int lvl = 0; lvl < p.depth; ++lvl) {
+    const int id = s_path[lvl * kRowTile + r];
+    int base = -1;
+    if (id >= 0) {    // the pieces of the row's distinct nodes below id
+      base = 0;
+      for (int l2 = 0; l2 < p.depth; ++l2) {
+        const int id2 = s_path[l2 * kRowTile + r];
+        if (((firsts >> l2) & 1u) && id2 < id) base += pieces(id2);
+      }
+      if ((firsts >> lvl) & 1u) total += pieces(id);
+    }
+    s_rbase[lvl * kRowTile + r] = base;
+  }
+  // decode pieces: the blocks (from dec_lo) holding the sample's slots
+  int dlo = 0, dhi = 0;
+  if (row < p.rows) {
+    const int c0 = (row / p.pn) * p.c_d - dec_lo;
+    const int c1 = min((row / p.pn + 1) * p.c_d, p.ld) - dec_lo;
+    dlo = c0 / kBlockN / kPieceBlocks;
+    dhi = max(dlo, ((c1 + kBlockN - 1) / kBlockN + kPieceBlocks - 1) /
+                       kPieceBlocks);
+  }
+  s_rdec[r] = total - dlo;
+  s_rdlo[r] = dlo;
+  s_rdhi[r] = dhi;
+  s_rcnt[r] = total + dhi - dlo;
+}
+
+// One CTA per (row tile, kv head, share s of S). The tile's work is cut
+// into pieces: each node's blocks in runs of kPieceBlocks from its first
+// key, then the decode arm's blocks likewise from the tile's first slot.
+// A piece's bounds depend on its own node's length alone, so a row's keys
+// fall into the same pieces whatever other requests hold; each piece is
+// summed from a fresh state and its rows' fp32 partial (acc, m, l) goes to
+// the row's own slot for it, so a row's bits never depend on another
+// request, on S or on the page size. The CTAs take consecutive runs of
+// pieces, weighted kCtxWeight per context block and 1 per decode block,
+// the heaviest run as light as S runs allow: one contiguous run of context
+// blocks and one of decode blocks each. Share 0 also runs the path and
+// page checks and writes each row's piece count, -1 for a poisoned row.
+template <int HD, int MODE>
+__global__ void __launch_bounds__(kThreads) split_kernel(const Params p) {
+  static_assert(MODE == kTree || MODE == kPaged, "the split walks node sets");
+  constexpr bool PAGES = MODE == kPaged;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_count;
+  const int gi = blockIdx.y, split = blockIdx.z;
+  const int row0 = blockIdx.x * kRowTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int wrow0 = row0 + warp * 16;
+  const int ra = wrow0 + gr, rb = ra + 8;
+  const int la = ra - row0, lb = rb - row0;
+  const int rows = p.rows;
+  const int list_cap = p.depth * kRowTile;   // distinct ids of a tile
+  unsigned* s_bad = reinterpret_cast<unsigned*>(smem_raw + Ring<HD>::PLAN);
+  int* s_path = reinterpret_cast<int*>(s_bad + 2);
+  unsigned* s_nodes = reinterpret_cast<unsigned*>(s_path + list_cap);
+  const int node_words = (p.n_groups + 31) / 32;
+  int* s_ids = reinterpret_cast<int*>(s_nodes + node_words);
+  int* s_lens = s_ids + list_cap;
+  int* s_first = s_lens + list_cap;          // list_cap + 1 entries
+  int* s_rbase = s_first + list_cap + 1;     // list_cap entries
+  int* s_rdec = s_rbase + list_cap;          // kRowTile entries each
+  int* s_rdlo = s_rdec + kRowTile;
+  int* s_rdhi = s_rdlo + kRowTile;
+  int* s_rcnt = s_rdhi + kRowTile;
+
+  // the query fragments first: their loads fly while the paths are read
+  WarpState<HD> st;
+  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) +
+                            static_cast<size_t>(gi) * rows * HD;
+#pragma unroll
+  for (int kt = 0; kt < HD / 16; ++kt) {
+    const int c = kt * 16 + 2 * tq;
+    st.q[kt][0] = load_pair(qg + static_cast<size_t>(ra) * HD + c, ra < rows);
+    st.q[kt][1] = load_pair(qg + static_cast<size_t>(rb) * HD + c, rb < rows);
+    st.q[kt][2] = load_pair(qg + static_cast<size_t>(ra) * HD + c + 8, ra < rows);
+    st.q[kt][3] = load_pair(qg + static_cast<size_t>(rb) * HD + c + 8, rb < rows);
+  }
+  auto reset = [&]() {
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt)
+      st.o[nt][0] = st.o[nt][1] = st.o[nt][2] = st.o[nt][3] = 0.f;
+    st.m[0] = st.m[1] = kNegInf;
+    st.l[0] = st.l[1] = 0.f;
+  };
+  reset();
+
+  for (int w = threadIdx.x; w < node_words; w += kThreads) s_nodes[w] = 0u;
+  if (threadIdx.x < 2) s_bad[threadIdx.x] = 0u;
+  __syncthreads();
+  for (int e = threadIdx.x; e < list_cap; e += kThreads) {
+    const int r = e % kRowTile, row = row0 + r;
+    int id = row < rows ? p.paths[(e / kRowTile) * rows + row] : -1;
+    if (id < -1 || id >= p.n_groups) {
+      atomicOr(&s_bad[r >> 5], 1u << (r & 31));
+      id = -1;
+    }
+    s_path[e] = id;
+    if (id >= 0) atomicOr(&s_nodes[id >> 5], 1u << (id & 31));
+  }
+  __syncthreads();
+  // the node list in ascending id, then each node's live length and first
+  // block (the lengths read in parallel)
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int w = 0; w < node_words; ++w)
+      for (unsigned bits = s_nodes[w]; bits; bits &= bits - 1u)
+        s_ids[n++] = w * 32 + __ffs(bits) - 1;
+    s_count = n;
+  }
+  __syncthreads();
+  const int n_list = s_count;
+  for (int k = threadIdx.x; k < n_list; k += kThreads) {
+    const int len = min(max(p.ctx_lens[s_ids[k]], 0), p.m_c);
+    s_lens[k] = len;
+    s_first[k + 1] = (len + kBlockN - 1) / kBlockN;
+  }
+  __syncthreads();
+  const int last_row = min(row0 + kRowTile, rows) - 1;
+  const int dec_lo = (row0 / p.pn) * p.c_d;
+  const int dec_hi = min(p.ld, (last_row / p.pn + 1) * p.c_d);
+  if (threadIdx.x == 0) {
+    s_first[0] = 0;
+    for (int k = 0; k < n_list; ++k) s_first[k + 1] += s_first[k];
+  }
+  row_pieces(p, row0, dec_lo, s_path, s_ids, s_lens, n_list, s_rbase, s_rdec,
+             s_rdlo, s_rdhi, s_rcnt);
+  __syncthreads();
+  if (PAGES && split == 0) {
+    // a segment whose live pages name an id outside [-1, P) poisons the
+    // rows on it; one warp per segment of the list
+    for (int k = warp; k < n_list; k += kWarps) {
+      const int seg = s_ids[k], len = s_lens[k];
+      const int* row = p.page_tables + static_cast<size_t>(seg) * p.ppn;
+      bool poison = false;
+      for (int j = lane; j * p.page_m < len; j += 32)
+        poison |= row[j] < -1 || row[j] >= p.n_pages;
+      if (__any_sync(0xffffffffu, poison)) {
+        for (int e = lane; e < list_cap; e += 32) {
+          if (s_path[e] == seg) {
+            const int r = e % kRowTile;
+            atomicOr(&s_bad[r >> 5], 1u << (r & 31));
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // where the partials go: row-major (kv head, row, piece slot)
+  const size_t n_slots = static_cast<size_t>(p.g) * rows * p.max_pieces;
+  float* acc = p.part;
+  float* ml = p.part + n_slots * HD;
+  int* cnt = reinterpret_cast<int*>(ml + n_slots * 2);
+  if (split == 0 && threadIdx.x < kRowTile && row0 + threadIdx.x < rows) {
+    const int r = threadIdx.x;
+    cnt[static_cast<size_t>(gi) * rows + row0 + r] =
+        ((s_bad[r >> 5] >> (r & 31)) & 1u) ? -1 : s_rcnt[r];
+  }
+  auto write_partial = [&](int h, int slot) {
+    const size_t at =
+        (static_cast<size_t>(gi) * rows + (h ? rb : ra)) * p.max_pieces + slot;
+    float* o = acc + at * HD;
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt)
+      *reinterpret_cast<float2*>(o + nt * 8 + 2 * tq) =
+          make_float2(st.o[nt][2 * h], st.o[nt][2 * h + 1]);
+    if (tq == 0)
+      *reinterpret_cast<float2*>(ml + 2 * at) = make_float2(st.m[h], st.l[h]);
+  };
+  // a context piece ends: the rows on its node write their partial
+  auto ctx_flush = [&](int k, int j, unsigned on) {
+    const int node = s_ids[k];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!((on >> h) & 1u)) continue;
+      const int lr = h ? lb : la;
+      int base = -1;
+      for (int lvl = 0; lvl < p.depth && base < 0; ++lvl)
+        if (s_path[lvl * kRowTile + lr] == node)
+          base = s_rbase[lvl * kRowTile + lr];
+      write_partial(h, base + j);
+    }
+    reset();
+  };
+  // a decode piece ends: the rows whose sample has slots in it
+  auto dec_flush = [&](int jd) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int lr = h ? lb : la;
+      if ((h ? rb : ra) < rows && jd >= s_rdlo[lr] && jd < s_rdhi[lr])
+        write_partial(h, s_rdec[lr] + jd);
+    }
+    reset();
+  };
+
+  // this CTA's pieces: the S CTAs take consecutive runs of the tile's
+  // pieces, each run at most `cap` in weight, with the least cap for which
+  // S runs hold them all (a greedy packing checks a cap; 128 caps are
+  // checked at once, one per thread, in two rounds)
+  const int C = s_first[n_list];
+  const int D = dec_hi > dec_lo ? (dec_hi - dec_lo + kBlockN - 1) / kBlockN : 0;
+  auto walk = [&](auto&& f) {     // (weight, context?, first block)
+    for (int k = 0; k < n_list; ++k)
+      for (int b = s_first[k]; b < s_first[k + 1]; b += kPieceBlocks)
+        f(kCtxWeight * min(kPieceBlocks, s_first[k + 1] - b), true, b);
+    for (int b = 0; b < D; b += kPieceBlocks)
+      f(min(kPieceBlocks, D - b), false, b);
+  };
+  auto runs = [&](int cap) {
+    int n = 0, cur = cap;
+    walk([&](int w, bool, int) {
+      if (cur + w > cap) { ++n; cur = w; } else { cur += w; }
+    });
+    return n;
+  };
+  const int U = kCtxWeight * C + D;
+  const int w_max = max(C > 0 ? kCtxWeight * min(kPieceBlocks, C) : 0,
+                        min(kPieceBlocks, D));
+  const int cap0 = max(w_max, (U + p.splits - 1) / p.splits);
+  if (threadIdx.x == 0) s_count = max(U, 1);
+  __syncthreads();
+  const int step = max(1, (U - cap0 + kThreads - 2) / (kThreads - 1));
+  if (U > 0 && runs(cap0 + threadIdx.x * step) <= p.splits)
+    atomicMin(&s_count, cap0 + threadIdx.x * step);
+  __syncthreads();
+  const int coarse = s_count;
+  const int fine = max(cap0, coarse - step + 1) + threadIdx.x;
+  if (step > 1 && fine < coarse && runs(fine) <= p.splits)
+    atomicMin(&s_count, fine);
+  __syncthreads();
+  const int cap = s_count;
+  int i0 = C, i1 = C, b0 = D, b1 = D;
+  {
+    int n = 0, cur = cap;
+    walk([&](int w, bool ctx, int b) {
+      if (cur + w > cap) { ++n; cur = w; } else { cur += w; }
+      if (n - 1 != split) return;
+      if (ctx) {
+        i0 = min(i0, b);
+        i1 = b + w / kCtxWeight;
+      } else {
+        b0 = min(b0, b);
+        b1 = b + w;
+      }
+    });
+    if (i0 == C) i1 = C;
+    if (b0 == D) b1 = D;
+  }
+
+  stream_split<HD, PAGES>(st, smem_raw, p, gi, s_ids, s_lens, s_first,
+                          s_path, i0, i1, la, lb, ctx_flush);
+  if (b1 > b0) {
+    __syncthreads();    // the context stages are read no more
+    stream_decode_split<HD>(st, smem_raw, p, gi, dec_lo, dec_hi, b0, b1,
+                            wrow0, dec_flush);
+  }
+}
+
+// The exact merge of a split walk's partials: one warp per (kv head, row),
+// over the row's pieces in its merge order. Lane t reads piece t's (m, l)
+// (32 a pass) and the warp takes the max m; then the pieces are summed in
+// order, each lane over 4 head dims: w = exp(m_piece - m), l = sum l w,
+// acc = sum acc w, all loads predicated so that several pieces fly at
+// once; out = acc / max(l, 1e-30) in bf16, NaN for a poisoned row.
+template <int HD>
+__global__ void __launch_bounds__(kThreads) merge_kernel(const Params p) {
+  const int lane = threadIdx.x & 31;
+  const size_t plane = static_cast<size_t>(p.g) * p.rows;
+  const size_t gr_row =
+      static_cast<size_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (gr_row >= plane) return;    // uniform per warp
+  const size_t n_slots = plane * p.max_pieces;
+  const float* acc = p.part + gr_row * p.max_pieces * HD;
+  const float* ml = p.part + n_slots * HD + gr_row * p.max_pieces * 2;
+  const int n = reinterpret_cast<const int*>(p.part + n_slots * (HD + 2))[gr_row];
+  const int d0 = 4 * lane;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + gr_row * HD;
+  if (n < 0) {
+    if (d0 < HD) {
+      const uint32_t q_nan = 0x7fc07fc0u;
+      *reinterpret_cast<uint2*>(out + d0) = make_uint2(q_nan, q_nan);
+    }
+    return;
+  }
+  float m = kNegInf;
+  for (int t = lane; t < n; t += 32) m = fmaxf(m, ml[2 * t]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  const bool has_d = d0 < HD;
+  float l = 0.f;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int t0 = 0; t0 < n; t0 += 32) {
+    float w_lane = 0.f, l_lane = 0.f;
+    if (t0 + lane < n) {
+      const float2 ms = *reinterpret_cast<const float2*>(ml + 2 * (t0 + lane));
+      w_lane = expf(ms.x - m);
+      l_lane = ms.y;
+    }
+    const int cnt = n - t0 < 32 ? n - t0 : 32;
+    for (int j0 = 0; j0 < cnt; j0 += 16) {
+      // 16 pieces' loads in flight, then their sums in order
+      float4 x[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        x[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (has_d && j0 + j < cnt)
+          x[j] = *reinterpret_cast<const float4*>(acc + (t0 + j0 + j) * HD + d0);
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float w = __shfl_sync(0xffffffffu, w_lane, j0 + j);
+        if (j0 + j < cnt) {
+          l += __shfl_sync(0xffffffffu, l_lane, j0 + j) * w;
+          a.x += x[j].x * w;
+          a.y += x[j].y * w;
+          a.z += x[j].z * w;
+          a.w += x[j].w * w;
+        }
+      }
+    }
+  }
+  if (!has_d) return;
+  const float inv = 1.f / fmaxf(l, kMinL);
+  *reinterpret_cast<uint2*>(out + d0) = make_uint2(
+      pack_bf16(a.x * inv, a.y * inv), pack_bf16(a.z * inv, a.w * inv));
+}
+
+template <int HD, int MODE>
+cudaError_t launch_split(const Params& a, cudaStream_t stream) {
+  const int list_cap = a.depth * kRowTile;
+  const int smem = Ring<HD>::PLAN +
+                   4 * (2 + list_cap + (a.n_groups + 31) / 32 +
+                        4 * list_cap + 1 + 4 * kRowTile);
+  auto kern = split_kernel<HD, MODE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.rows + kRowTile - 1) / kRowTile, a.g, a.splits);
+  kern<<<grid, kThreads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long warps = static_cast<long long>(a.g) * a.rows;
+  merge_kernel<HD><<<static_cast<unsigned>((warps + kWarps - 1) / kWarps),
+                     kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// #7 / #9: the single walk (decode_kernel) at splits 1, else the split
+// walk and its merge.
+template <int MODE>
+cudaError_t dispatch_split(const Params& a, int hd, cudaStream_t stream) {
+  if (a.splits == 1) return dispatch_hd<true, true, MODE>(a, hd, stream);
+  if (!params_ok<MODE>(a) || a.splits < 1 || a.splits > 65535 ||
+      a.part == nullptr || a.max_pieces < 1)
+    return cudaErrorInvalidValue;
+  switch (hd) {
+    case 16: return launch_split<16, MODE>(a, stream);
+    case 64: return launch_split<64, MODE>(a, stream);
+    case 80: return launch_split<80, MODE>(a, stream);
+    case 112: return launch_split<112, MODE>(a, stream);
+    case 128: return launch_split<128, MODE>(a, stream);
   }
   return cudaErrorInvalidValue;
 }

@@ -28,8 +28,6 @@ split or not.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from repro_torch.kernels.bifurcated_decode import (
@@ -37,6 +35,7 @@ from repro_torch.kernels.bifurcated_decode import (
     _check_kernel_operands,
     _launch,
     _on_cuda,
+    _sm_count,
 )
 
 NEG_INF = -1e30
@@ -131,11 +130,6 @@ def split_count(b, n, m, g, p, *, causal, window, q_offset, sms):
     end = min(m, q_offset + n) if causal else m
     blk0 = max(0, q_offset + pos0 - window + 1) // KEY_BLOCK if window else 0
     return max(1, min(sms // ctas, -(-end // KEY_BLOCK) - blk0))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def flash_prefill_attention(q, k, v, *, causal=True, window=0, q_offset=0):

@@ -273,6 +273,18 @@ TREE_SHAPES = [
 ]
 
 
+def _splits_kw(q, quant, splits=None):
+    """The q8 tree and paged kernels' share count as a keyword (none for
+    the bf16 kernels): ``splits``, or the default split on this card, so
+    that a plain version walks the kernel's shares."""
+    if not quant:
+        return {}
+    if splits is None:
+        splits = bd.split_count(q.shape[1], q.shape[0],
+                                sms=bd._sm_count(q.device.index))
+    return {"splits": splits}
+
+
 def _tree_inputs(dev, shape, seed, quant):
     g, pn, hd, cap, lens, slot_paths, c_d, boost = shape
     b = len(slot_paths)
@@ -306,7 +318,7 @@ def test_tree_kernels_match_plain_versions(cuda, shape, quant):
     n0 = kern.launches
     out = kern(*x, **kw)
     assert kern.launches == n0 + 1
-    _assert_within(out, plain(*x, **kw), 2e-2)
+    _assert_within(out, plain(*x, **kw, **_splits_kw(x[0], quant)), 2e-2)
     # a row whose path holds an id outside [-1, N) comes out NaN
     paths = x[-5].clone()
     paths[-1, :pn] = x[-4].numel()
@@ -329,7 +341,7 @@ def test_tree_kernels_at_depth_one_are_the_grouped_kernels(cuda, quant):
     grp = (bd.grouped_fused_bifurcated_decode_q8 if quant
            else bd.grouped_fused_bifurcated_decode)
     paths = x[-5]
-    got = tree(*x, **kw)
+    got = tree(*x, **kw, **_splits_kw(x[0], quant, 1))   # the single walk
     want = grp(*x[:-5], paths[0].contiguous(), *x[-4:], **kw)
     assert torch.equal(got, want)
 
@@ -435,13 +447,14 @@ def test_paged_kernels_match_plain_and_tree_kernels(cuda, shape, pm, quant):
     assert torch.isfinite(out.float()).all()
     assert torch.equal(out, kern(*z, **kw))
     assert torch.equal(out, tree(*x, **kw))
-    _assert_within(out, plain(*y, **kw), 2e-2)
+    split = _splits_kw(y[0], quant)
+    _assert_within(out, plain(*y, **kw, **split), 2e-2)
     tables, paths = y[-6], y[-4]
     # a hole inside the first node's live length: masked, in both
     holed = tables.clone()
     holed[0, 0] = -1
     h = y[:-6] + (holed,) + y[-5:]
-    _assert_within(kern(*h, **kw), plain(*h, **kw), 2e-2)
+    _assert_within(kern(*h, **kw), plain(*h, **kw, **split), 2e-2)
     # a live page id past the pool poisons node 0's rows; an id N past the
     # node table poisons the first slot's rows
     bad_t = tables.clone()
@@ -453,6 +466,39 @@ def test_paged_kernels_match_plain_and_tree_kernels(cuda, shape, pm, quant):
                                               device=cuda) < pn)
     assert torch.isnan(out[:, bad].float()).all()
     assert torch.isfinite(out[:, ~bad].float()).all()
+
+
+@pytest.mark.parametrize("case", [(0, 128, None), (1, 64, None),
+                                  (2, 16, 64), (3, 48, 5)])
+def test_split_kernels_match_plain_versions(cuda, case):
+    """#7 and #9 split: at the default split (main trie, its decode-
+    dominant twin) and at a forced S (64 on the ragged trie: most shares
+    hold only empty or masked blocks), each against its plain version at
+    the same S, #9 bit-equal to #7, one launch a call; the default split
+    within the gate of the single walk (splits=1)."""
+    i, pm, splits = case
+    shape = TREE_SHAPES[i]
+    hd, c_d, pn = shape[2], shape[6], shape[1]
+    x = _tree_inputs(cuda, shape, seed=hd + shape[3] + 5, quant=True)
+    y = _paged_inputs(x, True, pm, seed=2, fill=float("nan"))
+    kw = dict(scale=hd**-0.5, c_d=c_d, pn=pn, **_splits_kw(x[0], True,
+                                                            splits))
+    assert kw["splits"] > 1
+    outs = []
+    for kern, args in ((bd.tree_fused_bifurcated_decode_q8, x),
+                       (bd.paged_fused_bifurcated_decode_q8, y)):
+        n0 = kern.launches
+        out = kern(*args, **kw)
+        assert kern.launches == n0 + 1
+        assert torch.isfinite(out.float()).all()
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+    _assert_within(outs[0], bd.tree_fused_bifurcated_decode_q8_plain(
+        *x, **kw), 2e-2)
+    _assert_within(outs[1], bd.paged_fused_bifurcated_decode_q8_plain(
+        *y, **kw), 2e-2)
+    single = bd.tree_fused_bifurcated_decode_q8(*x, **dict(kw, splits=1))
+    _assert_within(outs[0], single, 2e-2)
 
 
 def test_paged_kernels_take_bf16_only(cuda):
@@ -587,7 +633,8 @@ def test_packed_kernels_match_plain_and_paged_kernels(cuda, case, quant):
     n0 = kern.launches
     dec_only = kern(*a0, **k0, **kw)
     assert kern.launches == n0 + 1
-    assert torch.equal(dec_only, paged(*y, **kw))
+    # #11 is not split: against #9's single walk
+    assert torch.equal(dec_only, paged(*y, **kw, **_splits_kw(y[0], quant, 1)))
     a, k = _packed_inputs(y, pn, cp, fl, fs, fpath, seed=2, env=env)
     out = kern(*a, **k, **kw)
     assert torch.isfinite(out.float()).all()

@@ -34,15 +34,19 @@ printing its result lines:
      a tile of decode and chunk rows) fresh_len 0/1/63/64/65, a chunk at
      position 0 with no ancestors, an id outside [-1, N] on the chunk's
      path (its rows NaN; N itself poisons nothing). fp32 queries must
-     raise TypeError (the kernels take bf16 only). The int8 trie and paged
-     kernels (#7, #9) run split (their default: S = split_count CTAs per
-     row tile and kv head) against their plain versions at the same S;
-     #9 = #7 bit for bit at the default split on every trie above; the
-     gates against kernels that are not split (#3, #5, #11) call them at
-     splits=1; the default split lies within the gate of splits=1 at the
-     main shapes; S = 64 on the ragged trie (pages of 48) against plain
-     and #9 = #7 there; and a merge without the rescale exp(m_s - m) or
-     with a row's last piece dropped misses the gate by far.
+     raise TypeError (the kernels take bf16 only). The single-prefix
+     kernels (#1, #3) and the int8 trie and paged kernels (#7, #9) run
+     split (their default: S = split_count CTAs per row tile and kv head)
+     against their plain versions at the same S, #1 / #3 at the main,
+     ragged and hd 112 shapes; #9 = #7 bit for bit at the default split on
+     every trie above, and #3 = #9 on the single prefix on 64 shuffled
+     pages of 128; the gates against kernels that are not split (#8 = #1,
+     #9 = #3, #4 / #5 at G = 1 against #1 / #3, #5 against #7, #11
+     against #9) call the split ones at splits=1; the default split lies
+     within the gate of splits=1 at the main shapes; S = 64 against plain
+     (#1 / #3 at m_c 1000, n 2; the ragged trie on pages of 48, #9 = #7
+     there); and a merge without the rescale exp(m_s - m) or with a row's
+     last piece dropped misses the gate by far for #1, #3 and #7.
      Every gate is max |kernel - plain| <= tol x max |plain| (bf16 2e-2),
      and the script shows that plain versions with the decode arm
      dropped, its mask ignored, another sample's slots read, another
@@ -76,15 +80,20 @@ printing its result lines:
   3. serve internlm2-1.8b at its published width (seeded random weights)
      with ServeEngine.generate: bifurcated cache, fused kernel, batch 32,
      context 8192, 16 steps. The fused kernel must launch 24 layers x 15
-     decode steps times. Then, after 8 more decode steps so that 9 decode
-     slots are live, one decode step on the kernel path against the plain
-     impl="flash" path, layer by layer on the same input and for the whole
-     step, and the two-pass dispatch (the partials kernel) over the served
-     cache against the fused one;
+     decode steps times. Prints decode ms/step of the same generate with
+     the fused kernel at splits=1 and at its default split, in turns, and
+     the wrapper's host us per call at each. Then, after 8 more decode
+     steps so that 9 decode slots are live, one decode step on the kernel
+     path against the plain impl="flash" path, layer by layer on the same
+     input and for the whole step, torch.profiler over one step (the fused
+     kernel's device time per step, split + merge, beside the same at
+     splits=1), and the two-pass dispatch (the partials kernel) over the
+     served cache against the fused one;
   3b. the same generate with the int8 context arm (cache_dtype="int8"):
-     the q8 kernel must launch 24 x 15 times; per-layer attention of the
-     kernel path against the kernel's plain versions; int8-vs-bf16
-     whole-step logits printed as information;
+     the q8 kernel must launch 24 x 15 times; decode ms/step and host us
+     per call at splits=1 and the default split as in 3; per-layer
+     attention of the kernel path against the kernel's plain versions;
+     int8-vs-bf16 whole-step logits printed as information;
   3c. ForestServeEngine at the same width, bf16 and int8 segments: 4
      segments of capacity 8192 with contexts of 8192/6000/2500/777 tokens,
      8 samples each in 32 slots, decode capacity 64, grouped kernels. 15
@@ -112,10 +121,14 @@ printing its result lines:
      readmission must raise PoolExhausted before the retire and fit after
      it, into freed pages filled with NaN first), TreeServeEngine on phase
      3d's trie (reused ancestors cost no page). Each must launch the paged
-     kernel 24 x 15 times, hold per layer against its plain versions, and
-     give the dense engines' tokens bit for bit (the int8 forest's
-     comparison with phase 3c's grouped kernel replays both runs with #9
-     at splits=1, #5 being a single walk);
+     kernel 24 x 15 times and hold per layer against its plain versions.
+     Gated token comparisons, bit for bit: the single prefix's bf16 tokens
+     (#8, a single walk) against the dense run replayed with #1 at
+     splits=1, its int8 tokens (#9 at the default split) against phase
+     3b's (#3 at the default split: the same pieces); the forest's bf16
+     tokens against phase 3c's, its int8 ones against phase 3c's with
+     both runs replayed with #9 at splits=1 (#5 is a single walk); the
+     trie's against phase 3d's (#8 = #6, #9 = #7 at the same split);
   3f. TreeServeEngine(step_mode="packed", suffix_prefill=True,
      prefill_chunk=512) on the paged store (pages of 128), bf16 and int8
      nodes, phase 3d's prompts: [SYS, TPL_A, A1] is prefilled in 15 chunks
@@ -158,10 +171,12 @@ printing its result lines:
      computing the same function (the port never calls it); the paged
      kernels at the single-prefix shape and on the paged trie, the packed
      kernels at phase 2's main packed shape over phase 3e's paged trie,
-     flash prefill at the main prefill shape and at phase 3h's suffix. #7
-     and #9 (split, faster than their wrapper's host work) and their
-     yardsticks are timed by CUDA graph replay, with a sweep over S = 1,
-     4, 8, 16, 32 and the default on one line per kernel and shape;
+     flash prefill at the main prefill shape and at phase 3h's suffix. #1,
+     #3, #7 and #9 (split, faster than their wrapper's host work) and
+     their yardsticks are timed by CUDA graph replay, with their plain
+     versions at the same S, a sweep over S = 1, 4, 8, 16, 32 and the
+     default on one line per kernel and shape, and for #1 / #3 the merge
+     kernel's share of the call (torch.profiler);
   3i. serve zamba2-7b at its published width (81 Mamba2 layers, d 3584,
      the shared attention block applied 13 times, hd 112; seeded random
      weights made on the card) with ServeEngine.generate: bifurcated
@@ -174,11 +189,14 @@ printing its result lines:
      kernel path against an fp32 run of the same path on the plain
      versions (weights widened from the same bf16), within max(2e-2 x
      max |logit|, 1.5 x the bf16 plain versions' distance from it); prints
-     prefill ms and decode ms/step;
+     prefill ms and decode ms/step (and at splits=1, in turns), the
+     wrapper's host us per call, and the fused kernel's device time per
+     profiled step at the default split and at splits=1;
   4i. time #13 on phase 3i's recorded inputs (three layers of the bf16
      prefill) beside its bound and its plain version (no library call
      computes it), and #1 and #3 at the hybrid's shape over its 13 served
-     context caches;
+     context caches as in phase 4 (graph-timed, the S sweep, the merge's
+     share);
   5. print the kernels' JSON line, then the result line, last.
 
 Imports torch and the port only; needs a checkout of the repository (it
@@ -265,11 +283,23 @@ def build():
             if "Compiling entry function" in line:
                 m = re.search(r"decode_kernelILi(\d+)ELb([01])ELb([01])"
                               r"ELi(\d)E", line)
+                sp = re.search(r"split_kernelILi(\d+)ELi(\d)ELb([01])E",
+                               line)
+                mg = re.search(r"merge_kernelILi(\d+)E", line)
                 f = re.search(r"flash_prefill_kernelILi(\d+)E", line)
                 c = re.search(r"chunked_linear_kernelILi(\d+)E", line)
                 if m:
                     flags = "".join(m.group(2, 3, 4))
                     name = f"hd={m.group(1)} {kinds.get(flags, flags)}"
+                elif sp:
+                    mode = {"0": "single", "2": "tree", "3": "paged"}[
+                        sp.group(2)]
+                    name = (f"hd={sp.group(1)} split {mode}"
+                            f"{' q8' if sp.group(3) == '1' else ''} "
+                            f"({path.stem.split('-')[0]})")
+                elif mg:
+                    name = (f"hd={mg.group(1)} merge "
+                            f"({path.stem.split('-')[0]})")
                 elif f:
                     name = f"hd={f.group(1)} flash prefill"
                 else:
@@ -317,14 +347,16 @@ def kernel_inputs(g, b, p, n, hd, m_c, c_d, dtype, seed, masked=False,
                 scale=hd**-0.5, lens=lens)
 
 
-def check_case(name, x):
-    """Kernel vs plain on one case; returns the max abs errors of the fused
-    output and of the partials' normalised output acc / l."""
+def check_case(name, x, splits=None):
+    """Kernel vs plain on one case (#1 at ``splits``, default its default
+    split, its plain version at the same S); returns the max abs errors of
+    the fused output and of the partials' normalised output acc / l."""
     import torch
     from repro_torch.kernels import bifurcated_decode as bd
 
     args = (x["q"], x["kc"], x["vc"], x["kd"], x["vd"], x["bias"])
-    kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"])
+    kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"],
+              **split_kw(x, True, splits))
     out_k = bd.fused_bifurcated_decode(*args, **kw)
     out_p = bd.fused_bifurcated_decode_plain(*args, **kw)
     acc_k, m_k, l_k = bd.context_flash_partials(*args[:3], scale=x["scale"])
@@ -338,7 +370,8 @@ def check_case(name, x):
                                 acc_p / l_p[..., None])
     err_m = ((m_k - m_p).abs() / (1 + m_p.abs())).max().item()
     err_l = ((l_k - l_p).abs() / l_p.abs()).max().item()
-    print(f"check {name}: fused max_abs_err={err_f:.3e} ({rel_f:.1e} of "
+    print(f"check {name}: fused S={kw['splits']} max_abs_err={err_f:.3e} "
+          f"({rel_f:.1e} of "
           f"max |out|), partials acc/l {err_a:.3e} ({rel_a:.1e}), m rel "
           f"{err_m:.3e}, l rel {err_l:.3e} (gates: {TOL:g} of max |out|; "
           f"m, l 1e-4)")
@@ -361,7 +394,10 @@ def check_fp32_raises(x):
     for call in (lambda: bd.fused_bifurcated_decode(
                      *args, scale=x["scale"], c_d=x["c_d"], pn=x["pn"]),
                  lambda: bd.context_flash_partials(*args[:3],
-                                                   scale=x["scale"])):
+                                                   scale=x["scale"]),
+                 lambda: bd.fused_bifurcated_decode_q8(
+                     *q8_args(quantized(x)), scale=x["scale"], c_d=x["c_d"],
+                     pn=x["pn"])):
         try:
             call()
         except TypeError:
@@ -369,8 +405,8 @@ def check_fp32_raises(x):
         raise AssertionError("a kernel took fp32 queries on the card")
     torch.cuda.synchronize()
     check(read_launches() == before, "an fp32 call launched a kernel")
-    print("check fp32 queries: TypeError from the fused and partials "
-          "wrappers, no launch")
+    print("check fp32 queries: TypeError from the fused, partials and fused "
+          "q8 wrappers, no launch")
 
 
 def decode_arm_share(x, m, l):
@@ -477,19 +513,21 @@ def grouped_args(x, quant):
                               x["vd"], x["bias"])
 
 
-def check_q8(name, x):
-    """The fused q8 kernel vs its plain version on one case; returns the
-    max abs error."""
+def check_q8(name, x, splits=None):
+    """The fused q8 kernel vs its plain version on one case (#3 at
+    ``splits``, default the default split, its plain version at the same
+    S); returns the max abs error."""
     import torch
     from repro_torch.kernels import bifurcated_decode as bd
 
-    kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"])
+    kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"],
+              **split_kw(x, True, splits))
     out_k = bd.fused_bifurcated_decode_q8(*q8_args(x), **kw)
     out_p = bd.fused_bifurcated_decode_q8_plain(*q8_args(x), **kw)
     torch.cuda.synchronize()
     ok, err, rel = within(out_k, out_p)
-    print(f"check {name}: q8 max_abs_err={err:.3e} ({rel:.1e} of max |out|,"
-          f" gate 2e-2)")
+    print(f"check {name}: q8 S={kw['splits']} max_abs_err={err:.3e} ({rel:.1e}"
+          f" of max |out|, gate 2e-2)")
     check(ok, f"{name}: q8 kernel disagrees with its plain version")
     check(torch.isfinite(out_k.float()).all().item(), f"{name}: non-finite")
     return err
@@ -611,28 +649,29 @@ def tree_inputs(n_nodes, g, b, p, n, hd, cap, lens, slot_paths, c_d, seed,
 
 
 def default_splits(q):
-    """The share count #7 / #9 take by default for queries ``q`` on this
-    card (``split_count``)."""
+    """The share count #1, #3, #7 and #9 take by default for queries ``q``
+    on this card (``split_count``)."""
     from repro_torch.kernels import bifurcated_decode as bd
 
     return bd.split_count(q.shape[1], q.shape[0],
                           sms=bd._sm_count(q.device.index))
 
 
-def split_kw(x, quant, splits=None):
-    """#7 / #9's ``splits`` keyword (none for the bf16 kernels): ``splits``,
-    or the default split, so that a plain version walks the kernel's
-    shares."""
-    if not quant:
+def split_kw(x, split, splits=None):
+    """The ``splits`` keyword of a kernel that splits (``split``: #1, #3,
+    and the int8 trie and paged kernels #7 / #9; none for #6 / #8):
+    ``splits``, or the default split, so that a plain version walks the
+    kernel's shares."""
+    if not split:
         return {}
     return {"splits": default_splits(x["q"]) if splits is None else splits}
 
 
 @contextlib.contextmanager
 def single_walk():
-    """#7 and #9 at splits=1 for the duration of a ``with`` block (their
-    wrappers' default split forced to 1): for the comparisons, bit for bit,
-    with a kernel that is not split."""
+    """#1, #3, #7 and #9 at splits=1 for the duration of a ``with`` block
+    (their wrappers' default split forced to 1): for the comparisons, bit
+    for bit, with a kernel that is not split."""
     from repro_torch.kernels import bifurcated_decode as bd
 
     saved = bd.split_count
@@ -1010,19 +1049,29 @@ def check_paged_kernels():
             f"shuffled pages of 128, 16 free pages of NaN, ld=768", y1,
             quant)
         if quant:
+            # #3 at its default split cuts #9's pieces: the same bits
             xq = quantized(x1)
-            one = bd.fused_bifurcated_decode_q8(*q8_args(xq), **kw)
-            # #3 is not split: against #9's single walk
+            split3 = bd.fused_bifurcated_decode_q8(*q8_args(xq), **kw)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(split3, out1))
+            print(f"check int8 single prefix: fused q8 vs paged q8 kernel at "
+                  f"the default split (S={default_splits(xq['q'])}) bit-equal "
+                  f"{same}")
+            check(same, "split: the fused q8 kernel is not the paged q8 "
+                        "kernel")
+        # the single walks: #8 is not split, and #9 = #3 at splits=1
+        one = (bd.fused_bifurcated_decode_q8(*q8_args(quantized(x1)), **kw,
+                                             splits=1) if quant
+               else bd.fused_bifurcated_decode(x1["q"], x1["kc"], x1["vc"],
+                                               x1["kd"], x1["vd"], x1["bias"],
+                                               **kw, splits=1))
+        if quant:
             out1 = kern(*paged_args(y1, quant), **kw, splits=1)
-        else:
-            one = bd.fused_bifurcated_decode(x1["q"], x1["kc"], x1["vc"],
-                                             x1["kd"], x1["vd"], x1["bias"],
-                                             **kw)
         torch.cuda.synchronize()
         same = bool(torch.equal(out1, one))
         print(f"check {tag}single prefix: paged{' (splits=1)' if quant else ''}"
-              f" vs {'fused q8' if quant else 'fused'} kernel bit-equal "
-              f"{same}")
+              f" vs {'fused q8' if quant else 'fused'} kernel (splits=1) "
+              f"bit-equal {same}")
         check(same, "the paged kernel is not the single-prefix kernel")
         # phase 3d's trie in an oversubscribed pool (112 pages against an
         # envelope of 256), free pages NaN, against the same pool with
@@ -1120,6 +1169,60 @@ def faulty_merges():
 
     return {"merge without the rescale": no_rescale,
             "a piece dropped": one_dropped}
+
+
+def single_args(x, quant):
+    ctx = ((x["kc"], x["vc"], x["ks"], x["vs"]) if quant
+           else (x["kc"], x["vc"], None, None))
+    return (x["q"],) + ctx + (x["kd"], x["vd"], x["bias"])
+
+
+def check_single_split_kernels(dominant):
+    """Phase 2's split cases of #1 and #3 beyond their plain-version gates
+    at the default split: the default split within the gate of splits=1 at
+    the main shape; S = 64 against the plain version (m_c 1000, n 2, p 2,
+    most shares empty); two faulty merges of the plain versions on the
+    decode-dominant main case ``dominant`` missing the gate. (#3 = #9 at
+    the default split is gated in check_paged_kernels.)"""
+    import torch
+    from repro_torch.kernels import bifurcated_decode as bd
+
+    main = kernel_inputs(8, 32, 2, 1, 128, 8192, 24, torch.bfloat16,
+                         seed=70)
+    ragged = kernel_inputs(8, 8, 2, 2, 128, 1000, 5, torch.bfloat16,
+                           seed=71, masked=True)
+    for quant, name in ((False, "#1"), (True, "#3")):
+        x = quantized(main) if quant else main
+        kern = (bd.fused_bifurcated_decode_q8 if quant
+                else bd.fused_bifurcated_decode)
+        args = q8_args(x) if quant else (x["q"], x["kc"], x["vc"], x["kd"],
+                                         x["vd"], x["bias"])
+        kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"])
+        split = kern(*args, **kw)
+        single = kern(*args, **kw, splits=1)
+        torch.cuda.synchronize()
+        ok, err, rel = within(split, single)
+        print(f"check {name} main g=8 rows=64 hd=128 m_c=8192: default split "
+              f"(S={default_splits(x['q'])}) vs splits=1 max_abs_err="
+              f"{err:.3e} ({rel:.1e} of max |out|, gate 2e-2)")
+        check(ok, f"{name}: the split walk disagrees with the single walk")
+        tag = f"{name} n=2 p=2 m_c=1000 masked-arm, S=64"
+        if quant:
+            check_q8(tag, quantized(ragged), splits=64)
+        else:
+            check_case(tag, ragged, splits=64)
+        xd = quantized(dominant) if quant else dominant
+        pkw = dict(scale=xd["scale"], c_d=xd["c_d"], pn=xd["pn"],
+                   block_m=bd.BLOCK_M, splits=default_splits(xd["q"]))
+        want = bd._single_plain(*single_args(xd, quant), **pkw)
+        rels = {k: within(bd._single_plain(*single_args(xd, quant), **pkw,
+                                           merge=f), want)[2]
+                for k, f in faulty_merges().items()}
+        print(f"check {name} split merge, main decode-dominant masked "
+              f"S={pkw['splits']}: a faulty merge's error / max |out|: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in rels.items()))
+        for k, v in rels.items():
+            check(v >= 10 * TOL, f"{name} split merge: the gate misses '{k}'")
 
 
 def check_split_kernels():
@@ -1848,7 +1951,9 @@ def check_kernels():
             ("rows=6 g=2 m_c=77 int8", (2, 3, 2, 1, 128, 77, 3, 13)),
             ("hd=80 rows=96 m_c=700 int8", (8, 48, 2, 1, 80, 700, 9, 14)),
             ("hd=112 g=32 rows=32 m_c=8192 int8", (32, 32, 1, 1, 112, 8192,
-                                                   24, 15))]:
+                                                   24, 15)),
+            ("hd=112 g=32 rows=32 m_c=1000 int8", (32, 32, 1, 1, 112, 1000,
+                                                   24, 16))]:
         check_q8(name, quantized(kernel_inputs(g, b, p, n, hd, m_c, c_d, bf16,
                                                seed, masked=True)))
     out["fused_bifurcated_decode_q8"] = err_q
@@ -1888,21 +1993,23 @@ def check_kernels():
                            masked=True, quant=quant)
         kw = dict(scale=x1["scale"], c_d=x1["c_d"], pn=x1["pn"])
         from repro_torch.kernels import bifurcated_decode as bd
+        # #4 / #5 are not split: against #1 / #3's single walk
         if quant:
             one = bd.fused_bifurcated_decode_q8(
                 x1["q"], x1["kc"][0], x1["vc"][0], x1["ks"][0], x1["vs"][0],
-                x1["kd"], x1["vd"], x1["bias"], **kw)
+                x1["kd"], x1["vd"], x1["bias"], **kw, splits=1)
             grp = bd.grouped_fused_bifurcated_decode_q8(
                 *grouped_args(x1, True), **kw)
         else:
             one = bd.fused_bifurcated_decode(
                 x1["q"], x1["kc"][0], x1["vc"][0], x1["kd"], x1["vd"],
-                x1["bias"], **kw)
+                x1["bias"], **kw, splits=1)
             grp = bd.grouped_fused_bifurcated_decode(
                 *grouped_args(x1, False), **kw)
         torch.cuda.synchronize()
         ok, e1, rel = within(grp, one)
-        print(f"check {tag}G=1 m_c=2049 grouped vs single-prefix kernel: "
+        print(f"check {tag}G=1 m_c=2049 grouped vs single-prefix kernel "
+              f"(splits=1): "
               f"max_abs_err={e1:.3e} ({rel:.1e} of max |out|, gate 2e-2; "
               f"bit-equal {bool(torch.equal(grp, one))})")
         check(ok, f"{tag}G=1: grouped kernel disagrees with the single-prefix "
@@ -1910,6 +2017,7 @@ def check_kernels():
         out[kname] = err
     check_forest_gate_sensitivity(f"main {main} int8 ctx; main {fmain}",
                                   x_q, x_g)
+    check_single_split_kernels(dominant)
     out.update(check_tree_kernels())
     out.update(check_paged_kernels())
     check_split_kernels()
@@ -2040,6 +2148,11 @@ def serve():
     decode_ms = (wall - prefill_s) / (STEPS - 1) * 1e3
     print(f"serve: generate {wall * 1e3:.1f} ms = prefill {prefill_s * 1e3:.1f}"
           f" ms + {STEPS - 1} decode steps at {decode_ms:.2f} ms/step")
+    decode_ms_in_turns("serve", engine, params, ctx, prefill_s)
+    host_us_per_call("serve", bd.fused_bifurcated_decode,
+                     (cache.k_ctx[0], cache.v_ctx[0]),
+                     cfg.n_heads // cfg.n_kv_heads, cache.decode_capacity,
+                     seed=4)
     for t in range(WARM_STEPS):
         _, cache = model.decode_step(params, cache, result.tokens[:, t:t + 1],
                                      impl="kernel")
@@ -2126,7 +2239,13 @@ def serve():
           f"max(2e-2 x max |logit|, 1.5 x plain vs flash))")
     check(err_kf <= max(TOL * scale, 1.5 * err_pf),
           "kernel path logits disagree with the flash path")
-    profile_step(model, params, fresh(cache), tok)
+    split_us = profile_step(model, params, fresh(cache), tok)
+    with single_walk():
+        single_us = profile_step(model, params, fresh(cache), tok, top=0,
+                                 tag=" (splits=1)")
+    print(f"serve: the fused decode kernel's device time per step, "
+          f"{split_us / 1e3:.3f} ms at the default split against "
+          f"{single_us / 1e3:.3f} ms at splits=1 ({cfg.n_layers} calls)")
 
     # the two-pass dispatch over the served cache: one partials launch per
     # layer, merged on the host; it must equal the fused kernel's result
@@ -2188,6 +2307,7 @@ def serve_int8(cfg, model, params, ctx, tokens, cache_bf16):
     import torch
     from repro_torch.configs import ServeConfig
     from repro_torch.core.quantized import QuantBifurcatedCache
+    from repro_torch.kernels import bifurcated_decode as bd
     from repro_torch.models import blocks
     from repro_torch.runtime.serve import ServeEngine
 
@@ -2218,6 +2338,11 @@ def serve_int8(cfg, model, params, ctx, tokens, cache_bf16):
     print(f"serve int8: generate {wall * 1e3:.1f} ms = prefill (with the "
           f"quantization) {prefill_s * 1e3:.1f} ms + {STEPS - 1} decode steps"
           f" at {(wall - prefill_s) / (STEPS - 1) * 1e3:.2f} ms/step")
+    decode_ms_in_turns("serve int8", engine, params, ctx, prefill_s)
+    host_us_per_call("serve int8", bd.fused_bifurcated_decode_q8,
+                     (cache.k_ctx[0], cache.v_ctx[0], cache.k_scale[0],
+                      cache.v_scale[0]), cfg.n_heads // cfg.n_kv_heads,
+                     cache.decode_capacity, seed=4)
     # the bf16 cache of phase 3 saw these WARM_STEPS tokens too
     for t in range(WARM_STEPS):
         _, cache = model.decode_step(params, cache, tokens[:, t:t + 1],
@@ -2774,12 +2899,14 @@ def paged_vs_plain(cfg, model, params, cache, tokens, tag, dense=None):
     return plain_err[0]
 
 
-def serve_paged_single(cfg, model, params, ctx, dense_tokens, dense_cache,
+def serve_paged_single(cfg, model, params, ctx, q8_tokens, dense_cache,
                        warm_tokens, quant):
     """Phase 3e, single prefix: ServeEngine(ctx_store="paged") on phase
-    3's (3b's) workload; the paged kernel must launch 24 x 15 times, the
-    tokens are compared with the dense kernel path's, and one decode step
-    (after phase 3's WARM_STEPS tokens) is held per layer against the
+    3's (3b's) workload; the paged kernel must launch 24 x 15 times, its
+    tokens must equal the dense kernel path's (int8: phase 3b's, #9 and #3
+    cutting the same pieces at their default split; bf16: the dense run
+    replayed with #1 at splits=1, #8 being a single walk), and one decode
+    step (after phase 3's WARM_STEPS tokens) is held per layer against the
     paged plain versions and the dense kernel path on the same input.
     Returns the paged cache (for phase 4), the launch count and the
     per-layer kernel-vs-plain max abs error."""
@@ -2812,6 +2939,17 @@ def serve_paged_single(cfg, model, params, ctx, dense_tokens, dense_cache,
     check(tuple(toks.shape) == (BATCH, STEPS), f"tokens {tuple(toks.shape)}")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "token range")
     check(bool(torch.isfinite(lps).all() and (lps <= 0).all()), "logprobs")
+    if quant:
+        how = "phase 3b's dense int8 kernel path's"
+        dense_tokens = q8_tokens
+    else:
+        # #8 is not split: the dense run replayed on #1's single walk
+        how = "the dense kernel path's (#1 at splits=1, replayed)"
+        dense = ServeEngine(model, cfg, dataclasses.replace(
+            scfg, ctx_store="dense"))
+        with single_walk():
+            dense_tokens = dense.generate(params, ctx, n_steps=STEPS).tokens
+        del dense
     same = bool(torch.equal(toks, dense_tokens))
     n_diff = int((toks != dense_tokens).sum())
     t0 = time.perf_counter()
@@ -2829,8 +2967,9 @@ def serve_paged_single(cfg, model, params, ctx, dense_tokens, dense_cache,
           f" ms + {STEPS - 1} decode steps at "
           f"{(wall - prefill_s) / (STEPS - 1) * 1e3:.2f} ms/step on "
           f"{CARD[0]}; context on {n_live} pages of {PAGE}; tokens "
-          f"bit-identical to the dense {'int8 ' if quant else ''}kernel "
-          f"path's: {same} ({n_diff} of {toks.numel()} differ)")
+          f"bit-identical to {how}: {same} ({n_diff} of {toks.numel()} "
+          f"differ)")
+    check(same, f"{tag}: the tokens differ from {how}")
     for t in range(WARM_STEPS):
         _, cache = model.decode_step(params, cache, warm_tokens[:, t:t + 1],
                                      impl="kernel")
@@ -3536,9 +3675,12 @@ def _copy_outputs(eng):
     return {s: list(v) for s, v in eng.outputs.items()}
 
 
-def profile_step(model, params, cache, tok, top=8):
+def profile_step(model, params, cache, tok, top=8, tag=""):
     """Where one decode step's device time goes: torch.profiler over one
-    step, device time by kernel name, beside the step's wall time."""
+    step, device time by kernel name, beside the step's wall time, and the
+    decode kernels' own device time (split_kernel + merge_kernel, or the
+    single walk's decode_kernel: #1 / #3 on the single-prefix paths).
+    Returns that time in us."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3553,12 +3695,79 @@ def profile_step(model, params, cache, tok, top=8):
     rows = sorted((r for r in rows if r[0] > 0), reverse=True)
     busy = sum(r[0] for r in rows)
     kern = [r for r in rows if r[3]]
-    print(f"profile: one decode step, wall {wall_us:.0f} us under the "
+    dec = {k: sum(r[0] for r in kern if f"{k}_kernel" in r[2])
+           for k in ("split", "merge", "decode")}
+    dec_us = sum(dec.values())
+    print(f"profile{tag}: one decode step, wall {wall_us:.0f} us under the "
           f"profiler, device busy {busy:.0f} us ({len(rows)} kernel names; "
           f"the device-side rows alone {sum(r[0] for r in kern):.0f} us in "
-          f"{sum(r[1] for r in kern)} launches)")
+          f"{sum(r[1] for r in kern)} launches); the decode kernels "
+          f"{dec_us:.0f} us (split_kernel {dec['split']:.0f}, merge_kernel "
+          f"{dec['merge']:.0f}, the single walk's decode_kernel "
+          f"{dec['decode']:.0f})")
     for us, n, key, _ in rows[:top]:
         print(f"profile:   {us:9.1f} us  {n:4d}x  {key[:90]}")
+    return dec_us
+
+
+def host_us_per_call(tag, kern, ctx, p, c_d, seed, n=200):
+    """The host's us per call of #1 / #3 (``kern``) on one served layer's
+    context ``ctx`` with a random decode arm, ``n`` calls back to back on
+    the host clock without a synchronise (the wrapper's Python, its checks,
+    its scratch and the launch; the device is not waited for), at the
+    default split and at splits=1, in turns; prints the best of each."""
+    import torch
+
+    g, _, hd = ctx[0].shape
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    q = torch.randn(g, BATCH * p, hd, generator=gen,
+                    device=DEVICE).to(torch.bfloat16)
+    kd, vd, bias, _ = _decode_arm_operands(1, g, BATCH, c_d, hd, seed)
+    kw = dict(scale=hd**-0.5, c_d=c_d, pn=p)
+    counts = read_launches()
+
+    def run(splits):
+        kern(q, *ctx, kd[0], vd[0], bias, **kw, splits=splits)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            kern(q, *ctx, kd[0], vd[0], bias, **kw, splits=splits)
+        us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    default = default_splits(q)
+    times = {default: [], 1: []}
+    for splits in (default, 1, 1, default):
+        times[splits].append(run(splits))
+    from repro_torch.kernels import KERNELS
+
+    for k in KERNELS:       # these calls are not a path's: counts restored
+        k.launches = counts[k.__name__]
+    print(f"{tag}: {kern.__name__} wrapper's host work {min(times[default]):.1f}"
+          f" us/call at the default split (S={default}), "
+          f"{min(times[1]):.1f} us/call at splits=1 ({n} calls back to back, "
+          f"host clock, no synchronise; best of two, in turns)")
+
+
+def decode_ms_in_turns(tag, engine, params, ctx, prefill_s):
+    """The decode ms/step of ``engine``'s generate with #1 / #3 at splits=1
+    (the single walk) and at the default split, in turns after the counted
+    run (single, default, single, default), each less ``prefill_s``."""
+    import torch
+
+    times = {"splits=1": [], "default split": []}
+    for name in ("splits=1", "default split") * 2:
+        with single_walk() if name == "splits=1" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.generate(params, ctx, n_steps=STEPS)
+            torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0 - prefill_s)
+                           / (STEPS - 1) * 1e3)
+    print(f"{tag}: decode ms/step in turns, "
+          + "; ".join(f"{k} " + ", ".join(f"{t:.2f}" for t in v)
+                      for k, v in times.items()))
 
 
 def _leaves(tree):
@@ -3910,6 +4119,7 @@ def serve_hybrid():
     import torch
     from repro_torch.configs import ServeConfig, get_config
     from repro_torch.convert import cast_weights
+    from repro_torch.kernels import bifurcated_decode as bd
     from repro_torch.kernels import chunked_linear as cl
     from repro_torch.models import get_model
     from repro_torch.runtime.serve import ServeEngine
@@ -3974,6 +4184,7 @@ def serve_hybrid():
               f"{prefill_s * 1e3:.1f} ms + {STEPS - 1} decode steps at "
               f"{(wall - prefill_s) / (STEPS - 1) * 1e3:.2f} ms/step (batch "
               f"{BATCH}, context {CONTEXT})")
+        decode_ms_in_turns(tag, engine, params, ctx, prefill_s)
 
         # the kernel path's prefill, #13's calls at the sampled layers kept,
         # and its first decode step on the first sampled tokens
@@ -3984,8 +4195,22 @@ def serve_hybrid():
         attn = cache["attn"]
         lk_dec, _ = model.decode_step(params, cache, tok, impl="kernel")
         out["attn_q8" if quant else "attn"] = attn
-        if not quant:   # where a step's time goes (it advances the cache)
-            profile_step(model, params, cache, toks[:, 1:2], top=10)
+        host_us_per_call(tag, getattr(bd, kname),
+                         (attn.k_ctx[0], attn.v_ctx[0]) + (
+                             (attn.k_scale[0], attn.v_scale[0]) if quant
+                             else ()),
+                         cfg.n_heads // cfg.n_kv_heads,
+                         attn.decode_capacity, seed=14)
+        if not quant:   # where a step's time goes (each advances the cache)
+            split_us = profile_step(model, params, cache, toks[:, 1:2],
+                                    top=10)
+            with single_walk():
+                single_us = profile_step(model, params, cache, toks[:, 2:3],
+                                         top=0, tag=" (splits=1)")
+            print(f"{tag}: the fused decode kernel's device time per step, "
+                  f"{split_us / 1e3:.3f} ms at the default split against "
+                  f"{single_us / 1e3:.3f} ms at splits=1 ({model.n_super} "
+                  f"calls)")
         del cache
         errs = []
         for layer, ops, kw, o, S in rec.calls:
@@ -4105,13 +4330,49 @@ def time_ms_graph(fn, n_inputs, reps=3, replays=4):
 
 
 def split_sweep(name, at_splits, n_inputs, default):
-    """One line: #7 / #9 (``at_splits(S)`` gives its call on input set i)
-    at S = 1, 4, 8, 16, 32 and the default, graph-timed."""
+    """One line: a split kernel (``at_splits(S)`` gives its call on input
+    set i) at S = 1, 4, 8, 16, 32 and the default, graph-timed."""
     times = {S: time_ms_graph(at_splits(S), n_inputs)
              for S in sorted({1, 4, 8, 16, 32, default})}
     print(f"time (split sweep): {name}: "
           + ", ".join(f"S={S}{' (default)' if S == default else ''} "
                       f"{t * 1e3:.1f} us" for S, t in times.items()))
+
+
+def merge_share(name, call, n_inputs):
+    """One line: the device time per launch of a split call's two kernels,
+    split_kernel and merge_kernel, by torch.profiler over ``n_inputs``
+    calls (after a warm-up pass; each kernel's total over the launches the
+    profiler recorded), and the merge's share ("not measured" when the
+    profiler recorded neither kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(n_inputs):
+        call(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n_inputs):
+            call(i)
+        torch.cuda.synchronize()
+    us = {"split": [0.0, 0], "merge": [0.0, 0]}
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        for k in us:
+            if f"{k}_kernel" in e.key:
+                us[k][0] += getattr(e, "self_device_time_total", 0.0)
+                us[k][1] += e.count
+    if not (us["split"][1] and us["merge"][1]):
+        print(f"time (merge share): {name}: not measured (the profiler "
+              f"recorded neither kernel)")
+        return
+    split, merge = (t / n for t, n in us.values())
+    print(f"time (merge share): {name}: split_kernel {split:.1f} us, "
+          f"merge_kernel {merge:.1f} us per launch ({us['split'][1]} and "
+          f"{us['merge'][1]} launches recorded of {n_inputs}; torch.profiler,"
+          f" device time): the merge {merge / (split + merge):.1%}")
 
 
 def _timed_entry(name, source, line, kern, plain, lib, nbytes, flop,
@@ -4190,6 +4451,7 @@ def time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches, launches,
     scale = hd**-0.5
     kc, vc = cache.k_ctx, cache.v_ctx
     fkw = dict(scale=scale, c_d=c_d, pn=p)
+    skw = {"splits": default_splits(q)}     # #1 / #3's plain versions
 
     # library yardsticks on the same inputs, prepared outside the timing:
     # fused = attention over [context ⊕ decode slots] under the slot bias and
@@ -4208,7 +4470,7 @@ def time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches, launches,
 
     def fused_plain(i):
         return bd.fused_bifurcated_decode_plain(q, kc[i], vc[i], kd[i], vd[i],
-                                                bias, **fkw)
+                                                bias, **fkw, **skw)
 
     def fused_lib(i):
         return F.scaled_dot_product_attention(q4, k_all[i], v_all[i],
@@ -4251,7 +4513,7 @@ def time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches, launches,
         _timed_entry("fused_bifurcated_decode", "bifurcated_decode.cu", 206,
                      fused, fused_plain, fused_lib, fused_bytes, fused_flop,
                      launches["fused_bifurcated_decode"],
-                     errs["fused_bifurcated_decode"], L),
+                     errs["fused_bifurcated_decode"], L, graph=True),
         _timed_entry("context_flash_partials", "bifurcated_decode.cu", 1938,
                      part, part_plain, part_lib, part_bytes, part_flop,
                      launches["context_flash_partials"],
@@ -4274,7 +4536,7 @@ def time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches, launches,
 
     def q8_plain(i):
         return bd.fused_bifurcated_decode_q8_plain(
-            q, kq[i], vq[i], ks[i], vs[i], kd[i], vd[i], bias, **fkw)
+            q, kq[i], vq[i], ks[i], vs[i], kd[i], vd[i], bias, **fkw, **skw)
 
     def q8_lib(i):
         return F.scaled_dot_product_attention(q4, kq_all[i], vq_all[i],
@@ -4289,7 +4551,18 @@ def time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches, launches,
         "fused_bifurcated_decode_q8", "forest_q8_decode.cu", 350, q8,
         q8_plain, q8_lib, q8_bytes, fused_flop,
         launches["fused_bifurcated_decode_q8"],
-        errs["fused_bifurcated_decode_q8"], L))
+        errs["fused_bifurcated_decode_q8"], L, graph=True))
+    for name, call in (("fused_bifurcated_decode", bd.fused_bifurcated_decode),
+                       ("fused_bifurcated_decode_q8",
+                        bd.fused_bifurcated_decode_q8)):
+        ctx = ((lambda i: (kq[i], vq[i], ks[i], vs[i])) if name.endswith("q8")
+               else (lambda i: (kc[i], vc[i])))
+        split_sweep(f"{name} main", lambda S, call=call, ctx=ctx: (
+            lambda i: call(q, *ctx(i), kd[i], vd[i], bias, **fkw, splits=S)),
+            L, skw["splits"])
+        merge_share(f"{name} main S={skw['splits']}",
+                    lambda i, call=call, ctx=ctx: call(
+                        q, *ctx(i), kd[i], vd[i], bias, **fkw), L)
 
     # #8, #9 at the single-prefix shape: phase 3e's paged caches (the same
     # context on 64 pages of 128), the same q, decode arms and yardsticks
@@ -4307,16 +4580,16 @@ def time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches, launches,
         kern = getattr(bd, kname)
         plain = getattr(bd, kname + "_plain")
 
-        skw = {"splits": default_splits(q)} if quant else {}
+        pskw = skw if quant else {}
 
         def paged(i, kern=kern, pools=pools, st=st):
             return kern(q, *(t[i] for t in pools), st.page_tables,
                         st.seg_lens, paths0, kd[i], vd[i], bias, **fkw)
 
-        def paged_plain(i, plain=plain, pools=pools, st=st, skw=skw):
+        def paged_plain(i, plain=plain, pools=pools, st=st, pskw=pskw):
             return plain(q, *(t[i] for t in pools), st.page_tables,
                          st.seg_lens, paths0, kd[i], vd[i], bias, **fkw,
-                         **skw)
+                         **pskw)
 
         ok, _, rel = within(lib(0)[0], paged(0))
         print(f"time: library yardstick vs {kname} at the single-prefix "
@@ -4843,8 +5116,10 @@ def time_chunked_kernel(calls, launches, err):
 def time_hybrid_decode(cfg_h, attn, attn_q8):
     """#1 and #3 at the hybrid's shape (32 kv heads of hd 112, p 1, 32
     rows, m_c 8192, 32 x 24 decode slots) over phase 3i's 13 served context
-    caches, beside their bounds, plain versions and SDPA yardsticks
-    (printed; the JSON entries of #1/#3 are phase 3's shape)."""
+    caches, graph-timed at their default split beside their bounds, plain
+    versions at the same S and SDPA yardsticks, with a sweep over S and
+    the merge's share (printed; the JSON entries of #1/#3 are phase 3's
+    shape)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import bifurcated_decode as bd
@@ -4857,6 +5132,7 @@ def time_hybrid_decode(cfg_h, attn, attn_q8):
     kd, vd, bias, live = _decode_arm_operands(L, g, b, c_d, hd, seed=13)
     scale = hd**-0.5
     fkw = dict(scale=scale, c_d=c_d, pn=p)
+    skw = {"splits": default_splits(q)}
     row_s = torch.arange(rows, device=DEVICE)[:, None] // p
     col_s = torch.arange(ld, device=DEVICE)[None, :] // c_d
     mask = torch.cat([torch.ones(rows, m_c, dtype=torch.bool, device=DEVICE),
@@ -4876,18 +5152,19 @@ def time_hybrid_decode(cfg_h, attn, attn_q8):
               for i in range(L)]
     cases = (
         ("fused_bifurcated_decode",
-         lambda i: bd.fused_bifurcated_decode(q, kc[i], vc[i], kd[i], vd[i],
-                                              bias, **fkw),
+         lambda i, S=None: bd.fused_bifurcated_decode(
+             q, kc[i], vc[i], kd[i], vd[i], bias, **fkw, splits=S),
          lambda i: bd.fused_bifurcated_decode_plain(q, kc[i], vc[i], kd[i],
-                                                    vd[i], bias, **fkw),
+                                                    vd[i], bias, **fkw, **skw),
          lambda i: F.scaled_dot_product_attention(
              q[None], k_all[i], v_all[i], attn_mask=mask, scale=scale),
          io_bytes + 2 * g * m_c * hd * 2),
         ("fused_bifurcated_decode_q8",
-         lambda i: bd.fused_bifurcated_decode_q8(
-             q, kq[i], vq[i], ks[i], vs[i], kd[i], vd[i], bias, **fkw),
+         lambda i, S=None: bd.fused_bifurcated_decode_q8(
+             q, kq[i], vq[i], ks[i], vs[i], kd[i], vd[i], bias, **fkw,
+             splits=S),
          lambda i: bd.fused_bifurcated_decode_q8_plain(
-             q, kq[i], vq[i], ks[i], vs[i], kd[i], vd[i], bias, **fkw),
+             q, kq[i], vq[i], ks[i], vs[i], kd[i], vd[i], bias, **fkw, **skw),
          lambda i: F.scaled_dot_product_attention(
              q[None], kq_all[i], vq_all[i], attn_mask=mask, scale=1.0),
          io_bytes + 2 * g * m_c * hd + 2 * g * m_c * 4))
@@ -4899,7 +5176,11 @@ def time_hybrid_decode(cfg_h, attn, attn_q8):
               f"vs kernel {rel:.2e}, kernel vs plain {rel_p:.2e} of max "
               f"|out| (gate 2e-2)")
         check(ok and ok_p, f"{name} at hd {hd}: yardstick or kernel wrong")
-        _timed_entry(name, "", 0, kern, plain, lib, nbytes, flop, 0, 0.0, L)
+        _timed_entry(name, "", 0, kern, plain, lib, nbytes, flop, 0, 0.0, L,
+                     graph=True)
+        split_sweep(f"{name} hd {hd}", lambda S, kern=kern: (
+            lambda i: kern(i, S)), L, skw["splits"])
+        merge_share(f"{name} hd {hd} S={skw['splits']}", kern, L)
 
 
 def main():
@@ -4942,7 +5223,7 @@ def main():
     for quant in (False, True):
         kname = _paged_kname(quant)
         single, launches[kname], e1 = serve_paged_single(
-            cfg, model, params, ctx, q8tokens if quant else tokens,
+            cfg, model, params, ctx, q8tokens,
             q8cache if quant else cache, tokens, quant)
         _, e2 = serve_paged_forest(cfg, model, params, quant, fouts[quant])
         trie, _, e3 = serve_paged_tree(cfg, model, params, quant,

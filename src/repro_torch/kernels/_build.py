@@ -37,16 +37,18 @@ _F = ctypes.c_float
 # error of its launch (0 when it was accepted)
 SIGNATURES = {
     "bifurcated_decode": {
-        # q, k_ctx, v_ctx, k_dec, v_dec, dec_bias, out,
-        # g, rows, m_c, ld, hd, c_d, pn, scale, stream
-        "fused_bifurcated_decode": [_P] * 7 + [_I] * 7 + [_F, _P],
+        # q, k_ctx, v_ctx, k_dec, v_dec, dec_bias, out, part (split scratch
+        # or NULL), g, rows, m_c, ld, hd, c_d, pn, splits, max_pieces,
+        # scale, stream
+        "fused_bifurcated_decode": [_P] * 8 + [_I] * 9 + [_F, _P],
         # q, k_ctx, v_ctx, acc, m, l, g, rows, m_c, hd, scale, stream
         "context_flash_partials": [_P] * 6 + [_I] * 4 + [_F, _P],
     },
     "forest_q8_decode": {
         # q, k_ctx, v_ctx, k_scale, v_scale, k_dec, v_dec, dec_bias, out,
-        # g, rows, m_c, ld, hd, c_d, pn, scale, stream
-        "fused_bifurcated_decode_q8": [_P] * 9 + [_I] * 7 + [_F, _P],
+        # part (split scratch or NULL), g, rows, m_c, ld, hd, c_d, pn,
+        # splits, max_pieces, scale, stream
+        "fused_bifurcated_decode_q8": [_P] * 10 + [_I] * 9 + [_F, _P],
         # q, k_ctx, v_ctx, row_group, ctx_lens, k_dec, v_dec, dec_bias, out,
         # n_groups, g, rows, m_c, ld, hd, c_d, pn, scale, stream
         "grouped_fused_bifurcated_decode": [_P] * 9 + [_I] * 8 + [_F, _P],

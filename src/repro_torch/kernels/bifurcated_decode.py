@@ -11,9 +11,11 @@ built by ``_build.py``):
 ``fused_bifurcated_decode`` — the deployable single-pass path. For each kv
   head, all ``rows = b*p*n`` query rows stream K_c/V_c once, then fold in
   their own sample's decode slots (slot bias applied in-kernel), and the
-  normalised output is written once. No logits and no fp32 partials reach
-  device memory. Replaces ``repro/kernels/bifurcated_decode.py:
-  fused_bifurcated_decode`` (Pallas, ``_fused_kernel``).
+  normalised output is written once. No logits reach device memory; on
+  the card the walk is split across CTAs by default (``splits``), whose
+  fp32 partials a second kernel merges exactly, one launch a call.
+  Replaces ``repro/kernels/bifurcated_decode.py:fused_bifurcated_decode``
+  (Pallas, ``_fused_kernel``).
 
 ``context_flash_partials`` — the context arm alone, returning the
   unnormalised fp32 ``(acc, m, l)`` partials: the two-pass escape hatch of
@@ -24,7 +26,9 @@ built by ``_build.py``):
 ``fused_bifurcated_decode_q8`` — the fused decode with an int8 context arm
   (int8 K_c/V_c + f32 per-(token, head) scales, the logit scale pre-folded
   into ``k_scale``): the scales fold into the logits and the softmax
-  weights, ``l`` unscaled. Replaces ``..._q8`` (Pallas, ``_fused_q8_kernel``).
+  weights, ``l`` unscaled; split as ``fused_bifurcated_decode``, into the
+  paged int8 kernel's pieces. Replaces ``..._q8`` (Pallas,
+  ``_fused_q8_kernel``).
 
 ``grouped_fused_bifurcated_decode`` / ``..._q8`` — the multi-prefix FOREST
   decode: G context segments, a row -> segment map and ragged live lengths
@@ -92,6 +96,7 @@ MAX_TREE_NODES = 65536      # and node count (their shared-memory bitmap)
 ROW_TILE = 64        # the decode kernels' query rows per CTA
 KEY_BLOCK = 64       # and keys per block: the unit a split walk cuts
 CTX_WEIGHT = 2       # an int8 context block's CTA time in decode blocks
+CTX_WEIGHT_BF16 = 1  # a bf16 context block's (#1's split walk)
 PIECE_BLOCKS = 4     # blocks of a split walk's piece (256 keys or slots)
 CTA_THREADS = 128    # the decode kernels' threads per CTA
 CTAS_PER_SM = 2      # split-walk CTAs an SM holds (registers, shared memory)
@@ -166,33 +171,9 @@ def _decode_arm_and_flush(q, k_dec, v_dec, dec_bias, acc, m, l, *, scale,
     return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
 
 
-def fused_bifurcated_decode_plain(q, k_ctx, v_ctx, k_dec, v_dec, dec_bias, *,
-                                  scale: float, c_d: int, pn: int,
-                                  block_m: int = BLOCK_M) -> torch.Tensor:
-    """Plain PyTorch version of ``fused_bifurcated_decode``: the context in
-    ``block_m`` blocks, then the decode arm with the slot bias and the
-    cross-sample mask ``row // pn == col // c_d``, then normalise."""
-    acc, m, l = _context_arm(q, k_ctx, v_ctx, scale, block_m)
-    return _decode_arm_and_flush(q, k_dec, v_dec, dec_bias, acc, m, l,
-                                 scale=scale, c_d=c_d, pn=pn)
-
-
-def fused_bifurcated_decode_q8_plain(q, k_ctx_q, v_ctx_q, k_scale, v_scale,
-                                     k_dec, v_dec, dec_bias, *, scale: float,
-                                     c_d: int, pn: int,
-                                     block_m: int = BLOCK_M) -> torch.Tensor:
-    """Plain PyTorch version of ``fused_bifurcated_decode_q8``: int8
-    context arm (scales folded into logits and weights, the value product
-    in f32), then the bf16 decode arm as in the fused version."""
-    acc, m, l = _context_arm(q, k_ctx_q, v_ctx_q, scale, block_m,
-                             k_scale=k_scale, v_scale=v_scale)
-    return _decode_arm_and_flush(q, k_dec, v_dec, dec_bias, acc, m, l,
-                                 scale=scale, c_d=c_d, pn=pn)
-
-
 def split_count(rows: int, g: int, *, sms: int) -> int:
-    """Shares per (64-row tile, kv head) of #7 and #9 (``splits=None`` on
-    the card): 1 when the ``ceil(rows / 64) * g`` CTAs of the single walk
+    """Shares per (64-row tile, kv head) of #1, #3, #7 and #9
+    (``splits=None`` on the card): 1 when the ``ceil(rows / 64) * g`` CTAs of the single walk
     already fill the ``sms`` SMs, else as many as make one wave of
     CTAS_PER_SM CTAs an SM (33 at the main shapes: 1 tile x 8 kv heads on
     132 SMs), at most DEFAULT_MAX_SPLITS. The shapes give no node lengths
@@ -204,12 +185,15 @@ def split_count(rows: int, g: int, *, sms: int) -> int:
     return max(2, min(CTAS_PER_SM * sms // ctas, DEFAULT_MAX_SPLITS))
 
 
-def split_shares(node_blocks, n_dec: int, splits: int):
+def split_shares(node_blocks, n_dec: int, splits: int, *,
+                 ctx_weight: int = CTX_WEIGHT):
     """The ``splits`` >= 2 shares of one (row tile, kv head), as the kernel
     cuts them: the tile's pieces are each node's blocks (``node_blocks``,
-    in ascending node id) in runs of PIECE_BLOCKS from its first key, then
-    the ``n_dec`` decode blocks likewise, weighted CTX_WEIGHT per context
-    block and 1 per decode block; the shares take consecutive runs of
+    in ascending node id; #1 / #3: one node, the context) in runs of
+    PIECE_BLOCKS from its first key, then the ``n_dec`` decode blocks
+    likewise, weighted ``ctx_weight`` per context block (CTX_WEIGHT for an
+    int8 context, CTX_WEIGHT_BF16 for #1's bf16 one) and 1 per decode
+    block; the shares take consecutive runs of
     pieces, each run at most a weight ``cap``, the least cap (searched as
     the kernel searches it: 128 candidates, then 128 below the first that
     fits) for which ``splits`` runs hold them all. Returns [((i0, i1),
@@ -218,13 +202,13 @@ def split_shares(node_blocks, n_dec: int, splits: int):
     pieces = []                         # (weight, context?, first block)
     first = 0
     for nb in node_blocks:
-        pieces += [(CTX_WEIGHT * min(PIECE_BLOCKS, first + nb - b), True, b)
+        pieces += [(ctx_weight * min(PIECE_BLOCKS, first + nb - b), True, b)
                    for b in range(first, first + nb, PIECE_BLOCKS)]
         first += nb
     n_ctx = first
     pieces += [(min(PIECE_BLOCKS, n_dec - b), False, b)
                for b in range(0, n_dec, PIECE_BLOCKS)]
-    total = CTX_WEIGHT * n_ctx + n_dec
+    total = ctx_weight * n_ctx + n_dec
 
     def runs(cap):
         n, cur = 0, cap
@@ -235,7 +219,7 @@ def split_shares(node_blocks, n_dec: int, splits: int):
                 cur += w
         return n
 
-    w_max = max(CTX_WEIGHT * min(PIECE_BLOCKS, n_ctx) if n_ctx else 0,
+    w_max = max(ctx_weight * min(PIECE_BLOCKS, n_ctx) if n_ctx else 0,
                 min(PIECE_BLOCKS, n_dec))
     cap0 = max(w_max, -(-total // splits))
     step = max(1, (total - cap0 + CTA_THREADS - 2) // (CTA_THREADS - 1))
@@ -255,7 +239,7 @@ def split_shares(node_blocks, n_dec: int, splits: int):
             cur += w
         sh = shares[n - 1]
         if ctx:
-            sh[0], sh[1] = min(sh[0], b), b + w // CTX_WEIGHT
+            sh[0], sh[1] = min(sh[0], b), b + w // ctx_weight
         else:
             sh[2], sh[3] = min(sh[2], b), b + w
     return [((i0, i1 if i0 < n_ctx else n_ctx),
@@ -285,7 +269,8 @@ def max_pieces(depth: int, m_c: int, c_d: int) -> int:
 
 def _split_walk(q, fetch, n_nodes, node_len, paths, k_dec, v_dec, dec_bias,
                 bad, *, scale, c_d, pn, block_m, merge):
-    """The split walk of #7 / #9 (its result does not depend on S): per
+    """The split walk of #1 / #3 / #7 / #9 (its result does not depend on
+    S): per
     64-row tile, each node's keys in pieces of PIECE_BLOCKS * 64 from its
     first key, each summed from a fresh fp32 state over the rows on the
     node (in ``block_m`` runs), then the decode arm's slots in pieces of
@@ -382,6 +367,57 @@ def _tree_plain(q, k_ctx, v_ctx, k_scale, v_scale, paths, node_lens, k_dec,
     out = _decode_arm_and_flush(q, k_dec, v_dec, dec_bias, acc, m, l,
                                 scale=scale, c_d=c_d, pn=pn)
     return out.masked_fill(bad[None, :, None], float("nan"))
+
+
+def _single_plain(q, k_ctx, v_ctx, k_scale, v_scale, k_dec, v_dec, dec_bias,
+                  *, scale, c_d, pn, block_m, splits=1, merge=merge_partials):
+    """One shared context (int8 when ``k_scale`` is given). ``splits`` 1:
+    the single walk, the context in ``block_m`` blocks, then the decode
+    arm. S > 1: the kernel's pieces, the context being node 0 of a
+    one-node trie on every row's depth-1 path (``_tree_plain``'s split
+    walk, so the pieces are #9's on the same context), merged by
+    ``merge``; the same for any S > 1."""
+    if splits > 1:
+        dev = q.device
+        node = [None if t is None else t[None]
+                for t in (k_ctx, v_ctx, k_scale, v_scale)]
+        return _tree_plain(
+            q, *node, torch.zeros(1, q.shape[1], dtype=torch.int32, device=dev),
+            torch.tensor([k_ctx.shape[1]], dtype=torch.int32, device=dev),
+            k_dec, v_dec, dec_bias, scale=scale, c_d=c_d, pn=pn,
+            block_m=block_m, splits=splits, merge=merge)
+    acc, m, l = _context_arm(q, k_ctx, v_ctx, scale, block_m,
+                             k_scale=k_scale, v_scale=v_scale)
+    return _decode_arm_and_flush(q, k_dec, v_dec, dec_bias, acc, m, l,
+                                 scale=scale, c_d=c_d, pn=pn)
+
+
+def fused_bifurcated_decode_plain(q, k_ctx, v_ctx, k_dec, v_dec, dec_bias, *,
+                                  scale: float, c_d: int, pn: int,
+                                  block_m: int = BLOCK_M,
+                                  splits: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of ``fused_bifurcated_decode``: at ``splits``
+    1 the context in ``block_m`` blocks, then the decode arm with the slot
+    bias and the cross-sample mask ``row // pn == col // c_d``, then
+    normalise; at S > 1 the kernel's pieces, merged exactly per row (the
+    same for any S > 1)."""
+    return _single_plain(q, k_ctx, v_ctx, None, None, k_dec, v_dec, dec_bias,
+                         scale=scale, c_d=c_d, pn=pn, block_m=block_m,
+                         splits=splits)
+
+
+def fused_bifurcated_decode_q8_plain(q, k_ctx_q, v_ctx_q, k_scale, v_scale,
+                                     k_dec, v_dec, dec_bias, *, scale: float,
+                                     c_d: int, pn: int,
+                                     block_m: int = BLOCK_M,
+                                     splits: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of ``fused_bifurcated_decode_q8``: int8
+    context arm (scales folded into logits and weights, the value product
+    in f32), then the bf16 decode arm as in the fused version; ``splits``
+    as in ``fused_bifurcated_decode_plain``."""
+    return _single_plain(q, k_ctx_q, v_ctx_q, k_scale, v_scale, k_dec, v_dec,
+                         dec_bias, scale=scale, c_d=c_d, pn=pn,
+                         block_m=block_m, splits=splits)
 
 
 def _grouped_plain(q, k_ctx, v_ctx, k_scale, v_scale, row_group, ctx_lens,
@@ -503,6 +539,8 @@ def _check_context(q, k_ctx, v_ctx):
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(index):
+    if not torch.cuda.is_available():
+        raise RuntimeError("the CUDA kernels need a CUDA device")
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -607,27 +645,38 @@ def _launch(name, device, *args):
 
 
 def fused_bifurcated_decode(q, k_ctx, v_ctx, k_dec, v_dec, dec_bias, *,
-                            scale: float, c_d: int, pn: int) -> torch.Tensor:
+                            scale: float, c_d: int, pn: int,
+                            splits=None) -> torch.Tensor:
     """Single-pass bifurcated decode; returns the normalised (g, rows, hd).
 
       q:           (g, rows, hd), rows = b * p * n, row r of sample r // pn
       k_ctx/v_ctx: (g, m_c, hd) shared context, q's dtype
       k_dec/v_dec: (g, b * c_d, hd) every sample's decode slots, group-major
       dec_bias:    (1, b * c_d) f32 — 0 for live slots, NEG_INF else
+      splits:      shares per (64-row tile, kv head) of the work (None:
+                   ``split_count`` on the card, 1 on the CPU); 1 runs the
+                   single walk, S > 1 S CTAs per tile and head and an exact
+                   merge, one launch either way
     """
     _check_context(q, k_ctx, v_ctx)
     ld = _check_decode_arm(q, k_dec, v_dec, dec_bias, c_d, pn)
     ops = (q, k_ctx, v_ctx, k_dec, v_dec, dec_bias)
     _check_contiguous(*ops)
-    if not _on_cuda(*ops):
+    cuda = _on_cuda(*ops)
+    splits = _split_arg(splits, q, cuda)
+    if not cuda:
         return fused_bifurcated_decode_plain(*ops, scale=scale, c_d=c_d,
-                                             pn=pn)
+                                             pn=pn, splits=splits)
     _check_kernel_operands(*ops)
     g, rows, hd = q.shape
+    m_c = k_ctx.shape[1]
     out = torch.empty_like(q)
+    n_pieces = max_pieces(1, m_c, c_d)
+    part = _split_scratch(q, splits, n_pieces)
     _launch("fused_bifurcated_decode", q.device,
-            *(t.data_ptr() for t in ops), out.data_ptr(), g, rows,
-            k_ctx.shape[1], ld, hd, c_d, pn, float(scale))
+            *(t.data_ptr() for t in ops), out.data_ptr(),
+            None if part is None else part.data_ptr(), g, rows, m_c, ld, hd,
+            c_d, pn, splits, n_pieces, float(scale))
     fused_bifurcated_decode.launches += 1
     return out
 
@@ -664,7 +713,7 @@ context_flash_partials.launches = 0
 
 def fused_bifurcated_decode_q8(q, k_ctx_q, v_ctx_q, k_scale, v_scale, k_dec,
                                v_dec, dec_bias, *, scale: float, c_d: int,
-                               pn: int) -> torch.Tensor:
+                               pn: int, splits=None) -> torch.Tensor:
     """Single-pass bifurcated decode with an int8 context arm; returns the
     normalised (g, rows, hd).
 
@@ -673,20 +722,29 @@ def fused_bifurcated_decode_q8(q, k_ctx_q, v_ctx_q, k_scale, v_scale, k_dec,
       k_scale/v_scale: (g, m_c) f32, ``k_scale`` with the logit scale
                        pre-folded (``scale`` applies to the decode arm only)
       k_dec/v_dec:     (g, b * c_d, hd), q's dtype; dec_bias (1, b * c_d) f32
+      splits:          as in ``fused_bifurcated_decode``; the pieces are
+                       ``paged_fused_bifurcated_decode_q8``'s on a single
+                       prefix, so at S > 1 the two compute the same bits
     """
     _check_q8_context(q, k_ctx_q, v_ctx_q, k_scale, v_scale)
     ld = _check_decode_arm(q, k_dec, v_dec, dec_bias, c_d, pn)
     ops = (q, k_ctx_q, v_ctx_q, k_scale, v_scale, k_dec, v_dec, dec_bias)
     _check_contiguous(*ops)
-    if not _on_cuda(*ops):
+    cuda = _on_cuda(*ops)
+    splits = _split_arg(splits, q, cuda)
+    if not cuda:
         return fused_bifurcated_decode_q8_plain(*ops, scale=scale, c_d=c_d,
-                                                pn=pn)
+                                                pn=pn, splits=splits)
     _check_kernel_operands(q, k_ctx_q, v_ctx_q, k_dec, v_dec, dec_bias)
     g, rows, hd = q.shape
+    m_c = k_ctx_q.shape[1]
     out = torch.empty_like(q)
+    n_pieces = max_pieces(1, m_c, c_d)
+    part = _split_scratch(q, splits, n_pieces)
     _launch("fused_bifurcated_decode_q8", q.device,
-            *(t.data_ptr() for t in ops), out.data_ptr(), g, rows,
-            k_ctx_q.shape[1], ld, hd, c_d, pn, float(scale))
+            *(t.data_ptr() for t in ops), out.data_ptr(),
+            None if part is None else part.data_ptr(), g, rows, m_c, ld, hd,
+            c_d, pn, splits, n_pieces, float(scale))
     fused_bifurcated_decode_q8.launches += 1
     return out
 

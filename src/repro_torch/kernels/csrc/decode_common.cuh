@@ -33,10 +33,12 @@
 // rounding inside the bf16 tolerance. The s8 tensor-core MMA is not used:
 // it would need q quantised, which is another function.
 //
-// Split walk (#7 and #9 with splits > 1, the default on the card; end of
-// this file): the node set's blocks and the decode arm cut into pieces
-// spread over S CTAs per (row tile, kv head), fp32 partials per piece and
-// row, and an exact merge kernel; a row's bits depend on its own path only.
+// Split walk (#1, #3, #7 and #9 with splits > 1, the default on the card;
+// end of this file): the context's (the node set's) blocks and the decode
+// arm cut into pieces spread over S CTAs per (row tile, kv head), fp32
+// partials per piece and row, and an exact merge kernel; a row's bits
+// depend on its own path only, so #3 and #9 give the same bits on one
+// single prefix.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -557,6 +559,7 @@ inline Params fused_params(const void* q, const void* k_ctx,
   a.ld = ld;
   a.c_d = c_d;
   a.pn = pn;
+  a.depth = 1;
   a.scale = scale;
   return a;
 }
@@ -859,30 +862,36 @@ cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// The split int8 node-set walk: #7 (tree_fused_bifurcated_decode_q8) and #9
-// (paged_fused_bifurcated_decode_q8) with splits S > 1; S = 1 runs
-// decode_kernel's single walk.
+// The split walk: #1 (fused_bifurcated_decode, bf16 context) and #3
+// (fused_bifurcated_decode_q8, int8 context) over one shared context
+// (kSingle), #7 (tree_fused_bifurcated_decode_q8) and #9
+// (paged_fused_bifurcated_decode_q8) over int8 node sets, each with splits
+// S > 1; S = 1 runs decode_kernel's single walk.
 //
-// What bounds them: bytes (19.4 MB at the single-prefix shape, 26.6 MB on
-// the trie: 5.8 / 7.9 us at 3.35 TB/s), but the single walk is paced by
-// latency: one CTA of 4 warps per (64-row tile, kv head), 8 CTAs on 132
-// SMs at the main shapes, each block ~3 us of serial copy, convert and
-// product steps.
+// What bounds them: bytes (#1 35.7 MB, #3 and #9 single 19.4 MB, the trie
+// 26.6 MB at the main shapes: 10.6 / 5.8 / 7.9 us at 3.35 TB/s), but the
+// single walk is paced by latency: one CTA of 4 warps per (64-row tile, kv
+// head), 8 CTAs on 132 SMs at the main shapes, each block ~2-3 us of serial
+// copy, (convert) and product steps.
 //
 // What the design does about it:
 //   * More CTAs. The work of a (tile, kv head) is cut into pieces: each
 //     node's blocks in runs of kPieceBlocks from its first key (in
-//     ascending node id), then the tile's decode arm in runs of as many
-//     blocks from its first slot. S CTAs (blockIdx.z) take consecutive
-//     runs of pieces, a context block weighing kCtxWeight decode blocks,
-//     the heaviest run as light as S runs allow (split_kernel). At the
-//     main shapes S = 33: two CTAs an SM, one wave.
+//     ascending node id; kSingle: the one context, a node of m_c keys read
+//     by every row, with no path table, node bitmap or page table in
+//     device memory), then the tile's decode arm in runs of as many blocks
+//     from its first slot. S CTAs (blockIdx.z) take consecutive runs of
+//     pieces, a context block weighing kCtxWeight (int8) or
+//     kCtxWeightBf16 decode blocks, the heaviest run as light as S runs
+//     allow (split_kernel). At the main shapes S = 33: two CTAs an SM, one
+//     wave.
 //   * Pieces, not an even cut of the list. A piece's bounds depend on its
 //     own node's length alone, and each piece is summed from a fresh fp32
 //     state; so a row's keys fall into the same pieces whatever else the
 //     tile holds, and its bits do not move when another request is retired
 //     and readmitted (the engines' guarantee), nor with S, nor with the page
-//     size: #9 and #7 give the same bits on one logical trie.
+//     size: #9 and #7 give the same bits on one logical trie, and #3 gives
+//     #9's bits on one single prefix.
 //   * An exact merge. Each piece writes the fp32 (acc, m, l) of its rows
 //     (the rows on its node; for a decode piece, the rows whose sample has
 //     slots in it) to the row's own slot of the wrapper's scratch, slots in
@@ -893,19 +902,30 @@ cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
 //     finite garbage under m = kNegInf there, weighed by exp(kNegInf - m)
 //     = 0 once the row has a live key anywhere; share 0 runs the path and
 //     page checks and marks a poisoned row's count -1: NaN.
-//   * Fewer steps per block. Context blocks stream through two int8
+//   * Fewer steps per block. int8 context blocks stream through two int8
 //     cp.async stages and two converted bf16 stages with one barrier per
 //     block: each thread converts the 16-byte chunks it copied itself, as
 //     soon as its own copies of the next block landed, overlapping the
-//     products of the current one; the products read bf16 by ldmatrix. The
-//     decode arm stages its slot bias with the block (the single walk reads
-//     it from device memory inside the mask) and divides by multiply and
-//     shift: a decode block costs ~half a context block there (~5x in the
-//     single walk).
+//     products of the current one; the products read bf16 by ldmatrix. A
+//     bf16 context (#1) and the decode arm stream through three bf16
+//     cp.async stages, one barrier a block, nothing to convert
+//     (stream_bf16_split); the decode arm stages its slot bias with the
+//     block (the single walk reads it from device memory inside the mask)
+//     and divides by multiply and shift: a decode block costs ~half an int8
+//     context block there (~5x in the single walk).
+//
+// What holds them now (PERF.md): a fixed cost a call, ~25 of #1's ~37 us
+// at the main shape by the weight sweep (the set-up before a CTA's first
+// block, the merge's pass over the partials, the launch between the two
+// kernels), then each block's chain of dependent steps (one barrier a
+// block) over whole pieces (at the main shapes some CTA takes two); and
+// the wrappers' host work, which exceeds the kernels' time.
 // ---------------------------------------------------------------------------
 
 constexpr int kCtxWeight = 2;   // an int8 context block's CTA time in decode
                                 // blocks (bf16, staged bias)
+constexpr int kCtxWeightBf16 = 1;  // a bf16 context block's, likewise
+                                   // (tools/split_weight.py measures it)
 constexpr int kPieceBlocks = 4;  // blocks of a piece: 256 keys or slots
 // int8 stages of the context stream: 2 keep two CTAs an SM in shared memory
 constexpr int kQStages = 2;
@@ -929,7 +949,8 @@ struct Ring {
   static constexpr int CHUNKS = HD / 16;        // 16-byte chunks per int8 row
   static constexpr int PER_THREAD = (kBlockN * CHUNKS + kThreads - 1) / kThreads;
   static constexpr int BYTES = 2 * CSTAGE + kQStages * QSTAGE;
-  // the decode arm: three stages of bf16 K, V and the slot bias
+  // a bf16 context or the decode arm: three stages of bf16 K, V (and the
+  // decode arm's slot bias)
   static constexpr int DSTAGE = 2 * CONV + kBlockN * 4;
   static constexpr int PLAN = BYTES > 3 * DSTAGE ? BYTES : 3 * DSTAGE;
 };
@@ -1079,50 +1100,60 @@ __device__ __forceinline__ void pv_block(WarpState<HD>& st,
   }
 }
 
-// Decode blocks [b0, b1) of the tile's arm (64 slots each from dec_lo;
-// slots at or past dec_hi masked), bf16 K and V and the slot bias through
-// a ring of three stages, one barrier a block; `flush(jd)` after the last
-// block of decode piece jd. The single walk's semantics (stream_arm's
-// DECODE arm): logit s * scale + bias[col] where the row's sample owns
-// the slot, kNegInf elsewhere; a warp skips the blocks outside its
-// samples' slots. The sample tests use a multiply-shift divider and the
-// bias is staged with the block, so no mask step waits on device memory.
-template <int HD, typename Flush>
-__device__ __forceinline__ void stream_decode_split(
-    WarpState<HD>& st, unsigned char* smem_raw, const Params& p, int gi,
-    int dec_lo, int dec_hi, int b0, int b1, int wrow0, Flush flush) {
+// Blocks [b0, b1) of a bf16 arm, 64 keys each from key `lo` of k and v
+// (rows of HD; keys at or past `limit` are not read), through a ring of
+// three cp.async stages, one barrier a block; `flush(j)` after the last
+// block of piece j (kPieceBlocks blocks each, from lo). DECODE: the decode
+// arm with the single walk's semantics (stream_arm's DECODE arm): logit
+// s * scale + bias[col] where the row's sample owns the slot and col < hi,
+// kNegInf elsewhere; the slot bias is staged with the block and the sample
+// tests use a multiply-shift divider, so no mask step waits on device
+// memory; a warp skips the blocks outside its samples' slots. Else a
+// context arm: logit s * scale for the keys below hi on the rows `on`
+// names (bit 0: gr, bit 1: gr + 8), kNegInf elsewhere; a warp none of
+// whose rows is on skips the products.
+template <int HD, bool DECODE, typename Flush>
+__device__ __forceinline__ void stream_bf16_split(
+    WarpState<HD>& st, unsigned char* smem_raw, const Params& p,
+    const __nv_bfloat16* k, const __nv_bfloat16* v, int lo, int hi,
+    int limit, int b0, int b1, int wrow0, unsigned on, Flush flush) {
   using R = Ring<HD>;
   constexpr int SROW = R::SROW;
   constexpr int CH = HD / 8;         // 16-byte chunks per bf16 row
   const int nblk = b1 - b0;
   if (nblk <= 0) return;
-  const int col_begin = dec_lo + b0 * kBlockN, col_end = dec_hi;
+  const int col_begin = lo + b0 * kBlockN;
   const int lane = threadIdx.x & 31;
   const int gr = lane >> 2, tq = lane & 3;
-  const size_t dec_off = static_cast<size_t>(gi) * p.ld * HD;
-  const __nv_bfloat16* kd = static_cast<const __nv_bfloat16*>(p.k_dec) + dec_off;
-  const __nv_bfloat16* vd = static_cast<const __nv_bfloat16*>(p.v_dec) + dec_off;
-  const FastDiv by_slot(p.c_d);
-  const int sample[2] = {(wrow0 + gr) / p.pn, (wrow0 + gr + 8) / p.pn};
-  const int wcol_lo = (wrow0 / p.pn) * p.c_d;
-  const int wcol_hi = ((wrow0 + 15) / p.pn + 1) * p.c_d;
+  const FastDiv by_slot(DECODE ? p.c_d : 1);
+  int sample[2] = {0, 0};
+  int wcol_lo = 0, wcol_hi = limit;
+  if constexpr (DECODE) {
+    sample[0] = (wrow0 + gr) / p.pn;
+    sample[1] = (wrow0 + gr + 8) / p.pn;
+    wcol_lo = (wrow0 / p.pn) * p.c_d;
+    wcol_hi = ((wrow0 + 15) / p.pn + 1) * p.c_d;
+  }
+  const bool warp_on = DECODE || __any_sync(0xffffffffu, on != 0u);
 
   auto stage = [&](int blk, int slot) {
     unsigned char* base = smem_raw + slot * R::DSTAGE;
     __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(base);
     __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(base + R::CONV);
-    float* sBias = reinterpret_cast<float*>(base + 2 * R::CONV);
     const int col0 = col_begin + blk * kBlockN;
     for (int c = threadIdx.x; c < kBlockN * CH; c += kThreads) {
       const int r = c / CH, ch = c % CH;
-      const bool ok = col0 + r < p.ld;
+      const bool ok = col0 + r < limit;
       const size_t off = ok ? static_cast<size_t>(col0 + r) * HD + ch * 8 : 0;
-      cp_async16(sK + r * SROW + ch * 8, kd + off, ok);
-      cp_async16(sV + r * SROW + ch * 8, vd + off, ok);
+      cp_async16(sK + r * SROW + ch * 8, k + off, ok);
+      cp_async16(sV + r * SROW + ch * 8, v + off, ok);
     }
-    for (int r = threadIdx.x; r < kBlockN; r += kThreads) {
-      const bool ok = col0 + r < p.ld;
-      cp_async4(sBias + r, p.dec_bias + (ok ? col0 + r : 0), ok);
+    if constexpr (DECODE) {
+      float* sBias = reinterpret_cast<float*>(base + 2 * R::CONV);
+      for (int r = threadIdx.x; r < kBlockN; r += kThreads) {
+        const bool ok = col0 + r < limit;
+        cp_async4(sBias + r, p.dec_bias + (ok ? col0 + r : 0), ok);
+      }
     }
   };
 
@@ -1136,10 +1167,10 @@ __device__ __forceinline__ void stream_decode_split(
     if (blk + 2 < nblk) stage(blk + 2, (blk + 2) % 3);
     cp_async_commit();
     const int col0 = col_begin + blk * kBlockN;
-    // the piece of tile decode block b0 + blk ends here: its partials
+    // the piece of block b0 + blk ends here: its partials
     const bool piece_end =
         (b0 + blk + 1) % kPieceBlocks == 0 || blk + 1 == nblk;
-    if (col0 >= wcol_hi || col0 + kBlockN <= wcol_lo) {
+    if (!warp_on || col0 >= wcol_hi || col0 + kBlockN <= wcol_lo) {
       if (piece_end) flush((b0 + blk) / kPieceBlocks);
       continue;
     }
@@ -1153,15 +1184,16 @@ __device__ __forceinline__ void stream_decode_split(
       for (int e = 0; e < 2; ++e) {
         const int j = nt * 8 + 2 * tq + e;
         const int col = col0 + j;
-        const int col_sample = by_slot.div(col);
+        const int col_sample = DECODE ? by_slot.div(col) : 0;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           float x = s[nt][2 * h + e] * p.scale;
-          bool valid = col < col_end;
-          if (valid) {
+          bool valid = col < hi;
+          if (DECODE && valid) {
             x += sBias[j];
             valid = sample[h] == col_sample;
           }
+          if (!DECODE) valid = valid && ((on >> h) & 1u);
           s[nt][2 * h + e] = valid ? x : kNegInf;
         }
       }
@@ -1427,14 +1459,22 @@ __device__ __forceinline__ void row_pieces(const Params& p, int row0,
 // summed from a fresh state and its rows' fp32 partial (acc, m, l) goes to
 // the row's own slot for it, so a row's bits never depend on another
 // request, on S or on the page size. The CTAs take consecutive runs of
-// pieces, weighted kCtxWeight per context block and 1 per decode block,
-// the heaviest run as light as S runs allow: one contiguous run of context
-// blocks and one of decode blocks each. Share 0 also runs the path and
-// page checks and writes each row's piece count, -1 for a poisoned row.
-template <int HD, int MODE>
+// pieces, weighted kCtxWeight (Q8) or kCtxWeightBf16 per context block and
+// 1 per decode block, the heaviest run as light as S runs allow: one
+// contiguous run of context blocks and one of decode blocks each. Share 0
+// also runs the path and page checks and writes each row's piece count, -1
+// for a poisoned row. kSingle: the one context is node 0 of m_c keys, on
+// every row's path (the path table is made in shared memory, not read);
+// its int8 blocks stream as a node's do (#3 computes #9's bits), its bf16
+// blocks through stream_bf16_split (#1).
+template <int HD, int MODE, bool Q8>
 __global__ void __launch_bounds__(kThreads) split_kernel(const Params p) {
-  static_assert(MODE == kTree || MODE == kPaged, "the split walks node sets");
+  static_assert(MODE == kSingle || MODE == kTree || MODE == kPaged,
+                "the split walks one context or a node set");
+  static_assert(Q8 || MODE == kSingle, "a bf16 split reads one context");
   constexpr bool PAGES = MODE == kPaged;
+  constexpr bool SINGLE = MODE == kSingle;
+  constexpr int kW = Q8 ? kCtxWeight : kCtxWeightBf16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_count;
   const int gi = blockIdx.y, split = blockIdx.z;
@@ -1485,7 +1525,8 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const Params p) {
   __syncthreads();
   for (int e = threadIdx.x; e < list_cap; e += kThreads) {
     const int r = e % kRowTile, row = row0 + r;
-    int id = row < rows ? p.paths[(e / kRowTile) * rows + row] : -1;
+    int id = -1;
+    if (row < rows) id = SINGLE ? 0 : p.paths[(e / kRowTile) * rows + row];
     if (id < -1 || id >= p.n_groups) {
       atomicOr(&s_bad[r >> 5], 1u << (r & 31));
       id = -1;
@@ -1506,7 +1547,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const Params p) {
   __syncthreads();
   const int n_list = s_count;
   for (int k = threadIdx.x; k < n_list; k += kThreads) {
-    const int len = min(max(p.ctx_lens[s_ids[k]], 0), p.m_c);
+    const int len = SINGLE ? p.m_c : min(max(p.ctx_lens[s_ids[k]], 0), p.m_c);
     s_lens[k] = len;
     s_first[k + 1] = (len + kBlockN - 1) / kBlockN;
   }
@@ -1598,7 +1639,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const Params p) {
   auto walk = [&](auto&& f) {     // (weight, context?, first block)
     for (int k = 0; k < n_list; ++k)
       for (int b = s_first[k]; b < s_first[k + 1]; b += kPieceBlocks)
-        f(kCtxWeight * min(kPieceBlocks, s_first[k + 1] - b), true, b);
+        f(kW * min(kPieceBlocks, s_first[k + 1] - b), true, b);
     for (int b = 0; b < D; b += kPieceBlocks)
       f(min(kPieceBlocks, D - b), false, b);
   };
@@ -1609,8 +1650,8 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const Params p) {
     });
     return n;
   };
-  const int U = kCtxWeight * C + D;
-  const int w_max = max(C > 0 ? kCtxWeight * min(kPieceBlocks, C) : 0,
+  const int U = kW * C + D;
+  const int w_max = max(C > 0 ? kW * min(kPieceBlocks, C) : 0,
                         min(kPieceBlocks, D));
   const int cap0 = max(w_max, (U + p.splits - 1) / p.splits);
   if (threadIdx.x == 0) s_count = max(U, 1);
@@ -1633,7 +1674,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const Params p) {
       if (n - 1 != split) return;
       if (ctx) {
         i0 = min(i0, b);
-        i1 = b + w / kCtxWeight;
+        i1 = b + w / kW;
       } else {
         b0 = min(b0, b);
         b1 = b + w;
@@ -1643,12 +1684,26 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const Params p) {
     if (b0 == D) b1 = D;
   }
 
-  stream_split<HD, PAGES>(st, smem_raw, p, gi, s_ids, s_lens, s_first,
-                          s_path, i0, i1, la, lb, ctx_flush);
+  if constexpr (Q8) {
+    stream_split<HD, PAGES>(st, smem_raw, p, gi, s_ids, s_lens, s_first,
+                            s_path, i0, i1, la, lb, ctx_flush);
+  } else {
+    // the one context, node 0 (list entry 0), read by every row of the tile
+    const size_t off = static_cast<size_t>(gi) * p.m_c * HD;
+    const unsigned on = (ra < rows ? 1u : 0u) | (rb < rows ? 2u : 0u);
+    stream_bf16_split<HD, false>(
+        st, smem_raw, p, static_cast<const __nv_bfloat16*>(p.k_ctx) + off,
+        static_cast<const __nv_bfloat16*>(p.v_ctx) + off, 0, s_lens[0],
+        s_lens[0], i0, i1, wrow0, on,
+        [&](int j) { ctx_flush(0, j, on); });
+  }
   if (b1 > b0) {
     __syncthreads();    // the context stages are read no more
-    stream_decode_split<HD>(st, smem_raw, p, gi, dec_lo, dec_hi, b0, b1,
-                            wrow0, dec_flush);
+    const size_t off = static_cast<size_t>(gi) * p.ld * HD;
+    stream_bf16_split<HD, true>(
+        st, smem_raw, p, static_cast<const __nv_bfloat16*>(p.k_dec) + off,
+        static_cast<const __nv_bfloat16*>(p.v_dec) + off, dec_lo, dec_hi,
+        p.ld, b0, b1, wrow0, 3u, dec_flush);
   }
 }
 
@@ -1722,13 +1777,13 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(const Params p) {
       pack_bf16(a.x * inv, a.y * inv), pack_bf16(a.z * inv, a.w * inv));
 }
 
-template <int HD, int MODE>
+template <int HD, int MODE, bool Q8>
 cudaError_t launch_split(const Params& a, cudaStream_t stream) {
   const int list_cap = a.depth * kRowTile;
   const int smem = Ring<HD>::PLAN +
                    4 * (2 + list_cap + (a.n_groups + 31) / 32 +
                         4 * list_cap + 1 + 4 * kRowTile);
-  auto kern = split_kernel<HD, MODE>;
+  auto kern = split_kernel<HD, MODE, Q8>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -1742,20 +1797,20 @@ cudaError_t launch_split(const Params& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// #7 / #9: the single walk (decode_kernel) at splits 1, else the split
-// walk and its merge.
-template <int MODE>
+// #1 / #3 / #7 / #9: the single walk (decode_kernel) at splits 1, else
+// the split walk and its merge.
+template <int MODE, bool Q8>
 cudaError_t dispatch_split(const Params& a, int hd, cudaStream_t stream) {
-  if (a.splits == 1) return dispatch_hd<true, true, MODE>(a, hd, stream);
+  if (a.splits == 1) return dispatch_hd<true, Q8, MODE>(a, hd, stream);
   if (!params_ok<MODE>(a) || a.splits < 1 || a.splits > 65535 ||
       a.part == nullptr || a.max_pieces < 1)
     return cudaErrorInvalidValue;
   switch (hd) {
-    case 16: return launch_split<16, MODE>(a, stream);
-    case 64: return launch_split<64, MODE>(a, stream);
-    case 80: return launch_split<80, MODE>(a, stream);
-    case 112: return launch_split<112, MODE>(a, stream);
-    case 128: return launch_split<128, MODE>(a, stream);
+    case 16: return launch_split<16, MODE, Q8>(a, stream);
+    case 64: return launch_split<64, MODE, Q8>(a, stream);
+    case 80: return launch_split<80, MODE, Q8>(a, stream);
+    case 112: return launch_split<112, MODE, Q8>(a, stream);
+    case 128: return launch_split<128, MODE, Q8>(a, stream);
   }
   return cudaErrorInvalidValue;
 }

@@ -23,11 +23,24 @@
 // sum over segments of ctx_lens, not the slab's capacity.
 //
 // What the designs do about it:
-//   * q8: the bf16 kernel's grid (one CTA per kv head and 64-row tile), so
-//     each int8 block is read once for all rows; cp.async stages the int8
-//     block and both scale vectors, one pass converts the block to bf16 in
-//     shared memory (exact), and the tensor-core path of the bf16 kernel
-//     computes both products (see decode_common.cuh for the folds).
+//   * q8: each int8 block is read once for all rows of a (kv head, 64-row
+//     tile); cp.async stages the int8 block and both scale vectors, it is
+//     converted to bf16 in shared memory (exact), and the tensor-core path
+//     of the bf16 kernel computes both products (see decode_common.cuh for
+//     the folds). The single walk (splits=1: one CTA per kv head and row
+//     tile, 8 CTAs at the main path) took ~460 us against a 5.8 us bound,
+//     paced by each block's serial copy, convert and product steps. So the
+//     walk is split (splits > 1, the default on the card; decode_common.cuh,
+//     split_kernel, mode kSingle): the context in pieces of 256 keys from
+//     key 0, then the tile's decode slots in pieces of as many, over S = 33
+//     CTAs per (tile, kv head) at the main path, each piece from a fresh
+//     fp32 state, merged exactly per row by a second kernel. These are #9's
+//     pieces on a single prefix, streamed by #9's int8 stages (each thread
+//     converts the chunks it copied, one barrier a block), so #3 gives #9's
+//     bits at any S > 1 and any page size. A call is one launch, split or
+//     not.
+//     What holds it now: as #9 (the per-block chain of steps, whole pieces,
+//     the merge, the wrapper's host work; PERF.md).
 //   * grouped: one CTA per (kv head, segment, 64-row tile). A row reads
 //     exactly one segment, group_ids of its sample, so no merge across
 //     segments is needed: the CTA of segment gi reads ctx_lens[gi] from
@@ -38,7 +51,8 @@
 //     ctx_lens is exact where the Pallas kernel streams and masks them:
 //     every served row has a live decode slot, so its running max is
 //     finite and masked keys contribute exactly 0. At G = 1 the grouped
-//     kernel runs the single-prefix kernel's arithmetic.
+//     kernel runs the single-prefix kernel's single walk's arithmetic
+//     (splits=1).
 // Known limits: at the main path (G = 4, g = 8, one row tile) the grid is
 // 32 CTAs on 132 SMs, and the CTA of the longest segment sets the pace; a
 // row tile whose rows are scattered across segments computes every row
@@ -49,6 +63,7 @@
 #include "decode_common.cuh"
 
 using bifurcated::dispatch_hd;
+using bifurcated::dispatch_split;
 using bifurcated::fused_params;
 using bifurcated::kGrouped;
 using bifurcated::kSingle;
@@ -58,19 +73,24 @@ extern "C" {
 
 // q (g, rows, hd) bf16; k_ctx/v_ctx (g, m_c, hd) int8; k_scale/v_scale
 // (g, m_c) f32; k_dec/v_dec (g, ld, hd) bf16; dec_bias (ld,) f32; out
-// (g, rows, hd) bf16. Returns the CUDA error of the launch.
+// (g, rows, hd) bf16; `splits` and part as in fused_bifurcated_decode.
+// Returns the CUDA error of the launch.
 int fused_bifurcated_decode_q8(const void* q, const void* k_ctx,
                                const void* v_ctx, const void* k_scale,
                                const void* v_scale, const void* k_dec,
                                const void* v_dec, const void* dec_bias,
-                               void* out, int g, int rows, int m_c, int ld,
-                               int hd, int c_d, int pn, float scale,
+                               void* out, void* part, int g, int rows,
+                               int m_c, int ld, int hd, int c_d, int pn,
+                               int splits, int max_pieces, float scale,
                                void* stream) {
   Params a = fused_params(q, k_ctx, v_ctx, k_dec, v_dec, dec_bias, out, g,
                           rows, m_c, ld, c_d, pn, scale);
   a.k_scale = static_cast<const float*>(k_scale);
   a.v_scale = static_cast<const float*>(v_scale);
-  return static_cast<int>(dispatch_hd<true, true, kSingle>(
+  a.part = static_cast<float*>(part);
+  a.splits = splits;
+  a.max_pieces = max_pieces;
+  return static_cast<int>(dispatch_split<kSingle, true>(
       a, hd, static_cast<cudaStream_t>(stream)));
 }
 

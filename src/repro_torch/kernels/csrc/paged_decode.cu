@@ -129,7 +129,7 @@ int paged_fused_bifurcated_decode_q8(
   a.splits = splits;
   a.max_pieces = max_pieces;
   return static_cast<int>(
-      dispatch_split<kPaged>(a, hd, static_cast<cudaStream_t>(stream)));
+      dispatch_split<kPaged, true>(a, hd, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

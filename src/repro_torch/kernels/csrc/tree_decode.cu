@@ -102,7 +102,7 @@ int tree_fused_bifurcated_decode_q8(
   a.splits = splits;
   a.max_pieces = max_pieces;
   return static_cast<int>(
-      dispatch_split<kTree>(a, hd, static_cast<cudaStream_t>(stream)));
+      dispatch_split<kTree, true>(a, hd, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

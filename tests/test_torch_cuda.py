@@ -144,6 +144,49 @@ def test_q8_kernel_matches_plain_version(cuda, shape):
     _assert_within(out, bd.fused_bifurcated_decode_q8_plain(*x, **kw), 2e-2)
 
 
+# (g, b, pn, hd, m_c, c_d, dec_boost): the main shape and its decode-
+# dominant twin, zamba2's hd 112 shape, rows off the tile at hd 16
+SINGLE_SPLIT_SHAPES = [(8, 32, 2, 128, 8192, 24, 0.0),
+                       (8, 32, 2, 128, 8192, 24, 3.0),
+                       (32, 32, 1, 112, 1000, 24, 0.0),
+                       (2, 35, 2, 16, 300, 4, 0.0)]
+
+
+@pytest.mark.parametrize("shape", SINGLE_SPLIT_SHAPES)
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("splits", [1, None, 64])
+def test_single_prefix_split_kernels_match_plain_versions(cuda, shape, quant,
+                                                          splits):
+    """#1 / #3 at splits 1 (the single walk), the default and 64, each
+    against its plain version at the same S, one launch a call; the split
+    walk within the gate of the single walk; #3 bit-equal to #9 at the same
+    S on the same context in pages of 128."""
+    g, b, pn, hd, m_c, c_d, boost = shape
+    q, kc, vc, kd, vd, bias = _inputs(cuda, g, b, pn, hd, m_c, c_d,
+                                      torch.bfloat16, seed=hd + m_c + 1,
+                                      dec_boost=boost)
+    ctx = _q8(kc.float(), vc.float()) if quant else (kc, vc)
+    x = (q,) + ctx + (kd, vd, bias)
+    if splits is None:
+        splits = bd.split_count(q.shape[1], g, sms=bd._sm_count(q.device.index))
+    kw = dict(scale=hd**-0.5, c_d=c_d, pn=pn, splits=splits)
+    kern = bd.fused_bifurcated_decode_q8 if quant else bd.fused_bifurcated_decode
+    plain = (bd.fused_bifurcated_decode_q8_plain if quant
+             else bd.fused_bifurcated_decode_plain)
+    n0 = kern.launches
+    out = kern(*x, **kw)
+    assert kern.launches == n0 + 1
+    assert torch.isfinite(out.float()).all()
+    _assert_within(out, plain(*x, **kw), 2e-2)
+    _assert_within(out, kern(*x, **dict(kw, splits=1)), 2e-2)
+    if quant:
+        one = (q,) + tuple(t[None] for t in ctx) + (
+            torch.zeros(1, q.shape[1], dtype=torch.int32, device=cuda),
+            torch.tensor([m_c], dtype=torch.int32, device=cuda), kd, vd, bias)
+        y = _paged_inputs(one, True, 128, seed=3, fill=float("nan"))
+        assert torch.equal(out, bd.paged_fused_bifurcated_decode_q8(*y, **kw))
+
+
 # (G, g, b, pn, hd, m_c, c_d, ctx_lens; None = random)
 GROUPED_SHAPES = [(4, 8, 32, 2, 128, 2048, 24, (2048, 1500, 625, 0)),
                   (3, 2, 7, 2, 64, 300, 5, (300, 0, 77)),

@@ -35,18 +35,23 @@ printing its result lines:
      position 0 with no ancestors, an id outside [-1, N] on the chunk's
      path (its rows NaN; N itself poisons nothing). fp32 queries must
      raise TypeError (the kernels take bf16 only). The single-prefix
-     kernels (#1, #3) and the int8 trie and paged kernels (#7, #9) run
-     split (their default: S = split_count CTAs per row tile and kv head)
-     against their plain versions at the same S, #1 / #3 at the main,
-     ragged and hd 112 shapes; #9 = #7 bit for bit at the default split on
-     every trie above, and #3 = #9 on the single prefix on 64 shuffled
-     pages of 128; the gates against kernels that are not split (#8 = #1,
-     #9 = #3, #4 / #5 at G = 1 against #1 / #3, #5 against #7, #11
-     against #9) call the split ones at splits=1; the default split lies
-     within the gate of splits=1 at the main shapes; S = 64 against plain
-     (#1 / #3 at m_c 1000, n 2; the ragged trie on pages of 48, #9 = #7
-     there); and a merge without the rescale exp(m_s - m) or with a row's
-     last piece dropped misses the gate by far for #1, #3 and #7.
+     kernels (#1, #2, #3), the int8 trie and paged kernels (#7, #9) and the
+     int8 packed kernel (#11) run split (their default: S = split_count
+     CTAs per row tile and kv head; #11 packed_split_count, a pair for its
+     decode rows' and its chunk rows' tiles) against their plain versions
+     at the same S, #1 / #2 / #3 at the main, ragged and hd 112 shapes, #2
+     also at S 4 and 16 and on m_c 1000 at S 64; #9 = #7 bit for bit at
+     the default split on every trie above, #3 = #9 on the single prefix
+     on 64 shuffled pages of 128, and #11 = #9 on the decode rows at the
+     same S with and without the chunk, its output the same at S 4 and at
+     twice its chunk tiles' S; the gates against kernels that are not
+     split (#8 = #1, #9 = #3, #4 / #5 at G = 1 against #1 / #3, #5
+     against #7) call the split ones at splits=1, and #11 at splits=1 is
+     #9 at splits=1; the default split lies within the gate of splits=1 at
+     the main shapes; S = 64 against plain (#1 / #3 at m_c 1000, n 2; the
+     ragged trie on pages of 48, #9 = #7 there); and a merge without the
+     rescale exp(m_s - m) or with a row's last piece dropped misses the
+     gate by far for #1, #2, #3 and #7.
      Every gate is max |kernel - plain| <= tol x max |plain| (bf16 2e-2),
      and the script shows that plain versions with the decode arm
      dropped, its mask ignored, another sample's slots read, another
@@ -138,7 +143,8 @@ printing its result lines:
      admitted after it lands (1 chunk); then 8 decode-only steps. The
      packed kernel must launch 24 x 23 times and the paged kernel 24 x 8,
      no other; per layer on a step with live decode rows and a chunk, the
-     packed kernel against its plain versions; each request's first-token
+     packed kernel against its plain versions (#11's at the kernel's
+     default S); each request's first-token
      logits against a synchronous admission of its path, and every node
      the chunks wrote against a full prefill, within max(2e-2 x max, 1.5 x
      a run of the plain versions); reused ancestors cost no page; no slot
@@ -172,11 +178,12 @@ printing its result lines:
      kernels at the single-prefix shape and on the paged trie, the packed
      kernels at phase 2's main packed shape over phase 3e's paged trie,
      flash prefill at the main prefill shape and at phase 3h's suffix. #1,
-     #3, #7 and #9 (split, faster than their wrapper's host work) and
-     their yardsticks are timed by CUDA graph replay, with their plain
-     versions at the same S, a sweep over S = 1, 4, 8, 16, 32 and the
-     default on one line per kernel and shape, and for #1 / #3 the merge
-     kernel's share of the call (torch.profiler);
+     #2, #3, #7, #9 and #11 (split, faster than their wrapper's host work)
+     and their yardsticks are timed by CUDA graph replay, with their plain
+     versions at the same S, a sweep over S = 1, 4, 8, 16, 32 (#2, #11: 1,
+     2, 4, 8, 16, 32; #11 also its chunk tiles' S alone) and the default
+     on one line per kernel and shape, and for #1, #2, #3 and #11 the
+     merge kernel's share of the call (torch.profiler);
   3i. serve zamba2-7b at its published width (81 Mamba2 layers, d 3584,
      the shared attention block applied 13 times, hd 112; seeded random
      weights made on the card) with ServeEngine.generate: bifurcated
@@ -285,20 +292,21 @@ def build():
                               r"ELi(\d)E", line)
                 sp = re.search(r"split_kernelILi(\d+)ELi(\d)ELb([01])E",
                                line)
-                mg = re.search(r"merge_kernelILi(\d+)E", line)
+                mg = re.search(r"merge_kernelILi(\d+)ELb([01])E", line)
                 f = re.search(r"flash_prefill_kernelILi(\d+)E", line)
                 c = re.search(r"chunked_linear_kernelILi(\d+)E", line)
                 if m:
                     flags = "".join(m.group(2, 3, 4))
                     name = f"hd={m.group(1)} {kinds.get(flags, flags)}"
                 elif sp:
-                    mode = {"0": "single", "2": "tree", "3": "paged"}[
-                        sp.group(2)]
+                    mode = {"0": "single", "2": "tree", "3": "paged",
+                            "4": "packed"}[sp.group(2)]
                     name = (f"hd={sp.group(1)} split {mode}"
                             f"{' q8' if sp.group(3) == '1' else ''} "
                             f"({path.stem.split('-')[0]})")
                 elif mg:
-                    name = (f"hd={mg.group(1)} merge "
+                    name = (f"hd={mg.group(1)} merge"
+                            f"{'' if mg.group(2) == '1' else ' partials'} "
                             f"({path.stem.split('-')[0]})")
                 elif f:
                     name = f"hd={f.group(1)} flash prefill"
@@ -347,37 +355,45 @@ def kernel_inputs(g, b, p, n, hd, m_c, c_d, dtype, seed, masked=False,
                 scale=hd**-0.5, lens=lens)
 
 
+def partials_gaps(got, want):
+    """#2's (acc, m, l) against another's: (ok, acc max abs error, its
+    share of max |acc|, acc / l's share of max |acc / l|, m's and l's
+    largest relative errors). Gates: acc and acc / l within TOL of their
+    max; m and l (fp32 sums of the same products in another order) 1e-4."""
+    (acc_k, m_k, l_k), (acc_p, m_p, l_p) = got, want
+    ok_a, err_a, rel_a = within(acc_k, acc_p)
+    ok_n, _, rel_n = within(acc_k / l_k[..., None], acc_p / l_p[..., None])
+    err_m = ((m_k - m_p).abs() / (1 + m_p.abs())).max().item()
+    err_l = ((l_k - l_p).abs() / l_p.abs()).max().item()
+    ok = ok_a and ok_n and err_m <= 1e-4 and err_l <= 1e-4
+    return ok, err_a, rel_a, rel_n, err_m, err_l
+
+
 def check_case(name, x, splits=None):
-    """Kernel vs plain on one case (#1 at ``splits``, default its default
-    split, its plain version at the same S); returns the max abs errors of
-    the fused output and of the partials' normalised output acc / l."""
+    """Kernel vs plain on one case (#1 and #2 at ``splits``, default their
+    default split, their plain versions at the same S); returns the max
+    abs errors of the fused output and of the partials' acc."""
     import torch
     from repro_torch.kernels import bifurcated_decode as bd
 
     args = (x["q"], x["kc"], x["vc"], x["kd"], x["vd"], x["bias"])
-    kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"],
-              **split_kw(x, True, splits))
+    sk = split_kw(x, True, splits)
+    kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"], **sk)
     out_k = bd.fused_bifurcated_decode(*args, **kw)
     out_p = bd.fused_bifurcated_decode_plain(*args, **kw)
-    acc_k, m_k, l_k = bd.context_flash_partials(*args[:3], scale=x["scale"])
-    acc_p, m_p, l_p = bd.context_flash_partials_plain(*args[:3],
-                                                      scale=x["scale"])
+    part_k = bd.context_flash_partials(*args[:3], scale=x["scale"], **sk)
+    part_p = bd.context_flash_partials_plain(*args[:3], scale=x["scale"],
+                                             **sk)
     torch.cuda.synchronize()
     ok_f, err_f, rel_f = within(out_k, out_p)
-    # partials: normalised by their own sumexp, compared as the output;
-    # m and l are fp32 sums of the same products in another order
-    ok_a, err_a, rel_a = within(acc_k / l_k[..., None],
-                                acc_p / l_p[..., None])
-    err_m = ((m_k - m_p).abs() / (1 + m_p.abs())).max().item()
-    err_l = ((l_k - l_p).abs() / l_p.abs()).max().item()
+    ok_a, err_a, rel_a, rel_n, err_m, err_l = partials_gaps(part_k, part_p)
     print(f"check {name}: fused S={kw['splits']} max_abs_err={err_f:.3e} "
-          f"({rel_f:.1e} of "
-          f"max |out|), partials acc/l {err_a:.3e} ({rel_a:.1e}), m rel "
-          f"{err_m:.3e}, l rel {err_l:.3e} (gates: {TOL:g} of max |out|; "
-          f"m, l 1e-4)")
+          f"({rel_f:.1e} of max |out|), partials S={kw['splits']} acc "
+          f"{err_a:.3e} ({rel_a:.1e} of max |acc|), acc/l {rel_n:.1e}, m "
+          f"rel {err_m:.3e}, l rel {err_l:.3e} (gates: {TOL:g} of max; m, "
+          f"l 1e-4)")
     check(ok_f, f"{name}: fused kernel disagrees with its plain version")
-    check(ok_a and err_m <= 1e-4 and err_l <= 1e-4,
-          f"{name}: partials kernel disagrees with its plain version")
+    check(ok_a, f"{name}: partials kernel disagrees with its plain version")
     check(torch.isfinite(out_k.float()).all().item(), f"{name}: non-finite")
     return err_f, err_a
 
@@ -1153,22 +1169,88 @@ def check_paged_kernels():
 
 
 def faulty_merges():
-    """Two faulty merges of a row's split-walk partials [(acc, m, l), ...]:
-    the pieces summed without the rescale exp(m_s - m), and the row's last
-    piece (a decode piece) dropped."""
+    """Two faulty merges of a row's split-walk partials [(acc, m, l), ...]
+    into its output: those of ``faulty_raw_merges``, normalised."""
     import torch
 
+    def normalised(raw):
+        def merge(parts):
+            acc, _, l = raw(parts)
+            return acc / torch.clamp(l, min=1e-30)
+        return merge
+
+    return {k: normalised(f) for k, f in faulty_raw_merges().items()}
+
+
+def faulty_raw_merges():
+    """Two faulty merges of a row's split-walk partials [(acc, m, l), ...]
+    into the unnormalised (acc, m, l) (#2's): the pieces summed without
+    the rescale exp(m_s - m), and the row's last piece (#1, #3, #7: a
+    decode piece) dropped."""
+    import torch
+    from repro_torch.kernels import bifurcated_decode as bd
+
     def no_rescale(parts):
-        acc = sum(p[0] for p in parts)
-        return acc / torch.clamp(sum(p[2] for p in parts), min=1e-30)
-
-    def one_dropped(parts):
-        from repro_torch.kernels import bifurcated_decode as bd
-
-        return bd.merge_partials(parts[:-1])
+        return (sum(p[0] for p in parts),
+                torch.stack([p[1] for p in parts]).amax(0),
+                sum(p[2] for p in parts))
 
     return {"merge without the rescale": no_rescale,
-            "a piece dropped": one_dropped}
+            "a piece dropped": lambda parts: bd.merge_partials_raw(
+                parts[:-1])}
+
+
+def check_partials_split():
+    """Phase 2's split cases of #2 beyond check_case's default split: the
+    main shape at S 4 and 16; m_c 1000 (n 2, p 2) at the default and at S
+    64 (most shares empty), m_c 8191 at the default; each against its
+    plain version at the same S; and two faulty merges of the plain
+    version missing the gate on a main case whose last 200 keys (the last
+    piece) carry most of each row's softmax mass."""
+    import torch
+    from repro_torch.kernels import bifurcated_decode as bd
+
+    bf16 = torch.bfloat16
+    main = kernel_inputs(8, 32, 2, 1, 128, 8192, 24, bf16, seed=0)
+    cases = [("main g=8 rows=64 hd=128 m_c=8192", main, 4),
+             ("main g=8 rows=64 hd=128 m_c=8192", main, 16)]
+    for name, shape, seed in (("n=2 p=2 m_c=1000", (8, 8, 2, 2, 128, 1000),
+                               72),
+                              ("m_c=8191", (8, 32, 2, 1, 128, 8191), 73)):
+        x = kernel_inputs(*shape, 24, bf16, seed=seed)
+        cases += [(name, x, None)] + ([(name, x, 64)] if seed == 72 else [])
+    for name, x, splits in cases:
+        sk = split_kw(x, True, splits)
+        args = (x["q"], x["kc"], x["vc"])
+        got = bd.context_flash_partials(*args, scale=x["scale"], **sk)
+        want = bd.context_flash_partials_plain(*args, scale=x["scale"], **sk)
+        torch.cuda.synchronize()
+        ok, err, rel, rel_n, err_m, err_l = partials_gaps(got, want)
+        print(f"check #2 {name} S={sk['splits']}: partials vs plain at the "
+              f"same S acc max_abs_err={err:.3e} ({rel:.1e} of max |acc|), "
+              f"acc/l {rel_n:.1e}, m rel {err_m:.3e}, l rel {err_l:.3e} "
+              f"(gates {TOL:g} of max; m, l 1e-4)")
+        check(ok, f"#2 {name} S={sk['splits']}: the partials kernel "
+                  f"disagrees with its plain version")
+    # the last piece carries most of the mass: its keys 40 along each kv
+    # head's mean query direction
+    x = kernel_inputs(8, 32, 2, 1, 128, 8192, 24, bf16, seed=74)
+    kc = x["kc"].float()
+    q_dir = x["q"].float().mean(1, keepdim=True)
+    kc[:, -200:] = 40.0 * q_dir / q_dir.norm(dim=-1, keepdim=True) \
+        + 0.5 * kc[:, -200:]
+    args = (x["q"], kc.to(bf16).contiguous(), x["vc"])
+    kw = dict(scale=x["scale"], splits=default_splits(x["q"]))
+    want = bd.context_flash_partials_plain(*args, **kw)
+    rels = {k: partials_gaps(bd.context_flash_partials_plain(*args, **kw,
+                                                             merge=f),
+                             want)[2]
+            for k, f in faulty_raw_merges().items()}
+    print(f"check #2 split merge, main tail-dominant S={kw['splits']}: a "
+          f"faulty merge's acc error / max |acc|: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in rels.items()))
+    for k, v in rels.items():
+        check(v >= 10 * TOL, f"#2 split merge: the gate misses '{k}'")
 
 
 def single_args(x, quant):
@@ -1363,15 +1445,30 @@ def packed_bad_rows(z):
                                                           -1)))
 
 
-def check_packed(name, z, quant):
-    """A packed kernel vs its plain version on one case: both NaN on the
-    rows of ``packed_bad_rows`` and nowhere else, within the gate on the
-    decode rows and on the chunk rows. Returns (max abs error, the
-    kernel's output)."""
+def packed_splits(z):
+    """#11's default shares (decode tiles', chunk tiles') on this card for
+    the packed case ``z`` (``packed_split_count``)."""
+    from repro_torch.kernels import bifurcated_decode as bd
+
+    g, rows, _ = z["q"].shape
+    return bd.packed_split_count(z["nd"], rows - z["nd"], g,
+                                 sms=bd._sm_count(z["q"].device.index))
+
+
+def check_packed(name, z, quant, splits=None):
+    """A packed kernel vs its plain version on one case (#11 at
+    ``splits``, default its default split, its plain version at the same
+    S): both NaN on the rows of ``packed_bad_rows`` and nowhere else,
+    within the gate on the decode rows and on the chunk rows. Returns (max
+    abs error, the kernel's output)."""
     import torch
 
-    out_k = packed_kernel(quant)(*packed_args(z, quant), **packed_kw(z))
-    out_p = packed_plain(quant)(*packed_args(z, quant), **packed_kw(z))
+    sk = {}
+    if quant:
+        sk = {"splits": packed_splits(z) if splits is None else splits}
+    out_k = packed_kernel(quant)(*packed_args(z, quant), **packed_kw(z),
+                                 **sk)
+    out_p = packed_plain(quant)(*packed_args(z, quant), **packed_kw(z), **sk)
     torch.cuda.synchronize()
     bad = packed_bad_rows(z)
     for out, which in ((out_k, "kernel"), (out_p, "plain version")):
@@ -1394,7 +1491,8 @@ def check_packed(name, z, quant):
                   f"its plain version ({rel:.2e} of max |out|)")
         errs.append(err)
         rels.append(f"{part} {err:.3e} ({rel:.1e})")
-    print(f"check {name}: {'packed q8' if quant else 'packed'} max_abs_err "
+    print(f"check {name}: {'packed q8' if quant else 'packed'}"
+          + (f" S={sk['splits']}" if sk else "") + " max_abs_err "
           + ", ".join(rels) + " of max |out| (gate 2e-2)"
           + (f"; {int(bad.sum())} rows of bad ids NaN" if bad.any() else ""))
     return max(errs), out_k
@@ -1440,6 +1538,41 @@ def check_packed_gate_sensitivity(z):
         check(v >= 10 * TOL, f"packed: the gate misses '{k}'")
 
 
+def check_packed_split(z, dec_only, yt, out_z):
+    """#11's split on the main packed case ``z`` (default output
+    ``out_z``): the same bits at two other S > 1 (an int and a pair); at
+    splits=1 (the single walk) its decode-only call = #9 at splits=1 and
+    the chunk leaving the decode rows' bits; within the gate of the single
+    walk."""
+    import torch
+
+    kern, paged = packed_kernel(True), paged_kernel(True)
+    kw = packed_kw(z)
+    sd, sc = packed_splits(z)
+    for splits in (4, (sd, 2 * sc)):
+        same = same_bits(kern(*packed_args(z, True), **kw, splits=splits),
+                         out_z)
+        print(f"check int8 main packed trie: S={splits} vs the default "
+              f"({sd}, {sc}) bit-equal {same}")
+        check(same, f"#11's output moves with S ({splits})")
+    one = kern(*packed_args(z, True), **kw, splits=1)
+    one_d = kern(*packed_args(dec_only, True), **packed_kw(dec_only),
+                 splits=1)
+    paged1 = paged(*paged_args(yt, True), scale=yt["scale"], c_d=yt["c_d"],
+                   pn=yt["pn"], splits=1)
+    torch.cuda.synchronize()
+    nd = z["nd"]
+    same = bool(torch.equal(one_d, paged1))
+    same_z = bool(torch.equal(one[:, :nd], paged1))
+    ok, err, rel = within(out_z, one)
+    print(f"check int8 main packed trie, splits=1: decode only vs #9 at "
+          f"splits=1 bit-equal {same}, decode rows with the chunk {same_z}; "
+          f"the default split vs splits=1 max_abs_err={err:.3e} ({rel:.1e} "
+          f"of max |out|, gate 2e-2)")
+    check(same and same_z, "splits=1: #11 is not #9's single walk")
+    check(ok, "#11's split walk disagrees with its single walk")
+
+
 def check_packed_kernels():
     """Phase 2's cases of #10 and #11; returns {kernel name: max abs error
     over the main-shape cases}."""
@@ -1469,14 +1602,15 @@ def check_packed_kernels():
                         TREE_CAP, 52)
         out_d = packed_kernel(quant)(*packed_args(dec_only, quant),
                                      **packed_kw(dec_only))
-        # #11 is not split: against #9's single walk
+        # #11 = #9 at the same (default) S; #10 = #8 (single walks)
         paged = paged_kernel(quant)(*paged_args(yt, quant),
                                     scale=yt["scale"], c_d=yt["c_d"],
-                                    pn=yt["pn"], **split_kw(yt, quant, 1))
+                                    pn=yt["pn"])
         torch.cuda.synchronize()
         same = bool(torch.equal(out_d, paged))
         print(f"check {tag}main trie, decode only: packed vs paged kernel"
-              f"{' (splits=1)' if quant else ''} bit-equal {same}")
+              + (f" at the default S ({packed_splits(dec_only)[0]})"
+                 if quant else "") + f" bit-equal {same}")
         check(same, "decode only: the packed kernel is not the paged kernel")
         err, out_z = check_packed(
             f"main {tag}trie on pages of 128 + a {PACKED_CHUNK}-position "
@@ -1487,6 +1621,8 @@ def check_packed_kernels():
         print(f"check {tag}main trie with the chunk: decode rows bit-equal "
               f"to the paged kernel's {same}")
         check(same, "the chunk moved the decode rows' bits")
+        if quant:
+            check_packed_split(z, dec_only, yt, out_z)
         out[kname] = err
         # the ragged trie (ids outside [-1, N) on one slot's path) on
         # pages of 48; 9 slots, so a tile holds 18 decode rows and 46
@@ -2018,6 +2154,7 @@ def check_kernels():
     check_forest_gate_sensitivity(f"main {main} int8 ctx; main {fmain}",
                                   x_q, x_g)
     check_single_split_kernels(dominant)
+    check_partials_split()
     out.update(check_tree_kernels())
     out.update(check_paged_kernels())
     check_split_kernels()
@@ -2047,6 +2184,22 @@ def read_launches():
     from repro_torch.kernels import KERNELS
 
     return {kern.__name__: kern.launches for kern in KERNELS}
+
+
+@contextlib.contextmanager
+def packed_plain_at_kernel_splits():
+    """#11's plain version, under ``plain_versions``, at the share count
+    its kernel takes by default on this card (``packed_split_count``), in
+    place of the CPU's splits=1: for gates held at the kernel's S."""
+    from repro_torch.kernels import bifurcated_decode as bd
+
+    saved = bd._packed_split_arg
+    bd._packed_split_arg = lambda splits, q, n_dec, on_cuda: saved(
+        splits, q, n_dec, True)
+    try:
+        yield
+    finally:
+        bd._packed_split_arg = saved
 
 
 class plain_versions:
@@ -3327,7 +3480,10 @@ def packed_vs_plain(cfg, model, params, eng, st, tag):
         lc.update(k_dec=cache.k_dec[i].clone(), v_dec=cache.v_dec[i].clone(),
                   k_fresh=pend["k_fresh"][i].clone(),
                   v_fresh=pend["v_fresh"][i].clone())
-        with plain_versions() if plain else contextlib.nullcontext():
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(plain_versions())
+                stack.enter_context(packed_plain_at_kernel_splits())
             return blocks.attention_decode_packed(
                 cfg, layer["attn"], h, h_c, lc,
                 page_tables=store.page_tables, seg_lens=store.seg_lens,
@@ -3360,7 +3516,8 @@ def packed_vs_plain(cfg, model, params, eng, st, tag):
     print(f"{tag}: one packed step ({n_live} live slots, a chunk of {cv} "
           f"tokens at rows {pend['buf_len']}..{pend['buf_len'] + cv - 1} of "
           f"its node's envelope, position {start}), per layer on the packed "
-          f"stream's input: kernel vs its plain versions, decode rows "
+          f"stream's input: kernel vs its plain versions (#11's at the "
+          f"kernel's S), decode rows "
           f"max_abs_err={errs['decode'][0]:.3e} ({errs['decode'][1]:.2e} of "
           f"max |out|), chunk rows {errs['chunk'][0]:.3e} "
           f"({errs['chunk'][1]:.2e}) (gates 2e-2, {cfg.n_layers} layers)")
@@ -4329,11 +4486,12 @@ def time_ms_graph(fn, n_inputs, reps=3, replays=4):
     return best
 
 
-def split_sweep(name, at_splits, n_inputs, default):
+def split_sweep(name, at_splits, n_inputs, default, shares=(1, 4, 8, 16, 32)):
     """One line: a split kernel (``at_splits(S)`` gives its call on input
-    set i) at S = 1, 4, 8, 16, 32 and the default, graph-timed."""
+    set i) at each S of ``shares`` and the default, graph-timed."""
     times = {S: time_ms_graph(at_splits(S), n_inputs)
-             for S in sorted({1, 4, 8, 16, 32, default})}
+             for S in sorted(set(shares) | {default},
+                            key=lambda S: (isinstance(S, tuple), S))}
     print(f"time (split sweep): {name}: "
           + ", ".join(f"S={S}{' (default)' if S == default else ''} "
                       f"{t * 1e3:.1f} us" for S, t in times.items()))
@@ -4377,17 +4535,19 @@ def merge_share(name, call, n_inputs):
 
 def _timed_entry(name, source, line, kern, plain, lib, nbytes, flop,
                  launches, err, n_inputs, module="bifurcated_decode.py",
-                 graph=False):
+                 graph=False, plain_inputs=None):
     """Time one kernel, its plain version and its library yardstick over
     ``n_inputs`` input sets; returns its JSON entry (``module``: the
     Pallas kernel's file under src/repro/kernels). ``graph``: the kernel
     and the yardstick timed by CUDA graph replay (``time_ms_graph``); the
-    kernel's back-to-back eager time is printed beside it."""
+    kernel's back-to-back eager time is printed beside it.
+    ``plain_inputs``: the plain version over that many input sets only."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flop = flop / BF16_FLOP_PER_S * 1e3
     timer = time_ms_graph if graph else time_ms
     ms = timer(kern, n_inputs)
-    plain_ms = time_ms(plain, n_inputs, reps=1, iters=n_inputs)
+    n_plain = plain_inputs or n_inputs
+    plain_ms = time_ms(plain, n_plain, reps=1, iters=n_plain)
     lib_ms = None if lib is None else timer(lib, n_inputs)
     if graph:
         print(f"time (information): {name} eager back to back "
@@ -4480,7 +4640,8 @@ def time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches, launches,
         return bd.context_flash_partials(q, kc[i], vc[i], scale=scale)
 
     def part_plain(i):
-        return bd.context_flash_partials_plain(q, kc[i], vc[i], scale=scale)
+        return bd.context_flash_partials_plain(q, kc[i], vc[i], scale=scale,
+                                               **skw)
 
     def part_lib(i):
         return F.scaled_dot_product_attention(q4, kc[i][None], vc[i][None],
@@ -4517,7 +4678,12 @@ def time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches, launches,
         _timed_entry("context_flash_partials", "bifurcated_decode.cu", 1938,
                      part, part_plain, part_lib, part_bytes, part_flop,
                      launches["context_flash_partials"],
-                     errs["context_flash_partials"], L)]
+                     errs["context_flash_partials"], L, graph=True)]
+    split_sweep("context_flash_partials main", lambda S: (
+        lambda i: bd.context_flash_partials(q, kc[i], vc[i], scale=scale,
+                                            splits=S)), L, skw["splits"],
+        shares=(1, 2, 4, 8, 16, 32))
+    merge_share(f"context_flash_partials main S={skw['splits']}", part, L)
 
     # #3: the int8 served cache of phase 3b, the same q and decode arms.
     # Its yardstick runs SDPA at scale 1 over the dequantized context (the
@@ -4980,11 +5146,16 @@ def time_packed_kernels(cfg, pcaches, launches, errs):
                                    device=DEVICE)], dim=1)])
         q4 = q[None]
 
+        # #11's plain version at the kernel's default shares
+        skw = ({"splits": bd.packed_split_count(
+            nd, cp * p, g, sms=bd._sm_count(q.device.index))}
+               if quant else {})
+
         def packed(i, kern=kern, args=args, kw=kw):
             return kern(*args(i), **kw)
 
-        def packed_plain_(i, plain=plain, args=args, kw=kw):
-            return plain(*args(i), **kw)
+        def packed_plain_(i, plain=plain, args=args, kw=kw, skw=skw):
+            return plain(*args(i), **kw, **skw)
 
         def packed_lib(i, t_k=t_k, t_v=t_v, mask=mask, lib_scale=lib_scale):
             return F.scaled_dot_product_attention(q4, t_k[i], t_v[i],
@@ -5017,7 +5188,18 @@ def time_packed_kernels(cfg, pcaches, launches, errs):
         flop = 4 * g * p * hd * (slot_keys + n_live + cp * anc + vis)
         entries.append(_timed_entry(
             kname, "packed_decode.cu", line, packed, packed_plain_,
-            packed_lib, nbytes, flop, launches[kname], errs[kname], L))
+            packed_lib, nbytes, flop, launches[kname], errs[kname], L,
+            graph=quant, plain_inputs=4 if quant else None))
+        if quant:
+            sd, sc = skw["splits"]
+            at = (lambda S, kern=kern, args=args, kw=kw: (
+                lambda i: kern(*args(i), **kw, splits=S)))
+            split_sweep(f"{kname} main", at, L, (sd, sc),
+                        shares=(1, 2, 4, 8, 16, 32))
+            split_sweep(f"{kname} main, the chunk tiles' S at the decode "
+                        f"tiles' {sd}", at, L, (sd, sc),
+                        shares=tuple((sd, c) for c in (2, 4, 8, 16, 32)))
+            merge_share(f"{kname} main S=({sd}, {sc})", packed, L)
         del t_k, t_v, env_k, env_v
     return entries
 

@@ -41,8 +41,9 @@ SIGNATURES = {
         # or NULL), g, rows, m_c, ld, hd, c_d, pn, splits, max_pieces,
         # scale, stream
         "fused_bifurcated_decode": [_P] * 8 + [_I] * 9 + [_F, _P],
-        # q, k_ctx, v_ctx, acc, m, l, g, rows, m_c, hd, scale, stream
-        "context_flash_partials": [_P] * 6 + [_I] * 4 + [_F, _P],
+        # q, k_ctx, v_ctx, acc, m, l, part (split scratch or NULL), g,
+        # rows, m_c, hd, splits, max_pieces, scale, stream
+        "context_flash_partials": [_P] * 7 + [_I] * 6 + [_F, _P],
     },
     "forest_q8_decode": {
         # q, k_ctx, v_ctx, k_scale, v_scale, k_dec, v_dec, dec_bias, out,
@@ -85,8 +86,10 @@ SIGNATURES = {
         "packed_fused_bifurcated_decode": [_P] * 14 + [_I] * 14 + [_F, _P],
         # q, k_pages, v_pages, k_scale_pages, v_scale_pages, k_fresh,
         # v_fresh, page_tables, seg_lens, paths, row_pos, row_slot, k_dec,
-        # v_dec, dec_bias, out, then the ints, scale and stream as above
-        "packed_fused_bifurcated_decode_q8": [_P] * 16 + [_I] * 14 + [_F, _P],
+        # v_dec, dec_bias, out, part (split scratch or NULL), the ints as
+        # above, splits, splits_chunk, max_pieces, max_pieces_chunk, scale,
+        # stream
+        "packed_fused_bifurcated_decode_q8": [_P] * 17 + [_I] * 18 + [_F, _P],
     },
     "flash_prefill": {
         # q, k, v, out, part, b, n, m, h, g, hd, q_offset, window, causal,

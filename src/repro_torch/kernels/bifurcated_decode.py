@@ -19,7 +19,8 @@ built by ``_build.py``):
 
 ``context_flash_partials`` — the context arm alone, returning the
   unnormalised fp32 ``(acc, m, l)`` partials: the two-pass escape hatch of
-  ``ops.bifurcated_decode_attention``. Replaces
+  ``ops.bifurcated_decode_attention``; split as ``fused_bifurcated_decode``
+  (its context pieces), the merge writing the partials. Replaces
   ``repro/kernels/bifurcated_decode.py:context_flash_partials`` (Pallas,
   ``_ctx_flash_kernel``).
 
@@ -66,9 +67,12 @@ built by ``_build.py``):
   they attend their ancestors' live pages (the same pages the decode rows
   read, once for both), then the chunk's KV envelope causally per row;
   the decode arm is keyed by each row's slot (chunk rows: none). With no
-  chunk rows the output is #8's / #9's bit for bit. The plain versions
+  chunk rows the output is #8's / #9's bit for bit. The int8 kernel splits
+  its walk on the card (``splits``): the decode rows' tiles are #9's split
+  walk, the chunk rows' tiles take 2048-key pieces. The plain versions
   walk the reference's work queue (``ops.packed_work_queue``) entry by
-  entry. Replace ``_packed_fused_kernel`` / ``_packed_fused_q8_kernel``.
+  entry, or at S > 1 the kernel's pieces. Replace
+  ``_packed_fused_kernel`` / ``_packed_fused_q8_kernel``.
 
 Each wrapper takes CPU tensors to its plain PyTorch version (which walks
 the context in blocks with the same fp32 online update, ``_online_update``)
@@ -98,6 +102,7 @@ KEY_BLOCK = 64       # and keys per block: the unit a split walk cuts
 CTX_WEIGHT = 2       # an int8 context block's CTA time in decode blocks
 CTX_WEIGHT_BF16 = 1  # a bf16 context block's (#1's split walk)
 PIECE_BLOCKS = 4     # blocks of a split walk's piece (256 keys or slots)
+CHUNK_PIECE_BLOCKS = 32     # a packed chunk row's piece (2048 keys)
 CTA_THREADS = 128    # the decode kernels' threads per CTA
 CTAS_PER_SM = 2      # split-walk CTAs an SM holds (registers, shared memory)
 DEFAULT_MAX_SPLITS = 64     # split_count's ceiling
@@ -172,8 +177,9 @@ def _decode_arm_and_flush(q, k_dec, v_dec, dec_bias, acc, m, l, *, scale,
 
 
 def split_count(rows: int, g: int, *, sms: int) -> int:
-    """Shares per (64-row tile, kv head) of #1, #3, #7 and #9
-    (``splits=None`` on the card): 1 when the ``ceil(rows / 64) * g`` CTAs of the single walk
+    """Shares per (64-row tile, kv head) of #1, #2, #3, #7 and #9
+    (``splits=None`` on the card; #11's decode tiles, ``packed_split_count``):
+    1 when the ``ceil(rows / 64) * g`` CTAs of the single walk
     already fill the ``sms`` SMs, else as many as make one wave of
     CTAS_PER_SM CTAs an SM (33 at the main shapes: 1 tile x 8 kv heads on
     132 SMs), at most DEFAULT_MAX_SPLITS. The shapes give no node lengths
@@ -183,6 +189,29 @@ def split_count(rows: int, g: int, *, sms: int) -> int:
     if ctas >= sms:
         return 1
     return max(2, min(CTAS_PER_SM * sms // ctas, DEFAULT_MAX_SPLITS))
+
+
+def packed_split_count(n_dec: int, n_chunk: int, g: int, *,
+                       sms: int) -> Tuple[int, int]:
+    """Shares per (64-row tile, kv head) of #11 (``splits=None`` on the
+    card): (S of the decode rows' tiles, S of the chunk rows' tiles). With
+    no chunk rows both are #9's count, ``split_count(n_dec, g)``, so a
+    decode-only call computes #9's default bits. With chunk rows the two
+    kinds share the card: the decode tiles (``ceil(n_dec / 64) * g`` CTAs
+    a share) take one CTA an SM, the chunk tiles (``ceil(n_chunk / 64) *
+    g``) one wave of CTAS_PER_SM CTAs an SM, each at least 1 and at most
+    DEFAULT_MAX_SPLITS (S 16 and 2 at the main packed shape, the best of
+    PERF.md's sweep). The wrapper knows no node length: each chunk tile
+    walks its rows' ancestors and the envelope in 2048-key pieces."""
+    if not n_chunk:
+        s = split_count(n_dec, g, sms=sms)
+        return s, s
+
+    def share(ctas, per_sm):
+        return max(1, min(per_sm * sms // ctas, DEFAULT_MAX_SPLITS))
+
+    s_dec = share(-(-n_dec // ROW_TILE) * g, 1) if n_dec else 1
+    return s_dec, share(-(-n_chunk // ROW_TILE) * g, CTAS_PER_SM)
 
 
 def split_shares(node_blocks, n_dec: int, splits: int, *,
@@ -246,48 +275,68 @@ def split_shares(node_blocks, n_dec: int, splits: int, *,
              (b0, b1 if b0 < n_dec else n_dec)) for i0, i1, b0, b1 in shares]
 
 
-def merge_partials(parts):
+def merge_partials_raw(parts):
     """The exact merge of a row's fp32 partials [(acc, m, l), ...] in its
     merge order: m = max m_s, w_s = exp(m_s - m), l = sum l_s w_s, acc =
-    sum acc_s w_s; returns acc / max(l, 1e-30) in fp32."""
+    sum acc_s w_s; returns the unnormalised (acc, m, l)."""
     m = torch.stack([p[1] for p in parts]).amax(0)
     acc, l = torch.zeros_like(parts[0][0]), torch.zeros_like(m)
     for a, ms, ls in parts:
         w = torch.exp(ms - m)
         l = l + ls * w
         acc = acc + a * w
+    return acc, m, l
+
+
+def merge_partials(parts):
+    """``merge_partials_raw``, normalised: acc / max(l, 1e-30) in fp32."""
+    acc, _, l = merge_partials_raw(parts)
     return acc / torch.clamp(l, min=1e-30)
 
 
-def max_pieces(depth: int, m_c: int, c_d: int) -> int:
-    """The pieces a row may read: PIECE_BLOCKS * 64 keys of each of its
-    ``depth`` nodes of at most ``m_c`` keys, and the pieces its sample's
-    ``c_d`` decode slots touch."""
-    span = PIECE_BLOCKS * KEY_BLOCK
+def max_pieces(depth: int, m_c: int, c_d: int,
+               piece_blocks: int = PIECE_BLOCKS) -> int:
+    """The pieces a row may read: ``piece_blocks`` * 64 keys of each of
+    its ``depth`` nodes of at most ``m_c`` keys, and the pieces its
+    sample's ``c_d`` decode slots touch."""
+    span = piece_blocks * KEY_BLOCK
     return depth * -(-m_c // span) + -(-c_d // span) + 1
 
 
 def _split_walk(q, fetch, n_nodes, node_len, paths, k_dec, v_dec, dec_bias,
-                bad, *, scale, c_d, pn, block_m, merge):
-    """The split walk of #1 / #3 / #7 / #9 (its result does not depend on
-    S): per
-    64-row tile, each node's keys in pieces of PIECE_BLOCKS * 64 from its
-    first key, each summed from a fresh fp32 state over the rows on the
-    node (in ``block_m`` runs), then the decode arm's slots in pieces of
-    as many from the tile's first slot, over the rows whose sample has
-    slots there; ``merge`` (``merge_partials``) combines each row's pieces
-    in order: its nodes ascending, then its decode pieces. ``fetch(node,
-    a, b)`` gives keys [a, b) of a node: K, V (g, n, hd), their scales
-    (g, n) or None, and which keys are readable (n,)."""
+                bad, *, scale, c_d, pn, block_m, merge, n_dec=None,
+                row_slot=None, fresh=None):
+    """The split walk of #1 / #3 / #7 / #9 / #11 (its result does not
+    depend on S): per 64-row tile, each node's keys in pieces of
+    PIECE_BLOCKS * 64 from its first key, each summed from a fresh fp32
+    state over the rows on the node (in ``block_m`` runs), then the decode
+    arm's slots in pieces of as many from the tile's first slot, over the
+    rows whose sample has slots there; ``merge`` (``merge_partials``)
+    combines each row's pieces in order: its nodes ascending, then its
+    decode pieces. ``fetch(node, a, b)`` gives keys [a, b) of a node: K, V
+    (g, n, hd), their scales (g, n) or None, and which keys are readable
+    (n,). #11 (``n_dec`` given): the tiles of the first ``n_dec`` rows
+    (the decode rows, each row's sample ``row_slot[row]``, -1 none), then
+    those of the chunk rows from row ``n_dec``, in pieces of
+    CHUNK_PIECE_BLOCKS * 64 keys and with no decode arm; ``fresh`` =
+    (k_fresh, v_fresh, fresh_len, fresh_start, row_pos): after the real
+    nodes, the rows whose path holds ``n_nodes`` (the pseudo-segment) read
+    the envelope's keys [0, fresh_len) (F * pm, g, hd) in the tile's
+    pieces, key col only where fresh_start + col <= row_pos[row]."""
     g, rows, hd = q.shape
     ld = k_dec.shape[1]
-    span = PIECE_BLOCKS * KEY_BLOCK
+    n_first = rows if n_dec is None else n_dec
     pr = paths.long()
     qf = q.float()
     neg = torch.full((), NEG_INF, device=q.device)
     out = torch.empty_like(q)
-    for row0 in range(0, rows, ROW_TILE):
-        tile = slice(row0, min(row0 + ROW_TILE, rows))
+    tiles = [(r0, min(r0 + ROW_TILE, n_first), PIECE_BLOCKS)
+             for r0 in range(0, n_first, ROW_TILE)]
+    tiles += [(r0, min(r0 + ROW_TILE, rows), CHUNK_PIECE_BLOCKS)
+              for r0 in range(n_first, rows, ROW_TILE)]
+    for row0, row_hi, piece_blocks in tiles:
+        span = piece_blocks * KEY_BLOCK
+        tile = slice(row0, row_hi)
         tp = pr[:, tile]
         parts = [[] for _ in range(tile.stop - row0)]   # per tile row
 
@@ -315,9 +364,28 @@ def _split_walk(q, fetch, n_nodes, node_len, paths, k_dec, v_dec, dec_bias,
                         st = _online_update(s, v.float(), *st,
                                             p_scale=vs[:, None, :])
                 keep(on, st)
-        dec_lo = (row0 // pn) * c_d
-        dec_hi = min(ld, ((tile.stop - 1) // pn + 1) * c_d)
-        sample = torch.arange(row0, tile.stop, device=q.device) // pn
+        if fresh is not None:
+            k_fresh, v_fresh, fresh_len, fresh_start, row_pos = fresh
+            on = torch.nonzero((tp == n_nodes).any(0))[:, 0]
+            pos = row_pos[tile][on].long()[:, None]
+            for a in range(0, fresh_len if on.numel() else 0, span):
+                st = _init_state(q[:, tile][:, on])
+                for c in range(a, min(a + span, fresh_len), block_m):
+                    e = min(c + block_m, a + span, fresh_len)
+                    s = torch.matmul(qf[:, tile][:, on], k_fresh[c:e].float()
+                                     .permute(1, 2, 0)) * scale
+                    seen = fresh_start + torch.arange(c, e, device=q.device)
+                    s = torch.where((seen[None, :] <= pos)[None], s, neg)
+                    st = _online_update(s, v_fresh[c:e].transpose(0, 1), *st)
+                keep(on, st)
+        dec_lo = (row0 // pn) * c_d     # a chunk tile has no decode arm
+        dec_hi = dec_lo if row0 >= n_first else min(
+            ld, ((tile.stop - 1) // pn + 1) * c_d)
+        if row_slot is None:
+            sample = torch.arange(row0, tile.stop, device=q.device) // pn
+        else:   # a slot outside the arm reads none
+            sample = row_slot[tile].long()
+            sample = sample.masked_fill(sample >= ld // c_d, -1)
         for c0 in range(dec_lo, dec_hi, span):
             c1 = min(dec_hi, c0 + span)
             sel = torch.nonzero((sample * c_d < c1)
@@ -329,8 +397,9 @@ def _split_walk(q, fetch, n_nodes, node_len, paths, k_dec, v_dec, dec_bias,
             s = torch.where(sample[sel][:, None] == col_s, s, neg)
             keep(sel, _online_update(s, v_dec[:, c0:c1],
                                      *_init_state(q[:, tile][:, sel])))
-        for r, row_parts in enumerate(parts):
-            out[:, row0 + r] = merge(row_parts).to(q.dtype)
+        for r, row_parts in enumerate(parts):   # no piece: 0, as the merge
+            out[:, row0 + r] = (merge(row_parts).to(q.dtype) if row_parts
+                                else 0.0)
     return out.masked_fill(bad[None, :, None], float("nan"))
 
 
@@ -486,9 +555,21 @@ def tree_fused_bifurcated_decode_q8_plain(q, k_ctx_q, v_ctx_q, k_scale,
 
 
 def context_flash_partials_plain(q, k_ctx, v_ctx, *, scale: float,
-                                 block_m: int = BLOCK_M):
-    """Plain PyTorch version of ``context_flash_partials``."""
-    acc, m, l = _context_arm(q, k_ctx, v_ctx, scale, block_m)
+                                 block_m: int = BLOCK_M, splits: int = 1,
+                                 merge=merge_partials_raw):
+    """Plain PyTorch version of ``context_flash_partials``: at ``splits`` 1
+    the context in ``block_m`` blocks; at S > 1 the kernel's pieces, 256
+    keys each from key 0 (#1's context pieces), each from a fresh fp32
+    state, merged exactly by ``merge`` (``merge_partials_raw``) into the
+    unnormalised (acc, m, l); the same for any S > 1."""
+    if splits > 1:
+        span = PIECE_BLOCKS * KEY_BLOCK
+        acc, m, l = merge([
+            _context_arm(q, k_ctx[:, a:a + span], v_ctx[:, a:a + span],
+                         scale, block_m)
+            for a in range(0, k_ctx.shape[1], span)])
+    else:
+        acc, m, l = _context_arm(q, k_ctx, v_ctx, scale, block_m)
     return acc, m[..., 0], l[..., 0]
 
 
@@ -559,15 +640,42 @@ def _split_arg(splits, q, on_cuda):
     return splits
 
 
-def _split_scratch(q, splits, n_pieces):
-    """The split walk's f32 scratch, flat: acc (g, rows, n_pieces, hd),
-    (m, l) (g, rows, n_pieces, 2), then each row's piece count (int32);
+def _packed_pair(splits):
+    """#11's shares as (decode tiles', chunk tiles'): an int is both."""
+    return tuple(splits) if isinstance(splits, tuple) else (splits, splits)
+
+
+def _packed_split_arg(splits, q, n_dec, on_cuda):
+    """#11's shares, (decode tiles', chunk tiles'): ``packed_split_count``
+    on the card and (1, 1) on the CPU when ``splits`` is None, else
+    ``splits``: an int (both) or a pair, each in 1..MAX_SPLITS."""
+    if splits is None:
+        if not on_cuda:
+            return 1, 1
+        g, rows, _ = q.shape
+        return packed_split_count(n_dec, rows - n_dec, g,
+                                  sms=_sm_count(q.device.index))
+    if isinstance(splits, tuple) and len(splits) == 2 and None not in splits:
+        return tuple(_split_arg(s, q, on_cuda) for s in splits)
+    if isinstance(splits, tuple):
+        raise ValueError(f"splits must be an int, a pair of ints or None, "
+                         f"not {splits!r}")
+    return _packed_pair(_split_arg(splits, q, on_cuda))
+
+
+def _split_scratch(q, splits, n_pieces, n_first=None, n_pieces_rest=0):
+    """The split walk's f32 scratch, flat: acc (g, slots, hd), (m, l) (g,
+    slots, 2), then each row's piece count (int32), where a kv head's
+    slots are ``n_pieces`` for each of its first ``n_first`` rows (default
+    all) and ``n_pieces_rest`` for each of the others (#11's chunk rows);
     None for the single walk."""
     if splits == 1:
         return None
     g, rows, hd = q.shape
-    return torch.empty(g * rows * (n_pieces * (hd + 2) + 1),
-                       dtype=torch.float32, device=q.device)
+    n_first = rows if n_first is None else n_first
+    slots = n_first * n_pieces + (rows - n_first) * n_pieces_rest
+    return torch.empty(g * (slots * (hd + 2) + rows), dtype=torch.float32,
+                       device=q.device)
 
 
 def _raise_on_error(name, err):
@@ -684,22 +792,31 @@ def fused_bifurcated_decode(q, k_ctx, v_ctx, k_dec, v_dec, dec_bias, *,
 fused_bifurcated_decode.launches = 0
 
 
-def context_flash_partials(q, k_ctx, v_ctx, *, scale: float
+def context_flash_partials(q, k_ctx, v_ctx, *, scale: float, splits=None
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Context-arm flash partials: acc (g, rows, hd) f32, m (g, rows) f32,
-    l (g, rows) f32 — unnormalised, for an exact merge with another arm."""
+    l (g, rows) f32 — unnormalised, for an exact merge with another arm.
+    ``splits`` as in ``fused_bifurcated_decode``: the pieces are #1's
+    context pieces, merged into the partials by the second kernel."""
     _check_context(q, k_ctx, v_ctx)
     _check_contiguous(q, k_ctx, v_ctx)
-    if not _on_cuda(q, k_ctx, v_ctx):
-        return context_flash_partials_plain(q, k_ctx, v_ctx, scale=scale)
+    cuda = _on_cuda(q, k_ctx, v_ctx)
+    splits = _split_arg(splits, q, cuda)
+    if not cuda:
+        return context_flash_partials_plain(q, k_ctx, v_ctx, scale=scale,
+                                            splits=splits)
     _check_kernel_operands(q, k_ctx, v_ctx)
     g, rows, hd = q.shape
+    m_c = k_ctx.shape[1]
     acc = torch.empty(g, rows, hd, dtype=torch.float32, device=q.device)
     m = torch.empty(g, rows, dtype=torch.float32, device=q.device)
     l = torch.empty(g, rows, dtype=torch.float32, device=q.device)
+    n_pieces = max_pieces(1, m_c, 0)
+    part = _split_scratch(q, splits, n_pieces)
     _launch("context_flash_partials", q.device,
-            *(t.data_ptr() for t in (q, k_ctx, v_ctx, acc, m, l)), g, rows,
-            k_ctx.shape[1], hd, float(scale))
+            *(t.data_ptr() for t in (q, k_ctx, v_ctx, acc, m, l)),
+            None if part is None else part.data_ptr(), g, rows, m_c, hd,
+            splits, n_pieces, float(scale))
     context_flash_partials.launches += 1
     return acc, m, l
 
@@ -916,6 +1033,33 @@ def _paged_bad_rows(paths, page_tables, seg_lens, n_pages, pm, max_id):
             | (in_table & poisoned[pr.clamp(0, n_segs - 1)])).any(0)
 
 
+def _paged_split_walk(q, k_pages, v_pages, k_sp, v_sp, page_tables,
+                      seg_lens, paths, k_dec, v_dec, dec_bias, bad, *, scale,
+                      c_d, pn, merge, **packed):
+    """``_split_walk`` over the segments of a page pool (``packed``: #11's
+    n_dec, row_slot and fresh)."""
+    n_pages, _, pm, _ = k_pages.shape
+    n_segs, ppn = page_tables.shape
+    lens = seg_lens.tolist()
+
+    def fetch(seg, a, b):
+        # keys [a, b) of a segment through its page table: holes and ids
+        # outside the pool are not read (masked, values zeroed)
+        cols = torch.arange(a, b, device=q.device)
+        pid = page_tables[seg].long()[cols // pm]
+        ok = (pid >= 0) & (pid < n_pages)
+        pid, off = pid.clamp(0, n_pages - 1), cols % pm
+        sc = ((None, None) if k_sp is None
+              else (k_sp[pid, :, off].T, v_sp[pid, :, off].T))
+        return (k_pages[pid, :, off].transpose(0, 1),
+                v_pages[pid, :, off].transpose(0, 1), *sc, ok)
+
+    return _split_walk(
+        q, fetch, n_segs, lambda n: min(max(int(lens[n]), 0), ppn * pm),
+        paths, k_dec, v_dec, dec_bias, bad, scale=scale, c_d=c_d, pn=pn,
+        block_m=BLOCK_M, merge=merge, **packed)
+
+
 def _paged_plain(q, k_pages, v_pages, k_sp, v_sp, page_tables, seg_lens,
                  paths, k_dec, v_dec, dec_bias, *, scale, c_d, pn, splits=1,
                  merge=merge_partials):
@@ -926,24 +1070,10 @@ def _paged_plain(q, k_pages, v_pages, k_sp, v_sp, page_tables, seg_lens,
     bad = _paged_bad_rows(paths, page_tables, seg_lens, n_pages, pm,
                           n_segs - 1)
     if splits > 1:
-        lens = seg_lens.tolist()
-
-        def fetch(seg, a, b):
-            # keys [a, b) of a segment through its page table: holes and
-            # ids outside the pool are not read (masked, values zeroed)
-            cols = torch.arange(a, b, device=q.device)
-            pid = page_tables[seg].long()[cols // pm]
-            ok = (pid >= 0) & (pid < n_pages)
-            pid, off = pid.clamp(0, n_pages - 1), cols % pm
-            sc = ((None, None) if k_sp is None
-                  else (k_sp[pid, :, off].T, v_sp[pid, :, off].T))
-            return (k_pages[pid, :, off].transpose(0, 1),
-                    v_pages[pid, :, off].transpose(0, 1), *sc, ok)
-
-        return _split_walk(
-            q, fetch, n_segs, lambda n: min(max(int(lens[n]), 0), ppn * pm),
-            paths, k_dec, v_dec, dec_bias, bad, scale=scale, c_d=c_d, pn=pn,
-            block_m=BLOCK_M, merge=merge)
+        return _paged_split_walk(q, k_pages, v_pages, k_sp, v_sp,
+                                 page_tables, seg_lens, paths, k_dec, v_dec,
+                                 dec_bias, bad, scale=scale, c_d=c_d, pn=pn,
+                                 merge=merge)
     ids, segs, n_live, page_bias = live_page_list(page_tables, seg_lens, pm)
     n_live = int(n_live[0])
     pr = paths.long()
@@ -1201,16 +1331,31 @@ def _packed_walk(q, k_pages, v_pages, k_sp, v_sp, k_tiles, v_tiles,
 def _packed_plain(q, k_pages, v_pages, k_sp, v_sp, k_fresh, v_fresh,
                   page_tables, seg_lens, paths, row_pos, row_slot, k_dec,
                   v_dec, dec_bias, *, fresh_len, fresh_start, scale, c_d,
-                  pn, entries_per_launch=None):
+                  pn, entries_per_launch=None, splits=1,
+                  merge=merge_partials):
     from repro_torch.kernels.ops import (
         _fresh_tiles,
         _packed_launches,
         packed_work_queue,
     )
 
-    del pn      # the decode rows' slots are row_slot
     n_pages, g, pm, hd = k_pages.shape
     n_segs = page_tables.shape[0]
+    bad = _paged_bad_rows(paths, page_tables, seg_lens, n_pages, pm, n_segs)
+    if max(_packed_pair(splits)) > 1:
+        if entries_per_launch is not None:
+            raise ValueError("entries_per_launch chains the queue walk of "
+                             "splits=1; the split walk takes none")
+        # the envelope's value product as the queue walk's (f32 for int8
+        # pages)
+        v_env = v_fresh if k_sp is None else v_fresh.float()
+        return _paged_split_walk(
+            q, k_pages, v_pages, k_sp, v_sp, page_tables, seg_lens, paths,
+            k_dec, v_dec, dec_bias, bad, scale=scale, c_d=c_d, pn=pn,
+            merge=merge, n_dec=(k_dec.shape[1] // c_d) * pn,
+            row_slot=row_slot,
+            fresh=(k_fresh, v_env, int(fresh_len), int(fresh_start),
+                   row_pos))
     k_tiles, v_tiles, fcap = _fresh_tiles(k_fresh, v_fresh, pm, g, hd)
     *queue, ent_bias = packed_work_queue(
         page_tables, seg_lens, pm, fresh_len=fresh_len,
@@ -1231,7 +1376,6 @@ def _packed_plain(q, k_pages, v_pages, k_sp, v_sp, k_fresh, v_fresh,
     else:
         out = walk(*queue, ent_bias, kd_args, carry=None,
                    emit_partials=False)
-    bad = _paged_bad_rows(paths, page_tables, seg_lens, n_pages, pm, n_segs)
     return out.masked_fill(bad[None, :, None], float("nan"))
 
 
@@ -1265,18 +1409,23 @@ def packed_fused_bifurcated_decode_q8_plain(q, k_pages_q, v_pages_q,
                                             *, fresh_len: int,
                                             fresh_start: int, scale: float,
                                             c_d: int, pn: int,
-                                            entries_per_launch=None
-                                            ) -> torch.Tensor:
-    """Plain PyTorch version of ``packed_fused_bifurcated_decode_q8``: the
-    queue walk over int8 pages (logits by their k scales, the logit scale
-    folded; weights by their v scales) and the envelope's fresh tiles in
-    the activation dtype (logits by ``scale``, weights unscaled)."""
+                                            entries_per_launch=None,
+                                            splits=1) -> torch.Tensor:
+    """Plain PyTorch version of ``packed_fused_bifurcated_decode_q8``: at
+    ``splits`` 1 the queue walk over int8 pages (logits by their k scales,
+    the logit scale folded; weights by their v scales) and the envelope's
+    fresh tiles in the activation dtype (logits by ``scale``, weights
+    unscaled); at S > 1 (or a pair, as the wrapper takes) the kernel's
+    pieces (``_split_walk``: the decode rows' tiles as #9's, the chunk
+    rows' in 2048-key pieces with the envelope after their ancestors),
+    merged exactly per row; the same for any S > 1."""
     return _packed_plain(q, k_pages_q, v_pages_q, k_scale_pages,
                          v_scale_pages, k_fresh, v_fresh, page_tables,
                          seg_lens, paths, row_pos, row_slot, k_dec, v_dec,
                          dec_bias, fresh_len=fresh_len,
                          fresh_start=fresh_start, scale=scale, c_d=c_d,
-                         pn=pn, entries_per_launch=entries_per_launch)
+                         pn=pn, entries_per_launch=entries_per_launch,
+                         splits=splits)
 
 
 def _check_packed(q, k_pages, k_fresh, v_fresh, row_pos, row_slot, k_dec,
@@ -1320,14 +1469,29 @@ def _check_packed(q, k_pages, k_fresh, v_fresh, row_pos, row_slot, k_dec,
 
 
 def _packed_launch(name, q, pool, fresh, page_tables, paths, ops, ld,
-                   n_dec, fresh_len, fresh_start, scale, c_d, pn):
+                   n_dec, fresh_len, fresh_start, scale, c_d, pn,
+                   splits=None):
+    """One launch of a packed kernel; ``splits`` (#11): its (decode
+    tiles', chunk tiles') shares, the split walk's scratch sized by the
+    pieces each kind of row may read."""
     _check_kernel_operands(q, *pool, *fresh, *ops[-3:])
     n_pages, g, pm, hd = pool[0].shape
     n_segs, ppn = page_tables.shape
+    rows, depth = q.shape[1], paths.shape[0]
     out = torch.empty_like(q)
+    ints = (n_pages, n_segs, ppn, pm, depth, g, rows, n_dec, ld, hd, c_d, pn,
+            int(fresh_len), int(fresh_start))
+    if splits is None:
+        _launch(name, q.device, *(t.data_ptr() for t in ops), out.data_ptr(),
+                *ints, float(scale))
+        return out
+    keys = max(ppn * pm, fresh[0].shape[0])   # a node's or the envelope's
+    n_pieces = max_pieces(depth, keys, c_d)
+    n_chunk = max_pieces(depth, keys, 0, CHUNK_PIECE_BLOCKS)
+    part = _split_scratch(q, max(splits), n_pieces, n_dec, n_chunk)
     _launch(name, q.device, *(t.data_ptr() for t in ops), out.data_ptr(),
-            n_pages, n_segs, ppn, pm, paths.shape[0], g, q.shape[1], n_dec,
-            ld, hd, c_d, pn, int(fresh_len), int(fresh_start), float(scale))
+            None if part is None else part.data_ptr(), *ints, *splits,
+            n_pieces, n_chunk, float(scale))
     return out
 
 
@@ -1385,12 +1549,18 @@ def packed_fused_bifurcated_decode_q8(q, k_pages_q, v_pages_q, k_scale_pages,
                                       page_tables, seg_lens, paths, row_pos,
                                       row_slot, k_dec, v_dec, dec_bias, *,
                                       fresh_len: int, fresh_start: int,
-                                      scale: float, c_d: int, pn: int
-                                      ) -> torch.Tensor:
+                                      scale: float, c_d: int, pn: int,
+                                      splits=None) -> torch.Tensor:
     """``packed_fused_bifurcated_decode`` over an int8 pool (P, g, pm, hd)
     and f32 scale pages (P, g, pm), ``k_scale_pages`` with the logit scale
     pre-folded; the fresh envelope stays in q's dtype (``scale`` applies
-    to it and to the decode arm)."""
+    to it and to the decode arm). ``splits``: shares per (64-row tile, kv
+    head), an int or a pair (decode rows' tiles, chunk rows' tiles); None:
+    ``packed_split_count`` on the card, 1 on the CPU; 1 runs the single
+    walk, else the decode rows' tiles are #9's split walk (the same bits as
+    #9 at any S > 1) and the chunk rows' tiles walk their ancestors and
+    the envelope in 2048-key pieces, merged exactly, one launch either
+    way."""
     _check_paged(q, k_pages_q, v_pages_q, page_tables, seg_lens, paths,
                  k_scale_pages, v_scale_pages)
     ld, n_dec = _check_packed(q, k_pages_q, k_fresh, v_fresh, row_pos,
@@ -1402,12 +1572,15 @@ def packed_fused_bifurcated_decode_q8(q, k_pages_q, v_pages_q, k_scale_pages,
     _check_contiguous(*ops)
     kw = dict(fresh_len=fresh_len, fresh_start=fresh_start, scale=scale,
               c_d=c_d, pn=pn)
-    if not _on_cuda(*ops):
-        return packed_fused_bifurcated_decode_q8_plain(*ops, **kw)
+    cuda = _on_cuda(*ops)
+    splits = _packed_split_arg(splits, q, n_dec, cuda)
+    if not cuda:
+        return packed_fused_bifurcated_decode_q8_plain(*ops, **kw,
+                                                       splits=splits)
     out = _packed_launch("packed_fused_bifurcated_decode_q8", q,
                          (k_pages_q, v_pages_q), (k_fresh, v_fresh),
                          page_tables, paths,
-                         ops, ld, n_dec, **kw)
+                         ops, ld, n_dec, **kw, splits=splits)
     packed_fused_bifurcated_decode_q8.launches += 1
     return out
 

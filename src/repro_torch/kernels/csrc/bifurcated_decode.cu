@@ -45,15 +45,18 @@
 // per-block chain of steps, whole pieces, the merge's pass over the
 // partials and the wrapper's host work (PERF.md).
 //
-// context_flash_partials keeps the single walk: no engine calls it (the
-// two-pass escape hatch of ops.bifurcated_decode_attention).
+// context_flash_partials (the two-pass escape hatch of
+// ops.bifurcated_decode_attention; no engine calls it) splits the same way
+// (splits > 1, the default on the card): #1's context pieces with no
+// decode arm (ld 0), the same split_kernel instance, and a merge that
+// writes the unnormalised fp32 (acc, m, l) the two-pass merge reads in
+// place of a bf16 output.
 //
 // Both take bf16 queries only: the wrapper raises TypeError for any other
 // dtype on the card (float32 runs the plain version on the CPU).
 
 #include "decode_common.cuh"
 
-using bifurcated::dispatch_hd;
 using bifurcated::dispatch_split;
 using bifurcated::fused_params;
 using bifurcated::kSingle;
@@ -82,10 +85,13 @@ int fused_bifurcated_decode(const void* q, const void* k_ctx,
 }
 
 // q (g, rows, hd), k_ctx/v_ctx (g, m_c, hd) bf16; acc (g, rows, hd), m and
-// l (g, rows), all f32.
+// l (g, rows), all f32; in `splits` shares per (row tile, kv head); part:
+// the split walk's f32 scratch (g * rows * (max_pieces * (hd + 2) + 1)
+// floats) when splits > 1.
 int context_flash_partials(const void* q, const void* k_ctx, const void* v_ctx,
-                           void* acc, void* m, void* l, int g, int rows,
-                           int m_c, int hd, float scale, void* stream) {
+                           void* acc, void* m, void* l, void* part, int g,
+                           int rows, int m_c, int hd, int splits,
+                           int max_pieces, float scale, void* stream) {
   Params a{};
   a.q = q;
   a.k_ctx = k_ctx;
@@ -97,11 +103,15 @@ int context_flash_partials(const void* q, const void* k_ctx, const void* v_ctx,
   a.g = g;
   a.rows = rows;
   a.m_c = m_c;
-  a.ld = 1;
+  a.ld = 0;     // no decode arm
   a.c_d = 1;
   a.pn = 1;
+  a.depth = 1;
   a.scale = scale;
-  return static_cast<int>(dispatch_hd<false, false, kSingle>(
+  a.part = static_cast<float*>(part);
+  a.splits = splits;
+  a.max_pieces = max_pieces;
+  return static_cast<int>(dispatch_split<kSingle, false, false>(
       a, hd, static_cast<cudaStream_t>(stream)));
 }
 

@@ -33,15 +33,16 @@
 // rounding inside the bf16 tolerance. The s8 tensor-core MMA is not used:
 // it would need q quantised, which is another function.
 //
-// Split walk (#1, #3, #7 and #9 with splits > 1, the default on the card;
-// end of this file): the context's (the node set's) blocks and the decode
-// arm cut into pieces spread over S CTAs per (row tile, kv head), fp32
-// partials per piece and row, and an exact merge kernel; a row's bits
-// depend on its own path only, so #3 and #9 give the same bits on one
-// single prefix.
+// Split walk (#1, #2, #3, #7, #9 and #11 with splits > 1, the default on
+// the card; end of this file): the context's (the node set's, the packed
+// envelope's) blocks and the decode arm cut into pieces spread over S CTAs
+// per (row tile, kv head), fp32 partials per piece and row, and an exact
+// merge kernel; a row's bits depend on its own path only, so #3 and #9
+// give the same bits on one single prefix, and #11's decode rows #9's.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -495,11 +496,13 @@ struct Params {
   int fresh_len, fresh_start;  // packed: live envelope rows, position of
                                // envelope row 0
   float scale;
-  float* part;            // split walk: f32 scratch, (g, rows, max_pieces,
-                          // HD) acc, then (g, rows, max_pieces, 2) (m, l),
-                          // then (g, rows) i32 piece counts
+  float* part;            // split walk: f32 scratch, each row's slots of
+                          // HD acc (slot_base), then their (m, l), then
+                          // (g, rows) i32 piece counts
   int splits;             // split walk: S CTAs per (row tile, kv head)
   int max_pieces;         // split walk: pieces a row may read, at most
+  int splits_chunk;       // packed split walk: S of the chunk rows' tiles
+  int max_pieces_chunk;   // and the pieces a chunk row may read
 };
 
 // Stream the first `len` keys of context segment (or trie node) `seg` of
@@ -862,17 +865,22 @@ cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// The split walk: #1 (fused_bifurcated_decode, bf16 context) and #3
+// The split walk: #1 (fused_bifurcated_decode, bf16 context), #2
+// (context_flash_partials, #1's context arm alone) and #3
 // (fused_bifurcated_decode_q8, int8 context) over one shared context
 // (kSingle), #7 (tree_fused_bifurcated_decode_q8) and #9
-// (paged_fused_bifurcated_decode_q8) over int8 node sets, each with splits
-// S > 1; S = 1 runs decode_kernel's single walk.
+// (paged_fused_bifurcated_decode_q8) over int8 node sets, #11
+// (packed_fused_bifurcated_decode_q8, kPacked) over #9's node set plus a
+// prefill chunk's envelope, each with splits S > 1; S = 1 runs
+// decode_kernel's single walk.
 //
-// What bounds them: bytes (#1 35.7 MB, #3 and #9 single 19.4 MB, the trie
-// 26.6 MB at the main shapes: 10.6 / 5.8 / 7.9 us at 3.35 TB/s), but the
-// single walk is paced by latency: one CTA of 4 warps per (64-row tile, kv
-// head), 8 CTAs on 132 SMs at the main shapes, each block ~2-3 us of serial
-// copy, (convert) and product steps.
+// What bounds them: bytes (#1 35.7 MB, #2 34.0 MB, #3 and #9 single 19.4
+// MB, the trie 26.6 MB at the main shapes: 10.6 / 10.1 / 5.8 / 7.9 us at
+// 3.35 TB/s; #11 operations, 29.84 GFLOP of its chunk rows: 30.2 us at
+// 989 TFLOP/s), but the single walk is paced by latency: one CTA of 4
+// warps per (64-row tile, kv head), 8 CTAs on 132 SMs at the main shapes
+// (#11: 136, the decode tile walking every live node), each block ~2-3 us
+// of serial copy, (convert) and product steps.
 //
 // What the design does about it:
 //   * More CTAs. The work of a (tile, kv head) is cut into pieces: each
@@ -884,7 +892,10 @@ cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
 //     pieces, a context block weighing kCtxWeight (int8) or
 //     kCtxWeightBf16 decode blocks, the heaviest run as light as S runs
 //     allow (split_kernel). At the main shapes S = 33: two CTAs an SM, one
-//     wave.
+//     wave. kPacked: the decode rows' tiles are #9's; the chunk rows'
+//     tiles follow, each with S_chunk CTAs and pieces of kChunkPieceBlocks
+//     (their ancestors, then the envelope after every real node), so the
+//     chunk rows' partials are an eighth as many.
 //   * Pieces, not an even cut of the list. A piece's bounds depend on its
 //     own node's length alone, and each piece is summed from a fresh fp32
 //     state; so a row's keys fall into the same pieces whatever else the
@@ -898,7 +909,8 @@ cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
 //     the row's order: its nodes ascending, then its decode pieces.
 //     merge_kernel folds a row's slots in that order: m = max m_s, l = sum
 //     l_s exp(m_s - m), acc = sum acc_s exp(m_s - m), out = acc / max(l,
-//     1e-30) in bf16. Rows masked out of a whole piece (a hole) carry
+//     1e-30) in bf16 (#2: acc, m and l themselves, in fp32). Rows masked
+//     out of a whole piece (a hole, a chunk row's later keys) carry
 //     finite garbage under m = kNegInf there, weighed by exp(kNegInf - m)
 //     = 0 once the row has a live key anywhere; share 0 runs the path and
 //     page checks and marks a poisoned row's count -1: NaN.
@@ -918,8 +930,10 @@ cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
 // at the main shape by the weight sweep (the set-up before a CTA's first
 // block, the merge's pass over the partials, the launch between the two
 // kernels), then each block's chain of dependent steps (one barrier a
-// block) over whole pieces (at the main shapes some CTA takes two); and
-// the wrappers' host work, which exceeds the kernels' time.
+// block) over whole pieces (at the main shapes some CTA takes two); #11:
+// its ~29,000 64-key block units a call (most of them the chunk tiles'),
+// at ~1.3-1.5 us a unit per SM whatever the shares; and the wrappers'
+// host work, which exceeds the kernels' time.
 // ---------------------------------------------------------------------------
 
 constexpr int kCtxWeight = 2;   // an int8 context block's CTA time in decode
@@ -927,6 +941,7 @@ constexpr int kCtxWeight = 2;   // an int8 context block's CTA time in decode
 constexpr int kCtxWeightBf16 = 1;  // a bf16 context block's, likewise
                                    // (tools/split_weight.py measures it)
 constexpr int kPieceBlocks = 4;  // blocks of a piece: 256 keys or slots
+constexpr int kChunkPieceBlocks = 32;  // a chunk row's (#11): 2048 keys
 // int8 stages of the context stream: 2 keep two CTAs an SM in shared memory
 constexpr int kQStages = 2;
 
@@ -1101,22 +1116,27 @@ __device__ __forceinline__ void pv_block(WarpState<HD>& st,
 }
 
 // Blocks [b0, b1) of a bf16 arm, 64 keys each from key `lo` of k and v
-// (rows of HD; keys at or past `limit` are not read), through a ring of
-// three cp.async stages, one barrier a block; `flush(j)` after the last
-// block of piece j (kPieceBlocks blocks each, from lo). DECODE: the decode
-// arm with the single walk's semantics (stream_arm's DECODE arm): logit
-// s * scale + bias[col] where the row's sample owns the slot and col < hi,
-// kNegInf elsewhere; the slot bias is staged with the block and the sample
-// tests use a multiply-shift divider, so no mask step waits on device
-// memory; a warp skips the blocks outside its samples' slots. Else a
-// context arm: logit s * scale for the keys below hi on the rows `on`
-// names (bit 0: gr, bit 1: gr + 8), kNegInf elsewhere; a warp none of
-// whose rows is on skips the products.
-template <int HD, bool DECODE, typename Flush>
+// (key col at row col of `stride` elements; keys at or past `limit` are
+// not read), through a ring of three cp.async stages, one barrier a block;
+// `flush(j)` after the last block of piece j (pb blocks each, from lo).
+// DECODE: the decode arm with the single walk's semantics (stream_arm's
+// DECODE arm): logit s * scale + bias[col] where the row's sample owns the
+// slot and col < hi, kNegInf elsewhere; the slot bias is staged with the
+// block and the sample tests use a multiply-shift divider, so no mask step
+// waits on device memory; a warp skips the blocks outside its samples'
+// slots. A row's sample is row / pn, or with ROWV kRowSlot its slot rv0 /
+// rv1 (-1: none). Else a context arm: logit s * scale for the keys below
+// hi on the rows `on` names (bit 0: gr, bit 1: gr + 8), kNegInf elsewhere;
+// with ROWV kRowCausal only the keys at pos0 + col <= rv0 / rv1 (the
+// packed kernels' envelope); a warp skips the blocks none of its rows sees.
+template <int HD, bool DECODE, int ROWV, typename Flush>
 __device__ __forceinline__ void stream_bf16_split(
     WarpState<HD>& st, unsigned char* smem_raw, const Params& p,
-    const __nv_bfloat16* k, const __nv_bfloat16* v, int lo, int hi,
-    int limit, int b0, int b1, int wrow0, unsigned on, Flush flush) {
+    const __nv_bfloat16* k, const __nv_bfloat16* v, int stride, int lo,
+    int hi, int limit, int b0, int b1, int pb, int wrow0, unsigned on,
+    int rv0, int rv1, int pos0, Flush flush) {
+  static_assert(ROWV != kRowSlot || DECODE, "row slots key the decode arm");
+  static_assert(ROWV != kRowCausal || !DECODE, "the decode arm is not causal");
   using R = Ring<HD>;
   constexpr int SROW = R::SROW;
   constexpr int CH = HD / 8;         // 16-byte chunks per bf16 row
@@ -1128,11 +1148,28 @@ __device__ __forceinline__ void stream_bf16_split(
   const FastDiv by_slot(DECODE ? p.c_d : 1);
   int sample[2] = {0, 0};
   int wcol_lo = 0, wcol_hi = limit;
-  if constexpr (DECODE) {
+  if constexpr (DECODE && ROWV == kRowSlot) {
+    // the warp's slots: the least and the largest of its rows' (none: -1)
+    sample[0] = rv0;
+    sample[1] = rv1;
+    const int lo_s = __reduce_min_sync(
+        0xffffffffu, min(rv0 < 0 ? INT_MAX : rv0, rv1 < 0 ? INT_MAX : rv1));
+    const int hi_s = __reduce_max_sync(0xffffffffu, max(rv0, rv1));
+    wcol_lo = hi_s < 0 ? 0 : lo_s * p.c_d;
+    wcol_hi = hi_s < 0 ? 0 : (hi_s + 1) * p.c_d;
+  } else if constexpr (DECODE) {
     sample[0] = (wrow0 + gr) / p.pn;
     sample[1] = (wrow0 + gr + 8) / p.pn;
     wcol_lo = (wrow0 / p.pn) * p.c_d;
     wcol_hi = ((wrow0 + 15) / p.pn + 1) * p.c_d;
+  } else if constexpr (ROWV == kRowCausal) {
+    // past the last key a row of the warp sees, no row sees a key
+    auto seen = [&](unsigned bit, int rv) {   // keys [0, seen) visible
+      const long long n = static_cast<long long>(rv) - pos0 + 1;
+      return (on & bit) ? static_cast<int>(n < 0 ? 0 : n < limit ? n : limit)
+                        : 0;
+    };
+    wcol_hi = __reduce_max_sync(0xffffffffu, max(seen(1u, rv0), seen(2u, rv1)));
   }
   const bool warp_on = DECODE || __any_sync(0xffffffffu, on != 0u);
 
@@ -1144,7 +1181,8 @@ __device__ __forceinline__ void stream_bf16_split(
     for (int c = threadIdx.x; c < kBlockN * CH; c += kThreads) {
       const int r = c / CH, ch = c % CH;
       const bool ok = col0 + r < limit;
-      const size_t off = ok ? static_cast<size_t>(col0 + r) * HD + ch * 8 : 0;
+      const size_t off =
+          ok ? static_cast<size_t>(col0 + r) * stride + ch * 8 : 0;
       cp_async16(sK + r * SROW + ch * 8, k + off, ok);
       cp_async16(sV + r * SROW + ch * 8, v + off, ok);
     }
@@ -1168,10 +1206,9 @@ __device__ __forceinline__ void stream_bf16_split(
     cp_async_commit();
     const int col0 = col_begin + blk * kBlockN;
     // the piece of block b0 + blk ends here: its partials
-    const bool piece_end =
-        (b0 + blk + 1) % kPieceBlocks == 0 || blk + 1 == nblk;
+    const bool piece_end = (b0 + blk + 1) % pb == 0 || blk + 1 == nblk;
     if (!warp_on || col0 >= wcol_hi || col0 + kBlockN <= wcol_lo) {
-      if (piece_end) flush((b0 + blk) / kPieceBlocks);
+      if (piece_end) flush((b0 + blk) / pb);
       continue;
     }
     const unsigned char* base = smem_raw + (blk % 3) * R::DSTAGE;
@@ -1194,6 +1231,7 @@ __device__ __forceinline__ void stream_bf16_split(
             valid = sample[h] == col_sample;
           }
           if (!DECODE) valid = valid && ((on >> h) & 1u);
+          if (ROWV == kRowCausal) valid = valid && pos0 + col <= (h ? rv1 : rv0);
           s[nt][2 * h + e] = valid ? x : kNegInf;
         }
       }
@@ -1202,7 +1240,7 @@ __device__ __forceinline__ void stream_bf16_split(
     update_row<HD>(st, s, 1, nullptr);
     pv_block<HD>(st, reinterpret_cast<const __nv_bfloat16*>(base + R::CONV),
                  s);
-    if (piece_end) flush((b0 + blk) / kPieceBlocks);
+    if (piece_end) flush((b0 + blk) / pb);
   }
 }
 
@@ -1216,12 +1254,12 @@ __device__ __forceinline__ void stream_bf16_split(
 // into block i's int8 stage (paged: each key's page id read from its
 // node's table, the page divided out by multiply and shift); conversion
 // of block i + 1. `flush(k, j, on)` after the last block of node k's piece
-// j (`on`: which of this thread's two rows are on node k).
+// j (pb blocks each; `on`: which of this thread's two rows are on node k).
 template <int HD, bool PAGES, typename Flush>
 __device__ __forceinline__ void stream_split(
     WarpState<HD>& st, unsigned char* smem_raw, const Params& p, int gi,
     const int* s_ids, const int* s_lens, const int* s_first,
-    const int* s_path, int i0, int i1, int la, int lb, Flush flush) {
+    const int* s_path, int i0, int i1, int la, int lb, int pb, Flush flush) {
   using R = Ring<HD>;
   constexpr int SROW = R::SROW;
   constexpr int CHUNKS = R::CHUNKS;
@@ -1376,8 +1414,7 @@ __device__ __forceinline__ void stream_split(
     }
     // the piece of node kc's block i ends here: its partials
     const int b = i - s_first[kc];
-    if ((b + 1) % kPieceBlocks == 0 || i + 1 == s_first[kc + 1])
-      flush(kc, b / kPieceBlocks, on);
+    if ((b + 1) % pb == 0 || i + 1 == s_first[kc + 1]) flush(kc, b / pb, on);
     if (i + 1 < i1) {
       cp_async_wait<kQStages - 2>();     // this thread's copies of block i + 1
       if (i + kQStages < i1) stage(i + kQStages, (i - i0) % kQStages);
@@ -1387,32 +1424,54 @@ __device__ __forceinline__ void stream_split(
   }
 }
 
+// The first slot of (kv head gi, row) in a split walk's scratch: each kv
+// head's first n_dec rows hold max_pieces slots each, its other rows (the
+// packed kernels' chunk rows) max_pieces_chunk each; launch_split sets
+// n_dec = rows in the other modes.
+__host__ __device__ __forceinline__ size_t slot_plane(const Params& p) {
+  return static_cast<size_t>(p.n_dec) * p.max_pieces +
+         static_cast<size_t>(p.rows - p.n_dec) * p.max_pieces_chunk;
+}
+
+__device__ __forceinline__ size_t slot_base(const Params& p, int gi,
+                                            int row) {
+  const size_t first =
+      row < p.n_dec ? static_cast<size_t>(row) * p.max_pieces
+                    : static_cast<size_t>(p.n_dec) * p.max_pieces +
+                          static_cast<size_t>(row - p.n_dec) *
+                              p.max_pieces_chunk;
+  return gi * slot_plane(p) + first;
+}
+
 // The pieces of a row, in its merge order: for each distinct node on its
-// path, ascending, the node's pieces (kPieceBlocks blocks each, from the
-// node's first key), then the decode pieces that hold slots of its sample.
-// Thread r < kRowTile fills row r's entries: the slot of the first piece of
-// the node at each path level (s_rbase, -1 for none), the slot of decode
-// piece 0 (s_rdec; a decode piece jd is the row's iff s_rdlo <= jd <
-// s_rdhi) and the row's piece count (s_rcnt).
-__device__ __forceinline__ void row_pieces(const Params& p, int row0,
-                                           int dec_lo, const int* s_path,
-                                           const int* s_ids,
-                                           const int* s_lens, int n_list,
-                                           int* s_rbase, int* s_rdec,
-                                           int* s_rdlo, int* s_rdhi,
-                                           int* s_rcnt) {
+// path, ascending, the node's pieces (pb blocks each, from the node's
+// first key; PACKED: the pseudo-segment N, the envelope's env_pieces,
+// after every real node), then the decode pieces that hold slots of its
+// sample (row / pn; PACKED: row_slot[row], -1 for none) inside the tile's
+// decode window [dec_lo, dec_hi). Thread r < kRowTile fills row r's
+// entries: the slot of the first piece of the node at each path level
+// (s_rbase, -1 for none), the slot of decode piece 0 (s_rdec; a decode
+// piece jd is the row's iff s_rdlo <= jd < s_rdhi) and the row's piece
+// count (s_rcnt).
+template <bool PACKED>
+__device__ __forceinline__ void row_pieces(
+    const Params& p, int row0, int row_hi, int dec_lo, int dec_hi, int pb,
+    int env_pieces, const int* s_path, const int* s_ids, const int* s_lens,
+    int n_list, int* s_rbase, int* s_rdec, int* s_rdlo, int* s_rdhi,
+    int* s_rcnt) {
   const int r = threadIdx.x;
   if (r >= kRowTile) return;
   const int row = row0 + r;
   // the pieces of node id (found in the tile's sorted list)
   auto pieces = [&](int id) {
+    if (PACKED && id == p.n_groups) return env_pieces;
     int lo = 0, hi = n_list - 1;
     while (lo < hi) {
       const int mid = (lo + hi) / 2;
       if (s_ids[mid] < id) lo = mid + 1; else hi = mid;
     }
     const int nb = (s_lens[lo] + kBlockN - 1) / kBlockN;
-    return (nb + kPieceBlocks - 1) / kPieceBlocks;
+    return (nb + pb - 1) / pb;
   };
   unsigned firsts = 0u;    // the levels that first hold their (valid) id
   for (int lvl = 0; lvl < p.depth; ++lvl) {
@@ -1438,12 +1497,16 @@ __device__ __forceinline__ void row_pieces(const Params& p, int row0,
   }
   // decode pieces: the blocks (from dec_lo) holding the sample's slots
   int dlo = 0, dhi = 0;
-  if (row < p.rows) {
-    const int c0 = (row / p.pn) * p.c_d - dec_lo;
-    const int c1 = min((row / p.pn + 1) * p.c_d, p.ld) - dec_lo;
-    dlo = c0 / kBlockN / kPieceBlocks;
-    dhi = max(dlo, ((c1 + kBlockN - 1) / kBlockN + kPieceBlocks - 1) /
-                       kPieceBlocks);
+  if (row < row_hi && dec_hi > dec_lo) {
+    const int smp = PACKED ? p.row_slot[row] : row / p.pn;
+    if (smp >= 0 && smp < p.ld / p.c_d) {
+      const int c0 = max(smp * p.c_d, dec_lo) - dec_lo;
+      const int c1 = min((smp + 1) * p.c_d, dec_hi) - dec_lo;
+      if (c1 > c0) {
+        dlo = c0 / kBlockN / pb;
+        dhi = ((c1 + kBlockN - 1) / kBlockN + pb - 1) / pb;
+      }
+    }
   }
   s_rdec[r] = total - dlo;
   s_rdlo[r] = dlo;
@@ -1452,12 +1515,12 @@ __device__ __forceinline__ void row_pieces(const Params& p, int row0,
 }
 
 // One CTA per (row tile, kv head, share s of S). The tile's work is cut
-// into pieces: each node's blocks in runs of kPieceBlocks from its first
-// key, then the decode arm's blocks likewise from the tile's first slot.
-// A piece's bounds depend on its own node's length alone, so a row's keys
-// fall into the same pieces whatever other requests hold; each piece is
-// summed from a fresh state and its rows' fp32 partial (acc, m, l) goes to
-// the row's own slot for it, so a row's bits never depend on another
+// into pieces: each node's blocks in runs of pb (kPieceBlocks) from its
+// first key, then the decode arm's blocks likewise from the tile's first
+// slot. A piece's bounds depend on its own node's length alone, so a row's
+// keys fall into the same pieces whatever other requests hold; each piece
+// is summed from a fresh state and its rows' fp32 partial (acc, m, l) goes
+// to the row's own slot for it, so a row's bits never depend on another
 // request, on S or on the page size. The CTAs take consecutive runs of
 // pieces, weighted kCtxWeight (Q8) or kCtxWeightBf16 per context block and
 // 1 per decode block, the heaviest run as light as S runs allow: one
@@ -1466,19 +1529,40 @@ __device__ __forceinline__ void row_pieces(const Params& p, int row0,
 // for a poisoned row. kSingle: the one context is node 0 of m_c keys, on
 // every row's path (the path table is made in shared memory, not read);
 // its int8 blocks stream as a node's do (#3 computes #9's bits), its bf16
-// blocks through stream_bf16_split (#1).
+// blocks through stream_bf16_split (#1; #2 with no decode arm, ld 0).
+// kPacked (#11): the tiles of the n_dec decode rows come first, then those
+// of the chunk rows from row n_dec, so no tile mixes the two; a decode
+// tile is #9's (its pieces, its S = splits: #9's bits), its rows' decode
+// slots keyed by row_slot; a chunk tile takes S = splits_chunk shares and
+// pieces of kChunkPieceBlocks blocks, and has no decode arm. After the
+// real nodes, if a row of the tile holds the pseudo-segment N and
+// fresh_len > 0, the envelope: keys [0, fresh_len) of the dense (F * pm,
+// g, HD) bf16 slab (key col of kv head gi at row col * g + gi), in the
+// tile's pieces, a row seeing key col only if its path holds N and
+// fresh_start + col <= row_pos[row] (the single walk's fresh arm).
 template <int HD, int MODE, bool Q8>
 __global__ void __launch_bounds__(kThreads) split_kernel(const Params p) {
-  static_assert(MODE == kSingle || MODE == kTree || MODE == kPaged,
+  static_assert(MODE == kSingle || MODE == kTree || MODE == kPaged ||
+                    MODE == kPacked,
                 "the split walks one context or a node set");
   static_assert(Q8 || MODE == kSingle, "a bf16 split reads one context");
-  constexpr bool PAGES = MODE == kPaged;
+  constexpr bool PACKED = MODE == kPacked;
+  constexpr bool PAGES = MODE == kPaged || PACKED;
   constexpr bool SINGLE = MODE == kSingle;
   constexpr int kW = Q8 ? kCtxWeight : kCtxWeightBf16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int s_count;
+  __shared__ int s_count, s_fresh;
   const int gi = blockIdx.y, split = blockIdx.z;
-  const int row0 = blockIdx.x * kRowTile;
+  // the tile: kPacked's chunk tiles follow its decode tiles
+  const int n_first = PACKED ? p.n_dec : p.rows;
+  const int t_first = (n_first + kRowTile - 1) / kRowTile;
+  const bool chunk = PACKED && static_cast<int>(blockIdx.x) >= t_first;
+  const int splits = chunk ? p.splits_chunk : p.splits;
+  if (split >= splits) return;    // the grid has max(S, S_chunk) shares
+  const int row0 = chunk ? n_first + (blockIdx.x - t_first) * kRowTile
+                         : blockIdx.x * kRowTile;
+  const int row_hi = min(row0 + kRowTile, chunk ? p.rows : n_first);
+  const int pb = chunk ? kChunkPieceBlocks : kPieceBlocks;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gr = lane >> 2, tq = lane & 3;
   const int wrow0 = row0 + warp * 16;
@@ -1506,10 +1590,10 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const Params p) {
 #pragma unroll
   for (int kt = 0; kt < HD / 16; ++kt) {
     const int c = kt * 16 + 2 * tq;
-    st.q[kt][0] = load_pair(qg + static_cast<size_t>(ra) * HD + c, ra < rows);
-    st.q[kt][1] = load_pair(qg + static_cast<size_t>(rb) * HD + c, rb < rows);
-    st.q[kt][2] = load_pair(qg + static_cast<size_t>(ra) * HD + c + 8, ra < rows);
-    st.q[kt][3] = load_pair(qg + static_cast<size_t>(rb) * HD + c + 8, rb < rows);
+    st.q[kt][0] = load_pair(qg + static_cast<size_t>(ra) * HD + c, ra < row_hi);
+    st.q[kt][1] = load_pair(qg + static_cast<size_t>(rb) * HD + c, rb < row_hi);
+    st.q[kt][2] = load_pair(qg + static_cast<size_t>(ra) * HD + c + 8, ra < row_hi);
+    st.q[kt][3] = load_pair(qg + static_cast<size_t>(rb) * HD + c + 8, rb < row_hi);
   }
   auto reset = [&]() {
 #pragma unroll
@@ -1522,17 +1606,23 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const Params p) {
 
   for (int w = threadIdx.x; w < node_words; w += kThreads) s_nodes[w] = 0u;
   if (threadIdx.x < 2) s_bad[threadIdx.x] = 0u;
+  if (threadIdx.x == 0) s_fresh = 0;
   __syncthreads();
+  // the largest id a path may hold: N - 1, or packed the pseudo id N
+  const int max_id = PACKED ? p.n_groups : p.n_groups - 1;
   for (int e = threadIdx.x; e < list_cap; e += kThreads) {
     const int r = e % kRowTile, row = row0 + r;
     int id = -1;
-    if (row < rows) id = SINGLE ? 0 : p.paths[(e / kRowTile) * rows + row];
-    if (id < -1 || id >= p.n_groups) {
+    if (row < row_hi) id = SINGLE ? 0 : p.paths[(e / kRowTile) * rows + row];
+    if (id < -1 || id > max_id) {
       atomicOr(&s_bad[r >> 5], 1u << (r & 31));
       id = -1;
     }
     s_path[e] = id;
-    if (id >= 0) atomicOr(&s_nodes[id >> 5], 1u << (id & 31));
+    if (id >= 0 && id < p.n_groups)
+      atomicOr(&s_nodes[id >> 5], 1u << (id & 31));
+    else if (PACKED && id == p.n_groups)
+      s_fresh = 1;
   }
   __syncthreads();
   // the node list in ascending id, then each node's live length and first
@@ -1552,15 +1642,18 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const Params p) {
     s_first[k + 1] = (len + kBlockN - 1) / kBlockN;
   }
   __syncthreads();
-  const int last_row = min(row0 + kRowTile, rows) - 1;
+  // the decode window (none for a chunk tile) and the envelope's blocks
   const int dec_lo = (row0 / p.pn) * p.c_d;
-  const int dec_hi = min(p.ld, (last_row / p.pn + 1) * p.c_d);
+  const int dec_hi = chunk ? dec_lo : min(p.ld, ((row_hi - 1) / p.pn + 1) * p.c_d);
+  const int E = PACKED && s_fresh && p.fresh_len > 0
+                    ? (p.fresh_len + kBlockN - 1) / kBlockN : 0;
   if (threadIdx.x == 0) {
     s_first[0] = 0;
     for (int k = 0; k < n_list; ++k) s_first[k + 1] += s_first[k];
   }
-  row_pieces(p, row0, dec_lo, s_path, s_ids, s_lens, n_list, s_rbase, s_rdec,
-             s_rdlo, s_rdhi, s_rcnt);
+  row_pieces<PACKED>(p, row0, row_hi, dec_lo, dec_hi, pb, (E + pb - 1) / pb,
+                     s_path, s_ids, s_lens, n_list, s_rbase, s_rdec, s_rdlo,
+                     s_rdhi, s_rcnt);
   __syncthreads();
   if (PAGES && split == 0) {
     // a segment whose live pages name an id outside [-1, P) poisons the
@@ -1583,19 +1676,18 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const Params p) {
     __syncthreads();
   }
 
-  // where the partials go: row-major (kv head, row, piece slot)
-  const size_t n_slots = static_cast<size_t>(p.g) * rows * p.max_pieces;
+  // where the partials go: each row's slots (slot_base), acc then (m, l)
+  const size_t n_slots = p.g * slot_plane(p);
   float* acc = p.part;
   float* ml = p.part + n_slots * HD;
   int* cnt = reinterpret_cast<int*>(ml + n_slots * 2);
-  if (split == 0 && threadIdx.x < kRowTile && row0 + threadIdx.x < rows) {
+  if (split == 0 && threadIdx.x < kRowTile && row0 + threadIdx.x < row_hi) {
     const int r = threadIdx.x;
     cnt[static_cast<size_t>(gi) * rows + row0 + r] =
         ((s_bad[r >> 5] >> (r & 31)) & 1u) ? -1 : s_rcnt[r];
   }
   auto write_partial = [&](int h, int slot) {
-    const size_t at =
-        (static_cast<size_t>(gi) * rows + (h ? rb : ra)) * p.max_pieces + slot;
+    const size_t at = slot_base(p, gi, h ? rb : ra) + slot;
     float* o = acc + at * HD;
 #pragma unroll
     for (int nt = 0; nt < HD / 8; ++nt)
@@ -1604,9 +1696,9 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const Params p) {
     if (tq == 0)
       *reinterpret_cast<float2*>(ml + 2 * at) = make_float2(st.m[h], st.l[h]);
   };
-  // a context piece ends: the rows on its node write their partial
-  auto ctx_flush = [&](int k, int j, unsigned on) {
-    const int node = s_ids[k];
+  // a piece of node `node` (kPacked: N, the envelope) ends: the rows on
+  // the node write their partial
+  auto node_flush = [&](int node, int j, unsigned on) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (!((on >> h) & 1u)) continue;
@@ -1619,12 +1711,15 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const Params p) {
     }
     reset();
   };
+  auto ctx_flush = [&](int k, int j, unsigned on) {
+    node_flush(s_ids[k], j, on);
+  };
   // a decode piece ends: the rows whose sample has slots in it
   auto dec_flush = [&](int jd) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int lr = h ? lb : la;
-      if ((h ? rb : ra) < rows && jd >= s_rdlo[lr] && jd < s_rdhi[lr])
+      if ((h ? rb : ra) < row_hi && jd >= s_rdlo[lr] && jd < s_rdhi[lr])
         write_partial(h, s_rdec[lr] + jd);
     }
     reset();
@@ -1634,76 +1729,114 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const Params p) {
   // pieces, each run at most `cap` in weight, with the least cap for which
   // S runs hold them all (a greedy packing checks a cap; 128 caps are
   // checked at once, one per thread, in two rounds)
+  constexpr int kWe = kCtxWeightBf16;      // an envelope block's weight
   const int C = s_first[n_list];
   const int D = dec_hi > dec_lo ? (dec_hi - dec_lo + kBlockN - 1) / kBlockN : 0;
-  auto walk = [&](auto&& f) {     // (weight, context?, first block)
+  auto walk = [&](auto&& f) {   // (weight, arm: 0 context 1 envelope 2 decode, first block)
     for (int k = 0; k < n_list; ++k)
-      for (int b = s_first[k]; b < s_first[k + 1]; b += kPieceBlocks)
-        f(kW * min(kPieceBlocks, s_first[k + 1] - b), true, b);
-    for (int b = 0; b < D; b += kPieceBlocks)
-      f(min(kPieceBlocks, D - b), false, b);
+      for (int b = s_first[k]; b < s_first[k + 1]; b += pb)
+        f(kW * min(pb, s_first[k + 1] - b), 0, b);
+    for (int b = 0; b < E; b += pb) f(kWe * min(pb, E - b), 1, b);
+    for (int b = 0; b < D; b += pb) f(min(pb, D - b), 2, b);
   };
   auto runs = [&](int cap) {
     int n = 0, cur = cap;
-    walk([&](int w, bool, int) {
+    walk([&](int w, int, int) {
       if (cur + w > cap) { ++n; cur = w; } else { cur += w; }
     });
     return n;
   };
-  const int U = kW * C + D;
-  const int w_max = max(C > 0 ? kW * min(kPieceBlocks, C) : 0,
-                        min(kPieceBlocks, D));
-  const int cap0 = max(w_max, (U + p.splits - 1) / p.splits);
+  const int U = kW * C + kWe * E + D;
+  const int w_max = max(max(C > 0 ? kW * min(pb, C) : 0, kWe * min(pb, E)),
+                        min(pb, D));
+  const int cap0 = max(w_max, (U + splits - 1) / splits);
   if (threadIdx.x == 0) s_count = max(U, 1);
   __syncthreads();
   const int step = max(1, (U - cap0 + kThreads - 2) / (kThreads - 1));
-  if (U > 0 && runs(cap0 + threadIdx.x * step) <= p.splits)
+  if (U > 0 && runs(cap0 + threadIdx.x * step) <= splits)
     atomicMin(&s_count, cap0 + threadIdx.x * step);
   __syncthreads();
   const int coarse = s_count;
   const int fine = max(cap0, coarse - step + 1) + threadIdx.x;
-  if (step > 1 && fine < coarse && runs(fine) <= p.splits)
+  if (step > 1 && fine < coarse && runs(fine) <= splits)
     atomicMin(&s_count, fine);
   __syncthreads();
   const int cap = s_count;
-  int i0 = C, i1 = C, b0 = D, b1 = D;
+  int i0 = C, i1 = C, e0 = E, e1 = E, b0 = D, b1 = D;
   {
     int n = 0, cur = cap;
-    walk([&](int w, bool ctx, int b) {
+    walk([&](int w, int arm, int b) {
       if (cur + w > cap) { ++n; cur = w; } else { cur += w; }
       if (n - 1 != split) return;
-      if (ctx) {
+      if (arm == 0) {
         i0 = min(i0, b);
         i1 = b + w / kW;
+      } else if (arm == 1) {
+        e0 = min(e0, b);
+        e1 = b + w / kWe;
       } else {
         b0 = min(b0, b);
         b1 = b + w;
       }
     });
     if (i0 == C) i1 = C;
+    if (e0 == E) e1 = E;
     if (b0 == D) b1 = D;
   }
 
   if constexpr (Q8) {
     stream_split<HD, PAGES>(st, smem_raw, p, gi, s_ids, s_lens, s_first,
-                            s_path, i0, i1, la, lb, ctx_flush);
+                            s_path, i0, i1, la, lb, pb, ctx_flush);
   } else {
     // the one context, node 0 (list entry 0), read by every row of the tile
     const size_t off = static_cast<size_t>(gi) * p.m_c * HD;
-    const unsigned on = (ra < rows ? 1u : 0u) | (rb < rows ? 2u : 0u);
-    stream_bf16_split<HD, false>(
+    const unsigned on = (ra < row_hi ? 1u : 0u) | (rb < row_hi ? 2u : 0u);
+    stream_bf16_split<HD, false, kRowNone>(
         st, smem_raw, p, static_cast<const __nv_bfloat16*>(p.k_ctx) + off,
-        static_cast<const __nv_bfloat16*>(p.v_ctx) + off, 0, s_lens[0],
-        s_lens[0], i0, i1, wrow0, on,
+        static_cast<const __nv_bfloat16*>(p.v_ctx) + off, HD, 0, s_lens[0],
+        s_lens[0], i0, i1, pb, wrow0, on, 0, 0, 0,
         [&](int j) { ctx_flush(0, j, on); });
   }
+  if constexpr (PACKED) {
+    if (e1 > e0) {
+      __syncthreads();    // the context stages are read no more
+      unsigned on = 0u;   // which of this thread's rows hold N
+      for (int lvl = 0; lvl < p.depth; ++lvl) {
+        on |= s_path[lvl * kRowTile + la] == p.n_groups ? 1u : 0u;
+        on |= s_path[lvl * kRowTile + lb] == p.n_groups ? 2u : 0u;
+      }
+      const size_t off = static_cast<size_t>(gi) * HD;
+      stream_bf16_split<HD, false, kRowCausal>(
+          st, smem_raw, p, static_cast<const __nv_bfloat16*>(p.k_fresh) + off,
+          static_cast<const __nv_bfloat16*>(p.v_fresh) + off, p.g * HD, 0,
+          p.fresh_len, p.fresh_len, e0, e1, pb, wrow0, on,
+          ra < row_hi ? p.row_pos[ra] : -1, rb < row_hi ? p.row_pos[rb] : -1,
+          p.fresh_start,
+          [&](int j) { node_flush(p.n_groups, j, on); });
+    }
+  }
   if (b1 > b0) {
-    __syncthreads();    // the context stages are read no more
+    __syncthreads();    // the context (envelope) stages are read no more
     const size_t off = static_cast<size_t>(gi) * p.ld * HD;
-    stream_bf16_split<HD, true>(
-        st, smem_raw, p, static_cast<const __nv_bfloat16*>(p.k_dec) + off,
-        static_cast<const __nv_bfloat16*>(p.v_dec) + off, dec_lo, dec_hi,
-        p.ld, b0, b1, wrow0, 3u, dec_flush);
+    const __nv_bfloat16* kd =
+        static_cast<const __nv_bfloat16*>(p.k_dec) + off;
+    const __nv_bfloat16* vd =
+        static_cast<const __nv_bfloat16*>(p.v_dec) + off;
+    if constexpr (PACKED) {
+      // each row's slot, -1 for none or one outside the arm
+      const int n_smp = p.ld / p.c_d;
+      int sa = ra < row_hi ? p.row_slot[ra] : -1;
+      int sb = rb < row_hi ? p.row_slot[rb] : -1;
+      sa = sa < n_smp ? sa : -1;
+      sb = sb < n_smp ? sb : -1;
+      stream_bf16_split<HD, true, kRowSlot>(
+          st, smem_raw, p, kd, vd, HD, dec_lo, dec_hi, p.ld, b0, b1, pb,
+          wrow0, 3u, sa, sb, 0, dec_flush);
+    } else {
+      stream_bf16_split<HD, true, kRowNone>(
+          st, smem_raw, p, kd, vd, HD, dec_lo, dec_hi, p.ld, b0, b1, pb,
+          wrow0, 3u, 0, 0, 0, dec_flush);
+    }
   }
 }
 
@@ -1712,24 +1845,33 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const Params p) {
 // (32 a pass) and the warp takes the max m; then the pieces are summed in
 // order, each lane over 4 head dims: w = exp(m_piece - m), l = sum l w,
 // acc = sum acc w, all loads predicated so that several pieces fly at
-// once; out = acc / max(l, 1e-30) in bf16, NaN for a poisoned row.
-template <int HD>
+// once. FUSED: out = acc / max(l, 1e-30) in bf16, NaN for a poisoned row;
+// else (#2) the unnormalised fp32 acc, m and l.
+template <int HD, bool FUSED>
 __global__ void __launch_bounds__(kThreads) merge_kernel(const Params p) {
   const int lane = threadIdx.x & 31;
   const size_t plane = static_cast<size_t>(p.g) * p.rows;
   const size_t gr_row =
       static_cast<size_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (gr_row >= plane) return;    // uniform per warp
-  const size_t n_slots = plane * p.max_pieces;
-  const float* acc = p.part + gr_row * p.max_pieces * HD;
-  const float* ml = p.part + n_slots * HD + gr_row * p.max_pieces * 2;
+  const size_t n_slots = p.g * slot_plane(p);
+  const size_t base = slot_base(p, static_cast<int>(gr_row / p.rows),
+                                static_cast<int>(gr_row % p.rows));
+  const float* acc = p.part + base * HD;
+  const float* ml = p.part + n_slots * HD + base * 2;
   const int n = reinterpret_cast<const int*>(p.part + n_slots * (HD + 2))[gr_row];
   const int d0 = 4 * lane;
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + gr_row * HD;
   if (n < 0) {
-    if (d0 < HD) {
+    if (FUSED && d0 < HD) {
       const uint32_t q_nan = 0x7fc07fc0u;
-      *reinterpret_cast<uint2*>(out + d0) = make_uint2(q_nan, q_nan);
+      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(p.out) +
+                                gr_row * HD + d0) = make_uint2(q_nan, q_nan);
+    } else if (!FUSED) {
+      const float f_nan = __int_as_float(0x7fc00000);
+      if (d0 < HD)
+        *reinterpret_cast<float4*>(p.acc + gr_row * HD + d0) =
+            make_float4(f_nan, f_nan, f_nan, f_nan);
+      if (lane == 0) p.m[gr_row] = p.l[gr_row] = f_nan;
     }
     return;
   }
@@ -1771,14 +1913,37 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(const Params p) {
       }
     }
   }
-  if (!has_d) return;
-  const float inv = 1.f / fmaxf(l, kMinL);
-  *reinterpret_cast<uint2*>(out + d0) = make_uint2(
-      pack_bf16(a.x * inv, a.y * inv), pack_bf16(a.z * inv, a.w * inv));
+  if constexpr (FUSED) {
+    if (!has_d) return;
+    const float inv = 1.f / fmaxf(l, kMinL);
+    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(p.out) +
+                              gr_row * HD + d0) = make_uint2(
+        pack_bf16(a.x * inv, a.y * inv), pack_bf16(a.z * inv, a.w * inv));
+  } else {
+    if (has_d) *reinterpret_cast<float4*>(p.acc + gr_row * HD + d0) = a;
+    if (lane == 0) {
+      p.m[gr_row] = m;
+      p.l[gr_row] = l;
+    }
+  }
 }
 
-template <int HD, int MODE, bool Q8>
-cudaError_t launch_split(const Params& a, cudaStream_t stream) {
+// The grid's row tiles: kPacked's decode rows' tiles, then its chunk
+// rows' (split_kernel).
+inline int split_tiles(const Params& a, bool packed) {
+  const int first = packed ? a.n_dec : a.rows;
+  return (first + kRowTile - 1) / kRowTile +
+         (a.rows - first + kRowTile - 1) / kRowTile;
+}
+
+template <int HD, int MODE, bool Q8, bool FUSED>
+cudaError_t launch_split(const Params& in, cudaStream_t stream) {
+  Params a = in;
+  if (MODE != kPacked) {    // one kind of row
+    a.n_dec = a.rows;
+    a.splits_chunk = a.splits;
+    a.max_pieces_chunk = a.max_pieces;
+  }
   const int list_cap = a.depth * kRowTile;
   const int smem = Ring<HD>::PLAN +
                    4 * (2 + list_cap + (a.n_groups + 31) / 32 +
@@ -1787,30 +1952,36 @@ cudaError_t launch_split(const Params& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.rows + kRowTile - 1) / kRowTile, a.g, a.splits);
+  dim3 grid(split_tiles(a, MODE == kPacked), a.g,
+            a.splits > a.splits_chunk ? a.splits : a.splits_chunk);
   kern<<<grid, kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long warps = static_cast<long long>(a.g) * a.rows;
-  merge_kernel<HD><<<static_cast<unsigned>((warps + kWarps - 1) / kWarps),
-                     kThreads, 0, stream>>>(a);
+  merge_kernel<HD, FUSED><<<static_cast<unsigned>((warps + kWarps - 1) / kWarps),
+                            kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-// #1 / #3 / #7 / #9: the single walk (decode_kernel) at splits 1, else
-// the split walk and its merge.
-template <int MODE, bool Q8>
+// #1 / #2 / #3 / #7 / #9 / #11: the single walk (decode_kernel) at splits
+// 1 (kPacked: and splits_chunk 1), else the split walk and its merge.
+// FUSED: the normalised bf16 output; else (#2) the fp32 partials.
+template <int MODE, bool Q8, bool FUSED = true>
 cudaError_t dispatch_split(const Params& a, int hd, cudaStream_t stream) {
-  if (a.splits == 1) return dispatch_hd<true, Q8, MODE>(a, hd, stream);
+  const bool packed = MODE == kPacked;
+  if (a.splits == 1 && (!packed || a.splits_chunk == 1))
+    return dispatch_hd<FUSED, Q8, MODE>(a, hd, stream);
   if (!params_ok<MODE>(a) || a.splits < 1 || a.splits > 65535 ||
-      a.part == nullptr || a.max_pieces < 1)
+      a.part == nullptr || a.max_pieces < 1 ||
+      (packed && (a.splits_chunk < 1 || a.splits_chunk > 65535 ||
+                  a.max_pieces_chunk < 1)))
     return cudaErrorInvalidValue;
   switch (hd) {
-    case 16: return launch_split<16, MODE, Q8>(a, stream);
-    case 64: return launch_split<64, MODE, Q8>(a, stream);
-    case 80: return launch_split<80, MODE, Q8>(a, stream);
-    case 112: return launch_split<112, MODE, Q8>(a, stream);
-    case 128: return launch_split<128, MODE, Q8>(a, stream);
+    case 16: return launch_split<16, MODE, Q8, FUSED>(a, stream);
+    case 64: return launch_split<64, MODE, Q8, FUSED>(a, stream);
+    case 80: return launch_split<80, MODE, Q8, FUSED>(a, stream);
+    case 112: return launch_split<112, MODE, Q8, FUSED>(a, stream);
+    case 128: return launch_split<128, MODE, Q8, FUSED>(a, stream);
   }
   return cudaErrorInvalidValue;
 }

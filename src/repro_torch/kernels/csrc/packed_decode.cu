@@ -47,12 +47,29 @@
 // same bits. A tile of chunk rows only skips the decode arm; a row whose
 // keys are all masked (a padded chunk row with no ancestors and no
 // envelope row before it) keeps the online state's finite garbage, as the
-// reference's does, never NaN. Known limit: #8's (8 CTAs of decode rows,
-// one block at a time); the chunk's 1024 rows add 16 tiles per kv head.
+// reference's does, never NaN. The bf16 kernel (#10) keeps this single
+// walk: #8's limit (8 CTAs of decode rows, one block at a time) plus the
+// chunk's 16 tiles per kv head.
+//
+// The int8 kernel (#11) splits the walk (splits > 1, the default on the
+// card; decode_common.cuh, split_kernel mode kPacked). The decode rows'
+// tiles come first and are #9's split walk (its 256-key pieces, its S),
+// so its decode rows carry #9's bits, with or without the chunk; the
+// chunk rows' tiles follow from row n_dec (no tile mixes the two kinds),
+// take their own S (splits_chunk) and 2048-key pieces of each ancestor,
+// then of the envelope (node N after every real node, causal per row),
+// and no decode arm: a chunk row's bits depend on its path and the piece
+// size only. The fp32 partials are merged exactly by a second kernel, one
+// launch a call. The decode tile walks every live node (10,968 keys at
+// the main packed shape) and set the single walk's pace (~860 us); the
+// split spreads it over 16 CTAs per kv head and each of the 16 chunk tiles
+// over 2 (packed_split_count), and what holds it then is the ~29,000
+// 64-key block units the CTAs stream (PERF.md).
 
 #include "decode_common.cuh"
 
 using bifurcated::dispatch_hd;
+using bifurcated::dispatch_split;
 using bifurcated::fused_params;
 using bifurcated::kPacked;
 using bifurcated::Params;
@@ -117,16 +134,21 @@ int packed_fused_bifurcated_decode(
 }
 
 // As packed_fused_bifurcated_decode with int8 k_pages/v_pages (P, g, pm, hd)
-// and f32 k_scale_pages/v_scale_pages (P, g, pm).
+// and f32 k_scale_pages/v_scale_pages (P, g, pm), in `splits` shares per
+// (row tile, kv head) of the decode rows and `splits_chunk` of the chunk
+// rows (both 1: the single walk); part: the split walk's f32 scratch
+// (g * (n_dec * max_pieces + (rows - n_dec) * max_pieces_chunk) * (hd + 2)
+// + g * rows floats) otherwise.
 int packed_fused_bifurcated_decode_q8(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale_pages, const void* v_scale_pages,
     const void* k_fresh, const void* v_fresh, const void* page_tables,
     const void* seg_lens, const void* paths, const void* row_pos,
     const void* row_slot, const void* k_dec, const void* v_dec,
-    const void* dec_bias, void* out, int n_pages, int n_segs, int ppn,
-    int page_m, int depth, int g, int rows, int n_dec, int ld, int hd,
-    int c_d, int pn, int fresh_len, int fresh_start, float scale,
+    const void* dec_bias, void* out, void* part, int n_pages, int n_segs,
+    int ppn, int page_m, int depth, int g, int rows, int n_dec, int ld,
+    int hd, int c_d, int pn, int fresh_len, int fresh_start, int splits,
+    int splits_chunk, int max_pieces, int max_pieces_chunk, float scale,
     void* stream) {
   Params a = packed_params(
       q, k_pages, v_pages, k_fresh, v_fresh, page_tables, seg_lens, paths,
@@ -135,7 +157,12 @@ int packed_fused_bifurcated_decode_q8(
       scale);
   a.k_scale = static_cast<const float*>(k_scale_pages);
   a.v_scale = static_cast<const float*>(v_scale_pages);
-  return static_cast<int>(dispatch_hd<true, true, kPacked>(
+  a.part = static_cast<float*>(part);
+  a.splits = splits;
+  a.splits_chunk = splits_chunk;
+  a.max_pieces = max_pieces;
+  a.max_pieces_chunk = max_pieces_chunk;
+  return static_cast<int>(dispatch_split<kPacked, true>(
       a, hd, static_cast<cudaStream_t>(stream)));
 }
 

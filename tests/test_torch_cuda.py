@@ -78,7 +78,9 @@ def test_kernels_match_plain_versions(cuda, shape, dtype):
     tol = 2e-2
     _assert_within(out, want, tol)
     acc, m, l = bd.context_flash_partials(*x[:3], scale=hd**-0.5)
-    acc_p, m_p, l_p = bd.context_flash_partials_plain(*x[:3], scale=hd**-0.5)
+    splits = bd.split_count(b * pn, g, sms=bd._sm_count(cuda.index))
+    acc_p, m_p, l_p = bd.context_flash_partials_plain(*x[:3], scale=hd**-0.5,
+                                                      splits=splits)
     torch.testing.assert_close(m, m_p, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(l, l_p, rtol=1e-4, atol=1e-4)
     _assert_within(acc / l[..., None], acc_p / l_p[..., None], tol)
@@ -179,6 +181,16 @@ def test_single_prefix_split_kernels_match_plain_versions(cuda, shape, quant,
     assert torch.isfinite(out.float()).all()
     _assert_within(out, plain(*x, **kw), 2e-2)
     _assert_within(out, kern(*x, **dict(kw, splits=1)), 2e-2)
+    if not quant:   # #2 over the same context at the same S
+        n0 = bd.context_flash_partials.launches
+        part = bd.context_flash_partials(q, kc, vc, scale=hd**-0.5,
+                                         splits=splits)
+        assert bd.context_flash_partials.launches == n0 + 1
+        want = bd.context_flash_partials_plain(q, kc, vc, scale=hd**-0.5,
+                                               splits=splits)
+        _assert_within(part[0], want[0], 2e-2)
+        torch.testing.assert_close(part[1], want[1], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(part[2], want[2], rtol=1e-4, atol=1e-4)
     if quant:
         one = (q,) + tuple(t[None] for t in ctx) + (
             torch.zeros(1, q.shape[1], dtype=torch.int32, device=cuda),
@@ -655,10 +667,12 @@ PACKED_SHAPES = [(0, 100, 165, 6144, [0, 1]), (2, 7, 7, 0, []),
 @pytest.mark.parametrize("case", PACKED_SHAPES)
 @pytest.mark.parametrize("quant", [False, True])
 def test_packed_kernels_match_plain_and_paged_kernels(cuda, case, quant):
-    """#10/#11: a decode-only call bit-equal to #8/#9; with a chunk,
-    against their plain versions (decode and chunk rows); an id outside
-    [-1, N] on the chunk's path gives NaN chunk rows and leaves the decode
-    rows' bits; fresh_len 0 and the pseudo id N alone poison nothing."""
+    """#10/#11: a decode-only call bit-equal to #8/#9 (#11 = #9 at the
+    same S, the default and 1); with a chunk, against their plain versions
+    (#11's at the kernel's S; decode and chunk rows), #11 the same at
+    another S; an id outside [-1, N] on the chunk's path gives NaN chunk
+    rows and leaves the decode rows' bits; fresh_len 0 and the pseudo id N
+    alone poison nothing."""
     i, cp, fl, fs, fpath = case
     shape, pm = PAGED_SHAPES[i]
     hd, c_d, pn = shape[2], shape[6], shape[1]
@@ -676,12 +690,21 @@ def test_packed_kernels_match_plain_and_paged_kernels(cuda, case, quant):
     n0 = kern.launches
     dec_only = kern(*a0, **k0, **kw)
     assert kern.launches == n0 + 1
-    # #11 is not split: against #9's single walk
-    assert torch.equal(dec_only, paged(*y, **kw, **_splits_kw(y[0], quant, 1)))
+    assert torch.equal(dec_only, paged(*y, **kw, **_splits_kw(y[0], quant)))
+    if quant:
+        assert torch.equal(kern(*a0, **k0, **kw, splits=1),
+                           paged(*y, **kw, splits=1))
     a, k = _packed_inputs(y, pn, cp, fl, fs, fpath, seed=2, env=env)
     out = kern(*a, **k, **kw)
     assert torch.isfinite(out.float()).all()
-    _assert_within(out, plain(*a, **k, **kw), 2e-2)
+    split = {}
+    if quant:
+        g, rows, _ = a[0].shape
+        split = {"splits": bd.packed_split_count(
+            y[0].shape[1], rows - y[0].shape[1], g,
+            sms=bd._sm_count(cuda.index))}
+        assert torch.equal(kern(*a, **k, **kw, splits=(5, 3)), out)
+    _assert_within(out, plain(*a, **k, **kw, **split), 2e-2)
     nd = y[0].shape[1]
     assert torch.equal(out[:, :nd], dec_only)
     empty = kern(*a, **dict(k, fresh_len=0), **kw)

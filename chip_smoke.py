@@ -35,23 +35,24 @@ printing its result lines:
      position 0 with no ancestors, an id outside [-1, N] on the chunk's
      path (its rows NaN; N itself poisons nothing). fp32 queries must
      raise TypeError (the kernels take bf16 only). The single-prefix
-     kernels (#1, #2, #3), the int8 trie and paged kernels (#7, #9) and the
-     int8 packed kernel (#11) run split (their default: S = split_count
-     CTAs per row tile and kv head; #11 packed_split_count, a pair for its
+     kernels (#1, #2, #3), the trie and paged kernels (#6-#9) and the int8
+     packed kernel (#11) run split (their default: S = split_count CTAs
+     per row tile and kv head; #11 packed_split_count, a pair for its
      decode rows' and its chunk rows' tiles) against their plain versions
      at the same S, #1 / #2 / #3 at the main, ragged and hd 112 shapes, #2
-     also at S 4 and 16 and on m_c 1000 at S 64; #9 = #7 bit for bit at
-     the default split on every trie above, #3 = #9 on the single prefix
-     on 64 shuffled pages of 128, and #11 = #9 on the decode rows at the
-     same S with and without the chunk, its output the same at S 4 and at
-     twice its chunk tiles' S; the gates against kernels that are not
-     split (#8 = #1, #9 = #3, #4 / #5 at G = 1 against #1 / #3, #5
-     against #7) call the split ones at splits=1, and #11 at splits=1 is
-     #9 at splits=1; the default split lies within the gate of splits=1 at
-     the main shapes; S = 64 against plain (#1 / #3 at m_c 1000, n 2; the
-     ragged trie on pages of 48, #9 = #7 there); and a merge without the
-     rescale exp(m_s - m) or with a row's last piece dropped misses the
-     gate by far for #1, #2, #3 and #7.
+     also at S 4 and 16 and on m_c 1000 at S 64; #8 = #6 and #9 = #7 bit
+     for bit at the default split on every trie above, #1 = #8 and #3 =
+     #9 on the single prefix on 64 shuffled pages of 128 (at the default
+     split and at splits=1), and #11 = #9 on the decode rows at the same S
+     with and without the chunk, its output the same at S 4 and at twice
+     its chunk tiles' S; the gates against kernels that are not split (#4
+     / #5 at G = 1 against #1 / #3, #4 / #5 against #6 / #7, #10 against
+     #8) call the split ones at splits=1, and #11 at splits=1 is #9 at
+     splits=1; the default split lies within the gate of splits=1 at the
+     main shapes; S = 64 against plain (#1 / #3 at m_c 1000, n 2; the
+     ragged trie on pages of 48, #8 = #6 and #9 = #7 there); and a merge
+     without the rescale exp(m_s - m) or with a row's last piece dropped
+     misses the gate by far for #1, #2, #3, #6 and #7.
      Every gate is max |kernel - plain| <= tol x max |plain| (bf16 2e-2),
      and the script shows that plain versions with the decode arm
      dropped, its mask ignored, another sample's slots read, another
@@ -119,7 +120,9 @@ printing its result lines:
      cancelled and retired, [system prompt, first template, a 900-token
      leaf] is admitted (two levels reused, one node written), 8 more steps
      run, and the three untouched requests' greedy tokens must be
-     bit-identical to a run without the cancel and readmit;
+     bit-identical to a run without the cancel and readmit; torch.profiler
+     over one bf16 trie step (the tree kernel's device time and share,
+     split + merge, beside the same at splits=1);
   3e. the three engines with ctx_store="paged" (pages of 128), bf16 and
      int8: ServeEngine on phase 3's workload, ForestServeEngine on phase
      3c's over a 160-page pool (below its 256-page envelope: the
@@ -127,13 +130,12 @@ printing its result lines:
      it, into freed pages filled with NaN first), TreeServeEngine on phase
      3d's trie (reused ancestors cost no page). Each must launch the paged
      kernel 24 x 15 times and hold per layer against its plain versions.
-     Gated token comparisons, bit for bit: the single prefix's bf16 tokens
-     (#8, a single walk) against the dense run replayed with #1 at
-     splits=1, its int8 tokens (#9 at the default split) against phase
-     3b's (#3 at the default split: the same pieces); the forest's bf16
-     tokens against phase 3c's, its int8 ones against phase 3c's with
-     both runs replayed with #9 at splits=1 (#5 is a single walk); the
-     trie's against phase 3d's (#8 = #6, #9 = #7 at the same split);
+     Gated token comparisons, bit for bit: the single prefix's tokens (#8,
+     #9 at the default split) against phase 3's and 3b's (#1, #3 at the
+     default split: the same pieces); the forest's against phase 3c's with
+     both runs replayed with #8 / #9 at splits=1 (#4 / #5 are single
+     walks); the trie's against phase 3d's (#8 = #6, #9 = #7 at the same
+     split);
   3f. TreeServeEngine(step_mode="packed", suffix_prefill=True,
      prefill_chunk=512) on the paged store (pages of 128), bf16 and int8
      nodes, phase 3d's prompts: [SYS, TPL_A, A1] is prefilled in 15 chunks
@@ -178,12 +180,12 @@ printing its result lines:
      kernels at the single-prefix shape and on the paged trie, the packed
      kernels at phase 2's main packed shape over phase 3e's paged trie,
      flash prefill at the main prefill shape and at phase 3h's suffix. #1,
-     #2, #3, #7, #9 and #11 (split, faster than their wrapper's host work)
+     #2, #3, #6-#9 and #11 (split, faster than their wrapper's host work)
      and their yardsticks are timed by CUDA graph replay, with their plain
      versions at the same S, a sweep over S = 1, 4, 8, 16, 32 (#2, #11: 1,
      2, 4, 8, 16, 32; #11 also its chunk tiles' S alone) and the default
-     on one line per kernel and shape, and for #1, #2, #3 and #11 the
-     merge kernel's share of the call (torch.profiler);
+     on one line per kernel and shape, and for #1, #2, #3, #6, #8 and #11
+     the merge kernel's share of the call (torch.profiler);
   3i. serve zamba2-7b at its published width (81 Mamba2 layers, d 3584,
      the shared attention block applied 13 times, hd 112; seeded random
      weights made on the card) with ServeEngine.generate: bifurcated
@@ -377,7 +379,7 @@ def check_case(name, x, splits=None):
     from repro_torch.kernels import bifurcated_decode as bd
 
     args = (x["q"], x["kc"], x["vc"], x["kd"], x["vd"], x["bias"])
-    sk = split_kw(x, True, splits)
+    sk = split_kw(x, splits)
     kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"], **sk)
     out_k = bd.fused_bifurcated_decode(*args, **kw)
     out_p = bd.fused_bifurcated_decode_plain(*args, **kw)
@@ -537,7 +539,7 @@ def check_q8(name, x, splits=None):
     from repro_torch.kernels import bifurcated_decode as bd
 
     kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"],
-              **split_kw(x, True, splits))
+              **split_kw(x, splits))
     out_k = bd.fused_bifurcated_decode_q8(*q8_args(x), **kw)
     out_p = bd.fused_bifurcated_decode_q8_plain(*q8_args(x), **kw)
     torch.cuda.synchronize()
@@ -665,7 +667,7 @@ def tree_inputs(n_nodes, g, b, p, n, hd, cap, lens, slot_paths, c_d, seed,
 
 
 def default_splits(q):
-    """The share count #1, #3, #7 and #9 take by default for queries ``q``
+    """The share count #1-#3 and #6-#9 take by default for queries ``q``
     on this card (``split_count``)."""
     from repro_torch.kernels import bifurcated_decode as bd
 
@@ -673,19 +675,16 @@ def default_splits(q):
                           sms=bd._sm_count(q.device.index))
 
 
-def split_kw(x, split, splits=None):
-    """The ``splits`` keyword of a kernel that splits (``split``: #1, #3,
-    and the int8 trie and paged kernels #7 / #9; none for #6 / #8):
+def split_kw(x, splits=None):
+    """The ``splits`` keyword of a kernel that splits (#1-#3, #6-#9):
     ``splits``, or the default split, so that a plain version walks the
     kernel's shares."""
-    if not split:
-        return {}
     return {"splits": default_splits(x["q"]) if splits is None else splits}
 
 
 @contextlib.contextmanager
 def single_walk():
-    """#1, #3, #7 and #9 at splits=1 for the duration of a ``with`` block
+    """#1-#3 and #6-#9 at splits=1 for the duration of a ``with`` block
     (their wrappers' default split forced to 1): for the comparisons, bit
     for bit, with a kernel that is not split."""
     from repro_torch.kernels import bifurcated_decode as bd
@@ -720,14 +719,14 @@ def tree_plain(quant):
 
 
 def check_tree(name, x, quant, splits=None):
-    """A tree kernel vs its plain version on one case (#7 at ``splits``,
+    """A tree kernel vs its plain version on one case (at ``splits``,
     default the default split, its plain version at the same S): both NaN
     on the rows whose path holds an id outside [-1, N) and nowhere else,
     within the gate on the others; returns the max abs error."""
     import torch
 
     kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"],
-              **split_kw(x, quant, splits))
+              **split_kw(x, splits))
     out_k = tree_kernel(quant)(*tree_args(x, quant), **kw)
     out_p = tree_plain(quant)(*tree_args(x, quant), **kw)
     torch.cuda.synchronize()
@@ -743,8 +742,8 @@ def check_tree(name, x, quant, splits=None):
           f"{name}: non-finite")
     ok, err, rel = within(out_k[:, ~bad], out_p[:, ~bad])
     print(f"check {name}: {'tree q8' if quant else 'tree'} "
-          + (f"S={kw['splits']} " if quant else "")
-          + f"max_abs_err={err:.3e} ({rel:.1e} of max |out|, gate 2e-2)"
+          f"S={kw['splits']} max_abs_err={err:.3e} ({rel:.1e} of max "
+          f"|out|, gate 2e-2)"
           + (f"; {int(bad.sum())} rows of an id outside [-1, N) NaN"
              if bad.any() else ""))
     check(ok, f"{name}: tree kernel disagrees with its plain version")
@@ -799,8 +798,9 @@ def check_tree_decode_share(name, x):
 
 
 def check_tree_depth_one(quant):
-    """Every path one level deep: the tree kernel must compute the grouped
-    kernel's bits (#6 vs #4, #7 vs #5)."""
+    """Every path one level deep: the tree kernel's single walk (splits=1;
+    #4 and #5 are not split) must compute the grouped kernel's bits (#6 vs
+    #4, #7 vs #5)."""
     import torch
     from repro_torch.kernels import bifurcated_decode as bd
 
@@ -810,9 +810,7 @@ def check_tree_depth_one(quant):
     x = tree_inputs(4, 8, 32, 2, 1, 128, 2049, (2049, 0, 77, 1000),
                     slot_paths, 24, seed=26, masked=True, quant=quant)
     kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"])
-    # #5 is not split: against #7's single walk
-    tree = tree_kernel(quant)(*tree_args(x, quant), **kw,
-                              **split_kw(x, quant, 1))
+    tree = tree_kernel(quant)(*tree_args(x, quant), **kw, splits=1)
     ctx = tree_args(x, quant)[:-5]
     grouped = (bd.grouped_fused_bifurcated_decode_q8 if quant
                else bd.grouped_fused_bifurcated_decode)(
@@ -822,7 +820,7 @@ def check_tree_depth_one(quant):
     same = bool(torch.equal(tree, grouped))
     err = within(tree, grouped)[1]
     print(f"check {'int8 ' if quant else ''}depth-1 trie N=4 lens "
-          f"2049/0/77/1000: tree{' (splits=1)' if quant else ''} vs grouped "
+          f"2049/0/77/1000: tree (splits=1) vs grouped "
           f"kernel bit-equal {same} "
           f"(max_abs_err={err:.3e})")
     check(same, "depth 1: the tree kernel is not the grouped kernel")
@@ -970,14 +968,14 @@ def paged_bad_rows(y):
 
 
 def check_paged(name, y, quant, splits=None):
-    """A paged kernel vs its plain version on one case (#9 at ``splits``,
+    """A paged kernel vs its plain version on one case (at ``splits``,
     default the default split, its plain version at the same S): both NaN
     on the rows of ``paged_bad_rows`` and nowhere else, within the gate on
     the others. Returns (max abs error, the kernel's output)."""
     import torch
 
     kw = dict(scale=y["scale"], c_d=y["c_d"], pn=y["pn"],
-              **split_kw(y, quant, splits))
+              **split_kw(y, splits))
     out_k = paged_kernel(quant)(*paged_args(y, quant), **kw)
     out_p = paged_plain(quant)(*paged_args(y, quant), **kw)
     torch.cuda.synchronize()
@@ -992,8 +990,8 @@ def check_paged(name, y, quant, splits=None):
           f"{name}: non-finite")
     ok, err, rel = within(out_k[:, ~bad], out_p[:, ~bad])
     print(f"check {name}: {'paged q8' if quant else 'paged'} "
-          + (f"S={kw['splits']} " if quant else "")
-          + f"max_abs_err={err:.3e} ({rel:.1e} of max |out|, gate 2e-2)"
+          f"S={kw['splits']} max_abs_err={err:.3e} ({rel:.1e} of max "
+          f"|out|, gate 2e-2)"
           + (f"; {int(bad.sum())} rows of bad ids NaN" if bad.any() else ""))
     check(ok, f"{name}: paged kernel disagrees with its plain version")
     return err, out_k
@@ -1064,31 +1062,30 @@ def check_paged_kernels():
             f"main {tag}single prefix g=8 rows=64 hd=128: 8192 keys on 64 "
             f"shuffled pages of 128, 16 free pages of NaN, ld=768", y1,
             quant)
-        if quant:
-            # #3 at its default split cuts #9's pieces: the same bits
-            xq = quantized(x1)
-            split3 = bd.fused_bifurcated_decode_q8(*q8_args(xq), **kw)
+        # #1 (#3) cuts #8's (#9's) pieces: the same bits at the default
+        # split, and at splits=1 (the single walks)
+        xs = quantized(x1) if quant else x1
+        fname = "fused q8" if quant else "fused"
+
+        def fused(**k):
+            if quant:
+                return bd.fused_bifurcated_decode_q8(*q8_args(xs), **kw, **k)
+            return bd.fused_bifurcated_decode(xs["q"], xs["kc"], xs["vc"],
+                                              xs["kd"], xs["vd"], xs["bias"],
+                                              **kw, **k)
+
+        for splits, paged_out in ((None, out1), (1, None)):
+            one = fused(**({} if splits is None else {"splits": 1}))
+            if paged_out is None:
+                paged_out = kern(*paged_args(y1, quant), **kw, splits=1)
             torch.cuda.synchronize()
-            same = bool(torch.equal(split3, out1))
-            print(f"check int8 single prefix: fused q8 vs paged q8 kernel at "
-                  f"the default split (S={default_splits(xq['q'])}) bit-equal "
-                  f"{same}")
-            check(same, "split: the fused q8 kernel is not the paged q8 "
-                        "kernel")
-        # the single walks: #8 is not split, and #9 = #3 at splits=1
-        one = (bd.fused_bifurcated_decode_q8(*q8_args(quantized(x1)), **kw,
-                                             splits=1) if quant
-               else bd.fused_bifurcated_decode(x1["q"], x1["kc"], x1["vc"],
-                                               x1["kd"], x1["vd"], x1["bias"],
-                                               **kw, splits=1))
-        if quant:
-            out1 = kern(*paged_args(y1, quant), **kw, splits=1)
-        torch.cuda.synchronize()
-        same = bool(torch.equal(out1, one))
-        print(f"check {tag}single prefix: paged{' (splits=1)' if quant else ''}"
-              f" vs {'fused q8' if quant else 'fused'} kernel (splits=1) "
-              f"bit-equal {same}")
-        check(same, "the paged kernel is not the single-prefix kernel")
+            same = bool(torch.equal(paged_out, one))
+            at = (f"the default split (S={default_splits(xs['q'])})"
+                  if splits is None else "splits=1")
+            print(f"check {tag}single prefix: {fname} vs paged kernel at "
+                  f"{at} bit-equal {same}")
+            check(same, f"{at}: the paged kernel is not the single-prefix "
+                        f"kernel")
         # phase 3d's trie in an oversubscribed pool (112 pages against an
         # envelope of 256), free pages NaN, against the same pool with
         # zeros there and against #6 (#7) on the dense nodes
@@ -1220,7 +1217,7 @@ def check_partials_split():
         x = kernel_inputs(*shape, 24, bf16, seed=seed)
         cases += [(name, x, None)] + ([(name, x, 64)] if seed == 72 else [])
     for name, x, splits in cases:
-        sk = split_kw(x, True, splits)
+        sk = split_kw(x, splits)
         args = (x["q"], x["kc"], x["vc"])
         got = bd.context_flash_partials(*args, scale=x["scale"], **sk)
         want = bd.context_flash_partials_plain(*args, scale=x["scale"], **sk)
@@ -1308,11 +1305,12 @@ def check_single_split_kernels(dominant):
 
 
 def check_split_kernels():
-    """Phase 2's split cases of #7 and #9: the default split against the
+    """Phase 2's split cases of #6-#9: the default split against the
     single walk (splits=1) on the main shapes; a forced S = 64 on the
     ragged trie (most shares empty or masked), each kernel against its
-    plain version at that S and #9 = #7 bit for bit; two faulty merges of
-    #7's plain version on the decode-dominant main trie missing the gate."""
+    plain version at that S and #8 = #6 (#9 = #7) bit for bit; two faulty
+    merges of #6's and #7's plain versions on the decode-dominant main trie
+    missing the gate."""
     import torch
     from repro_torch.kernels import bifurcated_decode as bd
 
@@ -1320,57 +1318,70 @@ def check_split_kernels():
     lens, req_paths = served_trie()
     slot_paths = [req_paths[s * len(req_paths) // BATCH]
                   for s in range(BATCH)]
-    x1 = quantized(kernel_inputs(8, 32, 2, 1, 128, 8192, 24,
-                                 torch.bfloat16, seed=60))
-    y1 = paged_case(single_case(x1, False), True, 128, seed=61)
-    xt = tree_inputs(TREE_NODES, 8, BATCH, 2, 1, 128, TREE_CAP, lens,
-                     slot_paths, TREE_DEC_CAP, seed=62, quant=True)
-    yt = paged_case(xt, True, 128, seed=63)
-    for name, kern, args, x in (
-            ("#9 main single prefix", paged_kernel(True),
-             paged_args(y1, True), y1),
-            ("#9 main trie", paged_kernel(True), paged_args(yt, True), yt),
-            ("#7 main trie", tree_kernel(True), tree_args(xt, True), xt)):
-        kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"])
-        split = kern(*args, **kw)
-        single = kern(*args, **kw, splits=1)
-        torch.cuda.synchronize()
-        ok, err, rel = within(split, single)
-        print(f"check {name}: default split (S={default_splits(x['q'])}) vs "
-              f"splits=1 max_abs_err={err:.3e} ({rel:.1e} of max |out|, "
-              f"gate 2e-2)")
-        check(ok, f"{name}: the split walk disagrees with the single walk")
-    # forced S = 64 on the ragged trie: ids outside [-1, N), lengths
-    # 0/1/63/64/65/200/130, pages of 48 (a block straddles pages)
     ragged = [[5, 1, 2], [3], [5, 4, 4], [0, 3, 6], [2, 2], [6, 1],
               [5, 1, 2], [7], [4, -2, 1]]
-    xr = tree_inputs(7, 8, 9, 2, 1, 128, 200, (0, 1, 63, 64, 65, 200, 130),
-                     ragged, 5, seed=64, masked=True, quant=True)
-    yr = paged_case(xr, True, 48, seed=65, spare=5, fill=nan)
-    tag = "N=7 lens 0/1/63/64/65/200/130, ids outside [-1, N), S=64"
-    check_tree(f"int8 {tag}", xr, True, splits=64)
-    _, out_p = check_paged(f"int8 {tag}, pages of 48", yr, True, splits=64)
-    out_t = tree_kernel(True)(*tree_args(xr, True), scale=xr["scale"],
-                              c_d=xr["c_d"], pn=xr["pn"], splits=64)
-    torch.cuda.synchronize()
-    same = same_bits(out_p, out_t)
-    print(f"check int8 ragged trie S=64: paged (pages of 48) vs tree kernel "
-          f"bit-equal {same}")
-    check(same, "S=64: the paged kernel is not the tree kernel")
-    # the gate catches a faulty merge
-    xd = tree_inputs(TREE_NODES, 8, BATCH, 2, 1, 128, TREE_CAP, lens,
-                     slot_paths, TREE_DEC_CAP, seed=66, masked=True,
-                     dec_boost=3.0, quant=True)
-    kw = dict(scale=xd["scale"], c_d=xd["c_d"], pn=xd["pn"],
-              block_m=bd.BLOCK_M, splits=default_splits(xd["q"]))
-    want = bd._tree_plain(*tree_args(xd, True), **kw)
-    rels = {k: within(bd._tree_plain(*tree_args(xd, True), **kw, merge=f),
-                      want)[2] for k, f in faulty_merges().items()}
-    print(f"check #7 split merge, main trie decode-dominant masked "
-          f"S={kw['splits']}: a faulty merge's error / max |out|: "
-          + ", ".join(f"{k} {v:.2f}" for k, v in rels.items()))
-    for k, v in rels.items():
-        check(v >= 10 * TOL, f"split merge: the gate misses '{k}'")
+    for quant in (False, True):
+        tag = "int8 " if quant else ""
+        n_tree, n_paged = ("#7", "#9") if quant else ("#6", "#8")
+        x1 = kernel_inputs(8, 32, 2, 1, 128, 8192, 24, torch.bfloat16,
+                           seed=60)
+        x1 = quantized(x1) if quant else x1
+        y1 = paged_case(single_case(x1, False), quant, 128, seed=61)
+        xt = tree_inputs(TREE_NODES, 8, BATCH, 2, 1, 128, TREE_CAP, lens,
+                         slot_paths, TREE_DEC_CAP, seed=62, quant=quant)
+        yt = paged_case(xt, quant, 128, seed=63)
+        for name, kern, args, x in (
+                (f"{n_paged} main single prefix", paged_kernel(quant),
+                 paged_args(y1, quant), y1),
+                (f"{n_paged} main trie", paged_kernel(quant),
+                 paged_args(yt, quant), yt),
+                (f"{n_tree} main trie", tree_kernel(quant),
+                 tree_args(xt, quant), xt)):
+            kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"])
+            split = kern(*args, **kw)
+            single = kern(*args, **kw, splits=1)
+            torch.cuda.synchronize()
+            ok, err, rel = within(split, single)
+            print(f"check {name}: default split (S={default_splits(x['q'])})"
+                  f" vs splits=1 max_abs_err={err:.3e} ({rel:.1e} of max "
+                  f"|out|, gate 2e-2)")
+            check(ok, f"{name}: the split walk disagrees with the single "
+                      f"walk")
+        # forced S = 64 on the ragged trie: ids outside [-1, N), lengths
+        # 0/1/63/64/65/200/130, pages of 48 (a block straddles pages)
+        xr = tree_inputs(7, 8, 9, 2, 1, 128, 200,
+                         (0, 1, 63, 64, 65, 200, 130), ragged, 5, seed=64,
+                         masked=True, quant=quant)
+        yr = paged_case(xr, quant, 48, seed=65, spare=5, fill=nan)
+        rtag = "N=7 lens 0/1/63/64/65/200/130, ids outside [-1, N), S=64"
+        check_tree(f"{tag}{rtag}", xr, quant, splits=64)
+        _, out_p = check_paged(f"{tag}{rtag}, pages of 48", yr, quant,
+                               splits=64)
+        out_t = tree_kernel(quant)(*tree_args(xr, quant), scale=xr["scale"],
+                                   c_d=xr["c_d"], pn=xr["pn"], splits=64)
+        torch.cuda.synchronize()
+        same = same_bits(out_p, out_t)
+        print(f"check {tag}ragged trie S=64: paged (pages of 48) vs tree "
+              f"kernel bit-equal {same}")
+        check(same, "S=64: the paged kernel is not the tree kernel")
+        # the gate catches a faulty merge
+        xd = tree_inputs(TREE_NODES, 8, BATCH, 2, 1, 128, TREE_CAP, lens,
+                         slot_paths, TREE_DEC_CAP, seed=66, masked=True,
+                         dec_boost=3.0, quant=quant)
+        kw = dict(scale=xd["scale"], c_d=xd["c_d"], pn=xd["pn"],
+                  block_m=bd.BLOCK_M, splits=default_splits(xd["q"]))
+        targs = tree_args(xd, quant)
+        if not quant:                    # _tree_plain takes the scales
+            targs = targs[:3] + (None, None) + targs[3:]
+        want = bd._tree_plain(*targs, **kw)
+        rels = {k: within(bd._tree_plain(*targs, **kw, merge=f), want)[2]
+                for k, f in faulty_merges().items()}
+        print(f"check {n_tree} split merge, main trie decode-dominant masked "
+              f"S={kw['splits']}: a faulty merge's error / max |out|: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in rels.items()))
+        for k, v in rels.items():
+            check(v >= 10 * TOL, f"{n_tree} split merge: the gate misses "
+                                 f"'{k}'")
 
 
 def packed_case(y, quant, cp, buf, fresh_start, fresh_path, env, seed):
@@ -1602,15 +1613,17 @@ def check_packed_kernels():
                         TREE_CAP, 52)
         out_d = packed_kernel(quant)(*packed_args(dec_only, quant),
                                      **packed_kw(dec_only))
-        # #11 = #9 at the same (default) S; #10 = #8 (single walks)
+        # #11 = #9 at the same (default) S; #10 is not split: #8's single
+        # walk
         paged = paged_kernel(quant)(*paged_args(yt, quant),
                                     scale=yt["scale"], c_d=yt["c_d"],
-                                    pn=yt["pn"])
+                                    pn=yt["pn"],
+                                    **({} if quant else {"splits": 1}))
         torch.cuda.synchronize()
         same = bool(torch.equal(out_d, paged))
         print(f"check {tag}main trie, decode only: packed vs paged kernel"
               + (f" at the default S ({packed_splits(dec_only)[0]})"
-                 if quant else "") + f" bit-equal {same}")
+                 if quant else " at splits=1") + f" bit-equal {same}")
         check(same, "decode only: the packed kernel is not the paged kernel")
         err, out_z = check_packed(
             f"main {tag}trie on pages of 128 + a {PACKED_CHUNK}-position "
@@ -2944,6 +2957,16 @@ def serve_tree(cfg, model, params, quant):
         check(all(np.isfinite(eng.logps[s])), "logprobs")
     path_err = tree_vs_single(cfg, model, params, st_b.cache, st_b.tokens,
                               slots, req_paths, quant)
+    if not quant:
+        split_us = profile_step(model, params, _fork(st_b.cache),
+                                st_b.tokens, tag=" tree")
+        with single_walk():
+            single_us = profile_step(model, params, _fork(st_b.cache),
+                                     st_b.tokens, top=0,
+                                     tag=" tree (splits=1)")
+        print(f"{tag}: the tree kernel's device time per step, "
+              f"{split_us / 1e3:.3f} ms at the default split against "
+              f"{single_us / 1e3:.3f} ms at splits=1 ({cfg.n_layers} calls)")
 
     # cancel and retire the A2 request: its leaf frees, SYS and TPL_A keep
     # one reference less; readmit [SYS, TPL_A, A3]: two levels reused, one
@@ -3052,15 +3075,15 @@ def paged_vs_plain(cfg, model, params, cache, tokens, tag, dense=None):
     return plain_err[0]
 
 
-def serve_paged_single(cfg, model, params, ctx, q8_tokens, dense_cache,
+def serve_paged_single(cfg, model, params, ctx, dense_tokens, dense_cache,
                        warm_tokens, quant):
     """Phase 3e, single prefix: ServeEngine(ctx_store="paged") on phase
     3's (3b's) workload; the paged kernel must launch 24 x 15 times, its
-    tokens must equal the dense kernel path's (int8: phase 3b's, #9 and #3
-    cutting the same pieces at their default split; bf16: the dense run
-    replayed with #1 at splits=1, #8 being a single walk), and one decode
-    step (after phase 3's WARM_STEPS tokens) is held per layer against the
-    paged plain versions and the dense kernel path on the same input.
+    tokens must equal the dense kernel path's ``dense_tokens`` (phase 3's,
+    3b's: #8 and #1, #9 and #3, cut the same pieces at their default
+    split), and one decode step (after phase 3's WARM_STEPS tokens) is held
+    per layer against the paged plain versions and the dense kernel path
+    on the same input.
     Returns the paged cache (for phase 4), the launch count and the
     per-layer kernel-vs-plain max abs error."""
     import torch
@@ -3092,17 +3115,7 @@ def serve_paged_single(cfg, model, params, ctx, q8_tokens, dense_cache,
     check(tuple(toks.shape) == (BATCH, STEPS), f"tokens {tuple(toks.shape)}")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "token range")
     check(bool(torch.isfinite(lps).all() and (lps <= 0).all()), "logprobs")
-    if quant:
-        how = "phase 3b's dense int8 kernel path's"
-        dense_tokens = q8_tokens
-    else:
-        # #8 is not split: the dense run replayed on #1's single walk
-        how = "the dense kernel path's (#1 at splits=1, replayed)"
-        dense = ServeEngine(model, cfg, dataclasses.replace(
-            scfg, ctx_store="dense"))
-        with single_walk():
-            dense_tokens = dense.generate(params, ctx, n_steps=STEPS).tokens
-        del dense
+    how = f"phase {'3b' if quant else '3'}'s dense kernel path's"
     same = bool(torch.equal(toks, dense_tokens))
     n_diff = int((toks != dense_tokens).sum())
     t0 = time.perf_counter()
@@ -3198,7 +3211,6 @@ def serve_paged_forest(cfg, model, params, quant, dense_outs):
           f"({wall / FOREST_STEPS * 1e3:.2f} ms/step); launches {counts}")
     expect_launches(counts, kname, cfg.n_layers * FOREST_STEPS)
     check(eng.outputs == eng_b.outputs, "two identical runs differ")
-    first_same = _copy_outputs(eng) == dense_outs["first"]
     err = paged_vs_plain(cfg, model, params, st_b.cache, st_b.tokens, tag)
 
     store = st.cache.store
@@ -3260,24 +3272,22 @@ def serve_paged_forest(cfg, model, params, quant, dense_outs):
     check(all(np.isfinite(eng.logps[s]).all() and
               len(eng.outputs[s]) == FOREST_MORE + 1 for s in s_new),
           "readmitted slots' outputs")
-    outs = (first_same, _copy_outputs(eng), _copy_outputs(eng_b))
-    if quant:
-        # #5 is not split: the comparison with the dense forest's tokens
-        # replays both runs on #9's single walk
-        with single_walk():
-            e_b, s_b, _ = start()
-            s_b = e_b.step_chunk(params, s_b, FOREST_STEPS)
-            e, s, _ = start()
-            s = e.step_chunk(params, s, FOREST_STEPS)
-            first = _copy_outputs(e) == dense_outs["first"]
-            s = e.cancel_group(s, 2)
-            check(e.retire_groups(s) == [2], "retire (single walk)")
-            s = e.release_retired(s)
-            s, _ = e.admit(params, s, new_ctx, BATCH // len(ctxs))
-            s = e.step_chunk(params, s, FOREST_MORE)
-            s_b = e_b.step_chunk(params, s_b, FOREST_MORE)
-            outs = (first, _copy_outputs(e), _copy_outputs(e_b))
-            del e, s, e_b, s_b
+    # #4 and #5 are not split: the comparison with the dense forest's
+    # tokens replays both runs on #8's / #9's single walk
+    with single_walk():
+        e_b, s_b, _ = start()
+        s_b = e_b.step_chunk(params, s_b, FOREST_STEPS)
+        e, s, _ = start()
+        s = e.step_chunk(params, s, FOREST_STEPS)
+        first = _copy_outputs(e) == dense_outs["first"]
+        s = e.cancel_group(s, 2)
+        check(e.retire_groups(s) == [2], "retire (single walk)")
+        s = e.release_retired(s)
+        s, _ = e.admit(params, s, new_ctx, BATCH // len(ctxs))
+        s = e.step_chunk(params, s, FOREST_MORE)
+        s_b = e_b.step_chunk(params, s_b, FOREST_MORE)
+        outs = (first, _copy_outputs(e), _copy_outputs(e_b))
+        del e, s, e_b, s_b
     dense_same = (outs[0] and outs[1] == dense_outs["a"]
                   and outs[2] == dense_outs["b"])
     print(f"{tag}: a {READMIT_LEN}-token readmission on {free0} free pages "
@@ -3288,7 +3298,7 @@ def serve_paged_forest(cfg, model, params, quant, dense_outs):
           f"(free {free2}, live {live3}); {FOREST_MORE} more steps: "
           f"untouched groups' tokens bit-identical to the run without "
           f"retirement: {same}; every token equal to phase 3c's dense "
-          f"forest{' (#9 at splits=1, both runs replayed)' if quant else ''}:"
+          f"forest (#{9 if quant else 8} at splits=1, both runs replayed):"
           f" {dense_same}")
     check(same, "the retire and readmit moved another group's tokens")
     check(dense_same, "the paged forest's tokens differ from the dense "
@@ -3835,9 +3845,9 @@ def _copy_outputs(eng):
 def profile_step(model, params, cache, tok, top=8, tag=""):
     """Where one decode step's device time goes: torch.profiler over one
     step, device time by kernel name, beside the step's wall time, and the
-    decode kernels' own device time (split_kernel + merge_kernel, or the
-    single walk's decode_kernel: #1 / #3 on the single-prefix paths).
-    Returns that time in us."""
+    decode kernels' own device time and share (split_kernel + merge_kernel,
+    or the single walk's decode_kernel: #1 / #3 on the single-prefix
+    paths, #6 on the trie). Returns that time in us."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3855,11 +3865,13 @@ def profile_step(model, params, cache, tok, top=8, tag=""):
     dec = {k: sum(r[0] for r in kern if f"{k}_kernel" in r[2])
            for k in ("split", "merge", "decode")}
     dec_us = sum(dec.values())
+    dev_us = sum(r[0] for r in kern)
     print(f"profile{tag}: one decode step, wall {wall_us:.0f} us under the "
           f"profiler, device busy {busy:.0f} us ({len(rows)} kernel names; "
-          f"the device-side rows alone {sum(r[0] for r in kern):.0f} us in "
+          f"the device-side rows alone {dev_us:.0f} us in "
           f"{sum(r[1] for r in kern)} launches); the decode kernels "
-          f"{dec_us:.0f} us (split_kernel {dec['split']:.0f}, merge_kernel "
+          f"{dec_us:.0f} us, {dec_us / max(dev_us, 1e-9):.1%} of the "
+          f"device-side time (split_kernel {dec['split']:.0f}, merge_kernel "
           f"{dec['merge']:.0f}, the single walk's decode_kernel "
           f"{dec['decode']:.0f})")
     for us, n, key, _ in rows[:top]:
@@ -4746,16 +4758,14 @@ def time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches, launches,
         kern = getattr(bd, kname)
         plain = getattr(bd, kname + "_plain")
 
-        pskw = skw if quant else {}
-
         def paged(i, kern=kern, pools=pools, st=st):
             return kern(q, *(t[i] for t in pools), st.page_tables,
                         st.seg_lens, paths0, kd[i], vd[i], bias, **fkw)
 
-        def paged_plain(i, plain=plain, pools=pools, st=st, pskw=pskw):
+        def paged_plain(i, plain=plain, pools=pools, st=st):
             return plain(q, *(t[i] for t in pools), st.page_tables,
                          st.seg_lens, paths0, kd[i], vd[i], bias, **fkw,
-                         **pskw)
+                         **skw)
 
         ok, _, rel = within(lib(0)[0], paged(0))
         print(f"time: library yardstick vs {kname} at the single-prefix "
@@ -4766,15 +4776,16 @@ def time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches, launches,
         single_entries.append(_timed_entry(
             kname, "paged_decode.cu", line, paged, paged_plain, lib,
             nbytes + table_bytes, fused_flop, launches[kname], errs[kname],
-            L, graph=quant))
-        if quant:
-            split_sweep(
-                f"{kname} single prefix",
-                lambda S, kern=kern, pools=pools, st=st: (
-                    lambda i: kern(q, *(t[i] for t in pools), st.page_tables,
-                                   st.seg_lens, paths0, kd[i], vd[i], bias,
-                                   **fkw, splits=S)),
-                L, skw["splits"])
+            L, graph=True))
+        split_sweep(
+            f"{kname} single prefix",
+            lambda S, kern=kern, pools=pools, st=st: (
+                lambda i: kern(q, *(t[i] for t in pools), st.page_tables,
+                               st.seg_lens, paths0, kd[i], vd[i], bias,
+                               **fkw, splits=S)),
+            L, skw["splits"])
+        if not quant:
+            merge_share(f"{kname} single prefix S={skw['splits']}", paged, L)
 
     # #4, #5: the forest caches of phase 3c (live lengths FOREST_LENS, 8
     # slots per segment) with their own decode arms (32 slots of capacity
@@ -4970,7 +4981,7 @@ def time_tree_kernels(cfg, tcaches, pcaches, q, launches, errs):
         kern = getattr(bd, kname)
         plain = getattr(bd, kname + "_plain")
         tkw = dict(scale=scale, c_d=t_cd, pn=p)
-        pkw = dict(tkw, splits=default_splits(q)) if quant else tkw
+        pkw = dict(tkw, splits=default_splits(q))
         lens_arg = (tc.store.seg_lens,) if paged else ()
 
         def tree(i, kern=kern, ctx_ops=ctx_ops, kd=kd, vd=vd,
@@ -5015,19 +5026,20 @@ def time_tree_kernels(cfg, tcaches, pcaches, q, launches, errs):
         flop = 4 * g * p * (slot_keys + n_live) * hd
         entries.append(_timed_entry(
             kname, source, line, tree, tree_plain_, tree_lib, nbytes, flop,
-            launches[kname], errs[kname], L, graph=quant))
-        if quant:
-            def at_splits(S, kern=kern, ctx_ops=ctx_ops, kd=kd, vd=vd,
-                          lens_arg=lens_arg):
-                if lens_arg:
-                    return lambda i: kern(q, *ctx_ops(i), *lens_arg,
-                                          path_rows, kd[i], vd[i], t_bias,
-                                          **tkw, splits=S)
-                return lambda i: kern(q, *ctx_ops(i), path_rows, node_lens,
-                                      kd[i], vd[i], t_bias, **tkw, splits=S)
+            launches[kname], errs[kname], L, graph=True))
 
-            split_sweep(f"{kname} {'paged ' if paged else ''}trie",
-                        at_splits, L, pkw["splits"])
+        def at_splits(S, kern=kern, ctx_ops=ctx_ops, kd=kd, vd=vd,
+                      lens_arg=lens_arg):
+            if lens_arg:
+                return lambda i: kern(q, *ctx_ops(i), *lens_arg, path_rows,
+                                      kd[i], vd[i], t_bias, **tkw, splits=S)
+            return lambda i: kern(q, *ctx_ops(i), path_rows, node_lens,
+                                  kd[i], vd[i], t_bias, **tkw, splits=S)
+
+        where = f"{'paged ' if paged else ''}trie"
+        split_sweep(f"{kname} {where}", at_splits, L, pkw["splits"])
+        if not quant:
+            merge_share(f"{kname} {where} S={pkw['splits']}", tree, L)
         del t_k, t_v
     return entries
 
@@ -5405,7 +5417,7 @@ def main():
     for quant in (False, True):
         kname = _paged_kname(quant)
         single, launches[kname], e1 = serve_paged_single(
-            cfg, model, params, ctx, q8tokens,
+            cfg, model, params, ctx, q8tokens if quant else tokens,
             q8cache if quant else cache, tokens, quant)
         _, e2 = serve_paged_forest(cfg, model, params, quant, fouts[quant])
         trie, _, e3 = serve_paged_tree(cfg, model, params, quant,

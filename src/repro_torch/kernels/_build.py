@@ -60,8 +60,9 @@ SIGNATURES = {
     },
     "tree_decode": {
         # q, k_ctx, v_ctx, paths, node_lens, k_dec, v_dec, dec_bias, out,
-        # n_nodes, depth, g, rows, m_c, ld, hd, c_d, pn, scale, stream
-        "tree_fused_bifurcated_decode": [_P] * 9 + [_I] * 9 + [_F, _P],
+        # part (split scratch or NULL), n_nodes, depth, g, rows, m_c, ld,
+        # hd, c_d, pn, splits, max_pieces, scale, stream
+        "tree_fused_bifurcated_decode": [_P] * 10 + [_I] * 11 + [_F, _P],
         # q, k_ctx, v_ctx, k_scale, v_scale, paths, node_lens, k_dec, v_dec,
         # dec_bias, out, part (split scratch or NULL), n_nodes, depth, g,
         # rows, m_c, ld, hd, c_d, pn, splits, max_pieces, scale, stream
@@ -69,9 +70,10 @@ SIGNATURES = {
     },
     "paged_decode": {
         # q, k_pages, v_pages, page_tables, seg_lens, paths, k_dec, v_dec,
-        # dec_bias, out, n_pages, n_segs, ppn, page_m, depth, g, rows, ld,
-        # hd, c_d, pn, scale, stream
-        "paged_fused_bifurcated_decode": [_P] * 10 + [_I] * 11 + [_F, _P],
+        # dec_bias, out, part (split scratch or NULL), n_pages, n_segs, ppn,
+        # page_m, depth, g, rows, ld, hd, c_d, pn, splits, max_pieces,
+        # scale, stream
+        "paged_fused_bifurcated_decode": [_P] * 11 + [_I] * 13 + [_F, _P],
         # q, k_pages, v_pages, k_scale_pages, v_scale_pages, page_tables,
         # seg_lens, paths, k_dec, v_dec, dec_bias, out, part (split scratch
         # or NULL), n_pages, n_segs, ppn, page_m, depth, g, rows, ld, hd,

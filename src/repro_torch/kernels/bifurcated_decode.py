@@ -46,8 +46,10 @@ built by ``_build.py``):
   over every node on its path (a node repeated on one path counts once)
   and its own sample's decode slots. Rows whose path holds an id outside
   [-1, N) come out NaN (the reference's einsum path clips such an id to
-  node N - 1, its Pallas kernel ignores the level). Replace the Pallas
-  ``_tree_fused_kernel`` / ``_tree_fused_q8_kernel``.
+  node N - 1, its Pallas kernel ignores the level). On the card both
+  split the walk across CTAs by default (``splits``), as
+  ``fused_bifurcated_decode``. Replace the Pallas ``_tree_fused_kernel``
+  / ``_tree_fused_q8_kernel``.
 
 ``paged_fused_bifurcated_decode`` / ``..._q8`` — the PAGED decode: the
   segments' keys lie in a shared (P, g, pm, hd) page pool addressed
@@ -56,9 +58,11 @@ built by ``_build.py``):
   decode over pool pages, only live pages read. A -1 entry inside a live
   length is a hole (its keys masked). Rows whose path holds an id outside
   [-1, N), or a segment whose live pages name an id outside [-1, P), come
-  out NaN. The plain versions walk ``ops.live_page_list`` page by page,
-  as the reference's Pallas kernels do. Replace ``_paged_fused_kernel`` /
-  ``_paged_fused_q8_kernel``.
+  out NaN. Split on the card as the trie kernels, cut by logical key
+  position: the trie kernels' bits at any page size. The plain versions
+  walk ``ops.live_page_list`` page by page, as the reference's Pallas
+  kernels do (at S > 1 the kernels' pieces). Replace
+  ``_paged_fused_kernel`` / ``_paged_fused_q8_kernel``.
 
 ``packed_fused_bifurcated_decode`` / ``..._q8`` — the PACKED heterogeneous
   step: the paged decode of #8/#9 with one request's suffix-prefill chunk
@@ -100,7 +104,7 @@ MAX_TREE_NODES = 65536      # and node count (their shared-memory bitmap)
 ROW_TILE = 64        # the decode kernels' query rows per CTA
 KEY_BLOCK = 64       # and keys per block: the unit a split walk cuts
 CTX_WEIGHT = 2       # an int8 context block's CTA time in decode blocks
-CTX_WEIGHT_BF16 = 1  # a bf16 context block's (#1's split walk)
+CTX_WEIGHT_BF16 = 1  # a bf16 context block's (#1, #2, #6, #8)
 PIECE_BLOCKS = 4     # blocks of a split walk's piece (256 keys or slots)
 CHUNK_PIECE_BLOCKS = 32     # a packed chunk row's piece (2048 keys)
 CTA_THREADS = 128    # the decode kernels' threads per CTA
@@ -177,7 +181,7 @@ def _decode_arm_and_flush(q, k_dec, v_dec, dec_bias, acc, m, l, *, scale,
 
 
 def split_count(rows: int, g: int, *, sms: int) -> int:
-    """Shares per (64-row tile, kv head) of #1, #2, #3, #7 and #9
+    """Shares per (64-row tile, kv head) of #1, #2, #3 and #6-#9
     (``splits=None`` on the card; #11's decode tiles, ``packed_split_count``):
     1 when the ``ceil(rows / 64) * g`` CTAs of the single walk
     already fill the ``sms`` SMs, else as many as make one wave of
@@ -221,7 +225,7 @@ def split_shares(node_blocks, n_dec: int, splits: int, *,
     in ascending node id; #1 / #3: one node, the context) in runs of
     PIECE_BLOCKS from its first key, then the ``n_dec`` decode blocks
     likewise, weighted ``ctx_weight`` per context block (CTX_WEIGHT for an
-    int8 context, CTX_WEIGHT_BF16 for #1's bf16 one) and 1 per decode
+    int8 context, CTX_WEIGHT_BF16 for a bf16 one) and 1 per decode
     block; the shares take consecutive runs of
     pieces, each run at most a weight ``cap``, the least cap (searched as
     the kernel searches it: 128 candidates, then 128 below the first that
@@ -306,7 +310,7 @@ def max_pieces(depth: int, m_c: int, c_d: int,
 def _split_walk(q, fetch, n_nodes, node_len, paths, k_dec, v_dec, dec_bias,
                 bad, *, scale, c_d, pn, block_m, merge, n_dec=None,
                 row_slot=None, fresh=None):
-    """The split walk of #1 / #3 / #7 / #9 / #11 (its result does not
+    """The split walk of #1-#3 / #6-#9 / #11 (its result does not
     depend on S): per 64-row tile, each node's keys in pieces of
     PIECE_BLOCKS * 64 from its first key, each summed from a fresh fp32
     state over the rows on the node (in ``block_m`` runs), then the decode
@@ -527,16 +531,17 @@ def grouped_fused_bifurcated_decode_q8_plain(q, k_ctx_q, v_ctx_q, k_scale,
 def tree_fused_bifurcated_decode_plain(q, k_ctx, v_ctx, paths, node_lens,
                                        k_dec, v_dec, dec_bias, *,
                                        scale: float, c_d: int, pn: int,
-                                       block_m: int = BLOCK_M
-                                       ) -> torch.Tensor:
-    """Plain PyTorch version of ``tree_fused_bifurcated_decode``: each
-    trie node on any path, in ascending id order, folds its live prefix
-    into the running state of the rows whose path holds it; then the
-    decode arm as in the fused version. Rows whose path holds an id
-    outside [-1, N) come out NaN."""
+                                       block_m: int = BLOCK_M,
+                                       splits: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of ``tree_fused_bifurcated_decode``: at
+    ``splits`` 1 each trie node on any path, in ascending id order, folds
+    its live prefix into the running state of the rows whose path holds
+    it; then the decode arm as in the fused version. At S > 1 the kernel's
+    pieces, merged exactly per row (``_split_walk``; the same for any
+    S > 1). Rows whose path holds an id outside [-1, N) come out NaN."""
     return _tree_plain(q, k_ctx, v_ctx, None, None, paths, node_lens, k_dec,
                        v_dec, dec_bias, scale=scale, c_d=c_d, pn=pn,
-                       block_m=block_m)
+                       block_m=block_m, splits=splits)
 
 
 def tree_fused_bifurcated_decode_q8_plain(q, k_ctx_q, v_ctx_q, k_scale,
@@ -545,10 +550,8 @@ def tree_fused_bifurcated_decode_q8_plain(q, k_ctx_q, v_ctx_q, k_scale,
                                           c_d: int, pn: int,
                                           block_m: int = BLOCK_M,
                                           splits: int = 1) -> torch.Tensor:
-    """Plain PyTorch version of ``tree_fused_bifurcated_decode_q8``: at
-    ``splits`` 1 the walk of the bf16 version; at S > 1 the kernel's
-    pieces, merged exactly per row (``_split_walk``; the same for any
-    S > 1)."""
+    """Plain PyTorch version of ``tree_fused_bifurcated_decode_q8``: the
+    walks of the bf16 version over int8 nodes."""
     return _tree_plain(q, k_ctx_q, v_ctx_q, k_scale, v_scale, paths,
                        node_lens, k_dec, v_dec, dec_bias, scale=scale,
                        c_d=c_d, pn=pn, block_m=block_m, splits=splits)
@@ -940,7 +943,7 @@ grouped_fused_bifurcated_decode_q8.launches = 0
 
 def tree_fused_bifurcated_decode(q, k_ctx, v_ctx, paths, node_lens, k_dec,
                                  v_dec, dec_bias, *, scale: float, c_d: int,
-                                 pn: int) -> torch.Tensor:
+                                 pn: int, splits=None) -> torch.Tensor:
     """Single-pass prefix-trie (cascade) decode; returns the normalised
     (g, rows, hd).
 
@@ -950,6 +953,10 @@ def tree_fused_bifurcated_decode(q, k_ctx, v_ctx, paths, node_lens, k_dec,
                    trie level, -1 for a level it does not use
       node_lens:   (N,) int32 — live length of each node
       k_dec/v_dec: (g, b * c_d, hd); dec_bias (1, b * c_d) f32
+      splits:      shares per (64-row tile, kv head) of the work (None:
+                   ``split_count`` on the card, 1 on the CPU); 1 runs the
+                   single walk, S > 1 S CTAs per tile and head and an exact
+                   merge, one launch either way
     Rows whose path holds an id outside [-1, N) come out NaN."""
     if k_ctx.ndim != 4 or v_ctx.shape != k_ctx.shape:
         raise ValueError(f"want k_ctx = v_ctx (N, g, m_c, hd); got "
@@ -959,16 +966,21 @@ def tree_fused_bifurcated_decode(q, k_ctx, v_ctx, paths, node_lens, k_dec,
     ld = _check_decode_arm(q, k_dec, v_dec, dec_bias, c_d, pn)
     ops = (q, k_ctx, v_ctx, paths, node_lens, k_dec, v_dec, dec_bias)
     _check_contiguous(*ops)
-    if not _on_cuda(*ops):
+    cuda = _on_cuda(*ops)
+    splits = _split_arg(splits, q, cuda)
+    if not cuda:
         return tree_fused_bifurcated_decode_plain(*ops, scale=scale, c_d=c_d,
-                                                  pn=pn)
+                                                  pn=pn, splits=splits)
     _check_kernel_operands(q, k_ctx, v_ctx, k_dec, v_dec, dec_bias)
     n_nodes, g, m_c, hd = k_ctx.shape
     out = torch.empty_like(q)
+    n_pieces = max_pieces(paths.shape[0], m_c, c_d)
+    part = _split_scratch(q, splits, n_pieces)
     _launch("tree_fused_bifurcated_decode", q.device,
-            *(t.data_ptr() for t in ops), out.data_ptr(), n_nodes,
-            paths.shape[0], g, q.shape[1], m_c, ld, hd, c_d, pn,
-            float(scale))
+            *(t.data_ptr() for t in ops), out.data_ptr(),
+            None if part is None else part.data_ptr(), n_nodes,
+            paths.shape[0], g, q.shape[1], m_c, ld, hd, c_d, pn, splits,
+            n_pieces, float(scale))
     tree_fused_bifurcated_decode.launches += 1
     return out
 
@@ -982,10 +994,8 @@ def tree_fused_bifurcated_decode_q8(q, k_ctx_q, v_ctx_q, k_scale, v_scale,
                                     splits=None) -> torch.Tensor:
     """``tree_fused_bifurcated_decode`` over int8 nodes (N, g, m_c, hd) and
     f32 scales (N, g, m_c), ``k_scale`` with the logit scale pre-folded
-    (``scale`` applies to the decode arm only). ``splits``: shares per
-    (64-row tile, kv head) of the work (None: ``split_count`` on the card,
-    1 on the CPU); 1 runs the single walk, S > 1 S CTAs per tile and head
-    and an exact merge, one launch either way."""
+    (``scale`` applies to the decode arm only). ``splits`` as in
+    ``tree_fused_bifurcated_decode``."""
     lead = tuple(k_ctx_q.shape[:1])
     _check_q8_context(q, k_ctx_q, v_ctx_q, k_scale, v_scale, lead=lead)
     _check_paths(q, k_ctx_q, paths, node_lens)
@@ -1109,15 +1119,19 @@ def _paged_plain(q, k_pages, v_pages, k_sp, v_sp, page_tables, seg_lens,
 def paged_fused_bifurcated_decode_plain(q, k_pages, v_pages, page_tables,
                                         seg_lens, paths, k_dec, v_dec,
                                         dec_bias, *, scale: float, c_d: int,
-                                        pn: int) -> torch.Tensor:
-    """Plain PyTorch version of ``paged_fused_bifurcated_decode``: the
-    reference's page walk. Every live page of ``ops.live_page_list``, in
-    (segment, page) order, folds into the running state of all rows, its
-    ragged tail biased to NEG_INF and the rows whose path does not hold
-    its segment masked; then the decode arm as in the fused version."""
+                                        pn: int, splits: int = 1
+                                        ) -> torch.Tensor:
+    """Plain PyTorch version of ``paged_fused_bifurcated_decode``: at
+    ``splits`` 1 the reference's page walk. Every live page of
+    ``ops.live_page_list``, in (segment, page) order, folds into the
+    running state of all rows, its ragged tail biased to NEG_INF and the
+    rows whose path does not hold its segment masked; then the decode arm
+    as in the fused version. At S > 1 the kernel's pieces, keys read
+    through the page tables, merged exactly per row (``_split_walk``; the
+    same for any S > 1)."""
     return _paged_plain(q, k_pages, v_pages, None, None, page_tables,
                         seg_lens, paths, k_dec, v_dec, dec_bias, scale=scale,
-                        c_d=c_d, pn=pn)
+                        c_d=c_d, pn=pn, splits=splits)
 
 
 def paged_fused_bifurcated_decode_q8_plain(q, k_pages_q, v_pages_q,
@@ -1126,12 +1140,10 @@ def paged_fused_bifurcated_decode_q8_plain(q, k_pages_q, v_pages_q,
                                            k_dec, v_dec, dec_bias, *,
                                            scale: float, c_d: int, pn: int,
                                            splits: int = 1) -> torch.Tensor:
-    """Plain PyTorch version of ``paged_fused_bifurcated_decode_q8``: at
-    ``splits`` 1 the page walk over int8 pages, the logits scaled by the
+    """Plain PyTorch version of ``paged_fused_bifurcated_decode_q8``: the
+    walks of the bf16 version over int8 pages, the logits scaled by the
     page's k scales (logit scale folded) and the weights by its v scales,
-    ``l`` unscaled; at S > 1 the kernel's pieces, keys read through the
-    page tables, merged exactly per row (``_split_walk``; the same for any
-    S > 1)."""
+    ``l`` unscaled."""
     return _paged_plain(q, k_pages_q, v_pages_q, k_scale_pages,
                         v_scale_pages, page_tables, seg_lens, paths, k_dec,
                         v_dec, dec_bias, scale=scale, c_d=c_d, pn=pn,
@@ -1186,8 +1198,8 @@ def _check_paged(q, k_pages, v_pages, page_tables, seg_lens, paths,
 
 def paged_fused_bifurcated_decode(q, k_pages, v_pages, page_tables, seg_lens,
                                   paths, k_dec, v_dec, dec_bias, *,
-                                  scale: float, c_d: int, pn: int
-                                  ) -> torch.Tensor:
+                                  scale: float, c_d: int, pn: int,
+                                  splits=None) -> torch.Tensor:
     """Single-pass paged decode; returns the normalised (g, rows, hd).
 
       q:             (g, rows, hd), rows = b * p * n, row r of slot r // pn
@@ -1198,6 +1210,11 @@ def paged_fused_bifurcated_decode(q, k_pages, v_pages, page_tables, seg_lens,
       paths:         (depth, rows) int32 — the segment each row reads at
                      each level, -1 for a level it does not use
       k_dec/v_dec:   (g, b * c_d, hd); dec_bias (1, b * c_d) f32
+      splits:        as in ``tree_fused_bifurcated_decode``; the shares are
+                     cut by logical key positions, so on one logical trie
+                     the two compute the same bits at the same ``splits``,
+                     at any page size, and on a single prefix
+                     ``fused_bifurcated_decode``'s
     Only live pages of segments on some path are read; a -1 entry inside a
     live length is a hole, its keys masked. Rows whose path holds an id
     outside [-1, N), or a segment whose live pages name an id outside
@@ -1208,17 +1225,23 @@ def paged_fused_bifurcated_decode(q, k_pages, v_pages, page_tables, seg_lens,
     ops = (q, k_pages, v_pages, page_tables, seg_lens, paths, k_dec, v_dec,
            dec_bias)
     _check_contiguous(*ops)
-    if not _on_cuda(*ops):
+    cuda = _on_cuda(*ops)
+    splits = _split_arg(splits, q, cuda)
+    if not cuda:
         return paged_fused_bifurcated_decode_plain(*ops, scale=scale,
-                                                   c_d=c_d, pn=pn)
+                                                   c_d=c_d, pn=pn,
+                                                   splits=splits)
     _check_kernel_operands(q, k_pages, v_pages, k_dec, v_dec, dec_bias)
     n_pages, g, pm, hd = k_pages.shape
     n_segs, ppn = page_tables.shape
     out = torch.empty_like(q)
+    n_pieces = max_pieces(paths.shape[0], ppn * pm, c_d)
+    part = _split_scratch(q, splits, n_pieces)
     _launch("paged_fused_bifurcated_decode", q.device,
-            *(t.data_ptr() for t in ops), out.data_ptr(), n_pages, n_segs,
-            ppn, pm, paths.shape[0], g, q.shape[1], ld, hd, c_d, pn,
-            float(scale))
+            *(t.data_ptr() for t in ops), out.data_ptr(),
+            None if part is None else part.data_ptr(), n_pages, n_segs,
+            ppn, pm, paths.shape[0], g, q.shape[1], ld, hd, c_d, pn, splits,
+            n_pieces, float(scale))
     paged_fused_bifurcated_decode.launches += 1
     return out
 
@@ -1234,9 +1257,9 @@ def paged_fused_bifurcated_decode_q8(q, k_pages_q, v_pages_q, k_scale_pages,
     """``paged_fused_bifurcated_decode`` over an int8 pool (P, g, pm, hd)
     and f32 scale pages (P, g, pm), ``k_scale_pages`` with the logit scale
     pre-folded (``scale`` applies to the decode arm only). ``splits`` as in
-    ``tree_fused_bifurcated_decode_q8``: the shares are cut by logical key
-    positions, so on one logical trie the two compute the same bits at the
-    same ``splits``, at any page size."""
+    ``paged_fused_bifurcated_decode``: on one logical trie the same bits
+    as ``tree_fused_bifurcated_decode_q8`` at the same ``splits``, at any
+    page size, and on a single prefix ``fused_bifurcated_decode_q8``'s."""
     _check_paged(q, k_pages_q, v_pages_q, page_tables, seg_lens, paths,
                  k_scale_pages, v_scale_pages)
     ld = _check_decode_arm(q, k_dec, v_dec, dec_bias, c_d, pn)
@@ -1519,7 +1542,8 @@ def packed_fused_bifurcated_decode(q, k_pages, v_pages, k_fresh, v_fresh,
       k_dec/v_dec:   (g, b * c_d, hd); dec_bias (1, b * c_d) f32
     Each row attends its path's live pages, the envelope (causal) if its
     path holds N, and its own slot's decode arm. With no chunk rows the
-    result is ``paged_fused_bifurcated_decode``'s, bit for bit. Rows whose
+    result is ``paged_fused_bifurcated_decode``'s at ``splits=1`` (its
+    single walk), bit for bit. Rows whose
     path holds an id outside [-1, N], or a segment whose live pages name
     an id outside [-1, P), come out NaN."""
     _check_paged(q, k_pages, v_pages, page_tables, seg_lens, paths)

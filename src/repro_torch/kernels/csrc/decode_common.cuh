@@ -33,12 +33,13 @@
 // rounding inside the bf16 tolerance. The s8 tensor-core MMA is not used:
 // it would need q quantised, which is another function.
 //
-// Split walk (#1, #2, #3, #7, #9 and #11 with splits > 1, the default on
+// Split walk (#1, #2, #3, #6-#9 and #11 with splits > 1, the default on
 // the card; end of this file): the context's (the node set's, the packed
 // envelope's) blocks and the decode arm cut into pieces spread over S CTAs
 // per (row tile, kv head), fp32 partials per piece and row, and an exact
 // merge kernel; a row's bits depend on its own path only, so #3 and #9
-// give the same bits on one single prefix, and #11's decode rows #9's.
+// give the same bits on one single prefix, #1 and #8 likewise, and #11's
+// decode rows #9's.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -144,6 +145,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p,
                                               bool valid) {
   return valid ? *reinterpret_cast<const uint32_t*>(p) : 0u;
+}
+
+// Which of this thread's two rows (tile-local la: bit 0, lb: bit 1) hold
+// `id` at some level of the tile's (depth, kRowTile) path table.
+__device__ __forceinline__ unsigned rows_on(const int* s_path, int depth,
+                                            int la, int lb, int id) {
+  unsigned on = 0u;
+  for (int lvl = 0; lvl < depth; ++lvl) {
+    on |= s_path[lvl * kRowTile + la] == id ? 1u : 0u;
+    on |= s_path[lvl * kRowTile + lb] == id ? 2u : 0u;
+  }
+  return on;
 }
 
 // Shared-memory plan of one CTA, in bytes. bf16 arms: K and V, two stages
@@ -726,11 +739,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
     for (int w = 0; w < node_words; ++w) {
       for (unsigned bits = s_nodes[w]; bits; bits &= bits - 1u) {
         const int node = w * 32 + __ffs(bits) - 1;
-        unsigned on = 0u;
-        for (int lvl = 0; lvl < p.depth; ++lvl) {
-          on |= s_path[lvl * kRowTile + la] == node ? 1u : 0u;
-          on |= s_path[lvl * kRowTile + lb] == node ? 2u : 0u;
-        }
+        const unsigned on = rows_on(s_path, p.depth, la, lb, node);
         const int len = min(max(p.ctx_lens[node], 0), p.m_c);
         if constexpr (PAGES)
           stream_paged<HD, Q8>(st, smem_raw, p, node, gi, len, wrow0, on,
@@ -748,11 +757,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
     // q8 kernel (its plan holds the bf16 one from offset 0)
     if (*s_fresh && p.fresh_len > 0) {
       const int la = ra - row0, lb = rb - row0;
-      unsigned on = 0u;
-      for (int lvl = 0; lvl < p.depth; ++lvl) {
-        on |= s_path[lvl * kRowTile + la] == p.n_groups ? 1u : 0u;
-        on |= s_path[lvl * kRowTile + lb] == p.n_groups ? 2u : 0u;
-      }
+      const unsigned on = rows_on(s_path, p.depth, la, lb, p.n_groups);
       const PageMap fresh{nullptr, 1, p.g, gi, 0, s_krow};
       stream_arm<HD, false, false, true, kRowCausal>(
           st, smem_raw, p.k_fresh, p.v_fresh, nullptr, nullptr, 0,
@@ -868,19 +873,20 @@ cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
 // The split walk: #1 (fused_bifurcated_decode, bf16 context), #2
 // (context_flash_partials, #1's context arm alone) and #3
 // (fused_bifurcated_decode_q8, int8 context) over one shared context
-// (kSingle), #7 (tree_fused_bifurcated_decode_q8) and #9
-// (paged_fused_bifurcated_decode_q8) over int8 node sets, #11
+// (kSingle), #6 / #7 (tree_fused_bifurcated_decode[_q8]) and #8 / #9
+// (paged_fused_bifurcated_decode[_q8]) over bf16 / int8 node sets, #11
 // (packed_fused_bifurcated_decode_q8, kPacked) over #9's node set plus a
 // prefill chunk's envelope, each with splits S > 1; S = 1 runs
 // decode_kernel's single walk.
 //
-// What bounds them: bytes (#1 35.7 MB, #2 34.0 MB, #3 and #9 single 19.4
-// MB, the trie 26.6 MB at the main shapes: 10.6 / 10.1 / 5.8 / 7.9 us at
-// 3.35 TB/s; #11 operations, 29.84 GFLOP of its chunk rows: 30.2 us at
-// 989 TFLOP/s), but the single walk is paced by latency: one CTA of 4
-// warps per (64-row tile, kv head), 8 CTAs on 132 SMs at the main shapes
-// (#11: 136, the decode tile walking every live node), each block ~2-3 us
-// of serial copy, (convert) and product steps.
+// What bounds them: bytes (#1 and #8 single 35.7 MB, #2 34.0 MB, #3 and
+// #9 single 19.4 MB, the bf16 trie 48.3 MB and the int8 one 26.6 MB at the
+// main shapes: 10.6 / 10.1 / 5.8 / 14.4 / 7.9 us at 3.35 TB/s; #11
+// operations, 29.84 GFLOP of its chunk rows: 30.2 us at 989 TFLOP/s),
+// but the single walk is paced by latency: one CTA of 4 warps per (64-row
+// tile, kv head), 8 CTAs on 132 SMs at the main shapes (#11: 136, the
+// decode tile walking every live node), each block ~2-3 us of serial
+// copy, (convert) and product steps.
 //
 // What the design does about it:
 //   * More CTAs. The work of a (tile, kv head) is cut into pieces: each
@@ -901,8 +907,8 @@ cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
 //     state; so a row's keys fall into the same pieces whatever else the
 //     tile holds, and its bits do not move when another request is retired
 //     and readmitted (the engines' guarantee), nor with S, nor with the page
-//     size: #9 and #7 give the same bits on one logical trie, and #3 gives
-//     #9's bits on one single prefix.
+//     size: #9 and #7 (#8 and #6) give the same bits on one logical
+//     trie, and #3 gives #9's bits (#1 #8's) on one single prefix.
 //   * An exact merge. Each piece writes the fp32 (acc, m, l) of its rows
 //     (the rows on its node; for a decode piece, the rows whose sample has
 //     slots in it) to the row's own slot of the wrapper's scratch, slots in
@@ -919,9 +925,10 @@ cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
 //     block: each thread converts the 16-byte chunks it copied itself, as
 //     soon as its own copies of the next block landed, overlapping the
 //     products of the current one; the products read bf16 by ldmatrix. A
-//     bf16 context (#1) and the decode arm stream through three bf16
-//     cp.async stages, one barrier a block, nothing to convert
-//     (stream_bf16_split); the decode arm stages its slot bias with the
+//     bf16 context (#1, #2, #6, #8: stream_bf16_nodes, each stage carrying
+//     its keys' read flags) and the decode arm (stream_bf16_split) stream
+//     through three bf16 cp.async stages, one barrier a block, nothing to
+//     convert; the decode arm stages its slot bias with the
 //     block (the single walk reads it from device memory inside the mask)
 //     and divides by multiply and shift: a decode block costs ~half an int8
 //     context block there (~5x in the single walk).
@@ -964,8 +971,8 @@ struct Ring {
   static constexpr int CHUNKS = HD / 16;        // 16-byte chunks per int8 row
   static constexpr int PER_THREAD = (kBlockN * CHUNKS + kThreads - 1) / kThreads;
   static constexpr int BYTES = 2 * CSTAGE + kQStages * QSTAGE;
-  // a bf16 context or the decode arm: three stages of bf16 K, V (and the
-  // decode arm's slot bias)
+  // a bf16 context or the decode arm: three stages of bf16 K, V and 64
+  // words (the decode arm's slot bias, a context's key flags)
   static constexpr int DSTAGE = 2 * CONV + kBlockN * 4;
   static constexpr int PLAN = BYTES > 3 * DSTAGE ? BYTES : 3 * DSTAGE;
 };
@@ -1125,10 +1132,10 @@ __device__ __forceinline__ void pv_block(WarpState<HD>& st,
 // block and the sample tests use a multiply-shift divider, so no mask step
 // waits on device memory; a warp skips the blocks outside its samples'
 // slots. A row's sample is row / pn, or with ROWV kRowSlot its slot rv0 /
-// rv1 (-1: none). Else a context arm: logit s * scale for the keys below
-// hi on the rows `on` names (bit 0: gr, bit 1: gr + 8), kNegInf elsewhere;
-// with ROWV kRowCausal only the keys at pos0 + col <= rv0 / rv1 (the
-// packed kernels' envelope); a warp skips the blocks none of its rows sees.
+// rv1 (-1: none). Else a bf16 context arm (the packed kernels' envelope,
+// ROWV kRowCausal): logit s * scale for the keys below hi on the rows `on`
+// names (bit 0: gr, bit 1: gr + 8) at pos0 + col <= rv0 / rv1, kNegInf
+// elsewhere; a warp skips the blocks none of its rows sees.
 template <int HD, bool DECODE, int ROWV, typename Flush>
 __device__ __forceinline__ void stream_bf16_split(
     WarpState<HD>& st, unsigned char* smem_raw, const Params& p,
@@ -1244,6 +1251,15 @@ __device__ __forceinline__ void stream_bf16_split(
   }
 }
 
+// The node of a split walk's block i in the tile's list: first[k] <= i <
+// first[k + 1] (i only grows).
+struct NodeCursor {
+  int k = 0;
+  __device__ void seek(const int* first, int i) {
+    while (first[k + 1] <= i) ++k;
+  }
+};
+
 // Stream context blocks [i0, i1) of the tile's list (node k's blocks are
 // [first[k], first[k + 1]), its live length lens[k]) through the two
 // stages. Each thread converts exactly the 16-byte chunks it copied, so a
@@ -1269,14 +1285,7 @@ __device__ __forceinline__ void stream_split(
   unsigned char* conv = smem_raw;
   unsigned char* raw = smem_raw + 2 * R::CSTAGE;
 
-  // the node of block i, first[k] <= i < first[k + 1] (i only grows)
-  struct Cursor {
-    int k = 0;
-    __device__ void seek(const int* first, int i) {
-      while (first[k + 1] <= i) ++k;
-    }
-  };
-  Cursor stage_at, comp_at;
+  NodeCursor stage_at, comp_at;
   const FastDiv by_page(PAGES ? p.page_m : 1);
 
   auto stage = [&](int i, int slot) {
@@ -1377,12 +1386,7 @@ __device__ __forceinline__ void stream_split(
     comp_at.seek(s_first, i);
     if (comp_at.k != kc) {    // a new node: which of this thread's rows are on
       kc = comp_at.k;
-      const int node = s_ids[kc];
-      on = 0u;
-      for (int lvl = 0; lvl < p.depth; ++lvl) {
-        on |= s_path[lvl * kRowTile + la] == node ? 1u : 0u;
-        on |= s_path[lvl * kRowTile + lb] == node ? 2u : 0u;
-      }
+      on = rows_on(s_path, p.depth, la, lb, s_ids[kc]);
       warp_on = __any_sync(0xffffffffu, on != 0u);
     }
     if (warp_on) {
@@ -1421,6 +1425,115 @@ __device__ __forceinline__ void stream_split(
       cp_async_commit();
       convert((i + 1 - i0) % kQStages, cur ^ 1);
     }
+  }
+}
+
+// The bf16 twin of stream_split: context blocks [i0, i1) of the tile's
+// node list through the three bf16 cp.async stages of stream_bf16_split,
+// one barrier a block and nothing to convert. Key col of node k, kv head
+// gi, lies at slab row (node * g + gi) * m_c + col, or PAGES at its pool
+// row, the page id read from the node's table as the block is staged and
+// the page divided out by multiply and shift; a key at or past the node's
+// length, on a hole (-1) or on an id outside [0, P) is not read, and each
+// stage carries its keys' flags where the decode arm stages its slot
+// bias. The logits are stream_bf16_split's: s * scale on the rows on the
+// block's node (the path table's `on` bits) for the keys that were read,
+// kNegInf elsewhere, then update_row and pv_block; a warp none of whose
+// rows is on the node skips the products. kSingle is the one-node case
+// (#1, #2), so #8 on a single prefix computes #1's bits. `flush(k, j, on)`
+// after the last block of node k's piece j (pb blocks each).
+template <int HD, bool PAGES, typename Flush>
+__device__ __forceinline__ void stream_bf16_nodes(
+    WarpState<HD>& st, unsigned char* smem_raw, const Params& p, int gi,
+    const int* s_ids, const int* s_lens, const int* s_first,
+    const int* s_path, int i0, int i1, int la, int lb, int pb, Flush flush) {
+  using R = Ring<HD>;
+  constexpr int SROW = R::SROW;
+  constexpr int CH = HD / 8;         // 16-byte chunks per bf16 row
+  const int tq = threadIdx.x & 3;
+  const __nv_bfloat16* kc = static_cast<const __nv_bfloat16*>(p.k_ctx);
+  const __nv_bfloat16* vc = static_cast<const __nv_bfloat16*>(p.v_ctx);
+  NodeCursor stage_at, comp_at;
+  const FastDiv by_page(PAGES ? p.page_m : 1);
+
+  auto stage = [&](int i, int slot) {
+    stage_at.seek(s_first, i);
+    const int k = stage_at.k;
+    const int node = s_ids[k], len = s_lens[k];
+    const int col0 = (i - s_first[k]) * kBlockN;
+    unsigned char* base = smem_raw + slot * R::DSTAGE;
+    __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(base);
+    __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(base + R::CONV);
+    int* sOk = reinterpret_cast<int*>(base + 2 * R::CONV);
+    const long long slab = (static_cast<long long>(node) * p.g + gi) * p.m_c;
+    const int* prow = PAGES ? p.page_tables + static_cast<size_t>(node) * p.ppn
+                            : nullptr;
+    for (int c = threadIdx.x; c < kBlockN * CH; c += kThreads) {
+      const int r = c / CH, ch = c % CH;
+      const int col = col0 + r;
+      long long kr = -1;   // the key's row in the slab or pool; -1: not read
+      if constexpr (PAGES) {
+        const int q = by_page.div(col);
+        const int pid = col < len ? prow[q] : -1;
+        if (pid >= 0 && pid < p.n_pages)
+          kr = (pid * p.g + gi) * p.page_m + col - q * p.page_m;
+      } else {
+        if (col < len) kr = slab + col;
+      }
+      const bool ok = kr >= 0;
+      const size_t off = ok ? static_cast<size_t>(kr) * HD + ch * 8 : 0;
+      cp_async16(sK + r * SROW + ch * 8, kc + off, ok);
+      cp_async16(sV + r * SROW + ch * 8, vc + off, ok);
+      if (ch == 0) sOk[r] = ok;
+    }
+  };
+
+  if (i0 >= i1) return;
+  stage(i0, 0);
+  cp_async_commit();
+  if (i0 + 1 < i1) stage(i0 + 1, 1);
+  cp_async_commit();
+  int kn = -1;
+  unsigned on = 0u;
+  bool warp_on = false;
+  for (int i = i0; i < i1; ++i) {
+    const int blk = i - i0;
+    cp_async_wait_1();    // this thread's copies of block i
+    __syncthreads();      // everyone's (and their flags); block i - 1 is done
+    if (i + 2 < i1) stage(i + 2, (blk + 2) % 3);
+    cp_async_commit();
+    comp_at.seek(s_first, i);
+    if (comp_at.k != kn) {    // a new node: which of this thread's rows are on
+      kn = comp_at.k;
+      on = rows_on(s_path, p.depth, la, lb, s_ids[kn]);
+      warp_on = __any_sync(0xffffffffu, on != 0u);
+    }
+    if (warp_on) {
+      const unsigned char* base = smem_raw + (blk % 3) * R::DSTAGE;
+      const int* sOk = reinterpret_cast<const int*>(base + 2 * R::CONV);
+      float s[kBlockN / 8][4];
+      qk_block<HD>(st, reinterpret_cast<const __nv_bfloat16*>(base), s);
+#pragma unroll
+      for (int nt = 0; nt < kBlockN / 8; ++nt) {
+        const int2 ok2 = *reinterpret_cast<const int2*>(sOk + nt * 8 + 2 * tq);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = e ? ok2.y : ok2.x;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float x = s[nt][2 * h + e] * p.scale;
+            s[nt][2 * h + e] = ok && ((on >> h) & 1u) ? x : kNegInf;
+          }
+        }
+      }
+      update_row<HD>(st, s, 0, nullptr);
+      update_row<HD>(st, s, 1, nullptr);
+      pv_block<HD>(st, reinterpret_cast<const __nv_bfloat16*>(base + R::CONV),
+                   s);
+    }
+    // the piece of node kn's block i ends here: its partials
+    const int b = i - s_first[kn];
+    if ((b + 1) % pb == 0 || i + 1 == s_first[kn + 1]) flush(kn, b / pb, on);
   }
 }
 
@@ -1527,9 +1640,9 @@ __device__ __forceinline__ void row_pieces(
 // contiguous run of context blocks and one of decode blocks each. Share 0
 // also runs the path and page checks and writes each row's piece count, -1
 // for a poisoned row. kSingle: the one context is node 0 of m_c keys, on
-// every row's path (the path table is made in shared memory, not read);
-// its int8 blocks stream as a node's do (#3 computes #9's bits), its bf16
-// blocks through stream_bf16_split (#1; #2 with no decode arm, ld 0).
+// every row's path (the path table is made in shared memory, not read),
+// so its blocks stream as a node's do: #3 computes #9's bits (stream_split)
+// and #1 #8's (stream_bf16_nodes; #2 is #1 with no decode arm, ld 0).
 // kPacked (#11): the tiles of the n_dec decode rows come first, then those
 // of the chunk rows from row n_dec, so no tile mixes the two; a decode
 // tile is #9's (its pieces, its S = splits: #9's bits), its rows' decode
@@ -1545,7 +1658,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const Params p) {
   static_assert(MODE == kSingle || MODE == kTree || MODE == kPaged ||
                     MODE == kPacked,
                 "the split walks one context or a node set");
-  static_assert(Q8 || MODE == kSingle, "a bf16 split reads one context");
+  static_assert(Q8 || MODE != kPacked, "the packed split reads int8 pages");
   constexpr bool PACKED = MODE == kPacked;
   constexpr bool PAGES = MODE == kPaged || PACKED;
   constexpr bool SINGLE = MODE == kSingle;
@@ -1784,27 +1897,17 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const Params p) {
     if (b0 == D) b1 = D;
   }
 
-  if constexpr (Q8) {
+  if constexpr (Q8)
     stream_split<HD, PAGES>(st, smem_raw, p, gi, s_ids, s_lens, s_first,
                             s_path, i0, i1, la, lb, pb, ctx_flush);
-  } else {
-    // the one context, node 0 (list entry 0), read by every row of the tile
-    const size_t off = static_cast<size_t>(gi) * p.m_c * HD;
-    const unsigned on = (ra < row_hi ? 1u : 0u) | (rb < row_hi ? 2u : 0u);
-    stream_bf16_split<HD, false, kRowNone>(
-        st, smem_raw, p, static_cast<const __nv_bfloat16*>(p.k_ctx) + off,
-        static_cast<const __nv_bfloat16*>(p.v_ctx) + off, HD, 0, s_lens[0],
-        s_lens[0], i0, i1, pb, wrow0, on, 0, 0, 0,
-        [&](int j) { ctx_flush(0, j, on); });
-  }
+  else
+    stream_bf16_nodes<HD, PAGES>(st, smem_raw, p, gi, s_ids, s_lens, s_first,
+                                 s_path, i0, i1, la, lb, pb, ctx_flush);
   if constexpr (PACKED) {
     if (e1 > e0) {
       __syncthreads();    // the context stages are read no more
-      unsigned on = 0u;   // which of this thread's rows hold N
-      for (int lvl = 0; lvl < p.depth; ++lvl) {
-        on |= s_path[lvl * kRowTile + la] == p.n_groups ? 1u : 0u;
-        on |= s_path[lvl * kRowTile + lb] == p.n_groups ? 2u : 0u;
-      }
+      // which of this thread's rows hold N
+      const unsigned on = rows_on(s_path, p.depth, la, lb, p.n_groups);
       const size_t off = static_cast<size_t>(gi) * HD;
       stream_bf16_split<HD, false, kRowCausal>(
           st, smem_raw, p, static_cast<const __nv_bfloat16*>(p.k_fresh) + off,
@@ -1963,7 +2066,7 @@ cudaError_t launch_split(const Params& in, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// #1 / #2 / #3 / #7 / #9 / #11: the single walk (decode_kernel) at splits
+// #1-#3 / #6-#9 / #11: the single walk (decode_kernel) at splits
 // 1 (kPacked: and splits_chunk 1), else the split walk and its merge.
 // FUSED: the normalised bf16 output; else (#2) the fp32 partials.
 template <int MODE, bool Q8, bool FUSED = true>

@@ -42,24 +42,26 @@
 // masked to kNegInf (a zero-filled key would carry a logit of 0) and never
 // read. A live entry outside [-1, P) is never read and the rows on its
 // segment are written as NaN, as are rows whose path holds an id outside
-// [-1, N). The bf16 kernel (#8) keeps the tree kernels' single walk (8
-// CTAs at the main path, one block at a time), plus a barrier and a row
-// table per block (+12-21% over the dense kernels on an H100, PERF.md).
+// [-1, N). That single walk (8 CTAs at the main path, one block at a
+// time, plus a barrier and a row table per block) is what splits=1 runs:
+// ~380 us (#8) and ~530 us (#9) single, ~650 and ~860 us on the trie, on
+// an H100 (PERF.md); its bits equal #1's / #3's at splits=1 on a single
+// prefix.
 //
-// The int8 kernel (#9) splits the walk as #7 does (splits > 1, the default
-// on the card; decode_common.cuh, split_kernel): 256-key pieces of each
+// Both kernels split the walk as #6 / #7 do (splits > 1, the default on
+// the card; decode_common.cuh, split_kernel): 256-key pieces of each
 // segment, cut by logical key position and never by page, over S = 33
-// CTAs per (tile, kv head), fp32 partials merged exactly per row; it gives
-// #7's bits on the same logical trie at any page size. A staged key's page
-// id is read from the segment's table as the block is staged (the page
-// divided out by multiply and shift); a hole or an id outside the pool is
-// masked and never read. ~45 us single and ~61 us on the trie against
-// ~530 and ~860 us for the single walk (PERF.md), which splits=1 runs
-// (its bits equal #3's on a single prefix); what holds it is #7's.
+// CTAs per (tile, kv head), fp32 partials merged exactly per row; each
+// gives its tree kernel's bits on the same logical trie at any page size,
+// and on a single prefix the split single-prefix kernel's (#8 #1's, #9
+// #3's) at the same S. A staged key's page id is read from the segment's
+// table as the block is staged (the page divided out by multiply and
+// shift); a hole or an id outside the pool is masked and never read (#8
+// flags each staged key, #9 stages its flag with its scales). #9: ~45 us
+// single and ~61 us on the trie (PERF.md); what holds them is #7's.
 
 #include "decode_common.cuh"
 
-using bifurcated::dispatch_hd;
 using bifurcated::dispatch_split;
 using bifurcated::fused_params;
 using bifurcated::kPaged;
@@ -93,25 +95,29 @@ extern "C" {
 // q (g, rows, hd) bf16; k_pages/v_pages (P, g, pm, hd) bf16 (one layer's
 // pool); page_tables (N, ppn) i32; seg_lens (N,) i32; paths (depth, rows)
 // i32; k_dec/v_dec (g, ld, hd) bf16; dec_bias (ld,) f32; out (g, rows, hd)
-// bf16. Returns the CUDA error of the launch (0 when it was accepted).
+// bf16; in `splits` shares per (row tile, kv head); part: the split walk's
+// f32 scratch (g * rows * (max_pieces * (hd + 2) + 1) floats) when
+// splits > 1. Returns the CUDA error of the launch (0 when it was
+// accepted).
 int paged_fused_bifurcated_decode(
     const void* q, const void* k_pages, const void* v_pages,
     const void* page_tables, const void* seg_lens, const void* paths,
     const void* k_dec, const void* v_dec, const void* dec_bias, void* out,
-    int n_pages, int n_segs, int ppn, int page_m, int depth, int g, int rows,
-    int ld, int hd, int c_d, int pn, float scale, void* stream) {
-  const Params a = paged_params(q, k_pages, v_pages, page_tables, seg_lens,
-                                paths, k_dec, v_dec, dec_bias, out, n_pages,
-                                n_segs, ppn, page_m, depth, g, rows, ld, c_d,
-                                pn, scale);
-  return static_cast<int>(dispatch_hd<true, false, kPaged>(
-      a, hd, static_cast<cudaStream_t>(stream)));
+    void* part, int n_pages, int n_segs, int ppn, int page_m, int depth,
+    int g, int rows, int ld, int hd, int c_d, int pn, int splits,
+    int max_pieces, float scale, void* stream) {
+  Params a = paged_params(q, k_pages, v_pages, page_tables, seg_lens, paths,
+                          k_dec, v_dec, dec_bias, out, n_pages, n_segs, ppn,
+                          page_m, depth, g, rows, ld, c_d, pn, scale);
+  a.part = static_cast<float*>(part);
+  a.splits = splits;
+  a.max_pieces = max_pieces;
+  return static_cast<int>(
+      dispatch_split<kPaged, false>(a, hd, static_cast<cudaStream_t>(stream)));
 }
 
 // As paged_fused_bifurcated_decode with int8 k_pages/v_pages (P, g, pm, hd)
-// and f32 k_scale_pages/v_scale_pages (P, g, pm), in `splits` shares per
-// (row tile, kv head); part: the split walk's f32 scratch (g * rows *
-// (max_pieces * (hd + 2) + 1) floats) when splits > 1.
+// and f32 k_scale_pages/v_scale_pages (P, g, pm).
 int paged_fused_bifurcated_decode_q8(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale_pages, const void* v_scale_pages,

@@ -37,20 +37,22 @@
 // [-1, N) are written as NaN. At the main path (64 rows) there is one tile
 // per kv head, so each node is read once per kv head per step.
 //
-// The int8 kernel (#7) splits that walk (splits > 1, the default on the
-// card; decode_common.cuh, split_kernel), since 8 CTAs on 132 SMs, each
-// walking every node one block at a time, take ~740 us at the main trie
-// (splits=1 runs that single walk, whose bits equal #5's at depth 1). The
-// nodes' blocks and the decode arm are cut into pieces of 256 keys (a
-// piece's bounds set by its own node's length alone) spread over S = 33
-// CTAs per (tile, kv head), each piece's fp32 partials merged exactly per
-// row by a second kernel: ~60 us on an H100 (PERF.md). What holds it:
-// each block's chain of dependent steps at two CTAs an SM, and the per-CTA
+// Both kernels split that walk (splits > 1, the default on the card;
+// decode_common.cuh, split_kernel), since 8 CTAs on 132 SMs, each walking
+// every node one block at a time, take ~540 us (#6) and ~740 us (#7) at
+// the main trie (splits=1 runs that single walk, whose bits equal #4's /
+// #5's at depth 1). The nodes' blocks and the decode arm are cut into
+// pieces of 256 keys (a piece's bounds set by its own node's length alone)
+// spread over S = 33 CTAs per (tile, kv head), each piece's fp32 partials
+// merged exactly per row by a second kernel: #7 ~60 us on an H100
+// (PERF.md). #6's nodes stream through three bf16 cp.async stages with
+// nothing to convert (stream_bf16_nodes), #7's through two int8 stages
+// converted to bf16 in shared memory (stream_split). What holds them: each
+// block's chain of dependent steps at two CTAs an SM, and the per-CTA
 // set-up (paths, node list, lengths) before the first block.
 
 #include "decode_common.cuh"
 
-using bifurcated::dispatch_hd;
 using bifurcated::dispatch_split;
 using bifurcated::fused_params;
 using bifurcated::kTree;
@@ -60,29 +62,33 @@ extern "C" {
 
 // q (g, rows, hd) bf16; k_ctx/v_ctx (N, g, m_c, hd) bf16; paths
 // (depth, rows) i32; node_lens (N,) i32; k_dec/v_dec (g, ld, hd) bf16;
-// dec_bias (ld,) f32; out (g, rows, hd) bf16. Returns the CUDA error of
-// the launch (0 when it was accepted).
+// dec_bias (ld,) f32; out (g, rows, hd) bf16; in `splits` shares per (row
+// tile, kv head); part: the split walk's f32 scratch (g * rows *
+// (max_pieces * (hd + 2) + 1) floats) when splits > 1. Returns the CUDA
+// error of the launch (0 when it was accepted).
 int tree_fused_bifurcated_decode(const void* q, const void* k_ctx,
                                  const void* v_ctx, const void* paths,
                                  const void* node_lens, const void* k_dec,
                                  const void* v_dec, const void* dec_bias,
-                                 void* out, int n_nodes, int depth, int g,
-                                 int rows, int m_c, int ld, int hd, int c_d,
-                                 int pn, float scale, void* stream) {
+                                 void* out, void* part, int n_nodes,
+                                 int depth, int g, int rows, int m_c, int ld,
+                                 int hd, int c_d, int pn, int splits,
+                                 int max_pieces, float scale, void* stream) {
   Params a = fused_params(q, k_ctx, v_ctx, k_dec, v_dec, dec_bias, out, g,
                           rows, m_c, ld, c_d, pn, scale);
   a.paths = static_cast<const int*>(paths);
   a.ctx_lens = static_cast<const int*>(node_lens);
   a.n_groups = n_nodes;
   a.depth = depth;
-  return static_cast<int>(dispatch_hd<true, false, kTree>(
-      a, hd, static_cast<cudaStream_t>(stream)));
+  a.part = static_cast<float*>(part);
+  a.splits = splits;
+  a.max_pieces = max_pieces;
+  return static_cast<int>(
+      dispatch_split<kTree, false>(a, hd, static_cast<cudaStream_t>(stream)));
 }
 
 // As tree_fused_bifurcated_decode with int8 k_ctx/v_ctx (N, g, m_c, hd) and
-// f32 k_scale/v_scale (N, g, m_c), in `splits` shares per (row tile, kv
-// head); part: the split walk's f32 scratch (g * rows * (max_pieces *
-// (hd + 2) + 1) floats) when splits > 1.
+// f32 k_scale/v_scale (N, g, m_c).
 int tree_fused_bifurcated_decode_q8(
     const void* q, const void* k_ctx, const void* v_ctx, const void* k_scale,
     const void* v_scale, const void* paths, const void* node_lens,

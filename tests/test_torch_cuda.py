@@ -161,8 +161,8 @@ def test_single_prefix_split_kernels_match_plain_versions(cuda, shape, quant,
                                                           splits):
     """#1 / #3 at splits 1 (the single walk), the default and 64, each
     against its plain version at the same S, one launch a call; the split
-    walk within the gate of the single walk; #3 bit-equal to #9 at the same
-    S on the same context in pages of 128."""
+    walk within the gate of the single walk; #1 / #3 bit-equal to #8 / #9
+    at the same S on the same context in pages of 128."""
     g, b, pn, hd, m_c, c_d, boost = shape
     q, kc, vc, kd, vd, bias = _inputs(cuda, g, b, pn, hd, m_c, c_d,
                                       torch.bfloat16, seed=hd + m_c + 1,
@@ -191,12 +191,13 @@ def test_single_prefix_split_kernels_match_plain_versions(cuda, shape, quant,
         _assert_within(part[0], want[0], 2e-2)
         torch.testing.assert_close(part[1], want[1], rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(part[2], want[2], rtol=1e-4, atol=1e-4)
-    if quant:
-        one = (q,) + tuple(t[None] for t in ctx) + (
-            torch.zeros(1, q.shape[1], dtype=torch.int32, device=cuda),
-            torch.tensor([m_c], dtype=torch.int32, device=cuda), kd, vd, bias)
-        y = _paged_inputs(one, True, 128, seed=3, fill=float("nan"))
-        assert torch.equal(out, bd.paged_fused_bifurcated_decode_q8(*y, **kw))
+    one = (q,) + tuple(t[None] for t in ctx) + (
+        torch.zeros(1, q.shape[1], dtype=torch.int32, device=cuda),
+        torch.tensor([m_c], dtype=torch.int32, device=cuda), kd, vd, bias)
+    y = _paged_inputs(one, quant, 128, seed=3, fill=float("nan"))
+    paged = (bd.paged_fused_bifurcated_decode_q8 if quant
+             else bd.paged_fused_bifurcated_decode)
+    assert torch.equal(out, paged(*y, **kw))
 
 
 # (G, g, b, pn, hd, m_c, c_d, ctx_lens; None = random)
@@ -328,12 +329,10 @@ TREE_SHAPES = [
 ]
 
 
-def _splits_kw(q, quant, splits=None):
-    """The q8 tree and paged kernels' share count as a keyword (none for
-    the bf16 kernels): ``splits``, or the default split on this card, so
-    that a plain version walks the kernel's shares."""
-    if not quant:
-        return {}
+def _splits_kw(q, splits=None):
+    """The tree and paged kernels' share count as a keyword: ``splits``,
+    or the default split on this card, so that a plain version walks the
+    kernel's shares."""
     if splits is None:
         splits = bd.split_count(q.shape[1], q.shape[0],
                                 sms=bd._sm_count(q.device.index))
@@ -373,7 +372,7 @@ def test_tree_kernels_match_plain_versions(cuda, shape, quant):
     n0 = kern.launches
     out = kern(*x, **kw)
     assert kern.launches == n0 + 1
-    _assert_within(out, plain(*x, **kw, **_splits_kw(x[0], quant)), 2e-2)
+    _assert_within(out, plain(*x, **kw, **_splits_kw(x[0])), 2e-2)
     # a row whose path holds an id outside [-1, N) comes out NaN
     paths = x[-5].clone()
     paths[-1, :pn] = x[-4].numel()
@@ -385,8 +384,9 @@ def test_tree_kernels_match_plain_versions(cuda, shape, quant):
 
 @pytest.mark.parametrize("quant", [False, True])
 def test_tree_kernels_at_depth_one_are_the_grouped_kernels(cuda, quant):
-    """Every path one level deep: the tree kernel computes the grouped
-    kernel's bits."""
+    """Every path one level deep: the tree kernel's single walk (splits=1;
+    the grouped kernels are not split) computes the grouped kernel's
+    bits."""
     shape = (8, 2, 128, 1000, (1000, 0, 77, 513),
              [[2], [0], [3], [0], [2]] * 6 + [[3], [0]], 24, 0.0)
     x = _tree_inputs(cuda, shape, seed=7, quant=quant)
@@ -396,7 +396,7 @@ def test_tree_kernels_at_depth_one_are_the_grouped_kernels(cuda, quant):
     grp = (bd.grouped_fused_bifurcated_decode_q8 if quant
            else bd.grouped_fused_bifurcated_decode)
     paths = x[-5]
-    got = tree(*x, **kw, **_splits_kw(x[0], quant, 1))   # the single walk
+    got = tree(*x, **kw, splits=1)
     want = grp(*x[:-5], paths[0].contiguous(), *x[-4:], **kw)
     assert torch.equal(got, want)
 
@@ -502,7 +502,7 @@ def test_paged_kernels_match_plain_and_tree_kernels(cuda, shape, pm, quant):
     assert torch.isfinite(out.float()).all()
     assert torch.equal(out, kern(*z, **kw))
     assert torch.equal(out, tree(*x, **kw))
-    split = _splits_kw(y[0], quant)
+    split = _splits_kw(y[0])
     _assert_within(out, plain(*y, **kw, **split), 2e-2)
     tables, paths = y[-6], y[-4]
     # a hole inside the first node's live length: masked, in both
@@ -525,35 +525,37 @@ def test_paged_kernels_match_plain_and_tree_kernels(cuda, shape, pm, quant):
 
 @pytest.mark.parametrize("case", [(0, 128, None), (1, 64, None),
                                   (2, 16, 64), (3, 48, 5)])
-def test_split_kernels_match_plain_versions(cuda, case):
-    """#7 and #9 split: at the default split (main trie, its decode-
-    dominant twin) and at a forced S (64 on the ragged trie: most shares
-    hold only empty or masked blocks), each against its plain version at
-    the same S, #9 bit-equal to #7, one launch a call; the default split
-    within the gate of the single walk (splits=1)."""
+@pytest.mark.parametrize("quant", [False, True])
+def test_split_kernels_match_plain_versions(cuda, case, quant):
+    """#6 / #7 and #8 / #9 split: at the default split (main trie, its
+    decode-dominant twin) and at a forced S (64 on the ragged trie: most
+    shares hold only empty or masked blocks), each against its plain
+    version at the same S, #8 / #9 bit-equal to #6 / #7, one launch a
+    call; the default split within the gate of the single walk
+    (splits=1)."""
     i, pm, splits = case
     shape = TREE_SHAPES[i]
     hd, c_d, pn = shape[2], shape[6], shape[1]
-    x = _tree_inputs(cuda, shape, seed=hd + shape[3] + 5, quant=True)
-    y = _paged_inputs(x, True, pm, seed=2, fill=float("nan"))
-    kw = dict(scale=hd**-0.5, c_d=c_d, pn=pn, **_splits_kw(x[0], True,
-                                                            splits))
+    x = _tree_inputs(cuda, shape, seed=hd + shape[3] + 5, quant=quant)
+    y = _paged_inputs(x, quant, pm, seed=2, fill=float("nan"))
+    kw = dict(scale=hd**-0.5, c_d=c_d, pn=pn, **_splits_kw(x[0], splits))
     assert kw["splits"] > 1
+    q8 = "_q8" if quant else ""
+    tree = getattr(bd, f"tree_fused_bifurcated_decode{q8}")
+    paged = getattr(bd, f"paged_fused_bifurcated_decode{q8}")
     outs = []
-    for kern, args in ((bd.tree_fused_bifurcated_decode_q8, x),
-                       (bd.paged_fused_bifurcated_decode_q8, y)):
+    for kern, args in ((tree, x), (paged, y)):
         n0 = kern.launches
         out = kern(*args, **kw)
         assert kern.launches == n0 + 1
         assert torch.isfinite(out.float()).all()
         outs.append(out)
     assert torch.equal(outs[0], outs[1])
-    _assert_within(outs[0], bd.tree_fused_bifurcated_decode_q8_plain(
-        *x, **kw), 2e-2)
-    _assert_within(outs[1], bd.paged_fused_bifurcated_decode_q8_plain(
-        *y, **kw), 2e-2)
-    single = bd.tree_fused_bifurcated_decode_q8(*x, **dict(kw, splits=1))
-    _assert_within(outs[0], single, 2e-2)
+    _assert_within(outs[0], getattr(bd, f"tree_fused_bifurcated_decode"
+                                        f"{q8}_plain")(*x, **kw), 2e-2)
+    _assert_within(outs[1], getattr(bd, f"paged_fused_bifurcated_decode"
+                                        f"{q8}_plain")(*y, **kw), 2e-2)
+    _assert_within(outs[0], tree(*x, **dict(kw, splits=1)), 2e-2)
 
 
 def test_paged_kernels_take_bf16_only(cuda):
@@ -667,10 +669,10 @@ PACKED_SHAPES = [(0, 100, 165, 6144, [0, 1]), (2, 7, 7, 0, []),
 @pytest.mark.parametrize("case", PACKED_SHAPES)
 @pytest.mark.parametrize("quant", [False, True])
 def test_packed_kernels_match_plain_and_paged_kernels(cuda, case, quant):
-    """#10/#11: a decode-only call bit-equal to #8/#9 (#11 = #9 at the
-    same S, the default and 1); with a chunk, against their plain versions
-    (#11's at the kernel's S; decode and chunk rows), #11 the same at
-    another S; an id outside [-1, N] on the chunk's path gives NaN chunk
+    """#10/#11: a decode-only call bit-equal to #8/#9 (#10 = #8 at
+    splits=1; #11 = #9 at the same S, the default and 1); with a chunk,
+    against their plain versions (#11's at the kernel's S; decode and
+    chunk rows), #11 the same at another S; an id outside [-1, N] on the chunk's path gives NaN chunk
     rows and leaves the decode rows' bits; fresh_len 0 and the pseudo id N
     alone poison nothing."""
     i, cp, fl, fs, fpath = case
@@ -690,7 +692,10 @@ def test_packed_kernels_match_plain_and_paged_kernels(cuda, case, quant):
     n0 = kern.launches
     dec_only = kern(*a0, **k0, **kw)
     assert kern.launches == n0 + 1
-    assert torch.equal(dec_only, paged(*y, **kw, **_splits_kw(y[0], quant)))
+    # #11 decode-only is #9 at the same S; #10 is not split: #8's single
+    # walk
+    assert torch.equal(dec_only, paged(*y, **kw, **_splits_kw(
+        y[0], None if quant else 1)))
     if quant:
         assert torch.equal(kern(*a0, **k0, **kw, splits=1),
                            paged(*y, **kw, splits=1))

@@ -5,8 +5,9 @@ shares per (64-row tile, kv head), merged exactly, against the reference's
 Pallas kernels in interpret mode (fp32, 1e-5) over ragged context lengths
 and two row tiles; the result the same at every S > 1; S = 1 bit-identical
 to the single walk the wrappers run on the CPU; #3's split walk bit-equal
-to #9's (``paged_fused_bifurcated_decode_q8``) on the same context in
-shuffled pages; and ``split_shares`` at the bf16 context's weight.
+to #9's (``paged_fused_bifurcated_decode_q8``) and #1's to #8's
+(``paged_fused_bifurcated_decode``) on the same context in shuffled
+pages; and ``split_shares`` at the bf16 context's weight.
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py)."""
 import jax.numpy as jnp
@@ -79,17 +80,15 @@ def test_single_split_plain_matches_reference(kind, m_c):
     assert_close(single, want, "float32")
 
 
-def test_q8_split_walk_is_the_paged_split_walk():
-    """#3 cuts #9's pieces: its plain split walk equals #9's plain split
-    walk over the same context on shuffled pages of 48 (a block straddles
-    pages; spare pages of NaN are never read), bit for bit, at S 3 and 7."""
-    a = _inputs(300, seed=7)
+def _single_pages(a, names, seed):
+    """The context arrays ``names`` of ``a`` (m_c 300) on shuffled pages of
+    48 in a pool with 2 spare pages of NaN (int8: 127): (page table row
+    (1, ppn), pools as torch)."""
     ppn = -(-300 // PM)
-    rng = np.random.RandomState(8)
-    perm = rng.permutation(ppn + 2)
+    perm = np.random.RandomState(seed).permutation(ppn + 2)
     table = perm[:ppn].astype(np.int32)[None]
     pools = []
-    for name in ("kq", "vq", "ks", "vs"):
+    for name in names:
         x = a[name]
         pad = np.zeros(x.shape[:1] + (ppn * PM - 300,) + x.shape[2:], x.dtype)
         slab = np.concatenate([x, pad], 1).reshape(
@@ -98,16 +97,42 @@ def test_q8_split_walk_is_the_paged_split_walk():
                        127 if x.dtype == np.int8 else np.nan, x.dtype)
         pool[table[0]] = slab
         pools.append(to_torch(pool))
-    t = {k: to_torch(a[k]) for k in KEYS["int8"]}
-    paths = torch.zeros(1, B * PN, dtype=torch.int32)
-    lens = torch.tensor([300], dtype=torch.int32)
+    return to_torch(table), pools
+
+
+def _paged_single(kind, a, pools, table, splits):
+    """#8 / #9's plain version over the single prefix's pages at
+    ``splits``: one segment of 300 keys on every row's depth-1 path."""
+    fn = (tbd.paged_fused_bifurcated_decode_plain if kind == "bf16"
+          else tbd.paged_fused_bifurcated_decode_q8_plain)
+    t = {k: to_torch(a[k]) for k in ("q", "kd", "vd", "bias")}
+    return fn(t["q"], *pools, table, torch.tensor([300], dtype=torch.int32),
+              torch.zeros(1, B * PN, dtype=torch.int32), t["kd"], t["vd"],
+              t["bias"], scale=HD**-0.5, c_d=C_D, pn=PN, splits=splits)
+
+
+def test_q8_split_walk_is_the_paged_split_walk():
+    """#3 cuts #9's pieces: its plain split walk equals #9's plain split
+    walk over the same context on shuffled pages of 48 (a block straddles
+    pages; spare pages of NaN are never read), bit for bit, at S 3 and 7."""
+    a = _inputs(300, seed=7)
+    table, pools = _single_pages(a, ("kq", "vq", "ks", "vs"), 8)
     for splits in (3, 7):
-        kw = dict(scale=HD**-0.5, c_d=C_D, pn=PN, splits=splits)
-        paged = tbd.paged_fused_bifurcated_decode_q8_plain(
-            t["q"], *pools, to_torch(table), lens, paths, t["kd"], t["vd"],
-            t["bias"], **kw)
+        paged = _paged_single("int8", a, pools, table, splits)
         assert torch.isfinite(paged).all()
         assert torch.equal(_port("int8", a, splits=splits), paged)
+
+
+def test_bf16_split_walk_is_the_paged_split_walk():
+    """#1 cuts #8's pieces: the bf16 twin of the int8 case above, #1's
+    plain split walk against #8's over shuffled pages of 48, bit for bit,
+    at S 3 and 7."""
+    a = _inputs(300, seed=9)
+    table, pools = _single_pages(a, ("kc", "vc"), 10)
+    for splits in (3, 7):
+        paged = _paged_single("bf16", a, pools, table, splits)
+        assert torch.isfinite(paged).all()
+        assert torch.equal(_port("bf16", a, splits=splits), paged)
 
 
 # the main shapes: g 8, 64 rows, m_c 8192, 32 x 24 decode slots (S 33);

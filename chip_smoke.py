@@ -34,25 +34,27 @@ printing its result lines:
      a tile of decode and chunk rows) fresh_len 0/1/63/64/65, a chunk at
      position 0 with no ancestors, an id outside [-1, N] on the chunk's
      path (its rows NaN; N itself poisons nothing). fp32 queries must
-     raise TypeError (the kernels take bf16 only). The single-prefix
-     kernels (#1, #2, #3), the trie and paged kernels (#6-#9) and the int8
-     packed kernel (#11) run split (their default: S = split_count CTAs
-     per row tile and kv head; #11 packed_split_count, a pair for its
-     decode rows' and its chunk rows' tiles) against their plain versions
-     at the same S, #1 / #2 / #3 at the main, ragged and hd 112 shapes, #2
-     also at S 4 and 16 and on m_c 1000 at S 64; #8 = #6 and #9 = #7 bit
-     for bit at the default split on every trie above, #1 = #8 and #3 =
-     #9 on the single prefix on 64 shuffled pages of 128 (at the default
-     split and at splits=1), and #11 = #9 on the decode rows at the same S
-     with and without the chunk, its output the same at S 4 and at twice
-     its chunk tiles' S; the gates against kernels that are not split (#4
-     / #5 at G = 1 against #1 / #3, #4 / #5 against #6 / #7, #10 against
-     #8) call the split ones at splits=1, and #11 at splits=1 is #9 at
-     splits=1; the default split lies within the gate of splits=1 at the
-     main shapes; S = 64 against plain (#1 / #3 at m_c 1000, n 2; the
-     ragged trie on pages of 48, #8 = #6 and #9 = #7 there); and a merge
-     without the rescale exp(m_s - m) or with a row's last piece dropped
-     misses the gate by far for #1, #2, #3, #6 and #7.
+     raise TypeError (the kernels take bf16 only). Every decode kernel
+     but the bf16 forest's (#4) runs split (the default: S = split_count
+     CTAs per row tile and kv head; #10 / #11 packed_split_count, a pair
+     for their decode rows' and their chunk rows' tiles) against its plain
+     version at the same S, #1 / #2 / #3 at the main, ragged and hd 112
+     shapes, #2 also at S 4 and 16 and on m_c 1000 at S 64, #5 on every
+     forest above and the same at S 4 and 64; #8 = #6 and #9 = #7 bit for
+     bit at the default split on every trie above, #1 = #8 and #3 = #9 on
+     the single prefix on 64 shuffled pages of 128 (at the default split
+     and at splits=1), #5 = #7 on the depth-1 trie and #5 = #3 at G = 1
+     (at the default split and, #5 = #7, at splits=1), and #10 = #8 (#11 =
+     #9) on the decode rows at the same S with and without the chunk, and
+     at splits=1, their output the same at S 4 and at twice their chunk
+     tiles' S; the gates against #4, which is not split (at G = 1 against
+     #1, against #6 at depth 1), call those at splits=1; the default
+     split lies within the gate of splits=1 at the main shapes; S = 64
+     against plain (#1 / #3 at m_c 1000, n 2; the ragged trie on pages of
+     48, #8 = #6 and #9 = #7 there); and a merge without the rescale
+     exp(m_s - m) or with a row's last piece dropped misses the gate by
+     far for #1, #2, #3, #5, #6, #7 and #10 (#10 on both its decode rows
+     and its chunk rows, on a case whose envelope dominates).
      Every gate is max |kernel - plain| <= tol x max |plain| (bf16 2e-2),
      and the script shows that plain versions with the decode arm
      dropped, its mask ignored, another sample's slots read, another
@@ -108,7 +110,9 @@ printing its result lines:
      each group; then the 2500-token group is cancelled and retired, a
      4000-token request takes its segment and slots, 8 more steps run, and
      the three untouched groups' greedy tokens must be bit-identical to a
-     run without the retire and readmit;
+     run without the retire and readmit; torch.profiler over one int8
+     forest step (#5's device time, split + merge, beside the same at
+     splits=1) and #5's wrapper's host us per call;
   3d. TreeServeEngine at the same width, bf16 and int8 nodes: a prefix trie
      of 8 nodes of capacity 4096 (a 4096-token system prompt, templates of
      2048 and 1024 tokens under it, leaves of 1200 and 500 under the first
@@ -132,9 +136,10 @@ printing its result lines:
      kernel 24 x 15 times and hold per layer against its plain versions.
      Gated token comparisons, bit for bit: the single prefix's tokens (#8,
      #9 at the default split) against phase 3's and 3b's (#1, #3 at the
-     default split: the same pieces); the forest's against phase 3c's with
-     both runs replayed with #8 / #9 at splits=1 (#4 / #5 are single
-     walks); the trie's against phase 3d's (#8 = #6, #9 = #7 at the same
+     default split: the same pieces); the int8 forest's against phase
+     3c's (#9, #5 at the default split); the bf16 forest's against phase
+     3c's with both runs replayed with #8 at splits=1 (#4 is a single
+     walk); the trie's against phase 3d's (#8 = #6, #9 = #7 at the same
      split);
   3f. TreeServeEngine(step_mode="packed", suffix_prefill=True,
      prefill_chunk=512) on the paged store (pages of 128), bf16 and int8
@@ -145,8 +150,9 @@ printing its result lines:
      admitted after it lands (1 chunk); then 8 decode-only steps. The
      packed kernel must launch 24 x 23 times and the paged kernel 24 x 8,
      no other; per layer on a step with live decode rows and a chunk, the
-     packed kernel against its plain versions (#11's at the kernel's
-     default S); each request's first-token
+     packed kernel against its plain versions at the kernel's default S;
+     torch.profiler over one bf16 packed step (#10's device time, split +
+     merge, beside the same at splits=1); each request's first-token
      logits against a synchronous admission of its path, and every node
      the chunks wrote against a full prefill, within max(2e-2 x max, 1.5 x
      a run of the plain versions); reused ancestors cost no page; no slot
@@ -180,12 +186,13 @@ printing its result lines:
      kernels at the single-prefix shape and on the paged trie, the packed
      kernels at phase 2's main packed shape over phase 3e's paged trie,
      flash prefill at the main prefill shape and at phase 3h's suffix. #1,
-     #2, #3, #6-#9 and #11 (split, faster than their wrapper's host work)
+     #2, #3 and #5-#11 (split, faster than their wrapper's host work)
      and their yardsticks are timed by CUDA graph replay, with their plain
-     versions at the same S, a sweep over S = 1, 4, 8, 16, 32 (#2, #11: 1,
-     2, 4, 8, 16, 32; #11 also its chunk tiles' S alone) and the default
-     on one line per kernel and shape, and for #1, #2, #3, #6, #8 and #11
-     the merge kernel's share of the call (torch.profiler);
+     versions at the same S, a sweep over S = 1, 4, 8, 16, 32 (#2, #10,
+     #11: 1, 2, 4, 8, 16, 32; #10 / #11 also their chunk tiles' S alone)
+     and the default on one line per kernel and shape, and for #1, #2,
+     #3, #5, #6, #8, #10 and #11 the merge kernel's share of the call
+     (torch.profiler), and #10's / #11's wrapper's host us per call;
   3i. serve zamba2-7b at its published width (81 Mamba2 layers, d 3584,
      the shared attention block applied 13 times, hd 112; seeded random
      weights made on the card) with ServeEngine.generate: bifurcated
@@ -301,8 +308,8 @@ def build():
                     flags = "".join(m.group(2, 3, 4))
                     name = f"hd={m.group(1)} {kinds.get(flags, flags)}"
                 elif sp:
-                    mode = {"0": "single", "2": "tree", "3": "paged",
-                            "4": "packed"}[sp.group(2)]
+                    mode = {"0": "single", "1": "grouped", "2": "tree",
+                            "3": "paged", "4": "packed"}[sp.group(2)]
                     name = (f"hd={sp.group(1)} split {mode}"
                             f"{' q8' if sp.group(3) == '1' else ''} "
                             f"({path.stem.split('-')[0]})")
@@ -551,10 +558,12 @@ def check_q8(name, x, splits=None):
     return err
 
 
-def check_grouped(name, x, quant):
-    """A grouped kernel vs its plain version on one case: both NaN on the
-    rows of a segment id outside [0, G) and nowhere else, within the gate
-    on the others; returns the max abs error."""
+def check_grouped(name, x, quant, splits=None):
+    """A grouped kernel vs its plain version on one case (#5 at
+    ``splits``, default the default split, its plain version at the same
+    S; #4 the single walk): both NaN on the rows of a segment id outside
+    [0, G) and nowhere else, within the gate on the others; returns the
+    max abs error."""
     import torch
     from repro_torch.kernels import bifurcated_decode as bd
 
@@ -562,7 +571,8 @@ def check_grouped(name, x, quant):
             else bd.grouped_fused_bifurcated_decode)
     plain = (bd.grouped_fused_bifurcated_decode_q8_plain if quant
              else bd.grouped_fused_bifurcated_decode_plain)
-    kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"])
+    kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"],
+              **(split_kw(x, splits) if quant else {}))
     out_k = kern(*grouped_args(x, quant), **kw)
     out_p = plain(*grouped_args(x, quant), **kw)
     torch.cuda.synchronize()
@@ -575,12 +585,46 @@ def check_grouped(name, x, quant):
     check(bool(torch.isfinite(out_k[:, ~bad].float()).all()),
           f"{name}: non-finite")
     ok, err, rel = within(out_k[:, ~bad], out_p[:, ~bad])
-    print(f"check {name}: {'grouped q8' if quant else 'grouped'} "
-          f"max_abs_err={err:.3e} ({rel:.1e} of max |out|, gate 2e-2)"
+    print(f"check {name}: {'grouped q8' if quant else 'grouped'}"
+          + (f" S={kw['splits']}" if quant else "")
+          + f" max_abs_err={err:.3e} ({rel:.1e} of max |out|, gate 2e-2)"
           + (f"; {int(bad.sum())} rows of an id outside [0, G) NaN"
              if bad.any() else ""))
     check(ok, f"{name}: grouped kernel disagrees with its plain version")
     return err
+
+
+def check_forest_split(x, xd):
+    """Phase 2's split cases of #5 beyond check_grouped's default split:
+    the main forest ``x`` at S 4 and 64 bit-equal to the default, and the
+    default within the gate of splits=1; two faulty merges of the plain
+    version missing the gate on the decode-dominant main forest ``xd``."""
+    import torch
+    from repro_torch.kernels import bifurcated_decode as bd
+
+    kern = bd.grouped_fused_bifurcated_decode_q8
+    kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"])
+    S = default_splits(x["q"])
+    out = kern(*grouped_args(x, True), **kw)
+    same = [same_bits(kern(*grouped_args(x, True), **kw, splits=s), out)
+            for s in (4, 64)]
+    ok, err, rel = within(out, kern(*grouped_args(x, True), **kw, splits=1))
+    print(f"check int8 main forest: S=4 and S=64 bit-equal to the default "
+          f"(S={S}) {same}; the default vs splits=1 max_abs_err={err:.3e} "
+          f"({rel:.1e} of max |out|, gate 2e-2)")
+    check(all(same), "#5's output moves with S")
+    check(ok, "#5's split walk disagrees with its single walk")
+    args = grouped_args(xd, True)
+    pkw = dict(scale=xd["scale"], c_d=xd["c_d"], pn=xd["pn"],
+               block_m=bd.BLOCK_M, splits=S)
+    want = bd._grouped_plain(*args, **pkw)
+    rels = {k: within(bd._grouped_plain(*args, **pkw, merge=f), want)[2]
+            for k, f in faulty_merges().items()}
+    print(f"check #5 split merge, main forest decode-dominant masked S={S}: "
+          f"a faulty merge's error / max |out|: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in rels.items()))
+    for k, v in rels.items():
+        check(v >= 10 * TOL, f"#5 split merge: the gate misses '{k}'")
 
 
 def check_forest_gate_sensitivity(name, xq, xg):
@@ -684,17 +728,19 @@ def split_kw(x, splits=None):
 
 @contextlib.contextmanager
 def single_walk():
-    """#1-#3 and #6-#9 at splits=1 for the duration of a ``with`` block
-    (their wrappers' default split forced to 1): for the comparisons, bit
-    for bit, with a kernel that is not split."""
+    """#1-#3, #5 and #6-#11 at splits=1 for the duration of a ``with``
+    block (their wrappers' default split forced to 1): for the comparisons,
+    bit for bit, with a kernel that is not split (#4), and the single
+    walk's profiles."""
     from repro_torch.kernels import bifurcated_decode as bd
 
-    saved = bd.split_count
+    saved = bd.split_count, bd.packed_split_count
     bd.split_count = lambda *a, **k: 1
+    bd.packed_split_count = lambda *a, **k: (1, 1)
     try:
         yield
     finally:
-        bd.split_count = saved
+        bd.split_count, bd.packed_split_count = saved
 
 
 def tree_args(x, quant):
@@ -798,9 +844,9 @@ def check_tree_decode_share(name, x):
 
 
 def check_tree_depth_one(quant):
-    """Every path one level deep: the tree kernel's single walk (splits=1;
-    #4 and #5 are not split) must compute the grouped kernel's bits (#6 vs
-    #4, #7 vs #5)."""
+    """Every path one level deep: the tree kernel must compute the
+    grouped kernel's bits, #7 = #5 at the default split and on the single
+    walk (splits=1), #6 = #4 on the single walk (#4 is not split)."""
     import torch
     from repro_torch.kernels import bifurcated_decode as bd
 
@@ -810,20 +856,23 @@ def check_tree_depth_one(quant):
     x = tree_inputs(4, 8, 32, 2, 1, 128, 2049, (2049, 0, 77, 1000),
                     slot_paths, 24, seed=26, masked=True, quant=quant)
     kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"])
-    tree = tree_kernel(quant)(*tree_args(x, quant), **kw, splits=1)
     ctx = tree_args(x, quant)[:-5]
-    grouped = (bd.grouped_fused_bifurcated_decode_q8 if quant
-               else bd.grouped_fused_bifurcated_decode)(
-        *ctx, x["paths"][0].contiguous(), x["node_lens"], x["kd"], x["vd"],
-        x["bias"], **kw)
-    torch.cuda.synchronize()
-    same = bool(torch.equal(tree, grouped))
-    err = within(tree, grouped)[1]
-    print(f"check {'int8 ' if quant else ''}depth-1 trie N=4 lens "
-          f"2049/0/77/1000: tree (splits=1) vs grouped "
-          f"kernel bit-equal {same} "
-          f"(max_abs_err={err:.3e})")
-    check(same, "depth 1: the tree kernel is not the grouped kernel")
+    kern = (bd.grouped_fused_bifurcated_decode_q8 if quant
+            else bd.grouped_fused_bifurcated_decode)
+    for splits in ((None, 1) if quant else (1,)):
+        sk = split_kw(x, splits)
+        tree = tree_kernel(quant)(*tree_args(x, quant), **kw, **sk)
+        grouped = kern(*ctx, x["paths"][0].contiguous(), x["node_lens"],
+                       x["kd"], x["vd"], x["bias"], **kw,
+                       **(sk if quant else {}))
+        torch.cuda.synchronize()
+        same = bool(torch.equal(tree, grouped))
+        err = within(tree, grouped)[1]
+        print(f"check {'int8 ' if quant else ''}depth-1 trie N=4 lens "
+              f"2049/0/77/1000: tree vs grouped kernel at S={sk['splits']} "
+              f"bit-equal {same} (max_abs_err={err:.3e})")
+        check(same, f"depth 1, S={sk['splits']}: the tree kernel is not the "
+                    f"grouped kernel")
 
 
 def check_tree_kernels():
@@ -1457,8 +1506,8 @@ def packed_bad_rows(z):
 
 
 def packed_splits(z):
-    """#11's default shares (decode tiles', chunk tiles') on this card for
-    the packed case ``z`` (``packed_split_count``)."""
+    """#10's / #11's default shares (decode tiles', chunk tiles') on this
+    card for the packed case ``z`` (``packed_split_count``)."""
     from repro_torch.kernels import bifurcated_decode as bd
 
     g, rows, _ = z["q"].shape
@@ -1467,16 +1516,14 @@ def packed_splits(z):
 
 
 def check_packed(name, z, quant, splits=None):
-    """A packed kernel vs its plain version on one case (#11 at
-    ``splits``, default its default split, its plain version at the same
-    S): both NaN on the rows of ``packed_bad_rows`` and nowhere else,
-    within the gate on the decode rows and on the chunk rows. Returns (max
-    abs error, the kernel's output)."""
+    """A packed kernel vs its plain version on one case (at ``splits``,
+    default its default split, its plain version at the same S): both NaN
+    on the rows of ``packed_bad_rows`` and nowhere else, within the gate on
+    the decode rows and on the chunk rows. Returns (max abs error, the
+    kernel's output)."""
     import torch
 
-    sk = {}
-    if quant:
-        sk = {"splits": packed_splits(z) if splits is None else splits}
+    sk = {"splits": packed_splits(z) if splits is None else splits}
     out_k = packed_kernel(quant)(*packed_args(z, quant), **packed_kw(z),
                                  **sk)
     out_p = packed_plain(quant)(*packed_args(z, quant), **packed_kw(z), **sk)
@@ -1503,7 +1550,7 @@ def check_packed(name, z, quant, splits=None):
         errs.append(err)
         rels.append(f"{part} {err:.3e} ({rel:.1e})")
     print(f"check {name}: {'packed q8' if quant else 'packed'}"
-          + (f" S={sk['splits']}" if sk else "") + " max_abs_err "
+          f" S={sk['splits']} max_abs_err "
           + ", ".join(rels) + " of max |out| (gate 2e-2)"
           + (f"; {int(bad.sum())} rows of bad ids NaN" if bad.any() else ""))
     return max(errs), out_k
@@ -1549,39 +1596,77 @@ def check_packed_gate_sensitivity(z):
         check(v >= 10 * TOL, f"packed: the gate misses '{k}'")
 
 
-def check_packed_split(z, dec_only, yt, out_z):
-    """#11's split on the main packed case ``z`` (default output
+def check_packed_split(z, dec_only, yt, out_z, quant):
+    """#10's / #11's split on the main packed case ``z`` (default output
     ``out_z``): the same bits at two other S > 1 (an int and a pair); at
-    splits=1 (the single walk) its decode-only call = #9 at splits=1 and
-    the chunk leaving the decode rows' bits; within the gate of the single
-    walk."""
+    splits=1 (the single walk) its decode-only call = #8's / #9's at
+    splits=1 and the chunk leaving the decode rows' bits; within the gate
+    of the single walk."""
     import torch
 
-    kern, paged = packed_kernel(True), paged_kernel(True)
+    tag, name, paged_name = (("int8 ", "#11", "#9") if quant
+                             else ("", "#10", "#8"))
+    kern, paged = packed_kernel(quant), paged_kernel(quant)
     kw = packed_kw(z)
     sd, sc = packed_splits(z)
     for splits in (4, (sd, 2 * sc)):
-        same = same_bits(kern(*packed_args(z, True), **kw, splits=splits),
+        same = same_bits(kern(*packed_args(z, quant), **kw, splits=splits),
                          out_z)
-        print(f"check int8 main packed trie: S={splits} vs the default "
+        print(f"check {tag}main packed trie: S={splits} vs the default "
               f"({sd}, {sc}) bit-equal {same}")
-        check(same, f"#11's output moves with S ({splits})")
-    one = kern(*packed_args(z, True), **kw, splits=1)
-    one_d = kern(*packed_args(dec_only, True), **packed_kw(dec_only),
+        check(same, f"{name}'s output moves with S ({splits})")
+    one = kern(*packed_args(z, quant), **kw, splits=1)
+    one_d = kern(*packed_args(dec_only, quant), **packed_kw(dec_only),
                  splits=1)
-    paged1 = paged(*paged_args(yt, True), scale=yt["scale"], c_d=yt["c_d"],
+    paged1 = paged(*paged_args(yt, quant), scale=yt["scale"], c_d=yt["c_d"],
                    pn=yt["pn"], splits=1)
     torch.cuda.synchronize()
     nd = z["nd"]
     same = bool(torch.equal(one_d, paged1))
     same_z = bool(torch.equal(one[:, :nd], paged1))
     ok, err, rel = within(out_z, one)
-    print(f"check int8 main packed trie, splits=1: decode only vs #9 at "
-          f"splits=1 bit-equal {same}, decode rows with the chunk {same_z}; "
-          f"the default split vs splits=1 max_abs_err={err:.3e} ({rel:.1e} "
-          f"of max |out|, gate 2e-2)")
-    check(same and same_z, "splits=1: #11 is not #9's single walk")
-    check(ok, "#11's split walk disagrees with its single walk")
+    print(f"check {tag}main packed trie, splits=1: decode only vs "
+          f"{paged_name} at splits=1 bit-equal {same}, decode rows with the "
+          f"chunk {same_z}; the default split vs splits=1 max_abs_err="
+          f"{err:.3e} ({rel:.1e} of max |out|, gate 2e-2)")
+    check(same and same_z, f"splits=1: {name} is not {paged_name}'s single "
+                           f"walk")
+    check(ok, f"{name}'s split walk disagrees with its single walk")
+
+
+def check_packed_merges(xt_dominant):
+    """Two faulty merges of #10's plain split walk miss the gate on the
+    main packed case built on a decode-dominant trie ``xt_dominant``, whose
+    envelope keys lie along the chunk rows' mean query direction: the
+    decode rows' last piece (their decode arm) and the chunk rows' (the
+    envelope) carry most of their softmax mass."""
+    import torch
+    from repro_torch.kernels import bifurcated_decode as bd
+
+    nan = float("nan")
+    yt = paged_case(xt_dominant, False, 128, seed=61, spare=24, fill=nan)
+    fs = TREE_TOKENS["SYS"] + TREE_TOKENS["TPL_A"]
+    z = packed_case(yt, False, PACKED_CHUNK, PACKED_BUF, fs, [0, 1],
+                    TREE_CAP, 62)
+    nd = z["nd"]
+    q_dir = z["q"][:, nd:].float().mean(1)                     # (g, hd)
+    z["kf"] = (40.0 * q_dir / q_dir.norm(dim=-1, keepdim=True)
+               + 0.5 * z["kf"].float()).to(torch.bfloat16).contiguous()
+    args = packed_args(z, False)
+    args = args[:3] + (None, None) + args[3:]      # _packed_plain's scales
+    kw = dict(packed_kw(z), splits=packed_splits(z))
+    want = bd._packed_plain(*args, **kw)
+    rels = {}
+    for k, f in faulty_merges().items():
+        got = bd._packed_plain(*args, **kw, merge=f)
+        rels[k] = [within(got[:, sel], want[:, sel])[2]
+                   for sel in (slice(0, nd), slice(nd, None))]
+    print(f"check #10 split merge, main packed trie decode-dominant, "
+          f"envelope-dominant chunk S={kw['splits']}: a faulty merge's error "
+          f"/ max |out| (decode rows, chunk rows): "
+          + ", ".join(f"{k} {v[0]:.2f}, {v[1]:.2f}" for k, v in rels.items()))
+    for k, v in rels.items():
+        check(min(v) >= 10 * TOL, f"#10 split merge: the gate misses '{k}'")
 
 
 def check_packed_kernels():
@@ -1613,17 +1698,15 @@ def check_packed_kernels():
                         TREE_CAP, 52)
         out_d = packed_kernel(quant)(*packed_args(dec_only, quant),
                                      **packed_kw(dec_only))
-        # #11 = #9 at the same (default) S; #10 is not split: #8's single
-        # walk
+        # #10 = #8 (#11 = #9) at the same (default) S
         paged = paged_kernel(quant)(*paged_args(yt, quant),
                                     scale=yt["scale"], c_d=yt["c_d"],
-                                    pn=yt["pn"],
-                                    **({} if quant else {"splits": 1}))
+                                    pn=yt["pn"])
         torch.cuda.synchronize()
         same = bool(torch.equal(out_d, paged))
-        print(f"check {tag}main trie, decode only: packed vs paged kernel"
-              + (f" at the default S ({packed_splits(dec_only)[0]})"
-                 if quant else " at splits=1") + f" bit-equal {same}")
+        print(f"check {tag}main trie, decode only: packed vs paged kernel at "
+              f"the default S ({packed_splits(dec_only)[0]}) bit-equal "
+              f"{same}")
         check(same, "decode only: the packed kernel is not the paged kernel")
         err, out_z = check_packed(
             f"main {tag}trie on pages of 128 + a {PACKED_CHUNK}-position "
@@ -1634,8 +1717,11 @@ def check_packed_kernels():
         print(f"check {tag}main trie with the chunk: decode rows bit-equal "
               f"to the paged kernel's {same}")
         check(same, "the chunk moved the decode rows' bits")
-        if quant:
-            check_packed_split(z, dec_only, yt, out_z)
+        check_packed_split(z, dec_only, yt, out_z, quant)
+        if not quant:
+            check_packed_merges(tree_inputs(
+                TREE_NODES, 8, BATCH, 2, 1, 128, TREE_CAP, lens, slot_paths,
+                TREE_DEC_CAP, seed=60, masked=True, dec_boost=3.0))
         out[kname] = err
         # the ragged trie (ids outside [-1, N) on one slot's path) on
         # pages of 48; 9 slots, so a tile holds 18 decode rows and 46
@@ -2119,13 +2205,14 @@ def check_kernels():
                           FOREST_DEC_CAP, seed=20, quant=quant)
         if not quant:
             x_g = x
+        xd = forest_inputs(4, 8, 32, 2, 1, 128, 8192, FOREST_LENS,
+                           FOREST_DEC_CAP, seed=21, masked=True,
+                           dec_boost=3.0, quant=quant)
         err = max(check_grouped(f"main {tag}{fmain}", x, quant),
                   check_grouped(f"main {tag}{fmain} decode-dominant masked",
-                                forest_inputs(4, 8, 32, 2, 1, 128, 8192,
-                                              FOREST_LENS, FOREST_DEC_CAP,
-                                              seed=21,
-                                              masked=True, dec_boost=3.0,
-                                              quant=quant), quant))
+                                xd, quant))
+        if quant:
+            check_forest_split(x, xd)
         for name, args, kw in [
                 ("rows shuffled, 0-length segment, id outside [0, G)",
                  (3, 8, 32, 2, 1, 128, 1000, (1000, 0, 77), 24, 22),
@@ -2142,23 +2229,26 @@ def check_kernels():
                            masked=True, quant=quant)
         kw = dict(scale=x1["scale"], c_d=x1["c_d"], pn=x1["pn"])
         from repro_torch.kernels import bifurcated_decode as bd
-        # #4 / #5 are not split: against #1 / #3's single walk
+        # #5 against #3 at the default split; #4 is not split: against
+        # #1's single walk
         if quant:
+            sk = split_kw(x1)
             one = bd.fused_bifurcated_decode_q8(
                 x1["q"], x1["kc"][0], x1["vc"][0], x1["ks"][0], x1["vs"][0],
-                x1["kd"], x1["vd"], x1["bias"], **kw, splits=1)
+                x1["kd"], x1["vd"], x1["bias"], **kw, **sk)
             grp = bd.grouped_fused_bifurcated_decode_q8(
-                *grouped_args(x1, True), **kw)
+                *grouped_args(x1, True), **kw, **sk)
         else:
+            sk = {"splits": 1}
             one = bd.fused_bifurcated_decode(
                 x1["q"], x1["kc"][0], x1["vc"][0], x1["kd"], x1["vd"],
-                x1["bias"], **kw, splits=1)
+                x1["bias"], **kw, **sk)
             grp = bd.grouped_fused_bifurcated_decode(
                 *grouped_args(x1, False), **kw)
         torch.cuda.synchronize()
         ok, e1, rel = within(grp, one)
         print(f"check {tag}G=1 m_c=2049 grouped vs single-prefix kernel "
-              f"(splits=1): "
+              f"(S={sk['splits']}): "
               f"max_abs_err={e1:.3e} ({rel:.1e} of max |out|, gate 2e-2; "
               f"bit-equal {bool(torch.equal(grp, one))})")
         check(ok, f"{tag}G=1: grouped kernel disagrees with the single-prefix "
@@ -2201,9 +2291,10 @@ def read_launches():
 
 @contextlib.contextmanager
 def packed_plain_at_kernel_splits():
-    """#11's plain version, under ``plain_versions``, at the share count
-    its kernel takes by default on this card (``packed_split_count``), in
-    place of the CPU's splits=1: for gates held at the kernel's S."""
+    """#10's / #11's plain versions, under ``plain_versions``, at the
+    share count their kernels take by default on this card
+    (``packed_split_count``), in place of the CPU's splits=1: for gates
+    held at the kernel's S."""
     from repro_torch.kernels import bifurcated_decode as bd
 
     saved = bd._packed_split_arg
@@ -2405,13 +2496,9 @@ def serve():
           f"max(2e-2 x max |logit|, 1.5 x plain vs flash))")
     check(err_kf <= max(TOL * scale, 1.5 * err_pf),
           "kernel path logits disagree with the flash path")
-    split_us = profile_step(model, params, fresh(cache), tok)
-    with single_walk():
-        single_us = profile_step(model, params, fresh(cache), tok, top=0,
-                                 tag=" (splits=1)")
-    print(f"serve: the fused decode kernel's device time per step, "
-          f"{split_us / 1e3:.3f} ms at the default split against "
-          f"{single_us / 1e3:.3f} ms at splits=1 ({cfg.n_layers} calls)")
+    profile_splits("serve", "fused decode",
+                   lambda _: decode_fn(model, params, fresh(cache), tok),
+                   cfg.n_layers)
 
     # the two-pass dispatch over the served cache: one partials launch per
     # layer, merged on the host; it must equal the fused kernel's result
@@ -2743,6 +2830,21 @@ def serve_forest(cfg, model, params, quant):
         check(all(np.isfinite(eng.logps[s])), "logprobs")
     path_err = forest_vs_single(cfg, model, params, st_b.cache, st_b.tokens,
                                 slots, quant)
+    if quant:
+        # where an int8 forest step's time goes, #5 at its default split
+        # and at splits=1, and the wrapper's host work a call
+        fc = st_b.cache
+        profile_splits(tag, "grouped",
+                       lambda _: decode_fn(model, params, _fork(fc),
+                                           st_b.tokens),
+                       cfg.n_layers, ptag=" forest int8")
+        from repro_torch.kernels import bifurcated_decode as bd
+
+        p = cfg.n_heads // cfg.n_kv_heads
+        host_us_per_call(tag, bd.grouped_fused_bifurcated_decode_q8,
+                         (fc.k_ctx[0], fc.v_ctx[0], fc.k_scale[0],
+                          fc.v_scale[0], fc.group_ids.repeat_interleave(p),
+                          fc.ctx_lens), p, FOREST_DEC_CAP, seed=15)
 
     # cancel and retire the 2500-token group, readmit into its segment and
     # slots, decode on; the untouched groups must not move by one bit
@@ -2958,15 +3060,10 @@ def serve_tree(cfg, model, params, quant):
     path_err = tree_vs_single(cfg, model, params, st_b.cache, st_b.tokens,
                               slots, req_paths, quant)
     if not quant:
-        split_us = profile_step(model, params, _fork(st_b.cache),
-                                st_b.tokens, tag=" tree")
-        with single_walk():
-            single_us = profile_step(model, params, _fork(st_b.cache),
-                                     st_b.tokens, top=0,
-                                     tag=" tree (splits=1)")
-        print(f"{tag}: the tree kernel's device time per step, "
-              f"{split_us / 1e3:.3f} ms at the default split against "
-              f"{single_us / 1e3:.3f} ms at splits=1 ({cfg.n_layers} calls)")
+        profile_splits(tag, "tree",
+                       lambda _: decode_fn(model, params, _fork(st_b.cache),
+                                           st_b.tokens),
+                       cfg.n_layers, ptag=" tree")
 
     # cancel and retire the A2 request: its leaf frees, SYS and TPL_A keep
     # one reference less; readmit [SYS, TPL_A, A3]: two levels reused, one
@@ -3196,6 +3293,7 @@ def serve_paged_forest(cfg, model, params, quant, dense_outs):
 
     eng_b, st_b, slots = start()
     st_b = eng_b.step_chunk(params, st_b, FOREST_STEPS)
+    first_b = _copy_outputs(eng_b)
     eng, st, slots_a = start()
     check(slots_a == slots, "the two runs assigned different slots")
     torch.cuda.synchronize()
@@ -3272,22 +3370,26 @@ def serve_paged_forest(cfg, model, params, quant, dense_outs):
     check(all(np.isfinite(eng.logps[s]).all() and
               len(eng.outputs[s]) == FOREST_MORE + 1 for s in s_new),
           "readmitted slots' outputs")
-    # #4 and #5 are not split: the comparison with the dense forest's
-    # tokens replays both runs on #8's / #9's single walk
-    with single_walk():
-        e_b, s_b, _ = start()
-        s_b = e_b.step_chunk(params, s_b, FOREST_STEPS)
-        e, s, _ = start()
-        s = e.step_chunk(params, s, FOREST_STEPS)
-        first = _copy_outputs(e) == dense_outs["first"]
-        s = e.cancel_group(s, 2)
-        check(e.retire_groups(s) == [2], "retire (single walk)")
-        s = e.release_retired(s)
-        s, _ = e.admit(params, s, new_ctx, BATCH // len(ctxs))
-        s = e.step_chunk(params, s, FOREST_MORE)
-        s_b = e_b.step_chunk(params, s_b, FOREST_MORE)
-        outs = (first, _copy_outputs(e), _copy_outputs(e_b))
-        del e, s, e_b, s_b
+    if quant:   # #5 and #9 at the same (default) split: the same pieces
+        outs = (first_b == dense_outs["first"], _copy_outputs(eng),
+                _copy_outputs(eng_b))
+    else:
+        # #4 is not split: the comparison with the dense forest's tokens
+        # replays both runs on #8's single walk
+        with single_walk():
+            e_b, s_b, _ = start()
+            s_b = e_b.step_chunk(params, s_b, FOREST_STEPS)
+            e, s, _ = start()
+            s = e.step_chunk(params, s, FOREST_STEPS)
+            first = _copy_outputs(e) == dense_outs["first"]
+            s = e.cancel_group(s, 2)
+            check(e.retire_groups(s) == [2], "retire (single walk)")
+            s = e.release_retired(s)
+            s, _ = e.admit(params, s, new_ctx, BATCH // len(ctxs))
+            s = e.step_chunk(params, s, FOREST_MORE)
+            s_b = e_b.step_chunk(params, s_b, FOREST_MORE)
+            outs = (first, _copy_outputs(e), _copy_outputs(e_b))
+            del e, s, e_b, s_b
     dense_same = (outs[0] and outs[1] == dense_outs["a"]
                   and outs[2] == dense_outs["b"])
     print(f"{tag}: a {READMIT_LEN}-token readmission on {free0} free pages "
@@ -3298,8 +3400,9 @@ def serve_paged_forest(cfg, model, params, quant, dense_outs):
           f"(free {free2}, live {live3}); {FOREST_MORE} more steps: "
           f"untouched groups' tokens bit-identical to the run without "
           f"retirement: {same}; every token equal to phase 3c's dense "
-          f"forest (#{9 if quant else 8} at splits=1, both runs replayed):"
-          f" {dense_same}")
+          f"forest ("
+          + ("#9 and #5 at the default split" if quant
+             else "#8 at splits=1, both runs replayed") + f"): {dense_same}")
     check(same, "the retire and readmit moved another group's tokens")
     check(dense_same, "the paged forest's tokens differ from the dense "
                       "forest's")
@@ -3454,14 +3557,12 @@ def _spy_first_logits(eng, method):
     return seen
 
 
-def packed_vs_plain(cfg, model, params, eng, st, tag):
-    """The next packed step of ``eng``, per layer on the packed stream's
-    own input (decode rows and chunk rows): the packed kernel against its
-    plain versions, each on copies of the decode arms and envelopes.
-    Returns the max abs error over the layers' decode and chunk rows."""
+def _next_chunk(eng):
+    """The chunk ``eng``'s next packed step advances: the oldest pending
+    request, its chunk's live length, its tokens (1, cp), the chunk's
+    first position, its rows' positions and the pending node's ancestor
+    path."""
     import torch
-    from repro_torch.models import blocks
-    from repro_torch.models.transformer import _layer
 
     pend = eng._pending[min(eng._pending)]
     _, m_node = pend["new"][pend["node_i"]]
@@ -3475,6 +3576,32 @@ def packed_vs_plain(cfg, model, params, eng, st, tag):
     fpath = torch.tensor(pend["path"] + [-1] * (TREE_DEPTH
                                                 - len(pend["path"])),
                          dtype=torch.int32, device=DEVICE)
+    return pend, cv, buf.to(DEVICE), start, fresh_pos, fpath
+
+
+def packed_step_fn(model, params, eng, st):
+    """``eng``'s next packed step (``model.decode_step_packed``) as a
+    callable, for ``profile_step``, on copies of the decode arms and of
+    the pending node's envelopes: the engine's state is left as it was."""
+    pend, cv, buf, _, fresh_pos, fpath = _next_chunk(eng)
+    cache = _fork(st.cache)
+    kw = dict(k_fresh=pend["k_fresh"].clone(),
+              v_fresh=pend["v_fresh"].clone(), buf_len=pend["buf_len"],
+              chunk_valid=cv, fresh_start=pend["fresh_start"],
+              fresh_pos=fresh_pos, fresh_path=fpath)
+    return lambda: model.decode_step_packed(params, cache, st.tokens, buf,
+                                            **kw)
+
+
+def packed_vs_plain(cfg, model, params, eng, st, tag):
+    """The next packed step of ``eng``, per layer on the packed stream's
+    own input (decode rows and chunk rows): the packed kernel against its
+    plain versions, each on copies of the decode arms and envelopes.
+    Returns the max abs error over the layers' decode and chunk rows."""
+    from repro_torch.models import blocks
+    from repro_torch.models.transformer import _layer
+
+    pend, cv, buf, start, fresh_pos, fpath = _next_chunk(eng)
     cache = st.cache
     store = cache.store
     pools = {"k_pages": store.k_pages, "v_pages": store.v_pages}
@@ -3503,7 +3630,7 @@ def packed_vs_plain(cfg, model, params, eng, st, tag):
                 fresh_path=fpath)
 
     x = model._embed(params, st.tokens)
-    x_c = model._embed(params, buf.to(DEVICE))
+    x_c = model._embed(params, buf)
     for i in range(cfg.n_layers):
         layer = _layer(params["layers"], i)
         h = blocks.apply_norm(cfg, layer["ln1"], x)
@@ -3526,8 +3653,8 @@ def packed_vs_plain(cfg, model, params, eng, st, tag):
     print(f"{tag}: one packed step ({n_live} live slots, a chunk of {cv} "
           f"tokens at rows {pend['buf_len']}..{pend['buf_len'] + cv - 1} of "
           f"its node's envelope, position {start}), per layer on the packed "
-          f"stream's input: kernel vs its plain versions (#11's at the "
-          f"kernel's S), decode rows "
+          f"stream's input: kernel vs its plain versions at the kernel's "
+          f"S, decode rows "
           f"max_abs_err={errs['decode'][0]:.3e} ({errs['decode'][1]:.2e} of "
           f"max |out|), chunk rows {errs['chunk'][0]:.3e} "
           f"({errs['chunk'][1]:.2e}) (gates 2e-2, {cfg.n_layers} layers)")
@@ -3706,6 +3833,13 @@ def serve_packed(cfg, model, params, quant):
             saved = read_launches()
             t_check = time.perf_counter()
             rec["err"] = packed_vs_plain(cfg, model, params, eng, st, tag)
+            if not quant:
+                # where a bf16 packed step's time goes, #10 at its default
+                # split and at splits=1
+                profile_splits(
+                    tag, "packed",
+                    lambda _: packed_step_fn(model, params, eng, st),
+                    cfg.n_layers, ptag=" packed")
             for k in bd.KERNELS:
                 k.launches = saved[k.__name__]
             # the pending requests' time to first token leaves the check out
@@ -3842,18 +3976,19 @@ def _copy_outputs(eng):
     return {s: list(v) for s, v in eng.outputs.items()}
 
 
-def profile_step(model, params, cache, tok, top=8, tag=""):
-    """Where one decode step's device time goes: torch.profiler over one
-    step, device time by kernel name, beside the step's wall time, and the
-    decode kernels' own device time and share (split_kernel + merge_kernel,
-    or the single walk's decode_kernel: #1 / #3 on the single-prefix
-    paths, #6 on the trie). Returns that time in us."""
+def profile_step(step, top=8, tag=""):
+    """Where one step's device time goes: torch.profiler over ``step()``
+    (one decode or packed step), device time by kernel name, beside the
+    step's wall time, and the decode kernels' own device time and share
+    (split_kernel + merge_kernel, or the single walk's decode_kernel: #1 /
+    #3 on the single-prefix paths, #5 on the int8 forest, #6 on the trie,
+    #10 on a packed step). Returns that time in us."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.decode_step(params, cache, tok, impl="kernel")
+        step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = [(getattr(e, "self_device_time_total", 0.0), e.count, e.key,
@@ -3866,7 +4001,7 @@ def profile_step(model, params, cache, tok, top=8, tag=""):
            for k in ("split", "merge", "decode")}
     dec_us = sum(dec.values())
     dev_us = sum(r[0] for r in kern)
-    print(f"profile{tag}: one decode step, wall {wall_us:.0f} us under the "
+    print(f"profile{tag}: one step, wall {wall_us:.0f} us under the "
           f"profiler, device busy {busy:.0f} us ({len(rows)} kernel names; "
           f"the device-side rows alone {dev_us:.0f} us in "
           f"{sum(r[1] for r in kern)} launches); the decode kernels "
@@ -3879,33 +4014,62 @@ def profile_step(model, params, cache, tok, top=8, tag=""):
     return dec_us
 
 
+def profile_splits(tag, kernel, make_step, calls, top=8, ptag=""):
+    """``profile_step`` over the step ``make_step(i)`` returns, at the
+    default split (i 0) and at splits=1 (i 1, under ``single_walk``); one
+    line of the decode kernel's device time per step at both."""
+    split_us = profile_step(make_step(0), top=top, tag=ptag)
+    with single_walk():
+        single_us = profile_step(make_step(1), top=0,
+                                 tag=f"{ptag} (splits=1)")
+    print(f"{tag}: the {kernel} kernel's device time per step, "
+          f"{split_us / 1e3:.3f} ms at the default split against "
+          f"{single_us / 1e3:.3f} ms at splits=1 ({calls} calls)")
+
+
+def decode_fn(model, params, cache, tok):
+    """One decode step of ``model`` on ``cache`` as a callable, for
+    ``profile_step``."""
+    return lambda: model.decode_step(params, cache, tok, impl="kernel")
+
+
 def host_us_per_call(tag, kern, ctx, p, c_d, seed, n=200):
-    """The host's us per call of #1 / #3 (``kern``) on one served layer's
-    context ``ctx`` with a random decode arm, ``n`` calls back to back on
-    the host clock without a synchronise (the wrapper's Python, its checks,
-    its scratch and the launch; the device is not waited for), at the
-    default split and at splits=1, in turns; prints the best of each."""
+    """``host_us`` of #1 / #3 / #5 (``kern``) on one served layer's
+    context operands ``ctx`` (#5: segments, scales, row map and lengths)
+    with a random decode arm."""
     import torch
 
-    g, _, hd = ctx[0].shape
+    g, hd = ctx[0].shape[-3], ctx[0].shape[-1]
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     q = torch.randn(g, BATCH * p, hd, generator=gen,
                     device=DEVICE).to(torch.bfloat16)
     kd, vd, bias, _ = _decode_arm_operands(1, g, BATCH, c_d, hd, seed)
     kw = dict(scale=hd**-0.5, c_d=c_d, pn=p)
+    host_us(tag, kern.__name__, lambda splits: kern(
+        q, *ctx, kd[0], vd[0], bias, **kw, splits=splits),
+        default_splits(q), n)
+
+
+def host_us(tag, name, call, default, n=200):
+    """The host's us per call of a split kernel's wrapper, ``call(S)``
+    ``n`` times back to back on the host clock without a synchronise (the
+    wrapper's Python, its checks, its scratch and the launch; the device
+    is not waited for), at the ``default`` split and at splits=1, in turns;
+    prints the best of each."""
+    import torch
+
     counts = read_launches()
 
     def run(splits):
-        kern(q, *ctx, kd[0], vd[0], bias, **kw, splits=splits)
+        call(splits)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            kern(q, *ctx, kd[0], vd[0], bias, **kw, splits=splits)
+            call(splits)
         us = (time.perf_counter() - t0) / n * 1e6
         torch.cuda.synchronize()
         return us
 
-    default = default_splits(q)
     times = {default: [], 1: []}
     for splits in (default, 1, 1, default):
         times[splits].append(run(splits))
@@ -3913,7 +4077,7 @@ def host_us_per_call(tag, kern, ctx, p, c_d, seed, n=200):
 
     for k in KERNELS:       # these calls are not a path's: counts restored
         k.launches = counts[k.__name__]
-    print(f"{tag}: {kern.__name__} wrapper's host work {min(times[default]):.1f}"
+    print(f"{tag}: {name} wrapper's host work {min(times[default]):.1f}"
           f" us/call at the default split (S={default}), "
           f"{min(times[1]):.1f} us/call at splits=1 ({n} calls back to back, "
           f"host clock, no synchronise; best of two, in turns)")
@@ -4371,15 +4535,10 @@ def serve_hybrid():
                          cfg.n_heads // cfg.n_kv_heads,
                          attn.decode_capacity, seed=14)
         if not quant:   # where a step's time goes (each advances the cache)
-            split_us = profile_step(model, params, cache, toks[:, 1:2],
-                                    top=10)
-            with single_walk():
-                single_us = profile_step(model, params, cache, toks[:, 2:3],
-                                         top=0, tag=" (splits=1)")
-            print(f"{tag}: the fused decode kernel's device time per step, "
-                  f"{split_us / 1e3:.3f} ms at the default split against "
-                  f"{single_us / 1e3:.3f} ms at splits=1 ({model.n_super} "
-                  f"calls)")
+            profile_splits(
+                tag, "fused decode", lambda i: decode_fn(
+                    model, params, cache, toks[:, 1 + i:2 + i]),
+                model.n_super, top=10)
         del cache
         errs = []
         for layer, ops, kw, o, S in rec.calls:
@@ -4545,20 +4704,24 @@ def merge_share(name, call, n_inputs):
           f" device time): the merge {merge / (split + merge):.1%}")
 
 
+PLAIN_INPUTS = 4    # input sets a plain version is timed over (a plain
+                    # split walk takes up to a second a call)
+
+
 def _timed_entry(name, source, line, kern, plain, lib, nbytes, flop,
                  launches, err, n_inputs, module="bifurcated_decode.py",
-                 graph=False, plain_inputs=None):
-    """Time one kernel, its plain version and its library yardstick over
-    ``n_inputs`` input sets; returns its JSON entry (``module``: the
-    Pallas kernel's file under src/repro/kernels). ``graph``: the kernel
-    and the yardstick timed by CUDA graph replay (``time_ms_graph``); the
-    kernel's back-to-back eager time is printed beside it.
-    ``plain_inputs``: the plain version over that many input sets only."""
+                 graph=False):
+    """Time one kernel and its library yardstick over ``n_inputs`` input
+    sets, its plain version over the first PLAIN_INPUTS; returns its JSON
+    entry (``module``: the Pallas kernel's file under src/repro/kernels).
+    ``graph``: the kernel and the yardstick timed by CUDA graph replay
+    (``time_ms_graph``); the kernel's back-to-back eager time is printed
+    beside it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flop = flop / BF16_FLOP_PER_S * 1e3
     timer = time_ms_graph if graph else time_ms
     ms = timer(kern, n_inputs)
-    n_plain = plain_inputs or n_inputs
+    n_plain = min(PLAIN_INPUTS, n_inputs)
     plain_ms = time_ms(plain, n_plain, reps=1, iters=n_plain)
     lib_ms = None if lib is None else timer(lib, n_inputs)
     if graph:
@@ -4623,7 +4786,7 @@ def time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches, launches,
     scale = hd**-0.5
     kc, vc = cache.k_ctx, cache.v_ctx
     fkw = dict(scale=scale, c_d=c_d, pn=p)
-    skw = {"splits": default_splits(q)}     # #1 / #3's plain versions
+    skw = {"splits": default_splits(q)}     # #1 / #3 / #5's plain versions
 
     # library yardsticks on the same inputs, prepared outside the timing:
     # fused = attention over [context ⊕ decode slots] under the slot bias and
@@ -4847,14 +5010,20 @@ def time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches, launches,
                    else (lambda i: (fc.k_ctx[i], fc.v_ctx[i])))
         kern = getattr(bd, kname)
         plain = getattr(bd, kname + "_plain")
+        # #5 splits: its plain version at the kernel's default S
+        pkw = dict(gkw, **skw) if quant else gkw
 
-        def grouped(i, kern=kern, ctx_ops=ctx_ops, kd=kd, vd=vd):
-            return kern(q, *ctx_ops(i), row_group, ctx_lens, kd[i], vd[i],
-                        f_bias, **gkw)
+        def at_splits(S, kern=kern, ctx_ops=ctx_ops, kd=kd, vd=vd):
+            return lambda i: kern(q, *ctx_ops(i), row_group, ctx_lens, kd[i],
+                                  vd[i], f_bias, **gkw,
+                                  **({} if S is None else {"splits": S}))
 
-        def grouped_plain(i, plain=plain, ctx_ops=ctx_ops, kd=kd, vd=vd):
+        grouped = at_splits(None)
+
+        def grouped_plain(i, plain=plain, ctx_ops=ctx_ops, kd=kd, vd=vd,
+                          pkw=pkw):
             return plain(q, *ctx_ops(i), row_group, ctx_lens, kd[i], vd[i],
-                         f_bias, **gkw)
+                         f_bias, **pkw)
 
         def grouped_lib(i, g_k=g_k, g_v=g_v, mask=mask, lib_scale=lib_scale):
             return F.scaled_dot_product_attention(q4, g_k[i], g_v[i],
@@ -4882,7 +5051,11 @@ def time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches, launches,
         flop = 4 * g * rows_per_seg * live_keys * hd + f_dec_flop
         entries.append(_timed_entry(
             kname, "forest_q8_decode.cu", line, grouped, grouped_plain,
-            grouped_lib, nbytes, flop, launches[kname], errs[kname], L))
+            grouped_lib, nbytes, flop, launches[kname], errs[kname], L,
+            graph=quant))
+        if quant:
+            split_sweep(f"{kname} main forest", at_splits, L, skw["splits"])
+            merge_share(f"{kname} main forest S={skw['splits']}", grouped, L)
     del g_k, g_v, kd, vd
     tree_entries = time_tree_kernels(cfg, tcaches, pcaches, q, launches,
                                      errs)
@@ -5158,10 +5331,9 @@ def time_packed_kernels(cfg, pcaches, launches, errs):
                                    device=DEVICE)], dim=1)])
         q4 = q[None]
 
-        # #11's plain version at the kernel's default shares
-        skw = ({"splits": bd.packed_split_count(
+        # the plain versions at the kernels' default shares
+        skw = {"splits": bd.packed_split_count(
             nd, cp * p, g, sms=bd._sm_count(q.device.index))}
-               if quant else {})
 
         def packed(i, kern=kern, args=args, kw=kw):
             return kern(*args(i), **kw)
@@ -5201,17 +5373,17 @@ def time_packed_kernels(cfg, pcaches, launches, errs):
         entries.append(_timed_entry(
             kname, "packed_decode.cu", line, packed, packed_plain_,
             packed_lib, nbytes, flop, launches[kname], errs[kname], L,
-            graph=quant, plain_inputs=4 if quant else None))
-        if quant:
-            sd, sc = skw["splits"]
-            at = (lambda S, kern=kern, args=args, kw=kw: (
-                lambda i: kern(*args(i), **kw, splits=S)))
-            split_sweep(f"{kname} main", at, L, (sd, sc),
-                        shares=(1, 2, 4, 8, 16, 32))
-            split_sweep(f"{kname} main, the chunk tiles' S at the decode "
-                        f"tiles' {sd}", at, L, (sd, sc),
-                        shares=tuple((sd, c) for c in (2, 4, 8, 16, 32)))
-            merge_share(f"{kname} main S=({sd}, {sc})", packed, L)
+            graph=True))
+        sd, sc = skw["splits"]
+        at = (lambda S, kern=kern, args=args, kw=kw: (
+            lambda i: kern(*args(i), **kw, splits=S)))
+        split_sweep(f"{kname} main", at, L, (sd, sc),
+                    shares=(1, 2, 4, 8, 16, 32))
+        split_sweep(f"{kname} main, the chunk tiles' S at the decode "
+                    f"tiles' {sd}", at, L, (sd, sc),
+                    shares=tuple((sd, c) for c in (2, 4, 8, 16, 32)))
+        merge_share(f"{kname} main S=({sd}, {sc})", packed, L)
+        host_us("time", kname, lambda S, at=at: at(S)(0), (sd, sc))
         del t_k, t_v, env_k, env_v
     return entries
 
@@ -5395,10 +5567,18 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(what):      # one line per phase: where the time limit goes
+        laps.append(time.perf_counter())
+        print(f"elapsed: {what} {laps[-1] - laps[-2]:.1f} s")
+
     card = CARD[0] = card_line()
     print(card)
     build()
+    lap("phase 1 (build)")
     errs = check_kernels()
+    lap("phase 2")
     cfg, model, params, ctx, tokens, cache, launches = serve()
     q8cache, launches["fused_bifurcated_decode_q8"], q8tokens = serve_int8(
         cfg, model, params, ctx, tokens, cache)
@@ -5424,14 +5604,17 @@ def main():
                                        touts[quant])
         pcaches[quant] = (single, trie)
         errs[kname] = max(errs[kname], e1, e2, e3)
+    lap("phases 3-3e")
     for quant in (False, True):
         kname = _packed_kname(quant)
         launches[kname], _, e4, _ = serve_packed(cfg, model, params, quant)
         errs[kname] = max(errs[kname], e4)
+    lap("phase 3f")
     launches["flash_prefill_attention"] = serve_flash(cfg, params, ctx)
     for store in ("dense", "paged"):
         for quant in (False, True):
             serve_prefix_cache(cfg, params, store, quant)
+    lap("phases 3g-3h")
     # phase 4 for #1-#12 on phase 3's caches, which are then freed with
     # phase 3's model to make room for the hybrid's
     del model, params
@@ -5439,6 +5622,7 @@ def main():
                            launches, errs)
     entries += time_packed_kernels(cfg, pcaches, launches, errs)
     entries += time_flash_kernel(launches["flash_prefill_attention"], errs)
+    lap("phase 4")
     del cache, q8cache, fcaches, tcaches, pcaches
     gc.collect()
     torch.cuda.empty_cache()
@@ -5450,6 +5634,7 @@ def main():
         errs["chunked_linear_attention"]))
     from repro_torch.configs import get_config
     time_hybrid_decode(get_config("zamba2-7b"), hyb["attn"], hyb["attn_q8"])
+    lap("phases 3i-4i")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))

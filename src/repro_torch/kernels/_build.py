@@ -54,9 +54,9 @@ SIGNATURES = {
         # n_groups, g, rows, m_c, ld, hd, c_d, pn, scale, stream
         "grouped_fused_bifurcated_decode": [_P] * 9 + [_I] * 8 + [_F, _P],
         # q, k_ctx, v_ctx, k_scale, v_scale, row_group, ctx_lens, k_dec,
-        # v_dec, dec_bias, out, n_groups, g, rows, m_c, ld, hd, c_d, pn,
-        # scale, stream
-        "grouped_fused_bifurcated_decode_q8": [_P] * 11 + [_I] * 8 + [_F, _P],
+        # v_dec, dec_bias, out, part (split scratch or NULL), n_groups, g,
+        # rows, m_c, ld, hd, c_d, pn, splits, max_pieces, scale, stream
+        "grouped_fused_bifurcated_decode_q8": [_P] * 12 + [_I] * 10 + [_F, _P],
     },
     "tree_decode": {
         # q, k_ctx, v_ctx, paths, node_lens, k_dec, v_dec, dec_bias, out,
@@ -82,15 +82,13 @@ SIGNATURES = {
     },
     "packed_decode": {
         # q, k_pages, v_pages, k_fresh, v_fresh, page_tables, seg_lens,
-        # paths, row_pos, row_slot, k_dec, v_dec, dec_bias, out, n_pages,
-        # n_segs, ppn, page_m, depth, g, rows, n_dec, ld, hd, c_d, pn,
-        # fresh_len, fresh_start, scale, stream
-        "packed_fused_bifurcated_decode": [_P] * 14 + [_I] * 14 + [_F, _P],
-        # q, k_pages, v_pages, k_scale_pages, v_scale_pages, k_fresh,
-        # v_fresh, page_tables, seg_lens, paths, row_pos, row_slot, k_dec,
-        # v_dec, dec_bias, out, part (split scratch or NULL), the ints as
-        # above, splits, splits_chunk, max_pieces, max_pieces_chunk, scale,
-        # stream
+        # paths, row_pos, row_slot, k_dec, v_dec, dec_bias, out, part (split
+        # scratch or NULL), n_pages, n_segs, ppn, page_m, depth, g, rows,
+        # n_dec, ld, hd, c_d, pn, fresh_len, fresh_start, splits,
+        # splits_chunk, max_pieces, max_pieces_chunk, scale, stream
+        "packed_fused_bifurcated_decode": [_P] * 15 + [_I] * 18 + [_F, _P],
+        # q, k_pages, v_pages, k_scale_pages, v_scale_pages, then as above
+        # from k_fresh
         "packed_fused_bifurcated_decode_q8": [_P] * 17 + [_I] * 18 + [_F, _P],
     },
     "flash_prefill": {

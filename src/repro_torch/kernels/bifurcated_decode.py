@@ -37,7 +37,10 @@ built by ``_build.py``):
   own sample's decode slots. Rows whose segment id lies outside [0, G)
   come out NaN (the reference's einsum path gives NaN for ids >= G, its
   Pallas kernel decode-arm-only attention; the engine never makes such
-  ids). Replace the Pallas ``_grouped_fused_kernel`` /
+  ids). The int8 kernel splits its walk on the card (``splits``) as the
+  trie kernels do, the forest being the trie at depth 1: the same bits as
+  ``tree_fused_bifurcated_decode_q8`` on a depth-1 trie. The bf16 kernel
+  runs the single walk. Replace the Pallas ``_grouped_fused_kernel`` /
   ``_grouped_fused_q8_kernel``.
 
 ``tree_fused_bifurcated_decode`` / ``..._q8`` — the prefix-TRIE (cascade)
@@ -71,12 +74,12 @@ built by ``_build.py``):
   they attend their ancestors' live pages (the same pages the decode rows
   read, once for both), then the chunk's KV envelope causally per row;
   the decode arm is keyed by each row's slot (chunk rows: none). With no
-  chunk rows the output is #8's / #9's bit for bit. The int8 kernel splits
-  its walk on the card (``splits``): the decode rows' tiles are #9's split
-  walk, the chunk rows' tiles take 2048-key pieces. The plain versions
-  walk the reference's work queue (``ops.packed_work_queue``) entry by
-  entry, or at S > 1 the kernel's pieces. Replace
-  ``_packed_fused_kernel`` / ``_packed_fused_q8_kernel``.
+  chunk rows the output is #8's / #9's bit for bit, at the same
+  ``splits``. Both split their walk on the card (``splits``): the decode
+  rows' tiles are #8's / #9's split walk, the chunk rows' tiles take
+  2048-key pieces. The plain versions walk the reference's work queue
+  (``ops.packed_work_queue``) entry by entry, or at S > 1 the kernel's
+  pieces. Replace ``_packed_fused_kernel`` / ``_packed_fused_q8_kernel``.
 
 Each wrapper takes CPU tensors to its plain PyTorch version (which walks
 the context in blocks with the same fp32 online update, ``_online_update``)
@@ -181,8 +184,9 @@ def _decode_arm_and_flush(q, k_dec, v_dec, dec_bias, acc, m, l, *, scale,
 
 
 def split_count(rows: int, g: int, *, sms: int) -> int:
-    """Shares per (64-row tile, kv head) of #1, #2, #3 and #6-#9
-    (``splits=None`` on the card; #11's decode tiles, ``packed_split_count``):
+    """Shares per (64-row tile, kv head) of #1, #2, #3, #5 and #6-#9
+    (``splits=None`` on the card; #10's and #11's decode tiles,
+    ``packed_split_count``):
     1 when the ``ceil(rows / 64) * g`` CTAs of the single walk
     already fill the ``sms`` SMs, else as many as make one wave of
     CTAS_PER_SM CTAs an SM (33 at the main shapes: 1 tile x 8 kv heads on
@@ -197,16 +201,17 @@ def split_count(rows: int, g: int, *, sms: int) -> int:
 
 def packed_split_count(n_dec: int, n_chunk: int, g: int, *,
                        sms: int) -> Tuple[int, int]:
-    """Shares per (64-row tile, kv head) of #11 (``splits=None`` on the
-    card): (S of the decode rows' tiles, S of the chunk rows' tiles). With
-    no chunk rows both are #9's count, ``split_count(n_dec, g)``, so a
-    decode-only call computes #9's default bits. With chunk rows the two
-    kinds share the card: the decode tiles (``ceil(n_dec / 64) * g`` CTAs
-    a share) take one CTA an SM, the chunk tiles (``ceil(n_chunk / 64) *
-    g``) one wave of CTAS_PER_SM CTAs an SM, each at least 1 and at most
-    DEFAULT_MAX_SPLITS (S 16 and 2 at the main packed shape, the best of
-    PERF.md's sweep). The wrapper knows no node length: each chunk tile
-    walks its rows' ancestors and the envelope in 2048-key pieces."""
+    """Shares per (64-row tile, kv head) of #10 and #11 (``splits=None``
+    on the card): (S of the decode rows' tiles, S of the chunk rows'
+    tiles). With no chunk rows both are #8's / #9's count,
+    ``split_count(n_dec, g)``, so a decode-only call computes their default
+    bits. With chunk rows the two kinds share the card: the decode tiles
+    (``ceil(n_dec / 64) * g`` CTAs a share) take one CTA an SM, the chunk
+    tiles (``ceil(n_chunk / 64) * g``) one wave of CTAS_PER_SM CTAs an SM,
+    each at least 1 and at most DEFAULT_MAX_SPLITS (S 16 and 2 at the main
+    packed shape, the best of PERF.md's sweep). The wrapper knows no node
+    length: each chunk tile walks its rows' ancestors and the envelope in
+    2048-key pieces."""
     if not n_chunk:
         s = split_count(n_dec, g, sms=sms)
         return s, s
@@ -520,12 +525,16 @@ def grouped_fused_bifurcated_decode_q8_plain(q, k_ctx_q, v_ctx_q, k_scale,
                                              v_scale, row_group, ctx_lens,
                                              k_dec, v_dec, dec_bias, *,
                                              scale: float, c_d: int, pn: int,
-                                             block_m: int = BLOCK_M
+                                             block_m: int = BLOCK_M,
+                                             splits: int = 1
                                              ) -> torch.Tensor:
-    """Plain PyTorch version of ``grouped_fused_bifurcated_decode_q8``."""
+    """Plain PyTorch version of ``grouped_fused_bifurcated_decode_q8``:
+    at ``splits`` 1 the single walk; at S > 1 the kernel's pieces, those
+    of the int8 trie's split walk at depth 1 (``_tree_plain``; the same
+    for any S > 1)."""
     return _grouped_plain(q, k_ctx_q, v_ctx_q, k_scale, v_scale, row_group,
                           ctx_lens, k_dec, v_dec, dec_bias, scale=scale,
-                          c_d=c_d, pn=pn, block_m=block_m)
+                          c_d=c_d, pn=pn, block_m=block_m, splits=splits)
 
 
 def tree_fused_bifurcated_decode_plain(q, k_ctx, v_ctx, paths, node_lens,
@@ -644,14 +653,16 @@ def _split_arg(splits, q, on_cuda):
 
 
 def _packed_pair(splits):
-    """#11's shares as (decode tiles', chunk tiles'): an int is both."""
+    """#10's / #11's shares as (decode tiles', chunk tiles'): an int is
+    both."""
     return tuple(splits) if isinstance(splits, tuple) else (splits, splits)
 
 
 def _packed_split_arg(splits, q, n_dec, on_cuda):
-    """#11's shares, (decode tiles', chunk tiles'): ``packed_split_count``
-    on the card and (1, 1) on the CPU when ``splits`` is None, else
-    ``splits``: an int (both) or a pair, each in 1..MAX_SPLITS."""
+    """#10's / #11's shares, (decode tiles', chunk tiles'):
+    ``packed_split_count`` on the card and (1, 1) on the CPU when
+    ``splits`` is None, else ``splits``: an int (both) or a pair, each in
+    1..MAX_SPLITS."""
     if splits is None:
         if not on_cuda:
             return 1, 1
@@ -911,10 +922,12 @@ grouped_fused_bifurcated_decode.launches = 0
 def grouped_fused_bifurcated_decode_q8(q, k_ctx_q, v_ctx_q, k_scale, v_scale,
                                        row_group, ctx_lens, k_dec, v_dec,
                                        dec_bias, *, scale: float, c_d: int,
-                                       pn: int) -> torch.Tensor:
+                                       pn: int, splits=None) -> torch.Tensor:
     """``grouped_fused_bifurcated_decode`` over int8 segments
     (G, g, m_c, hd) and f32 scales (G, g, m_c), ``k_scale`` with the logit
-    scale pre-folded."""
+    scale pre-folded. ``splits`` as in ``tree_fused_bifurcated_decode_q8``:
+    the forest is the trie at depth 1 (``row_group`` its path table), so at
+    S > 1 the rows of ids in [0, G) get that kernel's bits."""
     lead = tuple(k_ctx_q.shape[:1])
     _check_q8_context(q, k_ctx_q, v_ctx_q, k_scale, v_scale, lead=lead)
     _check_segments(q, k_ctx_q, row_group, ctx_lens)
@@ -922,15 +935,21 @@ def grouped_fused_bifurcated_decode_q8(q, k_ctx_q, v_ctx_q, k_scale, v_scale,
     ops = (q, k_ctx_q, v_ctx_q, k_scale, v_scale, row_group, ctx_lens, k_dec,
            v_dec, dec_bias)
     _check_contiguous(*ops)
-    if not _on_cuda(*ops):
-        return grouped_fused_bifurcated_decode_q8_plain(*ops, scale=scale,
-                                                        c_d=c_d, pn=pn)
+    cuda = _on_cuda(*ops)
+    splits = _split_arg(splits, q, cuda)
+    if not cuda:
+        return grouped_fused_bifurcated_decode_q8_plain(
+            *ops, scale=scale, c_d=c_d, pn=pn, splits=splits)
     _check_kernel_operands(q, k_ctx_q, v_ctx_q, k_dec, v_dec, dec_bias)
     n_groups, g, m_c, hd = k_ctx_q.shape
     out = torch.empty_like(q)
+    n_pieces = max_pieces(1, m_c, c_d)
+    part = _split_scratch(q, splits, n_pieces)
     _launch("grouped_fused_bifurcated_decode_q8", q.device,
-            *(t.data_ptr() for t in ops), out.data_ptr(), n_groups, g,
-            q.shape[1], m_c, ld, hd, c_d, pn, float(scale))
+            *(t.data_ptr() for t in ops), out.data_ptr(),
+            None if part is None else part.data_ptr(), n_groups, g,
+            q.shape[1], m_c, ld, hd, c_d, pn, splits, n_pieces,
+            float(scale))
     grouped_fused_bifurcated_decode_q8.launches += 1
     return out
 
@@ -1408,20 +1427,25 @@ def packed_fused_bifurcated_decode_plain(q, k_pages, v_pages, k_fresh,
                                          v_dec, dec_bias, *, fresh_len: int,
                                          fresh_start: int, scale: float,
                                          c_d: int, pn: int,
-                                         entries_per_launch=None
-                                         ) -> torch.Tensor:
-    """Plain PyTorch version of ``packed_fused_bifurcated_decode``: the
-    reference's work queue (``ops.packed_work_queue``: the live pages in
-    (segment, page) order, then the envelope's ``ceil(fresh_len / pm)``
-    fresh tiles) walked by ``_packed_walk``; ``entries_per_launch``
-    chains walks of that many entries (bit-identical to one walk). Rows
-    whose path holds an id outside [-1, N], or a segment whose live pages
-    name an id outside [-1, P), come out NaN."""
+                                         entries_per_launch=None,
+                                         splits=1) -> torch.Tensor:
+    """Plain PyTorch version of ``packed_fused_bifurcated_decode``: at
+    ``splits`` 1 the reference's work queue (``ops.packed_work_queue``:
+    the live pages in (segment, page) order, then the envelope's
+    ``ceil(fresh_len / pm)`` fresh tiles) walked by ``_packed_walk``;
+    ``entries_per_launch`` chains walks of that many entries
+    (bit-identical to one walk). At S > 1 (or a pair, as the wrapper
+    takes) the kernel's pieces (``_split_walk``: the decode rows' tiles as
+    #8's, the chunk rows' in 2048-key pieces with the envelope after their
+    ancestors), merged exactly per row; the same for any S > 1. Rows whose
+    path holds an id outside [-1, N], or a segment whose live pages name
+    an id outside [-1, P), come out NaN."""
     return _packed_plain(q, k_pages, v_pages, None, None, k_fresh, v_fresh,
                          page_tables, seg_lens, paths, row_pos, row_slot,
                          k_dec, v_dec, dec_bias, fresh_len=fresh_len,
                          fresh_start=fresh_start, scale=scale, c_d=c_d,
-                         pn=pn, entries_per_launch=entries_per_launch)
+                         pn=pn, entries_per_launch=entries_per_launch,
+                         splits=splits)
 
 
 def packed_fused_bifurcated_decode_q8_plain(q, k_pages_q, v_pages_q,
@@ -1438,10 +1462,8 @@ def packed_fused_bifurcated_decode_q8_plain(q, k_pages_q, v_pages_q,
     ``splits`` 1 the queue walk over int8 pages (logits by their k scales,
     the logit scale folded; weights by their v scales) and the envelope's
     fresh tiles in the activation dtype (logits by ``scale``, weights
-    unscaled); at S > 1 (or a pair, as the wrapper takes) the kernel's
-    pieces (``_split_walk``: the decode rows' tiles as #9's, the chunk
-    rows' in 2048-key pieces with the envelope after their ancestors),
-    merged exactly per row; the same for any S > 1."""
+    unscaled); ``splits`` as in ``packed_fused_bifurcated_decode_plain``
+    (the decode rows' tiles as #9's)."""
     return _packed_plain(q, k_pages_q, v_pages_q, k_scale_pages,
                          v_scale_pages, k_fresh, v_fresh, page_tables,
                          seg_lens, paths, row_pos, row_slot, k_dec, v_dec,
@@ -1492,11 +1514,10 @@ def _check_packed(q, k_pages, k_fresh, v_fresh, row_pos, row_slot, k_dec,
 
 
 def _packed_launch(name, q, pool, fresh, page_tables, paths, ops, ld,
-                   n_dec, fresh_len, fresh_start, scale, c_d, pn,
-                   splits=None):
-    """One launch of a packed kernel; ``splits`` (#11): its (decode
-    tiles', chunk tiles') shares, the split walk's scratch sized by the
-    pieces each kind of row may read."""
+                   n_dec, fresh_len, fresh_start, scale, c_d, pn, splits):
+    """One launch of a packed kernel at ``splits``, its (decode tiles',
+    chunk tiles') shares, the split walk's scratch sized by the pieces
+    each kind of row may read."""
     _check_kernel_operands(q, *pool, *fresh, *ops[-3:])
     n_pages, g, pm, hd = pool[0].shape
     n_segs, ppn = page_tables.shape
@@ -1504,10 +1525,6 @@ def _packed_launch(name, q, pool, fresh, page_tables, paths, ops, ld,
     out = torch.empty_like(q)
     ints = (n_pages, n_segs, ppn, pm, depth, g, rows, n_dec, ld, hd, c_d, pn,
             int(fresh_len), int(fresh_start))
-    if splits is None:
-        _launch(name, q.device, *(t.data_ptr() for t in ops), out.data_ptr(),
-                *ints, float(scale))
-        return out
     keys = max(ppn * pm, fresh[0].shape[0])   # a node's or the envelope's
     n_pieces = max_pieces(depth, keys, c_d)
     n_chunk = max_pieces(depth, keys, 0, CHUNK_PIECE_BLOCKS)
@@ -1522,8 +1539,8 @@ def packed_fused_bifurcated_decode(q, k_pages, v_pages, k_fresh, v_fresh,
                                    page_tables, seg_lens, paths, row_pos,
                                    row_slot, k_dec, v_dec, dec_bias, *,
                                    fresh_len: int, fresh_start: int,
-                                   scale: float, c_d: int, pn: int
-                                   ) -> torch.Tensor:
+                                   scale: float, c_d: int, pn: int,
+                                   splits=None) -> torch.Tensor:
     """One packed heterogeneous step; returns the normalised (g, rows, hd).
 
       q:             (g, rows, hd): the b * pn decode rows (row r of slot
@@ -1540,12 +1557,19 @@ def packed_fused_bifurcated_decode(q, k_pages, v_pages, k_fresh, v_fresh,
                      fresh_start + j <= row_pos[row]
       row_slot:      (rows,) int32: the decode slot of each row, -1 none
       k_dec/v_dec:   (g, b * c_d, hd); dec_bias (1, b * c_d) f32
+      splits:        shares per (64-row tile, kv head), an int or a pair
+                     (decode rows' tiles, chunk rows' tiles); None:
+                     ``packed_split_count`` on the card, 1 on the CPU; 1
+                     runs the single walk, else the decode rows' tiles are
+                     #8's split walk and the chunk rows' tiles walk their
+                     ancestors and the envelope in 2048-key pieces, merged
+                     exactly, one launch either way
     Each row attends its path's live pages, the envelope (causal) if its
-    path holds N, and its own slot's decode arm. With no chunk rows the
-    result is ``paged_fused_bifurcated_decode``'s at ``splits=1`` (its
-    single walk), bit for bit. Rows whose
-    path holds an id outside [-1, N], or a segment whose live pages name
-    an id outside [-1, P), come out NaN."""
+    path holds N, and its own slot's decode arm. The decode rows' result
+    is ``paged_fused_bifurcated_decode``'s at the same decode ``splits``,
+    bit for bit, with or without the chunk. Rows whose path holds an id
+    outside [-1, N], or a segment whose live pages name an id outside
+    [-1, P), come out NaN."""
     _check_paged(q, k_pages, v_pages, page_tables, seg_lens, paths)
     ld, n_dec = _check_packed(q, k_pages, k_fresh, v_fresh, row_pos,
                               row_slot, k_dec, v_dec, dec_bias, fresh_len,
@@ -1555,12 +1579,14 @@ def packed_fused_bifurcated_decode(q, k_pages, v_pages, k_fresh, v_fresh,
     _check_contiguous(*ops)
     kw = dict(fresh_len=fresh_len, fresh_start=fresh_start, scale=scale,
               c_d=c_d, pn=pn)
-    if not _on_cuda(*ops):
-        return packed_fused_bifurcated_decode_plain(*ops, **kw)
+    cuda = _on_cuda(*ops)
+    splits = _packed_split_arg(splits, q, n_dec, cuda)
+    if not cuda:
+        return packed_fused_bifurcated_decode_plain(*ops, **kw, splits=splits)
     out = _packed_launch("packed_fused_bifurcated_decode", q,
                          (k_pages, v_pages), (k_fresh, v_fresh),
-                         page_tables, paths,
-                         ops, ld, n_dec, **kw)
+                         page_tables, paths, ops, ld, n_dec, **kw,
+                         splits=splits)
     packed_fused_bifurcated_decode.launches += 1
     return out
 
@@ -1578,13 +1604,9 @@ def packed_fused_bifurcated_decode_q8(q, k_pages_q, v_pages_q, k_scale_pages,
     """``packed_fused_bifurcated_decode`` over an int8 pool (P, g, pm, hd)
     and f32 scale pages (P, g, pm), ``k_scale_pages`` with the logit scale
     pre-folded; the fresh envelope stays in q's dtype (``scale`` applies
-    to it and to the decode arm). ``splits``: shares per (64-row tile, kv
-    head), an int or a pair (decode rows' tiles, chunk rows' tiles); None:
-    ``packed_split_count`` on the card, 1 on the CPU; 1 runs the single
-    walk, else the decode rows' tiles are #9's split walk (the same bits as
-    #9 at any S > 1) and the chunk rows' tiles walk their ancestors and
-    the envelope in 2048-key pieces, merged exactly, one launch either
-    way."""
+    to it and to the decode arm). ``splits`` as in
+    ``packed_fused_bifurcated_decode``, the decode rows' tiles #9's split
+    walk (the same bits as #9 at the same decode S)."""
     _check_paged(q, k_pages_q, v_pages_q, page_tables, seg_lens, paths,
                  k_scale_pages, v_scale_pages)
     ld, n_dec = _check_packed(q, k_pages_q, k_fresh, v_fresh, row_pos,
@@ -1603,8 +1625,8 @@ def packed_fused_bifurcated_decode_q8(q, k_pages_q, v_pages_q, k_scale_pages,
                                                        splits=splits)
     out = _packed_launch("packed_fused_bifurcated_decode_q8", q,
                          (k_pages_q, v_pages_q), (k_fresh, v_fresh),
-                         page_tables, paths,
-                         ops, ld, n_dec, **kw, splits=splits)
+                         page_tables, paths, ops, ld, n_dec, **kw,
+                         splits=splits)
     packed_fused_bifurcated_decode_q8.launches += 1
     return out
 

@@ -33,13 +33,13 @@
 // rounding inside the bf16 tolerance. The s8 tensor-core MMA is not used:
 // it would need q quantised, which is another function.
 //
-// Split walk (#1, #2, #3, #6-#9 and #11 with splits > 1, the default on
-// the card; end of this file): the context's (the node set's, the packed
-// envelope's) blocks and the decode arm cut into pieces spread over S CTAs
-// per (row tile, kv head), fp32 partials per piece and row, and an exact
-// merge kernel; a row's bits depend on its own path only, so #3 and #9
-// give the same bits on one single prefix, #1 and #8 likewise, and #11's
-// decode rows #9's.
+// Split walk (#1-#3 and #5-#11 with splits > 1, the default on the card;
+// end of this file): the context's (the segment's, the node set's, the
+// packed envelope's) blocks and the decode arm cut into pieces spread over
+// S CTAs per (row tile, kv head), fp32 partials per piece and row, and an
+// exact merge kernel; a row's bits depend on its own path only, so #3 and
+// #9 give the same bits on one single prefix, #1 and #8 likewise, #5 gives
+// #7's at depth 1, and #11's decode rows #9's, #10's #8's.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -840,7 +840,9 @@ cudaError_t launch(const Params& a, cudaStream_t stream) {
 
 // Head dims 16, 64, 80, 112 and 128 (zamba2's 112: 7 k-steps of the
 // m16n8k16 product, 14 n-tiles, 14 16-byte chunks per bf16 row and 7 per
-// int8 row; nothing in the template needs a power of two).
+// int8 row; nothing in the template needs a power of two). kGrouped's G
+// bound (the single walk's grid z) also keeps its split walk's node
+// bitmap within kMaxNodes.
 template <int MODE>
 bool params_ok(const Params& a) {
   return !(a.g <= 0 || a.rows <= 0 || a.m_c <= 0 || a.pn <= 0 ||
@@ -873,20 +875,22 @@ cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
 // The split walk: #1 (fused_bifurcated_decode, bf16 context), #2
 // (context_flash_partials, #1's context arm alone) and #3
 // (fused_bifurcated_decode_q8, int8 context) over one shared context
-// (kSingle), #6 / #7 (tree_fused_bifurcated_decode[_q8]) and #8 / #9
-// (paged_fused_bifurcated_decode[_q8]) over bf16 / int8 node sets, #11
-// (packed_fused_bifurcated_decode_q8, kPacked) over #9's node set plus a
-// prefill chunk's envelope, each with splits S > 1; S = 1 runs
-// decode_kernel's single walk.
+// (kSingle), #5 (grouped_fused_bifurcated_decode_q8, kGrouped) over int8
+// forest segments, #6 / #7 (tree_fused_bifurcated_decode[_q8]) and #8 / #9
+// (paged_fused_bifurcated_decode[_q8]) over bf16 / int8 node sets, #10 /
+// #11 (packed_fused_bifurcated_decode[_q8], kPacked) over #8's / #9's node
+// set plus a prefill chunk's envelope, each with splits S > 1; S = 1 runs
+// decode_kernel's single walk (as #4 always does).
 //
 // What bounds them: bytes (#1 and #8 single 35.7 MB, #2 34.0 MB, #3 and
-// #9 single 19.4 MB, the bf16 trie 48.3 MB and the int8 one 26.6 MB at the
-// main shapes: 10.6 / 10.1 / 5.8 / 14.4 / 7.9 us at 3.35 TB/s; #11
-// operations, 29.84 GFLOP of its chunk rows: 30.2 us at 989 TFLOP/s),
-// but the single walk is paced by latency: one CTA of 4 warps per (64-row
-// tile, kv head), 8 CTAs on 132 SMs at the main shapes (#11: 136, the
-// decode tile walking every live node), each block ~2-3 us of serial
-// copy, (convert) and product steps.
+// #9 single 19.4 MB, the int8 forest 40.3 MB, the bf16 trie 48.3 MB and
+// the int8 one 26.6 MB at the main shapes: 10.6 / 10.1 / 5.8 / 12.0 /
+// 14.4 / 7.9 us at 3.35 TB/s; #10 / #11 operations, 29.84 GFLOP of their
+// chunk rows: 30.2 us at 989 TFLOP/s), but the single walk is paced by
+// latency: one CTA of 4 warps per (64-row tile, kv head[, segment]), 8 CTAs
+// on 132 SMs at the main shapes (#5: 32, the longest segment's setting
+// the pace; #10 / #11: 136, the decode tile walking every live node), each
+// block ~2-3 us of serial copy, (convert) and product steps.
 //
 // What the design does about it:
 //   * More CTAs. The work of a (tile, kv head) is cut into pieces: each
@@ -898,8 +902,10 @@ cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
 //     pieces, a context block weighing kCtxWeight (int8) or
 //     kCtxWeightBf16 decode blocks, the heaviest run as light as S runs
 //     allow (split_kernel). At the main shapes S = 33: two CTAs an SM, one
-//     wave. kPacked: the decode rows' tiles are #9's; the chunk rows'
-//     tiles follow, each with S_chunk CTAs and pieces of kChunkPieceBlocks
+//     wave. kGrouped is kTree at depth 1 (the path table is row_group), so
+//     a tile reads each of its rows' segments once, in pieces. kPacked:
+//     the decode rows' tiles are #8's / #9's; the chunk rows' tiles
+//     follow, each with S_chunk CTAs and pieces of kChunkPieceBlocks
 //     (their ancestors, then the envelope after every real node), so the
 //     chunk rows' partials are an eighth as many.
 //   * Pieces, not an even cut of the list. A piece's bounds depend on its
@@ -908,7 +914,8 @@ cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
 //     tile holds, and its bits do not move when another request is retired
 //     and readmitted (the engines' guarantee), nor with S, nor with the page
 //     size: #9 and #7 (#8 and #6) give the same bits on one logical
-//     trie, and #3 gives #9's bits (#1 #8's) on one single prefix.
+//     trie, #3 gives #9's bits (#1 #8's) on one single prefix, and #5
+//     gives #7's on a depth-1 trie.
 //   * An exact merge. Each piece writes the fp32 (acc, m, l) of its rows
 //     (the rows on its node; for a decode piece, the rows whose sample has
 //     slots in it) to the row's own slot of the wrapper's scratch, slots in
@@ -925,10 +932,10 @@ cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
 //     block: each thread converts the 16-byte chunks it copied itself, as
 //     soon as its own copies of the next block landed, overlapping the
 //     products of the current one; the products read bf16 by ldmatrix. A
-//     bf16 context (#1, #2, #6, #8: stream_bf16_nodes, each stage carrying
-//     its keys' read flags) and the decode arm (stream_bf16_split) stream
-//     through three bf16 cp.async stages, one barrier a block, nothing to
-//     convert; the decode arm stages its slot bias with the
+//     bf16 context (#1, #2, #6, #8, #10: stream_bf16_nodes, each stage
+//     carrying its keys' read flags) and the decode arm (stream_bf16_split)
+//     stream through three bf16 cp.async stages, one barrier a block,
+//     nothing to convert; the decode arm stages its slot bias with the
 //     block (the single walk reads it from device memory inside the mask)
 //     and divides by multiply and shift: a decode block costs ~half an int8
 //     context block there (~5x in the single walk).
@@ -937,10 +944,10 @@ cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
 // at the main shape by the weight sweep (the set-up before a CTA's first
 // block, the merge's pass over the partials, the launch between the two
 // kernels), then each block's chain of dependent steps (one barrier a
-// block) over whole pieces (at the main shapes some CTA takes two); #11:
-// its ~29,000 64-key block units a call (most of them the chunk tiles'),
-// at ~1.3-1.5 us a unit per SM whatever the shares; and the wrappers'
-// host work, which exceeds the kernels' time.
+// block) over whole pieces (at the main shapes some CTA takes two); #10 /
+// #11: their ~29,000 64-key block units a call (most of them the chunk
+// tiles'), at ~1.3-1.5 us a unit per SM (#11) whatever the shares; and
+// the wrappers' host work, which exceeds the kernels' time.
 // ---------------------------------------------------------------------------
 
 constexpr int kCtxWeight = 2;   // an int8 context block's CTA time in decode
@@ -948,7 +955,7 @@ constexpr int kCtxWeight = 2;   // an int8 context block's CTA time in decode
 constexpr int kCtxWeightBf16 = 1;  // a bf16 context block's, likewise
                                    // (tools/split_weight.py measures it)
 constexpr int kPieceBlocks = 4;  // blocks of a piece: 256 keys or slots
-constexpr int kChunkPieceBlocks = 32;  // a chunk row's (#11): 2048 keys
+constexpr int kChunkPieceBlocks = 32;  // a chunk row's (#10, #11): 2048 keys
 // int8 stages of the context stream: 2 keep two CTAs an SM in shared memory
 constexpr int kQStages = 2;
 
@@ -1643,10 +1650,14 @@ __device__ __forceinline__ void row_pieces(
 // every row's path (the path table is made in shared memory, not read),
 // so its blocks stream as a node's do: #3 computes #9's bits (stream_split)
 // and #1 #8's (stream_bf16_nodes; #2 is #1 with no decode arm, ld 0).
-// kPacked (#11): the tiles of the n_dec decode rows come first, then those
-// of the chunk rows from row n_dec, so no tile mixes the two; a decode
-// tile is #9's (its pieces, its S = splits: #9's bits), its rows' decode
-// slots keyed by row_slot; a chunk tile takes S = splits_chunk shares and
+// kGrouped (#5): kTree at depth 1, the path table row_group itself; an id
+// of -1 is out of range there (a NaN row, as the single walk writes), so
+// #5 computes #7's bits on the rows of ids in [0, G).
+// kPacked (#10 / #11): the tiles of the n_dec decode rows come first, then
+// those of the chunk rows from row n_dec, so no tile mixes the two; a
+// decode tile is #8's / #9's (its pieces, its S = splits: their bits), its
+// rows' decode slots keyed by row_slot; a chunk tile takes S = splits_chunk
+// shares and
 // pieces of kChunkPieceBlocks blocks, and has no decode arm. After the
 // real nodes, if a row of the tile holds the pseudo-segment N and
 // fresh_len > 0, the envelope: keys [0, fresh_len) of the dense (F * pm,
@@ -1655,10 +1666,7 @@ __device__ __forceinline__ void row_pieces(
 // fresh_start + col <= row_pos[row] (the single walk's fresh arm).
 template <int HD, int MODE, bool Q8>
 __global__ void __launch_bounds__(kThreads) split_kernel(const Params p) {
-  static_assert(MODE == kSingle || MODE == kTree || MODE == kPaged ||
-                    MODE == kPacked,
-                "the split walks one context or a node set");
-  static_assert(Q8 || MODE != kPacked, "the packed split reads int8 pages");
+  constexpr bool GROUPED = MODE == kGrouped;
   constexpr bool PACKED = MODE == kPacked;
   constexpr bool PAGES = MODE == kPaged || PACKED;
   constexpr bool SINGLE = MODE == kSingle;
@@ -1721,13 +1729,19 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const Params p) {
   if (threadIdx.x < 2) s_bad[threadIdx.x] = 0u;
   if (threadIdx.x == 0) s_fresh = 0;
   __syncthreads();
-  // the largest id a path may hold: N - 1, or packed the pseudo id N
+  // the ids a path may hold: from -1 (grouped: 0) to N - 1, or packed the
+  // pseudo id N
+  const int min_id = GROUPED ? 0 : -1;
   const int max_id = PACKED ? p.n_groups : p.n_groups - 1;
   for (int e = threadIdx.x; e < list_cap; e += kThreads) {
     const int r = e % kRowTile, row = row0 + r;
     int id = -1;
-    if (row < row_hi) id = SINGLE ? 0 : p.paths[(e / kRowTile) * rows + row];
-    if (id < -1 || id > max_id) {
+    bool bad = false;
+    if (row < row_hi) {
+      id = SINGLE ? 0 : p.paths[(e / kRowTile) * rows + row];
+      bad = id < min_id || id > max_id;
+    }
+    if (bad) {
       atomicOr(&s_bad[r >> 5], 1u << (r & 31));
       id = -1;
     }
@@ -2066,8 +2080,8 @@ cudaError_t launch_split(const Params& in, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// #1-#3 / #6-#9 / #11: the single walk (decode_kernel) at splits
-// 1 (kPacked: and splits_chunk 1), else the split walk and its merge.
+// #1-#3 / #5-#11: the single walk (decode_kernel) at splits 1
+// (kPacked: and splits_chunk 1), else the split walk and its merge.
 // FUSED: the normalised bf16 output; else (#2) the fp32 partials.
 template <int MODE, bool Q8, bool FUSED = true>
 cudaError_t dispatch_split(const Params& a, int hd, cudaStream_t stream) {

@@ -47,28 +47,29 @@
 // same bits. A tile of chunk rows only skips the decode arm; a row whose
 // keys are all masked (a padded chunk row with no ancestors and no
 // envelope row before it) keeps the online state's finite garbage, as the
-// reference's does, never NaN. The bf16 kernel (#10) keeps this single
-// walk: #8's limit (8 CTAs of decode rows, one block at a time) plus the
-// chunk's 16 tiles per kv head.
+// reference's does, never NaN. That single walk (splits 1) is paced by
+// its decode tile, which walks every live node (10,968 keys at the main
+// packed shape) one block at a time: ~860 us for #11, ~660 us for #10.
 //
-// The int8 kernel (#11) splits the walk (splits > 1, the default on the
-// card; decode_common.cuh, split_kernel mode kPacked). The decode rows'
-// tiles come first and are #9's split walk (its 256-key pieces, its S),
-// so its decode rows carry #9's bits, with or without the chunk; the
-// chunk rows' tiles follow from row n_dec (no tile mixes the two kinds),
-// take their own S (splits_chunk) and 2048-key pieces of each ancestor,
-// then of the envelope (node N after every real node, causal per row),
-// and no decode arm: a chunk row's bits depend on its path and the piece
-// size only. The fp32 partials are merged exactly by a second kernel, one
-// launch a call. The decode tile walks every live node (10,968 keys at
-// the main packed shape) and set the single walk's pace (~860 us); the
-// split spreads it over 16 CTAs per kv head and each of the 16 chunk tiles
-// over 2 (packed_split_count), and what holds it then is the ~29,000
-// 64-key block units the CTAs stream (PERF.md).
+// So both kernels split the walk (splits > 1, the default on the card;
+// decode_common.cuh, split_kernel mode kPacked). The decode rows' tiles
+// come first and are #8's / #9's split walk (their 256-key pieces, their
+// S), so the decode rows carry #8's / #9's bits, with or without the
+// chunk; the chunk rows' tiles follow from row n_dec (no tile mixes the
+// two kinds), take their own S (splits_chunk) and 2048-key pieces of each
+// ancestor, then of the envelope (node N after every real node, causal per
+// row), and no decode arm: a chunk row's bits depend on its path and the
+// piece size only. #10's ancestors stream through the bf16 node stream
+// (stream_bf16_nodes, a read flag per key: holes and the pseudo-segment
+// are never read), #11's through the int8 stages; the envelope is bf16 in
+// both. The fp32 partials are merged exactly by a second kernel, one
+// launch a call. The split spreads the decode tile over 16 CTAs per kv
+// head and each of the 16 chunk tiles over 2 (packed_split_count), and
+// what holds it then is the ~29,000 64-key block units the CTAs stream
+// (PERF.md).
 
 #include "decode_common.cuh"
 
-using bifurcated::dispatch_hd;
 using bifurcated::dispatch_split;
 using bifurcated::fused_params;
 using bifurcated::kPacked;
@@ -82,9 +83,11 @@ Params packed_params(const void* q, const void* k_pages, const void* v_pages,
                      const void* paths, const void* row_pos,
                      const void* row_slot, const void* k_dec,
                      const void* v_dec, const void* dec_bias, void* out,
-                     int n_pages, int n_segs, int ppn, int page_m, int depth,
-                     int g, int rows, int n_dec, int ld, int c_d, int pn,
-                     int fresh_len, int fresh_start, float scale) {
+                     void* part, int n_pages, int n_segs, int ppn,
+                     int page_m, int depth, int g, int rows, int n_dec,
+                     int ld, int c_d, int pn, int fresh_len, int fresh_start,
+                     int splits, int splits_chunk, int max_pieces,
+                     int max_pieces_chunk, float scale) {
   Params a = fused_params(q, k_pages, v_pages, k_dec, v_dec, dec_bias, out,
                           g, rows, ppn * page_m, ld, c_d, pn, scale);
   a.page_tables = static_cast<const int*>(page_tables);
@@ -102,6 +105,11 @@ Params packed_params(const void* q, const void* k_pages, const void* v_pages,
   a.n_dec = n_dec;
   a.fresh_len = fresh_len;
   a.fresh_start = fresh_start;
+  a.part = static_cast<float*>(part);
+  a.splits = splits;
+  a.splits_chunk = splits_chunk;
+  a.max_pieces = max_pieces;
+  a.max_pieces_chunk = max_pieces_chunk;
   return a;
 }
 
@@ -113,32 +121,34 @@ extern "C" {
 // pool); k_fresh/v_fresh (F * pm, g, hd) bf16; page_tables (N, ppn) i32;
 // seg_lens (N,) i32; paths (depth, rows) i32 (depth: the trie's + 1);
 // row_pos, row_slot (rows,) i32; k_dec/v_dec (g, ld, hd) bf16; dec_bias
-// (ld,) f32; out (g, rows, hd) bf16. Returns the CUDA error of the launch
-// (0 when it was accepted).
+// (ld,) f32; out (g, rows, hd) bf16; in `splits` shares per (row tile, kv
+// head) of the decode rows and `splits_chunk` of the chunk rows (both 1:
+// the single walk); part: the split walk's f32 scratch (g * (n_dec *
+// max_pieces + (rows - n_dec) * max_pieces_chunk) * (hd + 2) + g * rows
+// floats) otherwise. Returns the CUDA error of the launch (0 when it was
+// accepted).
 int packed_fused_bifurcated_decode(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_fresh, const void* v_fresh, const void* page_tables,
     const void* seg_lens, const void* paths, const void* row_pos,
     const void* row_slot, const void* k_dec, const void* v_dec,
-    const void* dec_bias, void* out, int n_pages, int n_segs, int ppn,
-    int page_m, int depth, int g, int rows, int n_dec, int ld, int hd,
-    int c_d, int pn, int fresh_len, int fresh_start, float scale,
+    const void* dec_bias, void* out, void* part, int n_pages, int n_segs,
+    int ppn, int page_m, int depth, int g, int rows, int n_dec, int ld,
+    int hd, int c_d, int pn, int fresh_len, int fresh_start, int splits,
+    int splits_chunk, int max_pieces, int max_pieces_chunk, float scale,
     void* stream) {
   const Params a = packed_params(
       q, k_pages, v_pages, k_fresh, v_fresh, page_tables, seg_lens, paths,
-      row_pos, row_slot, k_dec, v_dec, dec_bias, out, n_pages, n_segs, ppn,
-      page_m, depth, g, rows, n_dec, ld, c_d, pn, fresh_len, fresh_start,
+      row_pos, row_slot, k_dec, v_dec, dec_bias, out, part, n_pages, n_segs,
+      ppn, page_m, depth, g, rows, n_dec, ld, c_d, pn, fresh_len,
+      fresh_start, splits, splits_chunk, max_pieces, max_pieces_chunk,
       scale);
-  return static_cast<int>(dispatch_hd<true, false, kPacked>(
+  return static_cast<int>(dispatch_split<kPacked, false>(
       a, hd, static_cast<cudaStream_t>(stream)));
 }
 
 // As packed_fused_bifurcated_decode with int8 k_pages/v_pages (P, g, pm, hd)
-// and f32 k_scale_pages/v_scale_pages (P, g, pm), in `splits` shares per
-// (row tile, kv head) of the decode rows and `splits_chunk` of the chunk
-// rows (both 1: the single walk); part: the split walk's f32 scratch
-// (g * (n_dec * max_pieces + (rows - n_dec) * max_pieces_chunk) * (hd + 2)
-// + g * rows floats) otherwise.
+// and f32 k_scale_pages/v_scale_pages (P, g, pm).
 int packed_fused_bifurcated_decode_q8(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale_pages, const void* v_scale_pages,
@@ -152,16 +162,12 @@ int packed_fused_bifurcated_decode_q8(
     void* stream) {
   Params a = packed_params(
       q, k_pages, v_pages, k_fresh, v_fresh, page_tables, seg_lens, paths,
-      row_pos, row_slot, k_dec, v_dec, dec_bias, out, n_pages, n_segs, ppn,
-      page_m, depth, g, rows, n_dec, ld, c_d, pn, fresh_len, fresh_start,
+      row_pos, row_slot, k_dec, v_dec, dec_bias, out, part, n_pages, n_segs,
+      ppn, page_m, depth, g, rows, n_dec, ld, c_d, pn, fresh_len,
+      fresh_start, splits, splits_chunk, max_pieces, max_pieces_chunk,
       scale);
   a.k_scale = static_cast<const float*>(k_scale_pages);
   a.v_scale = static_cast<const float*>(v_scale_pages);
-  a.part = static_cast<float*>(part);
-  a.splits = splits;
-  a.splits_chunk = splits_chunk;
-  a.max_pieces = max_pieces;
-  a.max_pieces_chunk = max_pieces_chunk;
   return static_cast<int>(dispatch_split<kPacked, true>(
       a, hd, static_cast<cudaStream_t>(stream)));
 }

@@ -236,7 +236,9 @@ def test_grouped_kernels_match_plain_versions(cuda, shape, quant):
     n0 = kern.launches
     out = kern(*x, **kw)
     assert kern.launches == n0 + 1
-    _assert_within(out, plain(*x, **kw), 2e-2)
+    # #5 splits by default: its plain version at the kernel's S
+    _assert_within(out, plain(*x, **kw, **(_splits_kw(x[0]) if quant
+                                           else {})), 2e-2)
     # a row of a segment id outside [0, G) comes out NaN, the others not
     row_group = x[-5].clone()
     row_group[:pn] = shape[0]
@@ -244,6 +246,12 @@ def test_grouped_kernels_match_plain_versions(cuda, shape, quant):
     out = kern(*y, **kw)
     assert torch.isnan(out[:, :pn].float()).all()
     assert torch.isfinite(out[:, pn:].float()).all()
+    if quant:           # and -1 too, split or not
+        row_group[:pn] = -1
+        for splits in (1, None):
+            out = kern(*y, **kw, splits=splits)
+            assert torch.isnan(out[:, :pn].float()).all()
+            assert torch.isfinite(out[:, pn:].float()).all()
     if shape[0] == 1:   # G = 1: the single-prefix kernel's function
         if quant:
             one = bd.fused_bifurcated_decode_q8(
@@ -384,9 +392,9 @@ def test_tree_kernels_match_plain_versions(cuda, shape, quant):
 
 @pytest.mark.parametrize("quant", [False, True])
 def test_tree_kernels_at_depth_one_are_the_grouped_kernels(cuda, quant):
-    """Every path one level deep: the tree kernel's single walk (splits=1;
-    the grouped kernels are not split) computes the grouped kernel's
-    bits."""
+    """Every path one level deep: the tree kernel computes the grouped
+    kernel's bits: #7 = #5 at the default split and on the single walk
+    (splits=1); #6 = #4 on the single walk (#4 is not split)."""
     shape = (8, 2, 128, 1000, (1000, 0, 77, 513),
              [[2], [0], [3], [0], [2]] * 6 + [[3], [0]], 24, 0.0)
     x = _tree_inputs(cuda, shape, seed=7, quant=quant)
@@ -395,10 +403,11 @@ def test_tree_kernels_at_depth_one_are_the_grouped_kernels(cuda, quant):
             else bd.tree_fused_bifurcated_decode)
     grp = (bd.grouped_fused_bifurcated_decode_q8 if quant
            else bd.grouped_fused_bifurcated_decode)
-    paths = x[-5]
-    got = tree(*x, **kw, splits=1)
-    want = grp(*x[:-5], paths[0].contiguous(), *x[-4:], **kw)
-    assert torch.equal(got, want)
+    gx = x[:-5] + (x[-5][0].contiguous(),) + x[-4:]
+    for splits in ((None, 1) if quant else (1,)):
+        sk = _splits_kw(x[0], splits)
+        assert torch.equal(tree(*x, **kw, **sk),
+                           grp(*gx, **kw, **(sk if quant else {})))
 
 
 def test_tree_kernels_take_bf16_only(cuda):
@@ -669,12 +678,12 @@ PACKED_SHAPES = [(0, 100, 165, 6144, [0, 1]), (2, 7, 7, 0, []),
 @pytest.mark.parametrize("case", PACKED_SHAPES)
 @pytest.mark.parametrize("quant", [False, True])
 def test_packed_kernels_match_plain_and_paged_kernels(cuda, case, quant):
-    """#10/#11: a decode-only call bit-equal to #8/#9 (#10 = #8 at
-    splits=1; #11 = #9 at the same S, the default and 1); with a chunk,
-    against their plain versions (#11's at the kernel's S; decode and
-    chunk rows), #11 the same at another S; an id outside [-1, N] on the chunk's path gives NaN chunk
-    rows and leaves the decode rows' bits; fresh_len 0 and the pseudo id N
-    alone poison nothing."""
+    """#10/#11: a decode-only call bit-equal to #8/#9 at the same S (the
+    default and 1); with a chunk, against their plain versions at the
+    kernel's S (decode and chunk rows), the same at another S; an id
+    outside [-1, N] on the chunk's path gives NaN chunk rows and leaves
+    the decode rows' bits; fresh_len 0 and the pseudo id N alone poison
+    nothing."""
     i, cp, fl, fs, fpath = case
     shape, pm = PAGED_SHAPES[i]
     hd, c_d, pn = shape[2], shape[6], shape[1]
@@ -692,24 +701,18 @@ def test_packed_kernels_match_plain_and_paged_kernels(cuda, case, quant):
     n0 = kern.launches
     dec_only = kern(*a0, **k0, **kw)
     assert kern.launches == n0 + 1
-    # #11 decode-only is #9 at the same S; #10 is not split: #8's single
-    # walk
-    assert torch.equal(dec_only, paged(*y, **kw, **_splits_kw(
-        y[0], None if quant else 1)))
-    if quant:
-        assert torch.equal(kern(*a0, **k0, **kw, splits=1),
-                           paged(*y, **kw, splits=1))
+    # decode-only: #10 / #11 is #8 / #9 at the same S
+    assert torch.equal(dec_only, paged(*y, **kw, **_splits_kw(y[0])))
+    assert torch.equal(kern(*a0, **k0, **kw, splits=1),
+                       paged(*y, **kw, splits=1))
     a, k = _packed_inputs(y, pn, cp, fl, fs, fpath, seed=2, env=env)
     out = kern(*a, **k, **kw)
     assert torch.isfinite(out.float()).all()
-    split = {}
-    if quant:
-        g, rows, _ = a[0].shape
-        split = {"splits": bd.packed_split_count(
-            y[0].shape[1], rows - y[0].shape[1], g,
-            sms=bd._sm_count(cuda.index))}
-        assert torch.equal(kern(*a, **k, **kw, splits=(5, 3)), out)
-    _assert_within(out, plain(*a, **k, **kw, **split), 2e-2)
+    g, rows, _ = a[0].shape
+    split = bd.packed_split_count(y[0].shape[1], rows - y[0].shape[1], g,
+                                  sms=bd._sm_count(cuda.index))
+    assert torch.equal(kern(*a, **k, **kw, splits=(split[0], 3)), out)
+    _assert_within(out, plain(*a, **k, **kw, splits=split), 2e-2)
     nd = y[0].shape[1]
     assert torch.equal(out[:, :nd], dec_only)
     empty = kern(*a, **dict(k, fresh_len=0), **kw)
@@ -720,6 +723,43 @@ def test_packed_kernels_match_plain_and_paged_kernels(cuda, case, quant):
     out_b = kern(*(a[:-6] + (bad,) + a[-5:]), **k, **kw)
     assert torch.isnan(out_b[:, nd:].float()).all()
     assert torch.equal(out_b[:, :nd], dec_only)
+
+
+@pytest.mark.parametrize("splits", [1, None, 64])
+def test_forest_and_packed_split_kernels_match_plain_versions(cuda, splits):
+    """#5 on the main-like forest and #10 on the main-like trie with a
+    100-position chunk, at splits 1, the default and 64 (most shares
+    empty), each against its plain version at the same S, one launch a
+    call."""
+    shape = GROUPED_SHAPES[0]
+    x = _grouped_inputs(cuda, shape, seed=3, quant=True)
+    kw = dict(scale=shape[4]**-0.5, c_d=shape[6], pn=shape[3])
+    sk = _splits_kw(x[0], splits)
+    kern = bd.grouped_fused_bifurcated_decode_q8
+    n0 = kern.launches
+    out = kern(*x, **kw, **sk)
+    assert kern.launches == n0 + 1
+    assert torch.isfinite(out.float()).all()
+    _assert_within(out, bd.grouped_fused_bifurcated_decode_q8_plain(
+        *x, **kw, **sk), 2e-2)
+    tshape, pm = PAGED_SHAPES[0]
+    t = _tree_inputs(cuda, tshape, seed=4, quant=False)
+    y = _paged_inputs(t, False, pm, seed=1, fill=float("nan"))
+    a, k = _packed_inputs(y, tshape[1], 100, 165, 6144, [0, 1], seed=2,
+                          env=256)
+    kw = dict(k, scale=tshape[2]**-0.5, c_d=tshape[6], pn=tshape[1])
+    if splits is None:
+        g, rows, _ = a[0].shape
+        sk = {"splits": bd.packed_split_count(
+            y[0].shape[1], rows - y[0].shape[1], g,
+            sms=bd._sm_count(cuda.index))}
+    kern = bd.packed_fused_bifurcated_decode
+    n0 = kern.launches
+    out = kern(*a, **kw, **sk)
+    assert kern.launches == n0 + 1
+    assert torch.isfinite(out.float()).all()
+    _assert_within(out, bd.packed_fused_bifurcated_decode_plain(
+        *a, **kw, **sk), 2e-2)
 
 
 def test_packed_kernels_take_bf16_and_one_launch_only(cuda):

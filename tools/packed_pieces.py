@@ -1,6 +1,7 @@
-"""The chunk rows' piece size and the share counts of the int8 packed-step
-kernel's split walk (#11, ``packed_fused_bifurcated_decode_q8``), measured
-on the card.
+"""The chunk rows' piece size and the share counts of the packed-step
+kernels' split walk (#11, ``packed_fused_bifurcated_decode_q8``, int8
+nodes; #10, ``packed_fused_bifurcated_decode``, bf16 nodes), measured on
+the card.
 
 The piece size (``kChunkPieceBlocks`` in
 ``src/repro_torch/kernels/csrc/decode_common.cuh``, mirrored by
@@ -13,21 +14,22 @@ blocks into ``build/packed_pieces/``, checks each against the plain
 version at the same pieces and its decode rows bit-equal to the first
 copy's, and times each at the share pairs of SHARES (decode rows' tiles,
 chunk rows' tiles) by CUDA graph replay, in two rounds of opposite order,
-at ``chip_smoke.py``'s main packed shape (phase 3d's int8 trie on pages of
-128, its 32 x 64 decode arm, a 512-position chunk of 1024 rows under
-[SYS, TPL_A] at rows 300..811 of its envelope), cycling N_INPUTS input
-sets; then torch.profiler's device time of the split and merge kernels at
-``packed_split_count``'s pair.
+at ``chip_smoke.py``'s main packed shape (phase 3d's trie, int8 or bf16
+nodes, on pages of 128, its 32 x 64 decode arm, a 512-position chunk of
+1024 rows under [SYS, TPL_A] at rows 300..811 of its envelope), cycling
+N_INPUTS input sets; then torch.profiler's device time of the split and
+merge kernels at ``packed_split_count``'s pair.
 
 Run from the root of the checkout, on a machine with the card:
 
-    PYTHONPATH=src python tools/packed_pieces.py
+    PYTHONPATH=src python tools/packed_pieces.py [--nodes int8|bf16]
 
 Prints the card, one line per piece size and share pair, and last a JSON
 object of the µs per call in each round.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
@@ -44,14 +46,16 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import bifurcated_decode as bd  # noqa: E402
 
 PIECES = (16, 32, 64)        # 64-key blocks a chunk row's piece holds
-SHARES = ((8, 2), (16, 1), (16, 2), (16, 4), (33, 2), (33, 4))
+SHARES = ((8, 2), (8, 4), (16, 1), (16, 2), (16, 4), (16, 8), (33, 2),
+          (33, 4))
 N_INPUTS = 6
-NAME = "packed_fused_bifurcated_decode_q8"
+NAMES = {"int8": "packed_fused_bifurcated_decode_q8",
+         "bf16": "packed_fused_bifurcated_decode"}
 
 
-def build_pieces():
+def build_pieces(name):
     """Compile one copy of the packed library per piece size, in parallel;
-    return {blocks: library namespace with that copy's #11}."""
+    return {blocks: library namespace with that copy's kernel ``name``}."""
     header = _build.HEADERS[0].read_text()
     pat = r"constexpr int kChunkPieceBlocks = \d+;"
     if not re.search(pat, header):
@@ -75,10 +79,10 @@ def build_pieces():
         _, err = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed at {n} blocks:\n{err[-4000:]}")
-        fn = getattr(ctypes.CDLL(str(so)), NAME)
-        fn.argtypes = _build.SIGNATURES["packed_decode"][NAME]
+        fn = getattr(ctypes.CDLL(str(so)), name)
+        fn.argtypes = _build.SIGNATURES["packed_decode"][name]
         fn.restype = ctypes.c_int
-        libs[n] = types.SimpleNamespace(**dict(vars(base), **{NAME: fn}))
+        libs[n] = types.SimpleNamespace(**dict(vars(base), **{name: fn}))
     return libs
 
 
@@ -90,10 +94,14 @@ def use(libs, n):
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--nodes", choices=sorted(NAMES), default="int8")
+    quant = ap.parse_args().nodes == "int8"
+    name = NAMES["int8" if quant else "bf16"]
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     print(cs.card_line())
-    libs = build_pieces()
+    libs = build_pieces(name)
     nan = float("nan")
     lens, req_paths = cs.served_trie()
     slot_paths = [req_paths[s * len(req_paths) // cs.BATCH]
@@ -103,25 +111,26 @@ def main():
     for i in range(N_INPUTS):
         xt = cs.tree_inputs(cs.TREE_NODES, 8, cs.BATCH, 2, 1, 128,
                             cs.TREE_CAP, lens, slot_paths, cs.TREE_DEC_CAP,
-                            seed=50 + i, quant=True)
-        yt = cs.paged_case(xt, True, 128, seed=51 + i, spare=24, fill=nan)
-        cases.append(cs.packed_case(yt, True, cs.PACKED_CHUNK, cs.PACKED_BUF,
-                                    fs, [0, 1], cs.TREE_CAP, 52 + i))
-    kern = getattr(bd, NAME)
+                            seed=50 + i, quant=quant)
+        yt = cs.paged_case(xt, quant, 128, seed=51 + i, spare=24, fill=nan)
+        cases.append(cs.packed_case(yt, quant, cs.PACKED_CHUNK,
+                                    cs.PACKED_BUF, fs, [0, 1], cs.TREE_CAP,
+                                    52 + i))
+    kern = getattr(bd, name)
     default = cs.packed_splits(cases[0])
     nd = cases[0]["nd"]
 
     def call(i, splits):
         z = cases[i]
-        return kern(*cs.packed_args(z, True), **cs.packed_kw(z),
+        return kern(*cs.packed_args(z, quant), **cs.packed_kw(z),
                     splits=splits)
 
     first = None
     for n in PIECES:
         use(libs, n)
         out = call(0, default)
-        want = getattr(bd, NAME + "_plain")(
-            *cs.packed_args(cases[0], True), **cs.packed_kw(cases[0]),
+        want = getattr(bd, name + "_plain")(
+            *cs.packed_args(cases[0], quant), **cs.packed_kw(cases[0]),
             splits=default)
         torch.cuda.synchronize()
         ok, err, rel = cs.within(out, want)
@@ -146,10 +155,10 @@ def main():
             f"{r[key]:.1f}" for r in rounds) + " us/call")
     for n in PIECES:
         use(libs, n)
-        cs.merge_share(f"{NAME} pieces of {n * 64} keys S={default}",
+        cs.merge_share(f"{name} pieces of {n * 64} keys S={default}",
                        lambda i: call(i, default), N_INPUTS)
-    print(json.dumps({"card": cs.card_line(), "default": list(default),
-                      "rounds": rounds}))
+    print(json.dumps({"card": cs.card_line(), "kernel": name,
+                      "default": list(default), "rounds": rounds}))
 
 
 if __name__ == "__main__":

@@ -35,25 +35,24 @@ printing its result lines:
      position 0 with no ancestors, an id outside [-1, N] on the chunk's
      path (its rows NaN; N itself poisons nothing). fp32 queries must
      raise TypeError (the kernels take bf16 only). Every decode kernel
-     but the bf16 forest's (#4) runs split (the default: S = split_count
-     CTAs per row tile and kv head; #10 / #11 packed_split_count, a pair
-     for their decode rows' and their chunk rows' tiles) against its plain
-     version at the same S, #1 / #2 / #3 at the main, ragged and hd 112
-     shapes, #2 also at S 4 and 16 and on m_c 1000 at S 64, #5 on every
-     forest above and the same at S 4 and 64; #8 = #6 and #9 = #7 bit for
-     bit at the default split on every trie above, #1 = #8 and #3 = #9 on
-     the single prefix on 64 shuffled pages of 128 (at the default split
-     and at splits=1), #5 = #7 on the depth-1 trie and #5 = #3 at G = 1
-     (at the default split and, #5 = #7, at splits=1), and #10 = #8 (#11 =
-     #9) on the decode rows at the same S with and without the chunk, and
-     at splits=1, their output the same at S 4 and at twice their chunk
-     tiles' S; the gates against #4, which is not split (at G = 1 against
-     #1, against #6 at depth 1), call those at splits=1; the default
-     split lies within the gate of splits=1 at the main shapes; S = 64
-     against plain (#1 / #3 at m_c 1000, n 2; the ragged trie on pages of
-     48, #8 = #6 and #9 = #7 there); and a merge without the rescale
-     exp(m_s - m) or with a row's last piece dropped misses the gate by
-     far for #1, #2, #3, #5, #6, #7 and #10 (#10 on both its decode rows
+     runs split (the default: S = split_count CTAs per row tile and kv
+     head; #10 / #11 packed_split_count, a pair for their decode rows' and
+     their chunk rows' tiles) against its plain version at the same S, #1
+     / #2 / #3 at the main, ragged and hd 112 shapes, #2 also at S 4 and
+     16 and on m_c 1000 at S 64, #4 and #5 on every forest above and the
+     same at S 4 and 64; #8 = #6 and #9 = #7 bit for bit at the default
+     split on every trie above, #1 = #8 and #3 = #9 on the single prefix
+     on 64 shuffled pages of 128 (at the default split and at splits=1),
+     #5 = #7 and #4 = #6 on the depth-1 trie (at the default split and at
+     splits=1), #5 = #3 and #4 = #1 at G = 1 (at the default split; within
+     the gate, the line saying whether the bits differ), and #10 = #8 (#11
+     = #9) on the decode rows at the same S with and without the chunk,
+     and at splits=1, their output the same at S 4 and at twice their
+     chunk tiles' S; the default split lies within the gate of splits=1 at
+     the main shapes; S = 64 against plain (#1 / #3 at m_c 1000, n 2; the
+     ragged trie on pages of 48, #8 = #6 and #9 = #7 there); and a merge
+     without the rescale exp(m_s - m) or with a row's last piece dropped
+     misses the gate by far for #1-#7 and #10 (#10 on both its decode rows
      and its chunk rows, on a case whose envelope dominates).
      Every gate is max |kernel - plain| <= tol x max |plain| (bf16 2e-2),
      and the script shows that plain versions with the decode arm
@@ -83,8 +82,9 @@ printing its result lines:
      head) row of the output and per head of the final state; fp32 raises
      TypeError; plain versions with the state not carried across chunks,
      the inter-chunk term without e^{A_i}, an exclusive cumsum, the causal
-     mask dropped, or the padded rows given a nonzero decay (the state
-     gate) miss it by far;
+     mask dropped, the padded rows given a nonzero decay (the state gate),
+     and, from an initial state, the state handed to the wrong chunk or
+     the initial state dropped, miss it by far;
   3. serve internlm2-1.8b at its published width (seeded random weights)
      with ServeEngine.generate: bifurcated cache, fused kernel, batch 32,
      context 8192, 16 steps. The fused kernel must launch 24 layers x 15
@@ -110,9 +110,9 @@ printing its result lines:
      each group; then the 2500-token group is cancelled and retired, a
      4000-token request takes its segment and slots, 8 more steps run, and
      the three untouched groups' greedy tokens must be bit-identical to a
-     run without the retire and readmit; torch.profiler over one int8
-     forest step (#5's device time, split + merge, beside the same at
-     splits=1) and #5's wrapper's host us per call;
+     run without the retire and readmit; torch.profiler over one forest
+     step of each (#4's and #5's device time, split + merge, beside the
+     same at splits=1) and #4's and #5's wrapper's host us per call;
   3d. TreeServeEngine at the same width, bf16 and int8 nodes: a prefix trie
      of 8 nodes of capacity 4096 (a 4096-token system prompt, templates of
      2048 and 1024 tokens under it, leaves of 1200 and 500 under the first
@@ -136,11 +136,9 @@ printing its result lines:
      kernel 24 x 15 times and hold per layer against its plain versions.
      Gated token comparisons, bit for bit: the single prefix's tokens (#8,
      #9 at the default split) against phase 3's and 3b's (#1, #3 at the
-     default split: the same pieces); the int8 forest's against phase
-     3c's (#9, #5 at the default split); the bf16 forest's against phase
-     3c's with both runs replayed with #8 at splits=1 (#4 is a single
-     walk); the trie's against phase 3d's (#8 = #6, #9 = #7 at the same
-     split);
+     default split: the same pieces); the forest's against phase 3c's
+     (#8 = #4, #9 = #5 at the default split); the trie's against phase
+     3d's (#8 = #6, #9 = #7 at the same split);
   3f. TreeServeEngine(step_mode="packed", suffix_prefill=True,
      prefill_chunk=512) on the paged store (pages of 128), bf16 and int8
      nodes, phase 3d's prompts: [SYS, TPL_A, A1] is prefilled in 15 chunks
@@ -185,13 +183,13 @@ printing its result lines:
      computing the same function (the port never calls it); the paged
      kernels at the single-prefix shape and on the paged trie, the packed
      kernels at phase 2's main packed shape over phase 3e's paged trie,
-     flash prefill at the main prefill shape and at phase 3h's suffix. #1,
-     #2, #3 and #5-#11 (split, faster than their wrapper's host work)
+     flash prefill at the main prefill shape and at phase 3h's suffix.
+     #1-#11 (split, faster than their wrapper's host work)
      and their yardsticks are timed by CUDA graph replay, with their plain
      versions at the same S, a sweep over S = 1, 4, 8, 16, 32 (#2, #10,
      #11: 1, 2, 4, 8, 16, 32; #10 / #11 also their chunk tiles' S alone)
-     and the default on one line per kernel and shape, and for #1, #2,
-     #3, #5, #6, #8, #10 and #11 the merge kernel's share of the call
+     and the default on one line per kernel and shape, and for #1-#6,
+     #8, #10 and #11 the merge kernel's share of the call
      (torch.profiler), and #10's / #11's wrapper's host us per call;
   3i. serve zamba2-7b at its published width (81 Mamba2 layers, d 3584,
      the shared attention block applied 13 times, hd 112; seeded random
@@ -206,13 +204,15 @@ printing its result lines:
      versions (weights widened from the same bf16), within max(2e-2 x
      max |logit|, 1.5 x the bf16 plain versions' distance from it); prints
      prefill ms and decode ms/step (and at splits=1, in turns), the
-     wrapper's host us per call, and the fused kernel's device time per
-     profiled step at the default split and at splits=1;
+     wrapper's host us per call, the fused kernel's device time per
+     profiled step at the default split and at splits=1, and #13's device
+     time in one profiled bf16 prefill;
   4i. time #13 on phase 3i's recorded inputs (three layers of the bf16
      prefill) beside its bound and its plain version (no library call
-     computes it), and #1 and #3 at the hybrid's shape over its 13 served
-     context caches as in phase 4 (graph-timed, the S sweep, the merge's
-     share);
+     computes it), swept over the CTAs an SM holds (its ctas_per_sm cap 1,
+     2, 3 and none; the bits unmoved), and #1 and #3 at the hybrid's shape
+     over its 13 served context caches as in phase 4 (graph-timed, the S
+     sweep, the merge's share);
   5. print the kernels' JSON line, then the result line, last.
 
 Imports torch and the port only; needs a checkout of the repository (it
@@ -559,11 +559,10 @@ def check_q8(name, x, splits=None):
 
 
 def check_grouped(name, x, quant, splits=None):
-    """A grouped kernel vs its plain version on one case (#5 at
+    """A grouped kernel vs its plain version on one case (#4 / #5 at
     ``splits``, default the default split, its plain version at the same
-    S; #4 the single walk): both NaN on the rows of a segment id outside
-    [0, G) and nowhere else, within the gate on the others; returns the
-    max abs error."""
+    S): both NaN on the rows of a segment id outside [0, G) and nowhere
+    else, within the gate on the others; returns the max abs error."""
     import torch
     from repro_torch.kernels import bifurcated_decode as bd
 
@@ -572,7 +571,7 @@ def check_grouped(name, x, quant, splits=None):
     plain = (bd.grouped_fused_bifurcated_decode_q8_plain if quant
              else bd.grouped_fused_bifurcated_decode_plain)
     kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"],
-              **(split_kw(x, splits) if quant else {}))
+              **split_kw(x, splits))
     out_k = kern(*grouped_args(x, quant), **kw)
     out_p = plain(*grouped_args(x, quant), **kw)
     torch.cuda.synchronize()
@@ -586,45 +585,51 @@ def check_grouped(name, x, quant, splits=None):
           f"{name}: non-finite")
     ok, err, rel = within(out_k[:, ~bad], out_p[:, ~bad])
     print(f"check {name}: {'grouped q8' if quant else 'grouped'}"
-          + (f" S={kw['splits']}" if quant else "")
-          + f" max_abs_err={err:.3e} ({rel:.1e} of max |out|, gate 2e-2)"
+          f" S={kw['splits']} max_abs_err={err:.3e} ({rel:.1e} of max "
+          f"|out|, gate 2e-2)"
           + (f"; {int(bad.sum())} rows of an id outside [0, G) NaN"
              if bad.any() else ""))
     check(ok, f"{name}: grouped kernel disagrees with its plain version")
     return err
 
 
-def check_forest_split(x, xd):
-    """Phase 2's split cases of #5 beyond check_grouped's default split:
-    the main forest ``x`` at S 4 and 64 bit-equal to the default, and the
-    default within the gate of splits=1; two faulty merges of the plain
-    version missing the gate on the decode-dominant main forest ``xd``."""
+def check_forest_split(x, xd, quant):
+    """Phase 2's split cases of #4 / #5 (``quant``) beyond check_grouped's
+    default split: the main forest ``x`` at S 4 and 64 bit-equal to the
+    default, and the default within the gate of splits=1; two faulty
+    merges of the plain version missing the gate on the decode-dominant
+    main forest ``xd``."""
     import torch
     from repro_torch.kernels import bifurcated_decode as bd
 
-    kern = bd.grouped_fused_bifurcated_decode_q8
+    kern = (bd.grouped_fused_bifurcated_decode_q8 if quant
+            else bd.grouped_fused_bifurcated_decode)
+    num = "#5" if quant else "#4"
     kw = dict(scale=x["scale"], c_d=x["c_d"], pn=x["pn"])
     S = default_splits(x["q"])
-    out = kern(*grouped_args(x, True), **kw)
-    same = [same_bits(kern(*grouped_args(x, True), **kw, splits=s), out)
+    out = kern(*grouped_args(x, quant), **kw)
+    same = [same_bits(kern(*grouped_args(x, quant), **kw, splits=s), out)
             for s in (4, 64)]
-    ok, err, rel = within(out, kern(*grouped_args(x, True), **kw, splits=1))
-    print(f"check int8 main forest: S=4 and S=64 bit-equal to the default "
-          f"(S={S}) {same}; the default vs splits=1 max_abs_err={err:.3e} "
-          f"({rel:.1e} of max |out|, gate 2e-2)")
-    check(all(same), "#5's output moves with S")
-    check(ok, "#5's split walk disagrees with its single walk")
-    args = grouped_args(xd, True)
+    ok, err, rel = within(out, kern(*grouped_args(x, quant), **kw, splits=1))
+    print(f"check {'int8' if quant else 'bf16'} main forest: S=4 and S=64 "
+          f"bit-equal to the default (S={S}) {same}; the default vs "
+          f"splits=1 max_abs_err={err:.3e} ({rel:.1e} of max |out|, gate "
+          f"2e-2)")
+    check(all(same), f"{num}'s output moves with S")
+    check(ok, f"{num}'s split walk disagrees with its single walk")
+    args = grouped_args(xd, quant)
+    if not quant:       # _grouped_plain's scales: none for bf16 segments
+        args = args[:3] + (None, None) + args[3:]
     pkw = dict(scale=xd["scale"], c_d=xd["c_d"], pn=xd["pn"],
                block_m=bd.BLOCK_M, splits=S)
     want = bd._grouped_plain(*args, **pkw)
     rels = {k: within(bd._grouped_plain(*args, **pkw, merge=f), want)[2]
             for k, f in faulty_merges().items()}
-    print(f"check #5 split merge, main forest decode-dominant masked S={S}: "
-          f"a faulty merge's error / max |out|: "
+    print(f"check {num} split merge, main forest decode-dominant masked "
+          f"S={S}: a faulty merge's error / max |out|: "
           + ", ".join(f"{k} {v:.2f}" for k, v in rels.items()))
     for k, v in rels.items():
-        check(v >= 10 * TOL, f"#5 split merge: the gate misses '{k}'")
+        check(v >= 10 * TOL, f"{num} split merge: the gate misses '{k}'")
 
 
 def check_forest_gate_sensitivity(name, xq, xg):
@@ -728,10 +733,9 @@ def split_kw(x, splits=None):
 
 @contextlib.contextmanager
 def single_walk():
-    """#1-#3, #5 and #6-#11 at splits=1 for the duration of a ``with``
-    block (their wrappers' default split forced to 1): for the comparisons,
-    bit for bit, with a kernel that is not split (#4), and the single
-    walk's profiles."""
+    """#1-#11 at splits=1 for the duration of a ``with`` block (their
+    wrappers' default split forced to 1): for the single walk's profiles
+    and timings (``profile_splits``, ``decode_ms_in_turns``)."""
     from repro_torch.kernels import bifurcated_decode as bd
 
     saved = bd.split_count, bd.packed_split_count
@@ -845,8 +849,8 @@ def check_tree_decode_share(name, x):
 
 def check_tree_depth_one(quant):
     """Every path one level deep: the tree kernel must compute the
-    grouped kernel's bits, #7 = #5 at the default split and on the single
-    walk (splits=1), #6 = #4 on the single walk (#4 is not split)."""
+    grouped kernel's bits, #7 = #5 and #6 = #4 at the default split and on
+    the single walk (splits=1)."""
     import torch
     from repro_torch.kernels import bifurcated_decode as bd
 
@@ -859,12 +863,11 @@ def check_tree_depth_one(quant):
     ctx = tree_args(x, quant)[:-5]
     kern = (bd.grouped_fused_bifurcated_decode_q8 if quant
             else bd.grouped_fused_bifurcated_decode)
-    for splits in ((None, 1) if quant else (1,)):
+    for splits in (None, 1):
         sk = split_kw(x, splits)
         tree = tree_kernel(quant)(*tree_args(x, quant), **kw, **sk)
         grouped = kern(*ctx, x["paths"][0].contiguous(), x["node_lens"],
-                       x["kd"], x["vd"], x["bias"], **kw,
-                       **(sk if quant else {}))
+                       x["kd"], x["vd"], x["bias"], **kw, **sk)
         torch.cuda.synchronize()
         same = bool(torch.equal(tree, grouped))
         err = within(tree, grouped)[1]
@@ -2044,11 +2047,14 @@ def check_chunked(name, x, chunk, normalize=False):
     return err_o
 
 
-def faulty_chunked_plain(q, k, v, a, chunk, fault):
-    """The plain version's walk (fp32, zero initial state) with one planted
-    fault: the state not carried across chunks, the inter-chunk term
-    without e^{A_i}, an exclusive cumsum, the in-chunk causal mask dropped,
-    or the padded rows given a nonzero decay (None: no fault)."""
+def faulty_chunked_plain(q, k, v, a, chunk, fault, s0=None):
+    """The plain version's order (fp32): each chunk's own products and
+    state contribution, the chain of states from ``s0`` (None: zero), then
+    the inter term; with one planted fault: the state not carried across
+    chunks, the inter-chunk term without e^{A_i}, an exclusive cumsum, the
+    in-chunk causal mask dropped, the padded rows given a nonzero decay,
+    the state handed to the wrong chunk (chunk c's rows against S_{c-1}),
+    or the initial state dropped (None: no fault)."""
     import torch
     import torch.nn.functional as F
 
@@ -2058,29 +2064,41 @@ def faulty_chunked_plain(q, k, v, a, chunk, fault):
     q, k, v = (F.pad(t.float(), (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
     a = F.pad(a.float(), (0, 0, 0, pad),
               value=-1.0 if fault == "padded rows decay" else 0.0)
-    S = torch.zeros(b, H, dk, v.shape[-1], device=q.device)
+    S0 = torch.zeros(b, H, dk, v.shape[-1], device=q.device)
+    if s0 is not None and fault != "initial state dropped":
+        S0 = s0.float()
     mask = torch.ones(c, c, device=q.device)
     if fault != "causal mask dropped":
         mask = torch.tril(mask)
-    out = []
-    for c0 in range(0, n + pad, c):
-        if fault == "state not carried":
-            S = torch.zeros_like(S)
-        qf, kf, vf = q[:, c0:c0 + c], k[:, c0:c0 + c], v[:, c0:c0 + c]
+    starts = range(0, n + pad, c)
+    intra, d_state, cum = [], [], []
+    for c0 in starts:
+        kf, vf = k[:, c0:c0 + c], v[:, c0:c0 + c]
         A = torch.cumsum(a[:, c0:c0 + c], dim=1)
         if fault == "exclusive cumsum":
             A = A - a[:, c0:c0 + c]
         D = (torch.exp(torch.clamp(A[:, :, None] - A[:, None], max=0.0))
              * mask[None, :, :, None])
-        o = torch.einsum("bijh,bjhv->bihv",
-                         torch.einsum("bihk,bjhk->bijh", qf, kf) * D, vf)
+        intra.append(torch.einsum(
+            "bijh,bjhv->bihv",
+            torch.einsum("bihk,bjhk->bijh", q[:, c0:c0 + c], kf) * D, vf))
+        d_state.append(torch.einsum(
+            "bjhk,bjhv->bhkv", kf * torch.exp(A[:, -1:] - A)[..., None], vf))
+        cum.append(A)
+    states = [S0]
+    for A, dS in zip(cum, d_state):
+        states.append(states[-1] * torch.exp(A[:, -1])[..., None, None] + dS)
+    out = []
+    for i, (c0, A) in enumerate(zip(starts, cum)):
+        S = states[i]
+        if fault == "state not carried":
+            S = S0
+        elif fault == "state to the wrong chunk":
+            S = states[max(i - 1, 0)]
         e_a = 1.0 if fault == "inter without e^A" else torch.exp(A)[..., None]
-        out.append(o + torch.einsum("bihk,bhkv->bihv", qf * e_a, S))
-        a_last = A[:, -1]
-        S = S * torch.exp(a_last)[..., None, None] + torch.einsum(
-            "bjhk,bjhv->bhkv", kf * torch.exp(a_last[:, None] - A)[..., None],
-            vf)
-    return torch.cat(out, dim=1)[:, :n], S
+        out.append(intra[i] + torch.einsum("bihk,bhkv->bihv",
+                                           q[:, c0:c0 + c] * e_a, S))
+    return torch.cat(out, dim=1)[:, :n], states[-1]
 
 
 def check_chunked_kernels():
@@ -2123,21 +2141,27 @@ def check_chunked_kernels():
     print("check fp32 operands: TypeError from the #13 wrapper, no launch")
 
     # gate sensitivity: a faulty plain version misses the per-row gate by
-    # far (the padded rows' decay moves only the final state)
-    q, k, v, a, _ = chunked_inputs(1, 1000, 16, dk, dv, seed=99)
-    out, st = cl.chunked_linear_attention(q, k, v, a, chunk=C)
+    # far (the padded rows' decay moves only the final state); the chain's
+    # faults on a case from an initial state
     rels = {}
-    for fault in ("state not carried", "inter without e^A",
-                  "exclusive cumsum", "causal mask dropped",
-                  "padded rows decay"):
-        bad, st_bad = faulty_chunked_plain(q, k, v, a, C, fault)
-        rels[fault] = (within_rows(st.flatten(2), st_bad.flatten(2))[2]
-                       if fault == "padded rows decay"
-                       else within_rows(out, bad)[2])
-    print("check #13 gate sensitivity (n 1000, chunk 256, 16 heads): a "
-          "faulty plain version's worst row (padded decay: head state) "
-          "error / its max: " + ", ".join(f"{k} {r:.2f}"
-                                          for k, r in rels.items()))
+    for init, faults in ((False, ("state not carried", "inter without e^A",
+                                  "exclusive cumsum", "causal mask dropped",
+                                  "padded rows decay")),
+                         (True, ("state to the wrong chunk",
+                                 "initial state dropped"))):
+        q, k, v, a, s0 = chunked_inputs(1, 1000, 16, dk, dv,
+                                        seed=98 if init else 99, init=init)
+        out, st = cl.chunked_linear_attention(q, k, v, a, chunk=C,
+                                              initial_state=s0)
+        for fault in faults:
+            bad, st_bad = faulty_chunked_plain(q, k, v, a, C, fault, s0)
+            rels[fault] = (within_rows(st.flatten(2), st_bad.flatten(2))[2]
+                           if fault == "padded rows decay"
+                           else within_rows(out, bad)[2])
+    print("check #13 gate sensitivity (n 1000, chunk 256, 16 heads; the "
+          "last two from an initial state): a faulty plain version's worst "
+          "row (padded decay: head state) error / its max: "
+          + ", ".join(f"{k} {r:.2f}" for k, r in rels.items()))
     for fault, rel in rels.items():
         check(rel >= 10 * TOL, f"the #13 gate misses '{fault}'")
     return {"chunked_linear_attention": err}
@@ -2211,8 +2235,7 @@ def check_kernels():
         err = max(check_grouped(f"main {tag}{fmain}", x, quant),
                   check_grouped(f"main {tag}{fmain} decode-dominant masked",
                                 xd, quant))
-        if quant:
-            check_forest_split(x, xd)
+        check_forest_split(x, xd, quant)
         for name, args, kw in [
                 ("rows shuffled, 0-length segment, id outside [0, G)",
                  (3, 8, 32, 2, 1, 128, 1000, (1000, 0, 77), 24, 22),
@@ -2229,28 +2252,27 @@ def check_kernels():
                            masked=True, quant=quant)
         kw = dict(scale=x1["scale"], c_d=x1["c_d"], pn=x1["pn"])
         from repro_torch.kernels import bifurcated_decode as bd
-        # #5 against #3 at the default split; #4 is not split: against
-        # #1's single walk
+        # #5 against #3, #4 against #1, both at the default split
+        sk = split_kw(x1)
         if quant:
-            sk = split_kw(x1)
             one = bd.fused_bifurcated_decode_q8(
                 x1["q"], x1["kc"][0], x1["vc"][0], x1["ks"][0], x1["vs"][0],
                 x1["kd"], x1["vd"], x1["bias"], **kw, **sk)
-            grp = bd.grouped_fused_bifurcated_decode_q8(
-                *grouped_args(x1, True), **kw, **sk)
         else:
-            sk = {"splits": 1}
             one = bd.fused_bifurcated_decode(
                 x1["q"], x1["kc"][0], x1["vc"][0], x1["kd"], x1["vd"],
                 x1["bias"], **kw, **sk)
-            grp = bd.grouped_fused_bifurcated_decode(
-                *grouped_args(x1, False), **kw)
+        grp = (bd.grouped_fused_bifurcated_decode_q8 if quant
+               else bd.grouped_fused_bifurcated_decode)(
+            *grouped_args(x1, quant), **kw, **sk)
         torch.cuda.synchronize()
         ok, e1, rel = within(grp, one)
+        same = bool(torch.equal(grp, one))
         print(f"check {tag}G=1 m_c=2049 grouped vs single-prefix kernel "
               f"(S={sk['splits']}): "
               f"max_abs_err={e1:.3e} ({rel:.1e} of max |out|, gate 2e-2; "
-              f"bit-equal {bool(torch.equal(grp, one))})")
+              f"bit-equal {same}"
+              + ("" if same else ": the bits differ, the gate holds") + ")")
         check(ok, f"{tag}G=1: grouped kernel disagrees with the single-prefix "
                   f"kernel")
         out[kname] = err
@@ -2830,21 +2852,21 @@ def serve_forest(cfg, model, params, quant):
         check(all(np.isfinite(eng.logps[s])), "logprobs")
     path_err = forest_vs_single(cfg, model, params, st_b.cache, st_b.tokens,
                                 slots, quant)
-    if quant:
-        # where an int8 forest step's time goes, #5 at its default split
-        # and at splits=1, and the wrapper's host work a call
-        fc = st_b.cache
-        profile_splits(tag, "grouped",
-                       lambda _: decode_fn(model, params, _fork(fc),
-                                           st_b.tokens),
-                       cfg.n_layers, ptag=" forest int8")
-        from repro_torch.kernels import bifurcated_decode as bd
+    # where a forest step's time goes, #4 / #5 at the default split and at
+    # splits=1, and the wrapper's host work a call
+    fc = st_b.cache
+    profile_splits(tag, "grouped",
+                   lambda _: decode_fn(model, params, _fork(fc),
+                                       st_b.tokens),
+                   cfg.n_layers, ptag=" forest" + (" int8" if quant else ""))
+    from repro_torch.kernels import bifurcated_decode as bd
 
-        p = cfg.n_heads // cfg.n_kv_heads
-        host_us_per_call(tag, bd.grouped_fused_bifurcated_decode_q8,
-                         (fc.k_ctx[0], fc.v_ctx[0], fc.k_scale[0],
-                          fc.v_scale[0], fc.group_ids.repeat_interleave(p),
-                          fc.ctx_lens), p, FOREST_DEC_CAP, seed=15)
+    p = cfg.n_heads // cfg.n_kv_heads
+    host_us_per_call(tag, getattr(bd, kname),
+                     (fc.k_ctx[0], fc.v_ctx[0])
+                     + ((fc.k_scale[0], fc.v_scale[0]) if quant else ())
+                     + (fc.group_ids.repeat_interleave(p), fc.ctx_lens),
+                     p, FOREST_DEC_CAP, seed=15)
 
     # cancel and retire the 2500-token group, readmit into its segment and
     # slots, decode on; the untouched groups must not move by one bit
@@ -3370,26 +3392,9 @@ def serve_paged_forest(cfg, model, params, quant, dense_outs):
     check(all(np.isfinite(eng.logps[s]).all() and
               len(eng.outputs[s]) == FOREST_MORE + 1 for s in s_new),
           "readmitted slots' outputs")
-    if quant:   # #5 and #9 at the same (default) split: the same pieces
-        outs = (first_b == dense_outs["first"], _copy_outputs(eng),
-                _copy_outputs(eng_b))
-    else:
-        # #4 is not split: the comparison with the dense forest's tokens
-        # replays both runs on #8's single walk
-        with single_walk():
-            e_b, s_b, _ = start()
-            s_b = e_b.step_chunk(params, s_b, FOREST_STEPS)
-            e, s, _ = start()
-            s = e.step_chunk(params, s, FOREST_STEPS)
-            first = _copy_outputs(e) == dense_outs["first"]
-            s = e.cancel_group(s, 2)
-            check(e.retire_groups(s) == [2], "retire (single walk)")
-            s = e.release_retired(s)
-            s, _ = e.admit(params, s, new_ctx, BATCH // len(ctxs))
-            s = e.step_chunk(params, s, FOREST_MORE)
-            s_b = e_b.step_chunk(params, s_b, FOREST_MORE)
-            outs = (first, _copy_outputs(e), _copy_outputs(e_b))
-            del e, s, e_b, s_b
+    # #4 / #5 and #8 / #9 at the same (default) split: the same pieces
+    outs = (first_b == dense_outs["first"], _copy_outputs(eng),
+            _copy_outputs(eng_b))
     dense_same = (outs[0] and outs[1] == dense_outs["a"]
                   and outs[2] == dense_outs["b"])
     print(f"{tag}: a {READMIT_LEN}-token readmission on {free0} free pages "
@@ -3401,8 +3406,8 @@ def serve_paged_forest(cfg, model, params, quant, dense_outs):
           f"untouched groups' tokens bit-identical to the run without "
           f"retirement: {same}; every token equal to phase 3c's dense "
           f"forest ("
-          + ("#9 and #5 at the default split" if quant
-             else "#8 at splits=1, both runs replayed") + f"): {dense_same}")
+          + ("#9 and #5" if quant else "#8 and #4") + " at the default "
+          f"split): {dense_same}")
     check(same, "the retire and readmit moved another group's tokens")
     check(dense_same, "the paged forest's tokens differ from the dense "
                       "forest's")
@@ -3981,7 +3986,7 @@ def profile_step(step, top=8, tag=""):
     (one decode or packed step), device time by kernel name, beside the
     step's wall time, and the decode kernels' own device time and share
     (split_kernel + merge_kernel, or the single walk's decode_kernel: #1 /
-    #3 on the single-prefix paths, #5 on the int8 forest, #6 on the trie,
+    #3 on the single-prefix paths, #4 / #5 on the forests, #6 on the trie,
     #10 on a packed step). Returns that time in us."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -4014,6 +4019,36 @@ def profile_step(step, top=8, tag=""):
     return dec_us
 
 
+def profile_kernel(tag, fn, key, what, top=6):
+    """torch.profiler over ``fn()`` (one prefill, say): the device-side
+    time and launches, those of the kernels whose name holds ``key``
+    (``what``) and their share, beside the wall time; the ``top`` kernel
+    names. Returns the kernels' time in ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((getattr(e, "self_device_time_total", 0.0), e.count, e.key)
+                   for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                  reverse=True)
+    dev_us = sum(r[0] for r in rows)
+    mine = [r for r in rows if key in r[2]]
+    k_us = sum(r[0] for r in mine)
+    print(f"{tag}: profile, wall {wall_ms:.1f} ms under the profiler, "
+          f"device {dev_us / 1e3:.2f} ms in {sum(r[1] for r in rows)} "
+          f"launches; {what} {k_us / 1e3:.2f} ms in {sum(r[1] for r in mine)}"
+          f" launches ({k_us / max(dev_us, 1e-9):.1%} of the device time)")
+    for us, n, name in rows[:top]:
+        print(f"profile:   {us:9.1f} us  {n:4d}x  {name[:90]}")
+    return k_us / 1e3
+
+
 def profile_splits(tag, kernel, make_step, calls, top=8, ptag=""):
     """``profile_step`` over the step ``make_step(i)`` returns, at the
     default split (i 0) and at splits=1 (i 1, under ``single_walk``); one
@@ -4034,9 +4069,9 @@ def decode_fn(model, params, cache, tok):
 
 
 def host_us_per_call(tag, kern, ctx, p, c_d, seed, n=200):
-    """``host_us`` of #1 / #3 / #5 (``kern``) on one served layer's
-    context operands ``ctx`` (#5: segments, scales, row map and lengths)
-    with a random decode arm."""
+    """``host_us`` of #1 / #3 / #4 / #5 (``kern``) on one served layer's
+    context operands ``ctx`` (#4 / #5: segments, scales, row map and
+    lengths) with a random decode arm."""
     import torch
 
     g, hd = ctx[0].shape[-3], ctx[0].shape[-1]
@@ -4518,6 +4553,10 @@ def serve_hybrid():
               f"{(wall - prefill_s) / (STEPS - 1) * 1e3:.2f} ms/step (batch "
               f"{BATCH}, context {CONTEXT})")
         decode_ms_in_turns(tag, engine, params, ctx, prefill_s)
+        if not quant:   # where a prefill's device time goes: #13's share
+            profile_kernel(f"{tag} prefill",
+                           lambda: engine.prefill_shared(params, ctx, BATCH),
+                           "chunked_linear_kernel", "#13")
 
         # the kernel path's prefill, #13's calls at the sampled layers kept,
         # and its first decode step on the first sampled tokens
@@ -5010,8 +5049,8 @@ def time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches, launches,
                    else (lambda i: (fc.k_ctx[i], fc.v_ctx[i])))
         kern = getattr(bd, kname)
         plain = getattr(bd, kname + "_plain")
-        # #5 splits: its plain version at the kernel's default S
-        pkw = dict(gkw, **skw) if quant else gkw
+        # both split: their plain versions at the kernel's default S
+        pkw = dict(gkw, **skw)
 
         def at_splits(S, kern=kern, ctx_ops=ctx_ops, kd=kd, vd=vd):
             return lambda i: kern(q, *ctx_ops(i), row_group, ctx_lens, kd[i],
@@ -5052,10 +5091,9 @@ def time_kernels(cfg, cache, q8cache, fcaches, tcaches, pcaches, launches,
         entries.append(_timed_entry(
             kname, "forest_q8_decode.cu", line, grouped, grouped_plain,
             grouped_lib, nbytes, flop, launches[kname], errs[kname], L,
-            graph=quant))
-        if quant:
-            split_sweep(f"{kname} main forest", at_splits, L, skw["splits"])
-            merge_share(f"{kname} main forest S={skw['splits']}", grouped, L)
+            graph=True))
+        split_sweep(f"{kname} main forest", at_splits, L, skw["splits"])
+        merge_share(f"{kname} main forest S={skw['splits']}", grouped, L)
     del g_k, g_v, kd, vd
     tree_entries = time_tree_kernels(cfg, tcaches, pcaches, q, launches,
                                      errs)
@@ -5474,9 +5512,30 @@ def time_chunked_kernel(calls, launches, err):
     print(f"time: chunked_linear_attention at the slice's shape (b={b} n={n} "
           f"H={H} dk={dk} dv={dv} chunk={SSM_CHUNK}, q/k strides "
           f"{tuple(q.stride())}; no library call computes it)")
-    return _timed_entry("chunked_linear_attention", "chunked_linear.cu", 83,
-                        kern, plain, None, nbytes, flop, launches, err,
-                        len(calls), module="chunked_linear.py")
+    entry = _timed_entry("chunked_linear_attention", "chunked_linear.cu", 83,
+                         kern, plain, None, nbytes, flop, launches, err,
+                         len(calls), module="chunked_linear.py")
+    # the design's one free parameter: the CTAs an SM holds (the bits do
+    # not move with it)
+    import torch
+
+    out, st = kern(0)
+    times = {}
+    for cap in (1, 2, 3, None):
+        o, s = cl.chunked_linear_attention(*calls[0], chunk=SSM_CHUNK,
+                                           ctas_per_sm=cap)
+        check(bool(torch.equal(o, out) and torch.equal(s, st)),
+              f"#13's bits move with ctas_per_sm={cap}")
+        times[cap] = (cl.occupancy(dk, dv, SSM_CHUNK, cap), time_ms(
+            lambda i, cap=cap: cl.chunked_linear_attention(
+                *calls[i], chunk=SSM_CHUNK, ctas_per_sm=cap), len(calls)))
+    print("time (occupancy sweep): chunked_linear_attention, CTAs an SM "
+          "(ctas_per_sm cap): " + ", ".join(
+              f"{occ}{' (default)' if cap is None else f' (cap {cap})'} "
+              f"{t * 1e3:.1f} us" for cap, (occ, t) in times.items())
+          + f"; {flop / entry['ms'] / 1e9:.1f} TFLOP/s of its "
+          f"{flop / 1e9:.2f} GFLOP at the default")
+    return entry
 
 
 def time_hybrid_decode(cfg_h, attn, attn_q8):

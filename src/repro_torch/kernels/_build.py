@@ -51,8 +51,9 @@ SIGNATURES = {
         # splits, max_pieces, scale, stream
         "fused_bifurcated_decode_q8": [_P] * 10 + [_I] * 9 + [_F, _P],
         # q, k_ctx, v_ctx, row_group, ctx_lens, k_dec, v_dec, dec_bias, out,
-        # n_groups, g, rows, m_c, ld, hd, c_d, pn, scale, stream
-        "grouped_fused_bifurcated_decode": [_P] * 9 + [_I] * 8 + [_F, _P],
+        # part (split scratch or NULL), n_groups, g, rows, m_c, ld, hd, c_d,
+        # pn, splits, max_pieces, scale, stream
+        "grouped_fused_bifurcated_decode": [_P] * 10 + [_I] * 10 + [_F, _P],
         # q, k_ctx, v_ctx, k_scale, v_scale, row_group, ctx_lens, k_dec,
         # v_dec, dec_bias, out, part (split scratch or NULL), n_groups, g,
         # rows, m_c, ld, hd, c_d, pn, splits, max_pieces, scale, stream
@@ -97,9 +98,12 @@ SIGNATURES = {
         "flash_prefill_attention": [_P] * 5 + [_I] * 10 + [_F, _P],
     },
     "chunked_linear": {
-        # q, k, v, log_decay, s0, out, s_out, the strides (batch, position,
-        # head) of q, k and v, b, n, H, dk, dv, d, chunk, stream
-        "chunked_linear_attention": [_P] * 7 + [_L] * 9 + [_I] * 7 + [_P],
+        # q, k, v, log_decay, s0, out, s_out, sync, the strides (batch,
+        # position, head) of q, k and v, b, n, H, dk, dv, d, chunk,
+        # ctas_per_sm, stream
+        "chunked_linear_attention": [_P] * 8 + [_L] * 9 + [_I] * 8 + [_P],
+        # d, chunk, ctas_per_sm, out (one int32)
+        "chunked_linear_occupancy": [_I] * 3 + [_P],
     },
 }
 SOURCES = {name: CSRC / f"{name}.cu" for name in SIGNATURES}

@@ -37,11 +37,10 @@ built by ``_build.py``):
   own sample's decode slots. Rows whose segment id lies outside [0, G)
   come out NaN (the reference's einsum path gives NaN for ids >= G, its
   Pallas kernel decode-arm-only attention; the engine never makes such
-  ids). The int8 kernel splits its walk on the card (``splits``) as the
-  trie kernels do, the forest being the trie at depth 1: the same bits as
-  ``tree_fused_bifurcated_decode_q8`` on a depth-1 trie. The bf16 kernel
-  runs the single walk. Replace the Pallas ``_grouped_fused_kernel`` /
-  ``_grouped_fused_q8_kernel``.
+  ids). Both split their walk on the card (``splits``) as the trie kernels
+  do, the forest being the trie at depth 1: the same bits as
+  ``tree_fused_bifurcated_decode[_q8]`` on a depth-1 trie. Replace the
+  Pallas ``_grouped_fused_kernel`` / ``_grouped_fused_q8_kernel``.
 
 ``tree_fused_bifurcated_decode`` / ``..._q8`` — the prefix-TRIE (cascade)
   decode: N node segments, ragged live lengths ``node_lens`` and a
@@ -107,7 +106,7 @@ MAX_TREE_NODES = 65536      # and node count (their shared-memory bitmap)
 ROW_TILE = 64        # the decode kernels' query rows per CTA
 KEY_BLOCK = 64       # and keys per block: the unit a split walk cuts
 CTX_WEIGHT = 2       # an int8 context block's CTA time in decode blocks
-CTX_WEIGHT_BF16 = 1  # a bf16 context block's (#1, #2, #6, #8)
+CTX_WEIGHT_BF16 = 1  # a bf16 context block's (#1, #2, #4, #6, #8)
 PIECE_BLOCKS = 4     # blocks of a split walk's piece (256 keys or slots)
 CHUNK_PIECE_BLOCKS = 32     # a packed chunk row's piece (2048 keys)
 CTA_THREADS = 128    # the decode kernels' threads per CTA
@@ -184,7 +183,7 @@ def _decode_arm_and_flush(q, k_dec, v_dec, dec_bias, acc, m, l, *, scale,
 
 
 def split_count(rows: int, g: int, *, sms: int) -> int:
-    """Shares per (64-row tile, kv head) of #1, #2, #3, #5 and #6-#9
+    """Shares per (64-row tile, kv head) of #1-#9
     (``splits=None`` on the card; #10's and #11's decode tiles,
     ``packed_split_count``):
     1 when the ``ceil(rows / 64) * g`` CTAs of the single walk
@@ -510,15 +509,17 @@ def _grouped_plain(q, k_ctx, v_ctx, k_scale, v_scale, row_group, ctx_lens,
 def grouped_fused_bifurcated_decode_plain(q, k_ctx, v_ctx, row_group,
                                           ctx_lens, k_dec, v_dec, dec_bias,
                                           *, scale: float, c_d: int, pn: int,
-                                          block_m: int = BLOCK_M
-                                          ) -> torch.Tensor:
-    """Plain PyTorch version of ``grouped_fused_bifurcated_decode``: each
-    row's context arm over the live prefix of its own segment, then the
-    decode arm as in the fused version; rows of a segment id outside
-    [0, G) come out NaN."""
+                                          block_m: int = BLOCK_M,
+                                          splits: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of ``grouped_fused_bifurcated_decode``: at
+    ``splits`` 1 each row's context arm over the live prefix of its own
+    segment, then the decode arm as in the fused version; at S > 1 the
+    kernel's pieces, those of the bf16 trie's split walk at depth 1
+    (``_tree_plain``; the same for any S > 1). Rows of a segment id
+    outside [0, G) come out NaN."""
     return _grouped_plain(q, k_ctx, v_ctx, None, None, row_group, ctx_lens,
                           k_dec, v_dec, dec_bias, scale=scale, c_d=c_d,
-                          pn=pn, block_m=block_m)
+                          pn=pn, block_m=block_m, splits=splits)
 
 
 def grouped_fused_bifurcated_decode_q8_plain(q, k_ctx_q, v_ctx_q, k_scale,
@@ -885,7 +886,8 @@ fused_bifurcated_decode_q8.launches = 0
 
 def grouped_fused_bifurcated_decode(q, k_ctx, v_ctx, row_group, ctx_lens,
                                     k_dec, v_dec, dec_bias, *, scale: float,
-                                    c_d: int, pn: int) -> torch.Tensor:
+                                    c_d: int, pn: int,
+                                    splits=None) -> torch.Tensor:
     """Single-pass multi-prefix (forest) decode; returns the normalised
     (g, rows, hd).
 
@@ -894,7 +896,10 @@ def grouped_fused_bifurcated_decode(q, k_ctx, v_ctx, row_group, ctx_lens,
       row_group:   (rows,) int32 — the segment each row reads
       ctx_lens:    (G,) int32 — live length of each segment
       k_dec/v_dec: (g, b * c_d, hd); dec_bias (1, b * c_d) f32
-    Rows whose segment id lies outside [0, G) come out NaN."""
+    Rows whose segment id lies outside [0, G) come out NaN. ``splits`` as
+    in ``tree_fused_bifurcated_decode``: the forest is the trie at depth 1
+    (``row_group`` its path table), so at S > 1 the rows of ids in [0, G)
+    get that kernel's bits."""
     if k_ctx.ndim != 4 or v_ctx.shape != k_ctx.shape:
         raise ValueError(f"want k_ctx = v_ctx (G, g, m_c, hd); got "
                          f"{tuple(k_ctx.shape)}, {tuple(v_ctx.shape)}")
@@ -903,15 +908,21 @@ def grouped_fused_bifurcated_decode(q, k_ctx, v_ctx, row_group, ctx_lens,
     ld = _check_decode_arm(q, k_dec, v_dec, dec_bias, c_d, pn)
     ops = (q, k_ctx, v_ctx, row_group, ctx_lens, k_dec, v_dec, dec_bias)
     _check_contiguous(*ops)
-    if not _on_cuda(*ops):
-        return grouped_fused_bifurcated_decode_plain(*ops, scale=scale,
-                                                     c_d=c_d, pn=pn)
+    cuda = _on_cuda(*ops)
+    splits = _split_arg(splits, q, cuda)
+    if not cuda:
+        return grouped_fused_bifurcated_decode_plain(
+            *ops, scale=scale, c_d=c_d, pn=pn, splits=splits)
     _check_kernel_operands(q, k_ctx, v_ctx, k_dec, v_dec, dec_bias)
     n_groups, g, m_c, hd = k_ctx.shape
     out = torch.empty_like(q)
+    n_pieces = max_pieces(1, m_c, c_d)
+    part = _split_scratch(q, splits, n_pieces)
     _launch("grouped_fused_bifurcated_decode", q.device,
-            *(t.data_ptr() for t in ops), out.data_ptr(), n_groups, g,
-            q.shape[1], m_c, ld, hd, c_d, pn, float(scale))
+            *(t.data_ptr() for t in ops), out.data_ptr(),
+            None if part is None else part.data_ptr(), n_groups, g,
+            q.shape[1], m_c, ld, hd, c_d, pn, splits, n_pieces,
+            float(scale))
     grouped_fused_bifurcated_decode.launches += 1
     return out
 

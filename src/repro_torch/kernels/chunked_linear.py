@@ -13,13 +13,18 @@ version.
   with the fp32 (dk, dv) state S carried from chunk to chunk (zero, or
   ``initial_state``). q, k: (b, n, H, dk); v: (b, n, H, dv); log_decay:
   (b, n, H), <= 0. A ragged last chunk is zero-padded (zero decay there, so
-  A_last is the last real row's). ``normalize`` appends a ones column to v
-  and divides by max(|that column's output|, 1), in v's dtype, as the
-  reference's wrapper does. Returns (out (b, n, H, dv) in v's dtype, final
-  state (b, H, dk, dv[+1]) fp32). Written in CUDA C++ for Hopper
-  (``csrc/chunked_linear.cu``, built by ``_build.py``; its bound, design and
-  the precision of its four products are written at the top of the
-  source). Replaces ``repro/kernels/chunked_linear.py:
+  A_last is the last real row's). Only S carries anything from one chunk to
+  the next: the kernel and the plain version compute each chunk's own
+  products and its state contribution dS_c = sum_j e^{A_last - A_j} k_j
+  v_j^T apart, then the chain S_{c+1} = e^{A_last} S_c + dS_c, then the
+  inter term. ``normalize`` appends a ones column to v and divides by
+  max(|that column's output|, 1), in v's dtype, as the reference's wrapper
+  does. Returns (out (b, n, H, dv) in v's dtype, final state (b, H, dk,
+  dv[+1]) fp32). Written in CUDA C++ for Hopper (``csrc/chunked_linear.cu``,
+  built by ``_build.py``): one CTA per (batch, head, chunk), the state
+  handed from chunk to chunk through L2 by a flag per head, one launch a
+  call; its bound, design and the precision of its four products are written
+  at the top of the source. Replaces ``repro/kernels/chunked_linear.py:
   chunked_linear_attention_kernel`` (Pallas, ``_chunk_kernel``), which has
   no initial state.
 
@@ -29,19 +34,26 @@ dk and dv up to 128 (larger raise ``ValueError``; a size that is not a
 multiple of 8 is zero-padded here), q, k and v through their strides with
 the last dim contiguous (the model's head-broadcast q and k go in as
 views), and a chunk whose cumulative log-decay fits the CTA's shared
-memory with the state (up to ~4,000 rows at 128-wide heads; a larger one
-is refused at launch). It never falls back.
-``chunked_linear_attention.launches`` counts kernel launches.
+memory beside its tiles (up to ~23,000 rows at 128-wide heads; a larger
+one is refused at launch). It never falls back.
+``chunked_linear_attention.launches`` counts kernel launches, one a call.
+``ctas_per_sm`` (the kernel's one free parameter, a measurement knob)
+caps the CTAs an SM holds; ``occupancy`` says how many it holds.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.bifurcated_decode import _launch, _on_cuda
 
 KERNEL_MAX_DIM = 128
 KERNEL_DIMS = (16, 32, 64, 128)      # the kernel's padded sizes
+MAX_CTAS_PER_SM = 32
+_SYNC = {}      # (device index, stream) -> the kernel's int32 sync words
 
 
 def _check(q, k, v, log_decay, chunk, initial_state, normalize):
@@ -76,9 +88,11 @@ def _normalized(out):
 
 def chunked_linear_attention_plain(q, k, v, log_decay, *, chunk=256,
                                    normalize=False, initial_state=None):
-    """Plain PyTorch version of ``chunked_linear_attention``: the chunks in
-    order, each chunk's in-chunk products, its inter-chunk term against the
-    fp32 state and the state update, all in fp32."""
+    """Plain PyTorch version of ``chunked_linear_attention``, in the
+    kernel's order, all in fp32: each chunk on its own (its cumulative
+    log-decay A, its in-chunk products and its state contribution dS_c
+    from zero), then the chain S_{c+1} = e^{A_last} S_c + dS_c from the
+    initial state, then each chunk's inter term e^{A_i} q_i . S_c."""
     _check(q, k, v, log_decay, chunk, initial_state, normalize)
     b, n, H, dk = q.shape
     if normalize:
@@ -90,29 +104,33 @@ def chunked_linear_attention_plain(q, k, v, log_decay, *, chunk=256,
         q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
         log_decay = F.pad(log_decay, (0, 0, 0, pad))
     dev = q.device
-    S = (torch.zeros(b, H, dk, dv, dtype=torch.float32, device=dev)
-         if initial_state is None else initial_state.float().clone())
-    out = torch.empty(b, n + pad, H, dv, dtype=torch.float32, device=dev)
+    starts = range(0, n + pad, c)
     causal = torch.tril(torch.ones(c, c, dtype=torch.bool, device=dev))
-    for c0 in range(0, n + pad, c):
+    out = torch.empty(b, n + pad, H, dv, dtype=torch.float32, device=dev)
+    cum, d_state = [], []
+    for c0 in starts:               # each chunk on its own
         qf, kf, vf = (t[:, c0:c0 + c].float() for t in (q, k, v))
         A = torch.cumsum(log_decay[:, c0:c0 + c].float(), dim=1)  # (b, c, H)
         diff = A[:, :, None, :] - A[:, None, :, :]                # (b, i, j, H)
         D = torch.where(causal[None, :, :, None],
                         torch.exp(torch.clamp(diff, max=0.0)), 0.0)
         scores = torch.einsum("bihk,bjhk->bijh", qf, kf) * D
-        intra = torch.einsum("bijh,bjhv->bihv", scores, vf)
-        inter = torch.einsum("bihk,bhkv->bihv",
-                             qf * torch.exp(A)[..., None], S)
-        out[:, c0:c0 + c] = intra + inter
-        a_last = A[:, -1]                                         # (b, H)
-        k_scaled = kf * torch.exp(a_last[:, None] - A)[..., None]
-        S = (S * torch.exp(a_last)[..., None, None]
-             + torch.einsum("bjhk,bjhv->bhkv", k_scaled, vf))
+        out[:, c0:c0 + c] = torch.einsum("bijh,bjhv->bihv", scores, vf)
+        k_scaled = kf * torch.exp(A[:, -1:] - A)[..., None]
+        d_state.append(torch.einsum("bjhk,bjhv->bhkv", k_scaled, vf))
+        cum.append(A)
+    states = [torch.zeros(b, H, dk, dv, dtype=torch.float32, device=dev)
+              if initial_state is None else initial_state.float().clone()]
+    for A, dS in zip(cum, d_state):  # the chain: S_c entering each chunk
+        states.append(states[-1] * torch.exp(A[:, -1])[..., None, None] + dS)
+    for c0, A, S in zip(starts, cum, states):   # the inter term
+        qf = q[:, c0:c0 + c].float()
+        out[:, c0:c0 + c] += torch.einsum("bihk,bhkv->bihv",
+                                          qf * torch.exp(A)[..., None], S)
     out = out[:, :n].to(v.dtype)
     if normalize:
         out = _normalized(out)
-    return out, S
+    return out, states[-1]
 
 
 def _padded_dim(d: int) -> int:
@@ -127,12 +145,51 @@ def _kernel_operand(x, width):
     return F.pad(x, (0, width - x.shape[-1]))
 
 
+def _ctas_arg(ctas_per_sm):
+    """The kernel's CTA cap an SM: 0 (none) for None, else 1..MAX."""
+    if ctas_per_sm is None:
+        return 0
+    if (isinstance(ctas_per_sm, bool) or not isinstance(ctas_per_sm, int)
+            or not 1 <= ctas_per_sm <= MAX_CTAS_PER_SM):
+        raise ValueError(f"ctas_per_sm must be None or an int in "
+                         f"1..{MAX_CTAS_PER_SM}, not {ctas_per_sm!r}")
+    return ctas_per_sm
+
+
+def _sync_words(device, n):
+    """The kernel's ticket counter and per-(batch, head) chain flags: at
+    least ``n`` int32 words, zero between calls (each launch leaves them
+    zero), one buffer per device and stream (calls on one stream run one
+    after the other)."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _SYNC.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _SYNC[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return buf
+
+
+def occupancy(dk, dv, chunk, ctas_per_sm=None, device=None):
+    """The CTAs an SM the kernel holds at once for heads of ``dk``/``dv``
+    and ``chunk`` rows, under ``ctas_per_sm`` (the card's report)."""
+    d = _padded_dim(max(-(-dk // 8) * 8, -(-dv // 8) * 8))
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        err = _build.library().chunked_linear_occupancy(
+            d, chunk, _ctas_arg(ctas_per_sm), ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"chunked_linear_occupancy: CUDA error {err}")
+    return out.value
+
+
 def chunked_linear_attention(q, k, v, log_decay, *, chunk=256,
-                             normalize=False, initial_state=None):
+                             normalize=False, initial_state=None,
+                             ctas_per_sm=None):
     """Chunked linear attention of q, k (b, n, H, dk), v (b, n, H, dv)
     under log_decay (b, n, H); returns (out (b, n, H, dv) in v's dtype,
-    final state (b, H, dk, dv[+1]) fp32)."""
+    final state (b, H, dk, dv[+1]) fp32). ``ctas_per_sm``: None, or at
+    most that many of the kernel's CTAs an SM (the result is the same)."""
     _check(q, k, v, log_decay, chunk, initial_state, normalize)
+    cap = _ctas_arg(ctas_per_sm)
     if initial_state is None:
         ops = (q, k, v, log_decay)
     else:
@@ -170,11 +227,13 @@ def chunked_linear_attention(q, k, v, log_decay, *, chunk=256,
                    (0, dv8 - dv, 0, dk8 - dk)).contiguous()
     out = torch.empty(b, n, H, dv8, dtype=torch.bfloat16, device=q.device)
     state = torch.empty(b, H, dk8, dv8, dtype=torch.float32, device=q.device)
+    sync = _sync_words(q.device, 1 + b * H)
     strides = [s for t in (qk[0], qk[1], vk) for s in t.stride()[:3]]
     _launch("chunked_linear_attention", q.device, qk[0].data_ptr(),
             qk[1].data_ptr(), vk.data_ptr(), a.data_ptr(),
             None if s0 is None else s0.data_ptr(), out.data_ptr(),
-            state.data_ptr(), *strides, b, n, H, dk8, dv8, d, c)
+            state.data_ptr(), sync.data_ptr(), *strides, b, n, H, dk8, dv8,
+            d, c, cap)
     chunked_linear_attention.launches += 1
     out, state = out[..., :dv], state[:, :, :dk, :dv]
     if normalize:

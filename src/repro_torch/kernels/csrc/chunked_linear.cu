@@ -23,19 +23,42 @@
 // 242.5 MB, 72.4 us at 3.35 TB/s, against ~45 GFLOP (the causal half of
 // the in-chunk products), ~46 us at 989 TFLOP/s.
 //
-// What the design does about it (a first, simple design):
-//   * one CTA of 4 warps per (batch, head) walks the chunks in order with
-//     S resident in shared memory (fp32, plus a bf16 hi/lo split of it for
-//     the tensor cores), so the state never leaves the chip until the end;
-//   * each chunk is cut into 64-row query tiles, each against the 64-key
-//     tiles j <= i of its chunk: the (C x C) score block is never formed
-//     (256 KB at C 256), only one (64 x 64) tile per warp quad in registers;
-//   * key tiles (K and V, zero-filled past the chunk or n) are staged by
-//     cp.async into a two-stage ring, one step ahead of the tile computed;
-//     q fragments are read straight from device memory into registers;
-//   * q, k and v are read through their strides (last dim contiguous): the
-//     model's head-broadcast q/k (stride 0 over heads) are never
-//     materialised, and their 2 MB stays in L2 for the 112 CTAs.
+// What the design does about it: only the state carries anything from one
+// chunk to the next, so the chunks run in parallel and the state crosses
+// them in one short chain (a first design walked each (batch, head)'s
+// chunks in order in one CTA: 112 CTAs on 132 SMs, one CTA an SM, 1.31 ms
+// at the slice's shape).
+//   * One CTA of 4 warps per (batch, head, chunk): 3,584 CTAs at the slice's
+//     shape, up to four an SM (the launch bounds; 56 KB of shared memory at
+//     d 64). The CTAs take their (chunk, head) from an atomic ticket, chunk
+//     by chunk across all heads: the heads of one chunk run together and
+//     share the head-broadcast q/k rows in L2, and a CTA only ever waits on
+//     a ticket taken before its own, so the chain makes progress whatever
+//     order the CTAs are scheduled in. The last ticket resets the counter.
+//   * Each CTA computes its chunk's inclusive cumulative log-decay A, then
+//     its own state contribution dS = sum_j e^{A_last - A_j} k_j v_j^T from
+//     zero (key tiles streamed through the ring below), then takes S_c from
+//     the chunk before it: it spins on that head's flag (ld.acquire at gpu
+//     scope, one thread) until the flag names its chunk, reads S_c from the
+//     final-state buffer (through L2), writes S_{c+1} = e^{A_last} S_c + dS
+//     there, fences and sets the flag to c + 1 (the last chunk: back to 0,
+//     so the next call starts from zero flags with no host work). S_{c+1}
+//     is the final state once the last chunk has written it. The hand-off
+//     is one 16 KB read and write through L2 a chunk (at d 64), elementwise
+//     on the product's register fragments; only then do its rows' products
+//     run: each 64-row query tile against the 64-key tiles j <= i of its
+//     chunk, plus e^{A_i} q_i . S_c, written once in bf16. The (C x C)
+//     score block is never formed, only one (64 x 64) tile per warp quad.
+//     Below the diagonal the decay factors into a row's and a key's
+//     exponential (e^{A_i - A_r} e^{A_r - A_j}, A_r the tile's last key's,
+//     both <= 1): 2 + 16 exponentials a thread a tile, not 32; on the
+//     diagonal a warp skips the 8- and 16-key groups past its last row.
+//   * Key tiles (K and V, zero-filled past the chunk or n) are staged by
+//     cp.async into a two-stage ring, one step ahead of the tile computed,
+//     across the hand-off; q fragments are read straight from device memory
+//     into registers; q, k and v are read through their strides (last dim
+//     contiguous), so the model's head-broadcast q/k (stride 0 over heads)
+//     are never materialised.
 // The four products, all on mma.sync m16n8k16 (bf16 in, fp32 accumulate);
 // every operand that is not an input is an fp32 value x split into
 // x_hi = bf16(x) and x_lo = bf16(x - x_hi), two products, ~16 bits of x:
@@ -45,11 +68,11 @@
 //       these scores are signed and cancel, so one rounding (2^-9 of each
 //       term) can be a large share of a small row (measured: a
 //       normalised row off by more than 2e-2 of its max);
-//   (3) q . S: S split; e^{A_i} applied to the fp32 result;
-//   (4) (e^{A_last - A_j} k_j)^T . v: the decay-weighted keys split,
-//       accumulated onto e^{A_last} S in fp32.
-// Later work (ROADMAP): wgmma and TMA, a split over dv to fill more than
-// the 112 of 132 SMs, reading the head-broadcast q/k once per CTA group.
+//   (3) q . S_c: S_c split; e^{A_i} applied to the fp32 result;
+//   (4) (e^{A_last - A_j} k_j)^T . v: the decay-weighted keys split, summed
+//       from zero into dS, added to e^{A_last} S_c in fp32.
+// Later work (ROADMAP): wgmma and TMA; a wider state (xLSTM's dk = dv =
+// 1024) as 64 x 64 blocks of the same chain, one flag per block.
 //
 // bf16 only: the wrapper raises TypeError for any other dtype on the card
 // (float32 runs the plain version on the CPU).
@@ -70,6 +93,8 @@ using bifurcated::mma_bf16;
 using bifurcated::pack_bf16;
 
 constexpr int kTile = 64;   // rows per query tile and per key tile
+constexpr int kSmemPerSm = 233472;   // an SM's shared memory, bytes
+constexpr int kSmemReserved = 1024;  // the system's share of each CTA
 
 struct Params {
   const __nv_bfloat16* q;   // (b, n, H, dk) through strides
@@ -78,45 +103,45 @@ struct Params {
   const float* a;           // (b, n, H) log-decay, contiguous
   const float* s0;          // (b, H, dk, dv) initial state or nullptr
   __nv_bfloat16* out;       // (b, n, H, dv) contiguous
-  float* s_out;             // (b, H, dk, dv) contiguous
+  float* s_out;             // (b, H, dk, dv) contiguous: the chain's slot
+  int* sync;                // [0] the ticket counter, [1 + bh] head bh's
+                            // flag: zero between calls
   long long qs[3], ks[3], vs[3];   // element strides of b, n, H
-  int b, n, H, dk, dv, chunk;
+  int b, n, H, dk, dv, chunk, nc;
 };
 
 // Shared-memory plan (bytes) at padded size D: the K and V ring (two
-// stages each of kTile rows of D + kPad bf16), the state's bf16 hi and lo
-// (D rows of D + kPad), the fp32 state (D x D), the chunk's cumulative
-// log-decay (C floats) and the scan's warp totals.
+// stages each of kTile rows of D + kPad bf16), S_c's bf16 hi and lo (D rows
+// of D + kPad), the chunk's cumulative log-decay (C floats) and the scan's
+// warp totals.
 template <int D>
 struct Smem {
   static constexpr int SROW = D + kPad;
   static constexpr int STAGE = kTile * SROW;   // bf16 elements
   static constexpr int RING = 4 * STAGE * 2;
   static constexpr int SPLIT = 2 * D * SROW * 2;
-  static constexpr int STATE = D * D * 4;
   __host__ __device__ static constexpr long long bytes(int chunk) {
-    return RING + SPLIT + STATE + 4LL * chunk + 4 * kWarps;
+    return RING + SPLIT + 4LL * chunk + 4 * kWarps;
   }
 };
 
-// One step of a CTA's walk: in chunk c, the intra product of query tile qt
-// with key tile kt (kt <= qt), or (st) the state update of state rows
-// [64 part, 64 part + 64) from key tile kt.
+// One step of a CTA's walk over its chunk: (st) the state contribution of
+// key tile kt to state rows [64 part, 64 part + 64), all of them first;
+// then the intra product of query tile qt with key tile kt (kt <= qt).
 struct Step {
-  int c, qt, kt, part;
+  int qt, kt, part;
   bool st;
 };
 
-__device__ __forceinline__ bool next_step(Step& s, int T, int NP, int nc) {
-  if (!s.st) {
-    if (s.kt < s.qt) { ++s.kt; return true; }
-    if (s.qt + 1 < T) { ++s.qt; s.kt = 0; return true; }
-    s.st = true; s.part = 0; s.kt = 0;
+__device__ __forceinline__ bool next_step(Step& s, int T, int NP) {
+  if (s.st) {
+    if (s.kt + 1 < T) { ++s.kt; return true; }
+    if (s.part + 1 < NP) { ++s.part; s.kt = 0; return true; }
+    s = Step{0, 0, 0, false};
     return true;
   }
-  if (s.kt + 1 < T) { ++s.kt; return true; }
-  if (s.part + 1 < NP) { ++s.part; s.kt = 0; return true; }
-  if (s.c + 1 < nc) { s = Step{s.c + 1, 0, 0, 0, false}; return true; }
+  if (s.kt < s.qt) { ++s.kt; return true; }
+  if (s.qt + 1 < T) { ++s.qt; s.kt = 0; return true; }
   return false;
 }
 
@@ -135,9 +160,23 @@ __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
   lo = pack_bf16(x0 - lo_f(hi), x1 - hi_f(hi));
 }
 
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// The register budget is cut for four CTAs an SM at d <= 64, whose
+// shared-memory plan fits four; one at d 128.
 template <int D>
-__global__ void __launch_bounds__(kThreads) chunked_linear_kernel(
-    const Params p) {
+__global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 1)
+    chunked_linear_kernel(const Params p) {
   using SM = Smem<D>;
   constexpr int SROW = SM::SROW;
   constexpr int STAGE = SM::STAGE;
@@ -146,38 +185,36 @@ __global__ void __launch_bounds__(kThreads) chunked_linear_kernel(
   __nv_bfloat16* sV = sK + 2 * STAGE;
   __nv_bfloat16* sHi = sK + 4 * STAGE;
   __nv_bfloat16* sLo = sHi + D * SROW;
-  float* sS = reinterpret_cast<float*>(sLo + D * SROW);
-  float* sA = sS + D * D;
+  float* sA = reinterpret_cast<float*>(sLo + D * SROW);
   float* sTot = sA + p.chunk;
+  __shared__ int s_ticket;
 
-  const int bh = blockIdx.x;
-  const int bi = bh / p.H, h = bh % p.H;
   const int tid = threadIdx.x;
+  if (tid == 0) {
+    const int t = atomicAdd(p.sync, 1);
+    // every other CTA has taken its ticket: reset for the next call
+    if (t == static_cast<int>(gridDim.x) - 1) atomicExch(p.sync, 0);
+    s_ticket = t;
+  }
+  __syncthreads();
+  const int BH = p.b * p.H;
+  const int ci = s_ticket / BH, bh = s_ticket % BH;   // chunk, (batch, head)
+  const int bi = bh / p.H, h = bh % p.H;
   const int warp = tid >> 5, lane = tid & 31;
   const int gr = lane >> 2, tq = lane & 3;
   const int C = p.chunk;
-  const int nc = (p.n + C - 1) / C;
   const int T = (C + kTile - 1) / kTile;
   const int NP = (D + 63) / 64;
   const int dk = p.dk, dv = p.dv;
+  const long long c0 = static_cast<long long>(ci) * C;
+  int* flag = p.sync + 1 + bh;
 
   const __nv_bfloat16* qb = p.q + bi * p.qs[0] + h * p.qs[2];
   const __nv_bfloat16* kb = p.k + bi * p.ks[0] + h * p.ks[2];
   const __nv_bfloat16* vb = p.v + bi * p.vs[0] + h * p.vs[2];
   const size_t sbase = static_cast<size_t>(bh) * dk * dv;
 
-  // the state: the caller's (or zero), fp32 and split
-  for (int e = tid; e < D * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    float s = 0.f;
-    if (p.s0 != nullptr && r < dk && c < dv) s = p.s0[sbase + r * dv + c];
-    sS[e] = s;
-    const __nv_bfloat16 hi = __float2bfloat16_rn(s);
-    sHi[r * SROW + c] = hi;
-    sLo[r * SROW + c] = __float2bfloat16_rn(s - __bfloat162float(hi));
-  }
-
-  // stage key tile kt of chunk c (K and V rows, zero past the chunk and n)
+  // stage key tile kt of the chunk (K and V rows, zero past the chunk and n)
   auto stage = [&](int slot, const Step& s) {
     constexpr int CH = D / 8;   // 16-byte chunks per row
     __nv_bfloat16* dK = sK + slot * STAGE;
@@ -185,7 +222,7 @@ __global__ void __launch_bounds__(kThreads) chunked_linear_kernel(
     for (int e = tid; e < kTile * CH; e += kThreads) {
       const int r = e / CH, ch = e % CH;
       const int j = s.kt * kTile + r;
-      const long long t = static_cast<long long>(s.c) * C + j;
+      const long long t = c0 + j;
       const bool row_ok = j < C && t < p.n;
       const bool k_ok = row_ok && ch * 8 < dk, v_ok = row_ok && ch * 8 < dv;
       cp_async16(dK + r * SROW + ch * 8,
@@ -195,45 +232,46 @@ __global__ void __launch_bounds__(kThreads) chunked_linear_kernel(
     }
   };
 
-  uint32_t qf[D / 16][4];   // A fragments of the warp's 16 query rows
-  float o[D / 8][4];        // fp32 output rows, or the warp's state rows
-  float ai[2];              // A of this thread's query rows gr, gr + 8
-
-  Step cur{0, 0, 0, 0, false};
+  Step cur{0, 0, 0, true};
   stage(0, cur);
   cp_async_commit();
+
+  {
+    // the chunk's inclusive cumulative log-decay: each thread sums a run of
+    // rows, the runs' totals are scanned across the CTA
+    const int per = (C + kThreads - 1) / kThreads;
+    const int lo = tid * per, hi = min(lo + per, C);
+    float run = 0.f;
+    for (int j = lo; j < hi; ++j) {
+      const long long t = c0 + j;
+      run += t < p.n ? p.a[(static_cast<long long>(bi) * p.n + t) * p.H + h]
+                     : 0.f;
+      sA[j] = run;
+    }
+    float incl = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float y = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += y;
+    }
+    if (lane == 31) sTot[warp] = incl;
+    __syncthreads();
+    float base = incl - run;
+    for (int w = 0; w < warp; ++w) base += sTot[w];
+    for (int j = lo; j < hi; ++j) sA[j] += base;
+    __syncthreads();
+  }
+  const float a_last = sA[C - 1];
+
+  uint32_t qf[D / 16][4];   // A fragments of the warp's 16 query rows
+  float o[D / 8][4];        // fp32 output rows, or the warp's dS rows
+  float ai[2];              // A of this thread's query rows gr, gr + 8
+
   for (int slot = 0;; slot ^= 1) {
     Step nxt = cur;
-    const bool more = next_step(nxt, T, NP, nc);
+    const bool more = next_step(nxt, T, NP);
     if (more) stage(slot ^ 1, nxt);
     cp_async_commit();
-
-    const long long c0 = static_cast<long long>(cur.c) * C;
-    if (!cur.st && cur.qt == 0 && cur.kt == 0) {
-      // the chunk's inclusive cumulative log-decay: each thread sums a
-      // run of rows, the runs' totals are scanned across the CTA
-      const int per = (C + kThreads - 1) / kThreads;
-      const int lo = tid * per, hi = min(lo + per, C);
-      float run = 0.f;
-      for (int j = lo; j < hi; ++j) {
-        const long long t = c0 + j;
-        run += t < p.n ? p.a[(static_cast<long long>(bi) * p.n + t) * p.H + h]
-                       : 0.f;
-        sA[j] = run;
-      }
-      float incl = run;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float y = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += y;
-      }
-      if (lane == 31) sTot[warp] = incl;
-      __syncthreads();
-      float base = incl - run;
-      for (int w = 0; w < warp; ++w) base += sTot[w];
-      for (int j = lo; j < hi; ++j) sA[j] += base;
-      __syncthreads();
-    }
 
     cp_async_wait_1();   // every group but the newest is done: this step's
     __syncthreads();
@@ -290,13 +328,16 @@ __global__ void __launch_bounds__(kThreads) chunked_linear_kernel(
           o[nt][3] *= eb;
         }
       }
-      // scores of the warp's 16 rows against the tile's 64 keys
+      // scores of the warp's 16 rows against the tile's 64 keys; on the
+      // diagonal tile, only the 8-key groups that hold a key j <= i
       const int j0 = cur.kt * kTile;
-      if (j0 <= cur.qt * kTile + warp * 16 + 15) {   // a key j <= i exists
+      const int i_last = cur.qt * kTile + warp * 16 + 15;   // warp's last row
+      if (j0 <= i_last) {   // a key j <= i exists
         float s[kTile / 8][4];
 #pragma unroll
         for (int nt = 0; nt < kTile / 8; ++nt) {
           s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+          if (j0 + nt * 8 > i_last) continue;
 #pragma unroll
           for (int kt = 0; kt < D / 16; ++kt) {
             const __nv_bfloat16* kp = Ks + (nt * 8 + gr) * SROW + kt * 16 + 2 * tq;
@@ -304,18 +345,37 @@ __global__ void __launch_bounds__(kThreads) chunked_linear_kernel(
                      *reinterpret_cast<const uint32_t*>(kp + 8));
           }
         }
-        // x e^{min(A_i - A_j, 0)}, 0 unless j <= i
+        if (cur.kt < cur.qt) {
+          // below the diagonal every key j (all < C) precedes every row i:
+          // x e^{A_i - A_j} = e^{A_i - A_r} e^{A_r - A_j}, A_r the tile's
+          // last key's. Both factors are <= 1, so neither underflows where
+          // their product does not: an exponential a row and one a key,
+          // not one an element (rows past C are never written)
+          const float ar = sA[j0 + kTile - 1];
+          const float r0 = expf(ai[0] - ar), r1 = expf(ai[1] - ar);
 #pragma unroll
-        for (int nt = 0; nt < kTile / 8; ++nt) {
+          for (int nt = 0; nt < kTile / 8; ++nt) {
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int j = j0 + nt * 8 + 2 * tq + e;
-            const float aj = j < C ? sA[j] : 0.f;
+            for (int e = 0; e < 2; ++e) {
+              const float cj = expf(ar - sA[j0 + nt * 8 + 2 * tq + e]);
+              s[nt][e] *= r0 * cj;
+              s[nt][2 + e] *= r1 * cj;
+            }
+          }
+        } else {
+          // the diagonal tile: x e^{min(A_i - A_j, 0)}, 0 unless j <= i
 #pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              const float d =
-                  j <= irow[i] ? expf(fminf(ai[i] - aj, 0.f)) : 0.f;
-              s[nt][2 * i + e] *= d;
+          for (int nt = 0; nt < kTile / 8; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = j0 + nt * 8 + 2 * tq + e;
+              const float aj = j < C ? sA[j] : 0.f;
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                const float d =
+                    j <= irow[i] ? expf(fminf(ai[i] - aj, 0.f)) : 0.f;
+                s[nt][2 * i + e] *= d;
+              }
             }
           }
         }
@@ -324,6 +384,7 @@ __global__ void __launch_bounds__(kThreads) chunked_linear_kernel(
         // would lose to cancellation what softmax weights keep
 #pragma unroll
         for (int kt = 0; kt < kTile / 16; ++kt) {
+          if (j0 + kt * 16 > i_last) continue;   // its scores are all 0
           uint32_t ahi[4], alo[4];
           split_pair(s[2 * kt][0], s[2 * kt][1], ahi[0], alo[0]);
           split_pair(s[2 * kt][2], s[2 * kt][3], ahi[1], alo[1]);
@@ -358,20 +419,13 @@ __global__ void __launch_bounds__(kThreads) chunked_linear_kernel(
         }
       }
     } else {
-      // ---- state: rows m0..m0+15 of S += (w_j k_j)^T v_j over tile kt ----
+      // ---- dS: rows m0..m0+15 += (w_j k_j)^T v_j over key tile kt ----
       const int m0 = cur.part * 64 + warp * 16;
-      const float a_last = sA[C - 1];
       if (m0 < D) {
-        if (cur.kt == 0) {   // o = e^{A_last} S, the warp's rows
-          const float dec = expf(a_last);
+        if (cur.kt == 0) {
 #pragma unroll
-          for (int nt = 0; nt < D / 8; ++nt) {
-            const int c = nt * 8 + 2 * tq;
-            o[nt][0] = sS[(m0 + gr) * D + c] * dec;
-            o[nt][1] = sS[(m0 + gr) * D + c + 1] * dec;
-            o[nt][2] = sS[(m0 + gr + 8) * D + c] * dec;
-            o[nt][3] = sS[(m0 + gr + 8) * D + c + 1] * dec;
-          }
+          for (int nt = 0; nt < D / 8; ++nt)
+            o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
         }
         const int j0 = cur.kt * kTile;
 #pragma unroll
@@ -405,45 +459,102 @@ __global__ void __launch_bounds__(kThreads) chunked_linear_kernel(
             mma_bf16(o[nt + 1], alo, b[2], b[3]);
           }
         }
-        if (cur.kt == T - 1) {   // the warp's rows of the new state
+      }
+      if (cur.kt == T - 1) {   // the part's dS is whole: the hand-off
+        if (cur.part == 0 && ci > 0) {
+          // S_c is the chunk before's to write: wait for its flag
+          if (tid == 0) {
+            while (ld_acquire(flag) != ci) __nanosleep(64);
+          }
+          __syncthreads();
+        }
+        if (m0 < D) {
+          // this thread's fragment of S_c (the caller's state, or zero, at
+          // chunk 0): split into S_hi / S_lo for the inter term, and
+          // S_{c+1} = e^{A_last} S_c + dS written over it (read and written
+          // through L2: other SMs' CTAs hand it on)
+          const float dec = expf(a_last);
 #pragma unroll
           for (int nt = 0; nt < D / 8; ++nt) {
+            const int col = nt * 8 + 2 * tq;
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int r = m0 + gr + ((e & 2) ? 8 : 0);
-              const int c = nt * 8 + 2 * tq + (e & 1);
-              const float x = o[nt][e];
-              sS[r * D + c] = x;
-              const __nv_bfloat16 hi = __float2bfloat16_rn(x);
-              sHi[r * SROW + c] = hi;
-              sLo[r * SROW + c] = __float2bfloat16_rn(x - __bfloat162float(hi));
+            for (int i = 0; i < 2; ++i) {
+              const int r = m0 + gr + 8 * i;
+              const bool live = r < dk && col < dv;
+              const size_t at = sbase + static_cast<size_t>(r) * dv + col;
+              float2 sc = make_float2(0.f, 0.f);
+              if (live && ci > 0)
+                sc = __ldcg(reinterpret_cast<const float2*>(p.s_out + at));
+              else if (live && p.s0 != nullptr)
+                sc = *reinterpret_cast<const float2*>(p.s0 + at);
+              uint32_t hi, lo;
+              split_pair(sc.x, sc.y, hi, lo);
+              *reinterpret_cast<uint32_t*>(sHi + r * SROW + col) = hi;
+              *reinterpret_cast<uint32_t*>(sLo + r * SROW + col) = lo;
+              if (live)
+                __stcg(reinterpret_cast<float2*>(p.s_out + at),
+                       make_float2(sc.x * dec + o[nt][2 * i],
+                                   sc.y * dec + o[nt][2 * i + 1]));
             }
           }
         }
+        if (cur.part == NP - 1) {
+          // S_{c+1} is whole: publish it to the next chunk (the last chunk
+          // resets the flag for the next call)
+          __threadfence();
+          __syncthreads();
+          if (tid == 0) st_release(flag, ci + 1 < p.nc ? ci + 1 : 0);
+        }
       }
     }
-    __syncthreads();   // the slot is refilled next; the state is read next
+    __syncthreads();   // the slot is refilled next; S_hi / S_lo read next
     if (!more) break;
     cur = nxt;
   }
+}
 
-  // the final state
-  for (int e = tid; e < dk * dv; e += kThreads) {
-    const int r = e / dv, c = e % dv;
-    p.s_out[sbase + e] = sS[r * D + c];
+// The dynamic shared memory a launch asks for: the plan's, or, with
+// ctas_per_sm > 0, enough more that at most that many CTAs share an SM.
+template <int D>
+long long smem_request(int chunk, int ctas_per_sm) {
+  long long smem = Smem<D>::bytes(chunk);
+  if (ctas_per_sm > 0) {
+    const long long cap = kSmemPerSm / (ctas_per_sm + 1) - kSmemReserved + 16;
+    if (cap > smem) smem = cap;
   }
+  return smem;
 }
 
 template <int D>
-cudaError_t launch(const Params& a, cudaStream_t stream) {
-  const long long smem = Smem<D>::bytes(a.chunk);
+cudaError_t prepare(long long smem) {
   if (smem > 232448) return cudaErrorInvalidValue;
   auto kern = chunked_linear_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kern<<<a.b * a.H, kThreads, static_cast<int>(smem), stream>>>(a);
+  return cudaFuncSetAttribute(kern,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int D>
+cudaError_t launch(const Params& a, int ctas_per_sm, cudaStream_t stream) {
+  const long long smem = smem_request<D>(a.chunk, ctas_per_sm);
+  cudaError_t err = prepare<D>(smem);
+  if (err != cudaSuccess) return err;
+  const long long ctas = static_cast<long long>(a.b) * a.H * a.nc;
+  chunked_linear_kernel<D><<<static_cast<unsigned>(ctas), kThreads,
+                             static_cast<int>(smem), stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t occupancy(int chunk, int ctas_per_sm, int* out) {
+  const long long smem = smem_request<D>(chunk, ctas_per_sm);
+  cudaError_t err = prepare<D>(smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, chunked_linear_kernel<D>, kThreads, static_cast<size_t>(smem));
 }
 
 }  // namespace chunked_linear
@@ -454,20 +565,27 @@ extern "C" {
 // read through the element strides (batch, position, head) q_s*, k_s*, v_s*
 // (each a multiple of 8, rows 16-byte aligned); log_decay (b, n, H) f32
 // contiguous; s0 (b, H, dk, dv) f32 contiguous or null; out (b, n, H, dv)
-// bf16 and s_out (b, H, dk, dv) f32, contiguous. dk, dv multiples of 8 up
-// to d, d in 16, 32, 64, 128; 1 <= chunk <= n. Returns the CUDA error of
-// the launch (0 when it was accepted).
+// bf16 and s_out (b, H, dk, dv) f32, contiguous; sync (1 + b H) int32, zero
+// (each call leaves it zero again; calls that share it run one after the
+// other). dk, dv multiples of 8 up to d, d in 16, 32, 64, 128; 1 <= chunk
+// <= n. ctas_per_sm: 0, or at most that many CTAs an SM (a measurement
+// knob). One launch. Returns the CUDA error of the launch (0 when it was
+// accepted).
 int chunked_linear_attention(const void* q, const void* k, const void* v,
                              const void* log_decay, const void* s0, void* out,
-                             void* s_out, long long q_sb, long long q_sn,
-                             long long q_sh, long long k_sb, long long k_sn,
-                             long long k_sh, long long v_sb, long long v_sn,
-                             long long v_sh, int b, int n, int H, int dk,
-                             int dv, int d, int chunk, void* stream) {
+                             void* s_out, void* sync, long long q_sb,
+                             long long q_sn, long long q_sh, long long k_sb,
+                             long long k_sn, long long k_sh, long long v_sb,
+                             long long v_sn, long long v_sh, int b, int n,
+                             int H, int dk, int dv, int d, int chunk,
+                             int ctas_per_sm, void* stream) {
   using chunked_linear::Params;
   if (b <= 0 || n <= 0 || H <= 0 || dk <= 0 || dv <= 0 || dk % 8 ||
       dv % 8 || dk > d || dv > d || chunk < 1 || chunk > n ||
-      static_cast<long long>(b) * H > 0x7fffffffLL)
+      ctas_per_sm < 0 || sync == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nc = (n + chunk - 1) / chunk;
+  if (static_cast<long long>(b) * H * nc > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   Params a{};
   a.q = static_cast<const __nv_bfloat16*>(q);
@@ -477,6 +595,7 @@ int chunked_linear_attention(const void* q, const void* k, const void* v,
   a.s0 = static_cast<const float*>(s0);
   a.out = static_cast<__nv_bfloat16*>(out);
   a.s_out = static_cast<float*>(s_out);
+  a.sync = static_cast<int*>(sync);
   a.qs[0] = q_sb; a.qs[1] = q_sn; a.qs[2] = q_sh;
   a.ks[0] = k_sb; a.ks[1] = k_sn; a.ks[2] = k_sh;
   a.vs[0] = v_sb; a.vs[1] = v_sn; a.vs[2] = v_sh;
@@ -486,12 +605,29 @@ int chunked_linear_attention(const void* q, const void* k, const void* v,
   a.dk = dk;
   a.dv = dv;
   a.chunk = chunk;
+  a.nc = nc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: return static_cast<int>(chunked_linear::launch<16>(a, s));
-    case 32: return static_cast<int>(chunked_linear::launch<32>(a, s));
-    case 64: return static_cast<int>(chunked_linear::launch<64>(a, s));
-    case 128: return static_cast<int>(chunked_linear::launch<128>(a, s));
+    case 16: return static_cast<int>(chunked_linear::launch<16>(a, ctas_per_sm, s));
+    case 32: return static_cast<int>(chunked_linear::launch<32>(a, ctas_per_sm, s));
+    case 64: return static_cast<int>(chunked_linear::launch<64>(a, ctas_per_sm, s));
+    case 128: return static_cast<int>(chunked_linear::launch<128>(a, ctas_per_sm, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The CTAs an SM a launch at padded size d, chunk and ctas_per_sm (as in
+// chunked_linear_attention) holds at once, into *out. Returns the CUDA
+// error of the query.
+int chunked_linear_occupancy(int d, int chunk, int ctas_per_sm, void* out) {
+  int* o = static_cast<int*>(out);
+  if (chunk < 1 || ctas_per_sm < 0 || o == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (d) {
+    case 16: return static_cast<int>(chunked_linear::occupancy<16>(chunk, ctas_per_sm, o));
+    case 32: return static_cast<int>(chunked_linear::occupancy<32>(chunk, ctas_per_sm, o));
+    case 64: return static_cast<int>(chunked_linear::occupancy<64>(chunk, ctas_per_sm, o));
+    case 128: return static_cast<int>(chunked_linear::occupancy<128>(chunk, ctas_per_sm, o));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -33,13 +33,13 @@
 // rounding inside the bf16 tolerance. The s8 tensor-core MMA is not used:
 // it would need q quantised, which is another function.
 //
-// Split walk (#1-#3 and #5-#11 with splits > 1, the default on the card;
+// Split walk (#1-#11 with splits > 1, the default on the card;
 // end of this file): the context's (the segment's, the node set's, the
 // packed envelope's) blocks and the decode arm cut into pieces spread over
 // S CTAs per (row tile, kv head), fp32 partials per piece and row, and an
 // exact merge kernel; a row's bits depend on its own path only, so #3 and
 // #9 give the same bits on one single prefix, #1 and #8 likewise, #5 gives
-// #7's at depth 1, and #11's decode rows #9's, #10's #8's.
+// #7's at depth 1, #4 #6's, and #11's decode rows #9's, #10's #8's.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -875,12 +875,12 @@ cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
 // The split walk: #1 (fused_bifurcated_decode, bf16 context), #2
 // (context_flash_partials, #1's context arm alone) and #3
 // (fused_bifurcated_decode_q8, int8 context) over one shared context
-// (kSingle), #5 (grouped_fused_bifurcated_decode_q8, kGrouped) over int8
-// forest segments, #6 / #7 (tree_fused_bifurcated_decode[_q8]) and #8 / #9
+// (kSingle), #4 / #5 (grouped_fused_bifurcated_decode[_q8], kGrouped) over
+// bf16 / int8 forest segments, #6 / #7 (tree_fused_bifurcated_decode[_q8]) and #8 / #9
 // (paged_fused_bifurcated_decode[_q8]) over bf16 / int8 node sets, #10 /
 // #11 (packed_fused_bifurcated_decode[_q8], kPacked) over #8's / #9's node
 // set plus a prefill chunk's envelope, each with splits S > 1; S = 1 runs
-// decode_kernel's single walk (as #4 always does).
+// decode_kernel's single walk.
 //
 // What bounds them: bytes (#1 and #8 single 35.7 MB, #2 34.0 MB, #3 and
 // #9 single 19.4 MB, the int8 forest 40.3 MB, the bf16 trie 48.3 MB and
@@ -888,8 +888,8 @@ cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
 // 14.4 / 7.9 us at 3.35 TB/s; #10 / #11 operations, 29.84 GFLOP of their
 // chunk rows: 30.2 us at 989 TFLOP/s), but the single walk is paced by
 // latency: one CTA of 4 warps per (64-row tile, kv head[, segment]), 8 CTAs
-// on 132 SMs at the main shapes (#5: 32, the longest segment's setting
-// the pace; #10 / #11: 136, the decode tile walking every live node), each
+// on 132 SMs at the main shapes (#4 / #5: 32, the longest segment's
+// setting the pace; #10 / #11: 136, the decode tile walking every live node), each
 // block ~2-3 us of serial copy, (convert) and product steps.
 //
 // What the design does about it:
@@ -915,7 +915,7 @@ cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
 //     and readmitted (the engines' guarantee), nor with S, nor with the page
 //     size: #9 and #7 (#8 and #6) give the same bits on one logical
 //     trie, #3 gives #9's bits (#1 #8's) on one single prefix, and #5
-//     gives #7's on a depth-1 trie.
+//     (#4) gives #7's (#6's) on a depth-1 trie.
 //   * An exact merge. Each piece writes the fp32 (acc, m, l) of its rows
 //     (the rows on its node; for a decode piece, the rows whose sample has
 //     slots in it) to the row's own slot of the wrapper's scratch, slots in
@@ -932,7 +932,7 @@ cudaError_t dispatch_hd(const Params& a, int hd, cudaStream_t stream) {
 //     block: each thread converts the 16-byte chunks it copied itself, as
 //     soon as its own copies of the next block landed, overlapping the
 //     products of the current one; the products read bf16 by ldmatrix. A
-//     bf16 context (#1, #2, #6, #8, #10: stream_bf16_nodes, each stage
+//     bf16 context (#1, #2, #4, #6, #8, #10: stream_bf16_nodes, each stage
 //     carrying its keys' read flags) and the decode arm (stream_bf16_split)
 //     stream through three bf16 cp.async stages, one barrier a block,
 //     nothing to convert; the decode arm stages its slot bias with the
@@ -1650,9 +1650,10 @@ __device__ __forceinline__ void row_pieces(
 // every row's path (the path table is made in shared memory, not read),
 // so its blocks stream as a node's do: #3 computes #9's bits (stream_split)
 // and #1 #8's (stream_bf16_nodes; #2 is #1 with no decode arm, ld 0).
-// kGrouped (#5): kTree at depth 1, the path table row_group itself; an id
-// of -1 is out of range there (a NaN row, as the single walk writes), so
-// #5 computes #7's bits on the rows of ids in [0, G).
+// kGrouped (#4 / #5): kTree at depth 1, the path table row_group itself;
+// an id of -1 is out of range there (a NaN row, as the single walk
+// writes), so on the rows of ids in [0, G) #5 computes #7's bits (int8
+// segments, stream_split) and #4 #6's (bf16, stream_bf16_nodes).
 // kPacked (#10 / #11): the tiles of the n_dec decode rows come first, then
 // those of the chunk rows from row n_dec, so no tile mixes the two; a
 // decode tile is #8's / #9's (its pieces, its S = splits: their bits), its
@@ -2080,7 +2081,7 @@ cudaError_t launch_split(const Params& in, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// #1-#3 / #5-#11: the single walk (decode_kernel) at splits 1
+// #1-#11: the single walk (decode_kernel) at splits 1
 // (kPacked: and splits_chunk 1), else the split walk and its merge.
 // FUSED: the normalised bf16 output; else (#2) the fp32 partials.
 template <int MODE, bool Q8, bool FUSED = true>

@@ -41,39 +41,41 @@
 //     not.
 //     What holds it now: as #9 (the per-block chain of steps, whole pieces,
 //     the merge, the wrapper's host work; PERF.md).
-//   * grouped, the single walk (splits=1; the bf16 kernel #4 always): one
-//     CTA per (kv head, segment, 64-row tile). A row reads exactly one
-//     segment, group_ids of its sample, so no merge across segments is
-//     needed: the CTA of segment gi reads ctx_lens[gi] from device memory,
-//     walks only the blocks below it (reading each live segment once per
-//     kv head and row tile), folds in the decode arm of its tile's
-//     samples, and writes only the rows assigned to gi. A CTA whose tile
-//     holds no row of gi exits at once. Skipping blocks past ctx_lens is
-//     exact where the Pallas kernel streams and masks them: every served
-//     row has a live decode slot, so its running max is finite and masked
-//     keys contribute exactly 0. At G = 1 the grouped kernel runs the
-//     single-prefix kernel's single walk's arithmetic. At the main path
-//     (G = 4, g = 8, one row tile) that grid is 32 CTAs on 132 SMs, and
-//     the CTA of the longest segment (8192 keys) set #5's pace: ~600 us
-//     against a 12.0 us bound (40.3 MB).
-//   * grouped q8, split (#5 at splits > 1, the default on the card;
+//   * grouped, the single walk (splits=1): one CTA per (kv head, segment,
+//     64-row tile). A row reads exactly one segment, group_ids of its
+//     sample, so no merge across segments is needed: the CTA of segment gi
+//     reads ctx_lens[gi] from device memory, walks only the blocks below
+//     it (reading each live segment once per kv head and row tile), folds
+//     in the decode arm of its tile's samples, and writes only the rows
+//     assigned to gi. A CTA whose tile holds no row of gi exits at once.
+//     Skipping blocks past ctx_lens is exact where the Pallas kernel
+//     streams and masks them: every served row has a live decode slot, so
+//     its running max is finite and masked keys contribute exactly 0. At
+//     the main path (G = 4, g = 8, one row tile) that grid is 32 CTAs on
+//     132 SMs, and the CTA of the longest segment (8192 keys) sets the
+//     pace: #5 took ~600 us against a 12.0 us bound (40.3 MB), #4 ~470 us
+//     against 22.4 us (75.0 MB).
+//   * grouped, split (#4 and #5 at splits > 1, the default on the card;
 //     decode_common.cuh, split_kernel mode kGrouped): the forest is the
 //     trie at depth 1, its path table row_group itself (no copy), so #5 is
-//     #7's split walk: each segment on a tile's rows in 256-key pieces from
-//     its first key, the decode slots likewise, S = 33 CTAs per (tile, kv
-//     head) at the main path, merged exactly. A tile reads each of its
-//     rows' segments once, whatever the rows' order, and computes each row
-//     only against its own segment's pieces. A piece's bounds depend on
-//     its own segment's length alone, so a row's bits do not move when
-//     another group is cancelled, retired or readmitted, nor with S; on
-//     rows of ids in [0, G) they are #7's at depth 1. An id of -1 is out
-//     of range here (a NaN row, as in the single walk), where the trie
-//     reads no node at that level.
-// Known limits: the bf16 forest kernel (#4) keeps the single walk.
+//     #7's split walk and #4 #6's: each segment on a tile's rows in
+//     256-key pieces from its first key, the decode slots likewise, S = 33
+//     CTAs per (tile, kv head) at the main path, merged exactly. #4
+//     streams its bf16 segments as #6 its nodes (stream_bf16_nodes, three
+//     bf16 stages, nothing to convert), #5 its int8 ones as #7
+//     (stream_split). A tile reads each of its rows' segments once,
+//     whatever the rows' order, and computes each row only against its own
+//     segment's pieces. A piece's bounds depend on its own segment's
+//     length alone, so a row's bits do not move when another group is
+//     cancelled, retired or readmitted, nor with S; on rows of ids in
+//     [0, G) they are #7's (#4: #6's) at depth 1. An id of -1 is out of
+//     range here (a NaN row, as in the single walk), where the trie reads
+//     no node at that level.
+// Known limits: at splits=1 both keep the single walk above (the
+// comparisons with it and its profiles call it so).
 
 #include "decode_common.cuh"
 
-using bifurcated::dispatch_hd;
 using bifurcated::dispatch_split;
 using bifurcated::fused_params;
 using bifurcated::kGrouped;
@@ -107,20 +109,27 @@ int fused_bifurcated_decode_q8(const void* q, const void* k_ctx,
 
 // q (g, rows, hd) bf16; k_ctx/v_ctx (G, g, m_c, hd) bf16; row_group (rows,)
 // i32; ctx_lens (G,) i32; k_dec/v_dec (g, ld, hd) bf16; dec_bias (ld,) f32;
-// out (g, rows, hd) bf16.
+// out (g, rows, hd) bf16; `splits` and part as in fused_bifurcated_decode
+// (the split walk's path table: row_group, one level deep).
 int grouped_fused_bifurcated_decode(const void* q, const void* k_ctx,
                                     const void* v_ctx, const void* row_group,
                                     const void* ctx_lens, const void* k_dec,
                                     const void* v_dec, const void* dec_bias,
-                                    void* out, int n_groups, int g, int rows,
-                                    int m_c, int ld, int hd, int c_d, int pn,
-                                    float scale, void* stream) {
+                                    void* out, void* part, int n_groups,
+                                    int g, int rows, int m_c, int ld, int hd,
+                                    int c_d, int pn, int splits,
+                                    int max_pieces, float scale,
+                                    void* stream) {
   Params a = fused_params(q, k_ctx, v_ctx, k_dec, v_dec, dec_bias, out, g,
                           rows, m_c, ld, c_d, pn, scale);
   a.row_group = static_cast<const int*>(row_group);
+  a.paths = a.row_group;    // (1, rows) is (rows,)
   a.ctx_lens = static_cast<const int*>(ctx_lens);
   a.n_groups = n_groups;
-  return static_cast<int>(dispatch_hd<true, false, kGrouped>(
+  a.part = static_cast<float*>(part);
+  a.splits = splits;
+  a.max_pieces = max_pieces;
+  return static_cast<int>(dispatch_split<kGrouped, false>(
       a, hd, static_cast<cudaStream_t>(stream)));
 }
 

@@ -226,6 +226,10 @@ def _grouped_inputs(dev, shape, seed, quant):
 @pytest.mark.parametrize("shape", GROUPED_SHAPES)
 @pytest.mark.parametrize("quant", [False, True])
 def test_grouped_kernels_match_plain_versions(cuda, shape, quant):
+    """#4 and #5 at their default split against their plain versions at
+    the same S (#4 also at splits 1 and 64); rows of an id outside [0, G)
+    NaN at the default split and at splits=1; G = 1 the single-prefix
+    kernel's function."""
     pn, hd, c_d = shape[3], shape[4], shape[6]
     x = _grouped_inputs(cuda, shape, seed=hd + shape[5], quant=quant)
     kw = dict(scale=hd**-0.5, c_d=c_d, pn=pn)
@@ -236,9 +240,12 @@ def test_grouped_kernels_match_plain_versions(cuda, shape, quant):
     n0 = kern.launches
     out = kern(*x, **kw)
     assert kern.launches == n0 + 1
-    # #5 splits by default: its plain version at the kernel's S
-    _assert_within(out, plain(*x, **kw, **(_splits_kw(x[0]) if quant
-                                           else {})), 2e-2)
+    # both split by default: each plain version at the kernel's S
+    _assert_within(out, plain(*x, **kw, **_splits_kw(x[0])), 2e-2)
+    if not quant:       # #4 at splits 1 and 64 too (#5: the test below)
+        for splits in (1, 64):
+            _assert_within(kern(*x, **kw, splits=splits),
+                           plain(*x, **kw, splits=splits), 2e-2)
     # a row of a segment id outside [0, G) comes out NaN, the others not
     row_group = x[-5].clone()
     row_group[:pn] = shape[0]
@@ -246,12 +253,11 @@ def test_grouped_kernels_match_plain_versions(cuda, shape, quant):
     out = kern(*y, **kw)
     assert torch.isnan(out[:, :pn].float()).all()
     assert torch.isfinite(out[:, pn:].float()).all()
-    if quant:           # and -1 too, split or not
-        row_group[:pn] = -1
-        for splits in (1, None):
-            out = kern(*y, **kw, splits=splits)
-            assert torch.isnan(out[:, :pn].float()).all()
-            assert torch.isfinite(out[:, pn:].float()).all()
+    row_group[:pn] = -1     # and -1 too, split or not
+    for splits in (1, None):
+        out = kern(*y, **kw, splits=splits)
+        assert torch.isnan(out[:, :pn].float()).all()
+        assert torch.isfinite(out[:, pn:].float()).all()
     if shape[0] == 1:   # G = 1: the single-prefix kernel's function
         if quant:
             one = bd.fused_bifurcated_decode_q8(
@@ -393,8 +399,8 @@ def test_tree_kernels_match_plain_versions(cuda, shape, quant):
 @pytest.mark.parametrize("quant", [False, True])
 def test_tree_kernels_at_depth_one_are_the_grouped_kernels(cuda, quant):
     """Every path one level deep: the tree kernel computes the grouped
-    kernel's bits: #7 = #5 at the default split and on the single walk
-    (splits=1); #6 = #4 on the single walk (#4 is not split)."""
+    kernel's bits: #7 = #5 and #6 = #4 at the default split and on the
+    single walk (splits=1)."""
     shape = (8, 2, 128, 1000, (1000, 0, 77, 513),
              [[2], [0], [3], [0], [2]] * 6 + [[3], [0]], 24, 0.0)
     x = _tree_inputs(cuda, shape, seed=7, quant=quant)
@@ -404,10 +410,9 @@ def test_tree_kernels_at_depth_one_are_the_grouped_kernels(cuda, quant):
     grp = (bd.grouped_fused_bifurcated_decode_q8 if quant
            else bd.grouped_fused_bifurcated_decode)
     gx = x[:-5] + (x[-5][0].contiguous(),) + x[-4:]
-    for splits in ((None, 1) if quant else (1,)):
+    for splits in (None, 1):
         sk = _splits_kw(x[0], splits)
-        assert torch.equal(tree(*x, **kw, **sk),
-                           grp(*gx, **kw, **(sk if quant else {})))
+        assert torch.equal(tree(*x, **kw, **sk), grp(*gx, **kw, **sk))
 
 
 def test_tree_kernels_take_bf16_only(cuda):
@@ -1057,6 +1062,30 @@ def test_chunked_linear_gate_catches_faulty_plain_versions(cuda, fault):
         assert not _rows_within(st.flatten(2), st_bad.flatten(2), 0.2)
     else:
         assert not _rows_within(out, bad, 0.2)
+
+
+def test_chunked_linear_kernel_bits_do_not_move_with_occupancy(cuda):
+    """The chunk-parallel kernel's result does not depend on how many of
+    its CTAs an SM holds (``ctas_per_sm``) or on the calls before it (the
+    ticket counter and the chain flags are zero again after each call);
+    one launch a call; ``occupancy`` honours the cap."""
+    from repro_torch.kernels import chunked_linear as cl
+
+    q, k, v, a, s0 = _chunked_inputs(cuda, 2, 1500, 8, 64, 64, seed=11,
+                                     init=True)
+    kw = dict(chunk=256, initial_state=s0)
+    n0 = cl.chunked_linear_attention.launches
+    out, st = cl.chunked_linear_attention(q, k, v, a, **kw)
+    for cap in (1, 2, 3, None):
+        o, s = cl.chunked_linear_attention(q, k, v, a, ctas_per_sm=cap, **kw)
+        assert torch.equal(o, out) and torch.equal(s, st)
+    torch.cuda.synchronize()
+    assert cl.chunked_linear_attention.launches == n0 + 5
+    assert all(int(w.abs().sum()) == 0 for w in cl._SYNC.values())
+    assert _rows_within(out, cl.chunked_linear_attention_plain(
+        q, k, v, a, **kw)[0])
+    assert cl.occupancy(64, 64, 256) >= 1
+    assert [cl.occupancy(64, 64, 256, c) <= c for c in (1, 2)] == [True] * 2
 
 
 def test_chunked_linear_kernel_takes_bf16_and_small_heads_only(cuda):

@@ -177,6 +177,31 @@ printing its result lines:
      [SYS, TPL_A, A3] A2's (and, paged, B1's for pages), and three fresh
      levels must raise SegmentsExhausted and change nothing; prints the
      revival's admission ms beside the eager engine's cold one;
+  3j. the serving layer (runtime/frontend, faults, journal, recovery,
+     checkpoint.ServeCheckpointer) at the same width: a DurableFrontend
+     over a paged TreeServeEngine (12 nodes, a pool of 64 pages of 128,
+     packed steps of 512-token chunks, the prefix cache, the sharing
+     policy, greedy), bf16 and int8 nodes, serving 8 requests of 4 samples
+     ([a 4096-token system prompt, one of two 512-token templates, a
+     256-token suffix]) 16 tokens each, snapshots every 3 rounds in a
+     temporary directory removed at the end. Gates: two KILL_PROCESS
+     events, each recovered from snapshot + journal, end every ticket's
+     status and greedy tokens bit-identical to an uninterrupted control on
+     the same card; under a mixed plan (bf16: pages stolen, a request
+     cancelled mid-decode, the newest snapshot corrupted, the journal's
+     tail torn, a kill) every ticket no fault touched is bit-identical to
+     the control, recovery falls back past the corrupt snapshot, an audit
+     passes every round and the KV checksums after each recovery; a
+     flipped bit of a live node's K fails audit_state(verify_checksums=
+     True) with KVCorruption; #8/#9 and #10/#11 launch 24 times per
+     decode-only and packed step run, replays included, and no other
+     kernel; no request is quarantined. Then a dense bf16
+     ForestServeEngine (4 segments of capacity 2048) killed twice ends
+     bit-identical to its control (#4, 24 launches a step). Only
+     ProcessKilled is caught; nothing runs under supervise. Prints the
+     admission work and the node checksums' share of it, snapshot bytes
+     and save ms (fsync'd), load and recovery ms, the journal records
+     replayed and decode ms/step under the frontend;
   4. (first, then phase 3's model and caches are freed) time each kernel
      at the main path's shapes beside its bound, its plain
      version and, as a yardstick only, one scaled_dot_product_attention call
@@ -4441,6 +4466,419 @@ def serve_prefix_cache(cfg, params, store, quant):
 
 
 # ---------------------------------------------------------------------------
+# phase 3j: the serving layer (frontend, faults, journal, snapshots, recovery)
+# ---------------------------------------------------------------------------
+
+# the trie drill: 8 requests of 4 samples, each [SYS, one of two templates,
+# its own suffix]; 12 nodes, a pool of 64 pages of 128 (56 in use), so that
+# a snapshot (pools, decode arms, tables) stays under ~1 GB
+SERVE_TOKENS = {"SYS": 4096, "TPL": 512, "SFX": 256}
+SERVE_REQUESTS, SERVE_SAMPLES, SERVE_NEW = 8, 4, 16
+SERVE_NODES, SERVE_PAGES, SERVE_CHUNK = 12, 64, 512
+SERVE_KILLS = (5, 9)                 # rounds of the two KILL_PROCESS events
+SERVE_SNAPSHOT_EVERY = 3
+# the mixed plan, (round, kind, arg, hold): pages stolen and a request
+# cancelled after the round-3 snapshot; the round-6 snapshot corrupted at
+# round 7, round 7's journal record torn at round 8 and the process killed
+# in that round, so that recovery falls back to round 3's snapshot and its
+# replay stops at the tear
+SERVE_MIXED = ((4, "pool_exhaust", 4, 2), (5, "cancel_mid_decode", 1, 1),
+               (7, "snapshot_corrupt", 3, 1), (8, "journal_truncate", 40, 1),
+               (8, "kill_process", 1, 1))
+# the forest drill: 4 requests of 8 samples on 4 dense bf16 segments
+SERVE_FOREST_LENS, SERVE_FOREST_CAP = (2048, 1536, 1024, 640), 2048
+SERVE_FOREST_KILLS = (3, 5)          # with 2 decode steps a round
+
+
+def _timed(fn, *a, **kw):
+    """(fn's result, its ms on the card's clock, synchronized)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+class DrillClock:
+    """The engines of one drill (the factory's, the recovered ones too).
+    Each is a subclass of its engine class whose public ``admit`` and
+    ``step_chunk`` are timed; the steps of each kind come from the engines'
+    own ``steps_run``, and the node checksums are timed again by
+    ``time_checksums`` through the public ``segment_checksum``."""
+
+    def __init__(self):
+        self.engines = []
+        self.admit_ms = 0.0
+        self.quiet_ms, self.quiet_steps = 0.0, 0   # decode-only calls
+        self.busy_ms, self.busy_decode = 0.0, 0    # calls with packed steps
+        self.ck_ms = {}                            # (node, crc) -> ms
+
+    def steps(self, kind):
+        return sum(e.steps_run[kind] for e in self.engines)
+
+    def build(self, cls, *args):
+        clock = self
+
+        class Timed(cls):
+            def admit(self, *a, **kw):
+                out, ms = _timed(super().admit, *a, **kw)
+                clock.admit_ms += ms
+                return out
+
+            def step_chunk(self, params, state, n_steps, *a, **kw):
+                before = dict(self.steps_run)
+                out, ms = _timed(super().step_chunk, params, state, n_steps,
+                                 *a, **kw)
+                if self.steps_run["packed"] == before["packed"]:
+                    clock.quiet_ms += ms
+                    clock.quiet_steps += n_steps
+                else:
+                    clock.busy_ms += ms
+                    clock.busy_decode += (self.steps_run["decode"]
+                                          - before["decode"])
+                return out
+
+        Timed.__name__ = Timed.__qualname__ = cls.__name__
+        eng = Timed(*args)
+        self.engines.append(eng)
+        return eng
+
+    def time_checksums(self, eng, state):
+        """Time each node checksum recorded since the last call, once, on
+        the bytes it was recorded over, and check it is still the same."""
+        from repro_torch.core.integrity import segment_checksum
+
+        for idx, crc in eng.seg_checksums.items():
+            if (idx, crc) in self.ck_ms:
+                continue
+            got, ms = _timed(segment_checksum, state.cache, idx)
+            check(got == crc, f"node {idx}'s checksum moved")
+            self.ck_ms[(idx, crc)] = ms
+
+    def decode_ms_per_step(self):
+        return self.quiet_ms / max(1, self.quiet_steps)
+
+    def admission_ms(self):
+        """admit calls plus the step calls that ran packed steps, less
+        those calls' decode-only steps at the quiet calls' ms/step."""
+        return (self.admit_ms + self.busy_ms
+                - self.busy_decode * self.decode_ms_per_step())
+
+
+def _drill_results(fe):
+    return {t.tid: (t.status, t.reason,
+                    None if t.tokens is None
+                    else [[int(x) for x in tok] for tok in t.tokens])
+            for t in fe.tickets}
+
+
+def _snapshot_probe(dfe):
+    """Wrap the drill's checkpointer: (save ms, load ms, bytes written)."""
+    import torch
+
+    probe = {"save": [], "load": [], "bytes": []}
+    ck = dfe.ckpt
+    save, load = ck.save, ck.load
+
+    def timed_save(round_, device_state, host):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(round_, device_state, host)
+        probe["save"].append((time.perf_counter() - t0) * 1e3)
+        probe["bytes"].append(sum(os.path.getsize(os.path.join(path, f))
+                                  for f in os.listdir(path)))
+        return path
+
+    def timed_load(round_, template):
+        t0 = time.perf_counter()
+        out = load(round_, template)
+        torch.cuda.synchronize()
+        probe["load"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    ck.save, ck.load = timed_save, timed_load
+    return probe
+
+
+def _drive_durable(dfe, params, recoveries):
+    """Pump ``dfe`` to the end, recovering from each ``ProcessKilled``
+    (nothing else is caught: any other exception fails the phase).
+    Appends (recover ms, records replayed) per recovery, and checks the
+    engine's checksums after each."""
+    import torch
+    from repro_torch.runtime.faults import ProcessKilled
+
+    pumps = 0
+    while dfe.pending():
+        pumps += 1
+        check(pumps < 200, "the durable drill did not converge")
+        try:
+            dfe.pump(params)
+        except ProcessKilled:
+            before = (dfe.stats["replayed_rounds"]
+                      + dfe.stats["replayed_submits"])
+            _, ms = _timed(dfe.recover, params)
+            check(dfe.fe.engine.verify_checksums(dfe.state),
+                  "checksums after a recovery")
+            recoveries.append((ms, dfe.stats["replayed_rounds"]
+                               + dfe.stats["replayed_submits"] - before))
+    return dfe
+
+
+def serve_durable(cfg, params):
+    """Phase 3j: the serving layer over the paged trie (packed steps, the
+    sharing policy, the prefix cache) and the dense forest at full width.
+    Gates: kill-and-restore bit-identical to an uninterrupted control (bf16
+    and int8 trie, bf16 forest); under a mixed plan (a stolen-page hold, a
+    cancelled request, a corrupted snapshot, a truncated journal, a kill)
+    every ticket no fault touched bit-identical to the control, an audit
+    every round, the checksums after each recovery; a flipped bit of a live
+    node's K raising KVCorruption; #8/#9 (#10/#11, #4) launched 24 times
+    per decode-only (packed, forest) step run, replays included; no
+    quarantine outside the flip. Prints admission, checksum, snapshot,
+    load, recovery and decode times."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ForestConfig, TreeConfig
+    from repro_torch.core.errors import KVCorruption
+    from repro_torch.models import get_model
+    from repro_torch.runtime.faults import FaultEvent, FaultPlan
+    from repro_torch.runtime.frontend import ServeFrontend
+    from repro_torch.runtime.recovery import DurableFrontend
+    from repro_torch.runtime.serve import ForestServeEngine, TreeServeEngine
+
+    model = get_model(cfg)
+    n_layers = cfg.n_layers
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_3j_")
+    rng = np.random.RandomState(31)
+    V = cfg.vocab_size
+    sys_ = rng.randint(0, V, (1, SERVE_TOKENS["SYS"]))
+    tpls = [rng.randint(0, V, (1, SERVE_TOKENS["TPL"])) for _ in range(2)]
+    trie_reqs = [[sys_, tpls[i % 2], rng.randint(0, V, (
+        1, SERVE_TOKENS["SFX"]))] for i in range(SERVE_REQUESTS)]
+    forest_reqs = [[rng.randint(0, V, (1, m))] for m in SERVE_FOREST_LENS]
+    trie_kw = dict(decode_steps=4, queue_depth=32, max_attempts=64,
+                   stall_rounds=16, policy="sharing")
+
+    def submit_all(fe, reqs, n_samples):
+        for r in reqs:
+            fe.submit([torch.as_tensor(s, device=DEVICE) for s in r],
+                      n_samples=n_samples, max_new_tokens=SERVE_NEW)
+
+    def trie_factory(clock, quant):
+        tcfg = TreeConfig(
+            n_nodes=SERVE_NODES, depth=3, slots=BATCH,
+            node_capacity=SERVE_TOKENS["SYS"], decode_capacity=SERVE_NEW,
+            use_kernel=True, cache_dtype="int8" if quant else "bfloat16",
+            ctx_store="paged", page_size=PAGE, num_pages=SERVE_PAGES,
+            prefix_cache=True, suffix_prefill=True, step_mode="packed",
+            prefill_chunk=SERVE_CHUNK, temperature=0.0)
+        return lambda: clock.build(TreeServeEngine, model, cfg, tcfg)
+
+    def forest_factory(clock):
+        fcfg = ForestConfig(
+            n_groups=len(SERVE_FOREST_LENS), slots=BATCH,
+            ctx_capacity=SERVE_FOREST_CAP, decode_capacity=SERVE_NEW,
+            use_kernel=True, cache_dtype="bfloat16", temperature=0.0)
+        return lambda: clock.build(ForestServeEngine, model, cfg, fcfg)
+
+    def expect_steps(clock, kernels):
+        """Each kernel launched once a layer for every step of its kind
+        (``steps_run``) the run's engines took (replays included), and no
+        other kernel."""
+        expect_counts(read_launches(), {name: n_layers * clock.steps(kind)
+                                        for name, kind in kernels})
+
+    def control(tag, factory, clock, reqs, n_samples, kernels, fe_kw):
+        """An uninterrupted run, pumped round by round: each node checksum
+        is timed again after the round that recorded it."""
+        reset_launches()
+        fe = ServeFrontend(factory(), device=DEVICE, **fe_kw)
+        state = fe.init_state()
+        submit_all(fe, reqs, n_samples)
+        while any(not t.terminal for t in fe.tickets):
+            check(fe.round < 200, f"{tag}: the control did not converge")
+            state = fe.pump(params, state)
+            clock.time_checksums(fe.engine, state)
+        expect_steps(clock, kernels)
+        if hasattr(fe.engine, "step_io_bytes"):
+            # the trie's steps as the frontend's own ledger counts them
+            check(fe.io_ledger["steps"] == clock.steps("decode")
+                  + clock.steps("packed"),
+                  f"{tag}: the frontend counted {fe.io_ledger['steps']} "
+                  f"steps, the engine ran {clock.steps('decode')} + "
+                  f"{clock.steps('packed')}")
+        check(fe.counters.get("kv_quarantines", 0) == 0,
+              f"{tag}: the control quarantined a request")
+        res = _drill_results(fe)
+        check(all(s == "completed" for s, _, _ in res.values()),
+              f"{tag}: the control did not complete every request")
+        for _, _, toks in res.values():
+            check(all(len(t) == SERVE_NEW and all(0 <= x < V for x in t)
+                      for t in toks), f"{tag}: control tokens")
+        check(fe.counters["audits_passed"] == fe.round,
+              f"{tag}: audits {fe.counters['audits_passed']} of "
+              f"{fe.round} rounds")
+        return fe, state, res
+
+    def durable(tag, factory, clock, reqs, n_samples, plan, kernels, fe_kw):
+        reset_launches()
+        d = tempfile.mkdtemp(dir=tmp)
+        dfe = DurableFrontend(factory, d, fault_plan=plan,
+                              snapshot_every=SERVE_SNAPSHOT_EVERY,
+                              keep_last_k=2, frontend_kwargs=fe_kw,
+                              device=DEVICE)
+        probe = _snapshot_probe(dfe)    # recover() keeps this checkpointer
+        dfe.init_state()
+        submit_all(dfe, reqs, n_samples)
+        recoveries = []
+        _drive_durable(dfe, params, recoveries)
+        expect_steps(clock, kernels)
+        check(dfe.fe.counters.get("kv_quarantines", 0) == 0,
+              f"{tag}: a request was quarantined")
+        check(dfe.fe.counters["audits_passed"] == dfe.fe.round,
+              f"{tag}: audits {dfe.fe.counters['audits_passed']} of "
+              f"{dfe.fe.round} rounds")
+        shutil.rmtree(d, ignore_errors=True)
+        return dfe, probe, recoveries
+
+    def report(tag, clock, ctrl_clock, probe, recoveries, dfe):
+        snap_b = max(probe["bytes"]) if probe["bytes"] else 0
+        rec = ", ".join(f"{ms:.0f} ms ({n} records)" for ms, n in recoveries)
+        print(f"{tag}: {len(recoveries)} recoveries [{rec}]; "
+              f"{dfe.stats['snapshots']} snapshots of up to {snap_b} bytes, "
+              f"save {np.median(probe['save']):.0f} ms median (fsync'd), "
+              f"load {np.median(probe['load']) if probe['load'] else 0:.0f}"
+              f" ms median; {dfe.stats['snapshot_fallbacks']} fallbacks, "
+              f"{dfe.stats['deferred_snapshots']} deferred; steps run "
+              f"{clock.steps('packed')} packed + {clock.steps('decode')} "
+              f"decode-only against the control's "
+              f"{ctrl_clock.steps('packed')} + {ctrl_clock.steps('decode')}, "
+              f"on {CARD[0]}")
+
+    def report_control(tag, c):
+        work, ck = c.admission_ms(), sum(c.ck_ms.values())
+        print(f"{tag}: control decode {c.decode_ms_per_step():.1f} ms/step "
+              f"under the frontend ({c.quiet_steps} decode-only steps), "
+              f"admission work {work:.0f} ms (admit calls {c.admit_ms:.0f} "
+              f"ms + step calls with packed steps {c.busy_ms:.0f} ms less "
+              f"their {c.busy_decode} decode-only steps), of it "
+              f"{len(c.ck_ms)} node checksums {ck:.0f} ms "
+              f"({100 * ck / max(1e-9, work):.1f}%; the largest node's "
+              f"{max(c.ck_ms.values(), default=0):.0f} ms), on {CARD[0]}")
+
+    try:
+        for quant in (False, True):
+            tag = f"serve durable tree{' int8' if quant else ''}"
+            kernels = [(_paged_kname(quant), "decode"),
+                       (_packed_kname(quant), "packed")]
+            cclock = DrillClock()
+            ctrl_fe, ctrl_state, ctrl = control(
+                tag, trie_factory(cclock, quant), cclock, trie_reqs,
+                SERVE_SAMPLES, kernels, trie_kw)
+            if not quant:
+                # gate 3: one flipped bit of a live (cached) node's K
+                eng = ctrl_fe.engine
+                nid = eng.node_index[(-1, tuple(int(x) for x in sys_[0]))]
+                pid = eng.node_pages[nid][0]
+                cell = ctrl_state.cache.store.k_pages[0, pid, 0, 0, :1]
+                check(eng.audit_state(ctrl_state, verify_checksums=True),
+                      f"{tag}: audit before the flip")
+                cell.view(torch.int16).bitwise_xor_(1 << 3)
+                try:
+                    eng.audit_state(ctrl_state, verify_checksums=True)
+                except KVCorruption as e:
+                    print(f"{tag}: a flipped bit of node {nid}'s K (page "
+                          f"{pid}) raised KVCorruption: {e}")
+                else:
+                    raise AssertionError(f"{tag}: a flipped KV bit passed "
+                                         f"the checksum audit")
+            del ctrl_fe, ctrl_state
+            clock = DrillClock()
+            plan = FaultPlan([FaultEvent(r, "kill_process")
+                              for r in SERVE_KILLS])
+            dfe, probe, recs = durable(tag, trie_factory(clock, quant), clock,
+                                       trie_reqs, SERVE_SAMPLES, plan,
+                                       kernels, trie_kw)
+            check(len(recs) == len(SERVE_KILLS),
+                  f"{tag}: {len(recs)} recoveries")
+            got = _drill_results(dfe.fe)
+            check(got == ctrl, f"{tag}: recovered tickets differ from the "
+                               f"control: {sorted(k for k in got if got[k] != ctrl.get(k))}")
+            print(f"{tag}: killed at rounds {SERVE_KILLS} and recovered; "
+                  f"all {len(got)} tickets' statuses and greedy tokens "
+                  f"bit-identical to the uninterrupted control")
+            report(tag, clock, cclock, probe, recs, dfe)
+            report_control(tag, cclock)
+            del dfe
+            if quant:
+                continue
+            # gate 2: the mixed plan (bf16)
+            clock = DrillClock()
+            plan = FaultPlan([FaultEvent(r, k, arg=a, hold=h)
+                              for r, k, a, h in SERVE_MIXED], seed=3)
+            dfe, probe, recs = durable(f"{tag} mixed", trie_factory(
+                clock, quant), clock, trie_reqs, SERVE_SAMPLES, plan, kernels,
+                trie_kw)
+            got = _drill_results(dfe.fe)
+            touched = sorted(t.tid for t in dfe.fe.tickets if t.fault_touched)
+            for tid, want in ctrl.items():
+                if tid in touched:
+                    continue
+                check(got.get(tid) == want,
+                      f"{tag} mixed: untouched ticket {tid} differs")
+            c = dfe.fe.counters
+            check(len(recs) == 1 and dfe.stats["snapshot_fallbacks"] >= 1
+                  and all(c.get(f"fault_{k}", 0) == 1
+                          for _, k, _, _ in SERVE_MIXED
+                          if k != "kill_process")
+                  and c.get("pages_stolen", 0) > 0
+                  and c.get("preemptions_fault", 0) == 1
+                  and len(touched) == 1,
+                  f"{tag} mixed: the faults did not all land: {c} "
+                  f"{dfe.stats}")
+            print(f"{tag} mixed: plan {[e[1] for e in SERVE_MIXED]}; "
+                  f"touched tickets {touched}, the other "
+                  f"{len(ctrl) - len(touched)} bit-identical to the control; "
+                  f"{c['audits_passed']} audits in {dfe.fe.round} rounds; "
+                  f"{dfe.stats['snapshot_fallbacks']} snapshot fallback(s)")
+            report(f"{tag} mixed", clock, cclock, probe, recs, dfe)
+            del dfe
+
+        # the forest drill (dense bf16, #4)
+        tag = "serve durable forest"
+        kernels = [("grouped_fused_bifurcated_decode", "decode")]
+        forest_kw = dict(trie_kw, decode_steps=2)
+        cclock = DrillClock()
+        _, _, ctrl = control(tag, forest_factory(cclock), cclock, forest_reqs,
+                             BATCH // len(forest_reqs), kernels, forest_kw)
+        clock = DrillClock()
+        plan = FaultPlan([FaultEvent(r, "kill_process")
+                          for r in SERVE_FOREST_KILLS])
+        dfe, probe, recs = durable(tag, forest_factory(clock), clock,
+                                   forest_reqs, BATCH // len(forest_reqs),
+                                   plan, kernels, forest_kw)
+        got = _drill_results(dfe.fe)
+        check(len(recs) == len(SERVE_FOREST_KILLS),
+              f"{tag}: {len(recs)} recoveries")
+        check(got == ctrl, f"{tag}: recovered tickets differ from the "
+                           f"control")
+        print(f"{tag}: killed at rounds {SERVE_FOREST_KILLS} and recovered; "
+              f"all {len(got)} tickets bit-identical to the control")
+        report(tag, clock, cclock, probe, recs, dfe)
+        report_control(tag, cclock)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 3i: the zamba2 hybrid served
 # ---------------------------------------------------------------------------
 
@@ -5674,6 +6112,8 @@ def main():
         for quant in (False, True):
             serve_prefix_cache(cfg, params, store, quant)
     lap("phases 3g-3h")
+    serve_durable(cfg, params)
+    lap("phase 3j")
     # phase 4 for #1-#12 on phase 3's caches, which are then freed with
     # phase 3's model to make room for the hybrid's
     del model, params

@@ -7,8 +7,9 @@ machine-readable ``reason``, and keeps its historical base class so
 ``except ValueError`` / ``except RuntimeError`` sites still catch it.
 ``retryable`` tells a caller whether waiting for retirements can help
 (pool, segment and slot exhaustion) or not (an envelope overflow).
-``AllocatorCorruption`` (raised by ``core/paged.PageAllocator``) is the one
-invariant error ported so far.
+``KVCorruption`` (raised by ``core/integrity`` and the serve engines'
+checksum audit) and ``AllocatorCorruption`` (raised by
+``core/paged.PageAllocator``) are the two invariant errors.
 """
 from __future__ import annotations
 
@@ -78,6 +79,20 @@ class DecodeCapacityExceeded(CapacityError, ValueError, RuntimeError):
     retryable = False
 
 
+class KVCorruption(RuntimeError):
+    """KV-cache INTEGRITY was violated: a live segment's bytes no longer
+    match the checksum recorded when they were written (bit-flipped
+    snapshot, bad copy, host bug), or a snapshot's leaf or host blob failed
+    its CRC. Raised by ``core/integrity`` verification (snapshot load,
+    ``audit_state(verify_checksums=True)``) and by
+    ``checkpoint.ServeCheckpointer.load``. Never retryable for the affected
+    segment: the owning request is quarantined through the ordinary
+    cancel/retire path."""
+
+    reason = "kv_corruption"
+    retryable = False
+
+
 class AllocatorCorruption(RuntimeError):
     """An allocator/bookkeeping INVARIANT was violated: double release,
     release/share of an unknown or free page, refcount drift, aliased page
@@ -96,5 +111,6 @@ __all__ = [
     "PrefillInFlight",
     "SegmentCapacityExceeded",
     "DecodeCapacityExceeded",
+    "KVCorruption",
     "AllocatorCorruption",
 ]

@@ -59,6 +59,7 @@ from repro_torch.core.errors import (
     SegmentsExhausted,
     SlotsExhausted,
 )
+from repro_torch.core.integrity import segment_checksum, verify_segment
 from repro_torch.core.io_model import tree_decode_io_bytes
 from repro_torch.core.kv_cache import DecodeCache
 from repro_torch.core.paged import (
@@ -321,6 +322,10 @@ class _SlotTableEngine:
         self.cfg = cfg
         self.ecfg = ecfg
         self.decode_dispatches = 0          # chunks run, as in the reference
+        # steps this engine object ran, by kind: "decode" (decode-only) and
+        # "packed". Not host state: an engine rebuilt by a recovery counts
+        # its replayed steps again, as the kernels' launch counters do.
+        self.steps_run = {"decode": 0, "packed": 0}
         # host-side output mirrors (admission policy only — the decode
         # math depends exclusively on device-side state values)
         self.outputs = {s: [] for s in range(ecfg.slots)}   # slot -> tokens
@@ -328,6 +333,9 @@ class _SlotTableEngine:
         # slots whose decode output went non-finite (the sentinel in
         # _collect_emitted): their output stops being collected
         self.corrupt_slots = set()
+        # segment / node id -> CRC32 of its live context bytes, recorded
+        # when it is written (core/integrity.py), dropped when it frees
+        self.seg_checksums = {}
         self.paged = ecfg.ctx_store == "paged"
 
     # ---- decode ----
@@ -394,6 +402,7 @@ class _SlotTableEngine:
                                  None if noise is None else noise[i])
                 for i in range(n_steps)]
         self.decode_dispatches += 1
+        self.steps_run["decode"] += n_steps
         if outs:
             toks, lps, emits = (torch.stack(x) for x in zip(*outs))
             self._collect_emitted(toks, lps, emits)
@@ -471,6 +480,72 @@ class _SlotTableEngine:
                           else n_segments * self.pages_per_seg)
         self.page_alloc = PageAllocator(self.num_pages)
 
+    # ---- integrity (KV checksums) ----
+    def _live_segments(self):
+        """Segment / node ids currently holding live context (subclass)."""
+        raise NotImplementedError
+
+    def _record_checksum(self, cache, idx: int):
+        """Fingerprint segment ``idx``'s live context bytes right after they
+        are written (re-verified by ``verify_checksums``)."""
+        self.seg_checksums[idx] = segment_checksum(cache, idx)
+
+    def verify_checksums(self, state: ForestState) -> bool:
+        """Recompute every LIVE segment's context checksum and compare it to
+        the CRC recorded at write time. Raises ``KVCorruption`` on the
+        first mismatch; run at snapshot load and on demand through
+        ``audit_state(verify_checksums=True)``."""
+        for idx in self._live_segments():
+            expected = self.seg_checksums.get(idx)
+            if expected is None:
+                continue
+            verify_segment(state.cache, idx, expected,
+                           what=type(self).__name__ + " segment")
+        return True
+
+    def _audit_pages(self, state: ForestState, live, pages: dict,
+                     extra_tracked, verify: bool) -> bool:
+        """``audit_state``'s body: optionally re-verify the checksums, then
+        run ``PageAllocator.audit`` over the ``live`` segments' page-table
+        rows and the page ids the host mirrors (``pages``) and the caller
+        (``extra_tracked``, e.g. a frontend's fault-stolen pages) hold.
+        Dense mode has no allocator: its checks are trivially True."""
+        if verify:
+            self.verify_checksums(state)
+        if not self.paged:
+            return True
+        tables = state.cache.store.page_tables.cpu().numpy()
+        rows = [tables[i] for i in live]
+        tracked = [pid for ids in pages.values() for pid in ids]
+        tracked.extend(int(i) for i in extra_tracked)
+        return self.page_alloc.audit(rows=rows, tracked=tracked)
+
+    # ---- durable-state serialization (checkpoint/recovery) ----
+    def host_state(self) -> dict:
+        """JSON-serializable snapshot of the host-side mirrors shared by
+        every slot-table engine; subclasses extend it with their own.
+        Together with the device ``ForestState`` this is the engine's whole
+        state: restoring both onto a fresh engine continues bit-identically."""
+        return {
+            "decode_dispatches": int(self.decode_dispatches),
+            "outputs": [list(self.outputs[s])
+                        for s in range(self.ecfg.slots)],
+            "logps": [list(self.logps[s]) for s in range(self.ecfg.slots)],
+            "seg_checksums": [[int(k), int(v)]
+                              for k, v in self.seg_checksums.items()],
+            "corrupt_slots": sorted(int(s) for s in self.corrupt_slots),
+        }
+
+    def load_host_state(self, d: dict):
+        self.decode_dispatches = int(d["decode_dispatches"])
+        self.outputs = {s: [int(t) for t in toks]
+                        for s, toks in enumerate(d["outputs"])}
+        self.logps = {s: [float(x) for x in lps]
+                      for s, lps in enumerate(d["logps"])}
+        self.seg_checksums = {int(k): int(v) for k, v in d["seg_checksums"]}
+        self.corrupt_slots = set(int(s) for s in d["corrupt_slots"])
+        return self
+
 
 class ForestServeEngine(_SlotTableEngine):
     """Continuous-batching serve loop over a prefix forest.
@@ -503,8 +578,11 @@ class ForestServeEngine(_SlotTableEngine):
     and every admission runs it before allocating, so no pool page is ever
     referenced by two segments.
 
-    The integrity and durability surface of the reference engine
-    (segment checksums, ``audit_state``, ``host_state``) is not ported.
+    Integrity and durability: a segment's live context bytes are
+    fingerprinted when it is written (``seg_checksums``, dropped at
+    retirement); ``audit_state`` runs the allocator's audit (and, on
+    demand, ``verify_checksums``); ``host_state`` / ``load_host_state``
+    carry the host mirrors through a snapshot.
     """
 
     def __init__(self, model, cfg: ModelConfig, fcfg: ForestConfig):
@@ -616,6 +694,7 @@ class ForestServeEngine(_SlotTableEngine):
         slot_mask = torch.zeros(fcfg.slots, dtype=torch.bool, device=dev)
         slot_mask[slot_ids] = True
         cache.assign_slots(slot_mask, gidx)
+        self._record_checksum(cache, gidx)
 
         tok, lp, live = self._sample_first(state.generator, logits0,
                                            n_samples, noise)
@@ -653,6 +732,7 @@ class ForestServeEngine(_SlotTableEngine):
             if not any(bool(active[s]) for s in slots):
                 self.group_live[g] = False
                 retired.append(g)
+                self.seg_checksums.pop(g, None)
                 if self.paged:
                     self.page_alloc.release(self.group_pages.pop(g, []))
         return retired
@@ -676,6 +756,43 @@ class ForestServeEngine(_SlotTableEngine):
         slots = [s for s in range(self.fcfg.slots)
                  if self.slot_group[s] == group]
         return self.deactivate_slots(state, slots)
+
+    def _live_segments(self):
+        return [g for g in range(self.fcfg.n_groups) if self.group_live[g]]
+
+    def audit_state(self, state: ForestState, extra_tracked=(),
+                    verify_checksums: bool = False) -> bool:
+        """``PageAllocator.audit`` against the live groups' page-table rows
+        and the host's page mirrors (``extra_tracked``: pages a caller holds
+        outside them); with ``verify_checksums`` every live segment's KV
+        bytes are re-fingerprinted first (a host round-trip per segment:
+        on demand, not every round). Raises on the first violation."""
+        return self._audit_pages(state, self._live_segments(),
+                                 self.group_pages if self.paged else {},
+                                 extra_tracked, verify_checksums)
+
+    # ---- durable-state serialization (checkpoint/recovery) ----
+    def host_state(self) -> dict:
+        d = super().host_state()
+        d.update({
+            "group_live": [bool(x) for x in self.group_live],
+            "slot_group": [int(x) for x in self.slot_group],
+        })
+        if self.paged:
+            d["group_pages"] = [[int(g), [int(p) for p in ids]]
+                                for g, ids in self.group_pages.items()]
+            d["allocator"] = self.page_alloc.state_dict()
+        return d
+
+    def load_host_state(self, d: dict):
+        super().load_host_state(d)
+        self.group_live = [bool(x) for x in d["group_live"]]
+        self.slot_group = [int(x) for x in d["slot_group"]]
+        if self.paged:
+            self.group_pages = {int(g): [int(p) for p in ids]
+                                for g, ids in d["group_pages"]}
+            self.page_alloc.load_state_dict(d["allocator"])
+        return self
 
 
 # ---------------------------------------------------------------------------
@@ -748,8 +865,14 @@ class TreeServeEngine(_SlotTableEngine):
     aborts it, and an admission whose first new level collides with a
     pending node raises ``PrefillInFlight``.
 
-    Not ported here: the integrity and durability surface of the
-    reference engine (segment checksums, ``audit_state``, ``host_state``).
+    Integrity and durability: a node's live context bytes are fingerprinted
+    when it is written (``seg_checksums``; a cached node keeps its CRC, an
+    evicted or freed one drops it); ``audit_state`` runs the allocator's
+    audit over the live nodes (and, on demand, ``verify_checksums``);
+    ``host_state`` / ``load_host_state`` carry the trie index, refcounts,
+    lengths, the prefix cache's stamps and statistics, the request table
+    and the allocator's free list through a snapshot (refused while a
+    packed prefill is pending).
     """
 
     def __init__(self, model, cfg: ModelConfig, tcfg: TreeConfig):
@@ -981,6 +1104,7 @@ class TreeServeEngine(_SlotTableEngine):
             self.node_index.pop(self.node_key[nid], None)
             self.node_key[nid] = None
             self.node_len[nid] = 0
+            self.seg_checksums.pop(nid, None)
             if self.paged:
                 state.cache.free_node(nid)
                 self.page_alloc.release(self.node_pages.pop(nid, []))
@@ -1166,6 +1290,7 @@ class TreeServeEngine(_SlotTableEngine):
             self.node_key[nid] = key
             self.node_live[nid] = True
             self.node_len[nid] = m
+            self._record_checksum(cache, nid)
             path.append(nid)
             parent = nid
             offset += m
@@ -1316,6 +1441,7 @@ class TreeServeEngine(_SlotTableEngine):
             out, logits_last = self._packed_step_ref(
                 params, state, pend, chunk, noise)
         self.decode_dispatches += 1
+        self.steps_run["packed"] += 1
         self._collect_emitted(*out)
         pend["buf_len"] += cv
         pend["done"] += cv
@@ -1412,6 +1538,7 @@ class TreeServeEngine(_SlotTableEngine):
             state.cache.write_node(k, v, nid, self.node_pages[nid])
         else:
             state.cache.write_node(k, v, nid)
+        self._record_checksum(state.cache, nid)
         self.node_live[nid] = True
         self.node_pending.discard(nid)
         pend["node_i"] += 1
@@ -1511,6 +1638,7 @@ class TreeServeEngine(_SlotTableEngine):
                 self.node_index.pop(self.node_key[nid], None)
                 self.node_key[nid] = None
                 self.node_len[nid] = 0
+                self.seg_checksums.pop(nid, None)
                 if self.paged:
                     self.page_alloc.release(self.node_pages.pop(nid, []))
 
@@ -1558,6 +1686,11 @@ class TreeServeEngine(_SlotTableEngine):
             return 0
         return sum(1 for nid in req["path"] if self.node_refs[nid] > 1)
 
+    def _live_segments(self):
+        # cached nodes are RESIDENT (node_live stays True): checksum- and
+        # audit-visible until actually evicted
+        return [n for n in range(self.tcfg.n_nodes) if self.node_live[n]]
+
     def occupancy(self, state: ForestState) -> dict:
         """Live slot count, the pool's pages in paged mode, and the trie
         nodes (and their pages) held resident as cache entries."""
@@ -1567,3 +1700,85 @@ class TreeServeEngine(_SlotTableEngine):
             occ["pages_cached"] = sum(
                 len(self.node_pages.get(n, ())) for n in self.node_cached)
         return occ
+
+    def audit_state(self, state: ForestState, extra_tracked=(),
+                    verify_checksums: bool = False) -> bool:
+        """``PageAllocator.audit`` against the live nodes' page-table rows
+        and the host's page mirrors (``extra_tracked``: pages a caller holds
+        outside them); with ``verify_checksums`` every live node's KV bytes
+        are re-fingerprinted first (a host round-trip per node: on demand,
+        not every round). Raises on the first violation."""
+        return self._audit_pages(state, self._live_segments(),
+                                 self.node_pages if self.paged else {},
+                                 extra_tracked, verify_checksums)
+
+    # ---- durable-state serialization (checkpoint/recovery) ----
+    def host_state(self) -> dict:
+        if self._pending:
+            raise RuntimeError(
+                "host_state with packed prefills in flight — drain the "
+                "pending chunks (step the engine) before snapshotting; "
+                "in-flight fresh-KV buffers are not serializable state "
+                "(DurableFrontend defers its snapshot until the engine "
+                "is quiescent)")
+        d = super().host_state()
+        d.update({
+            "node_live": [bool(x) for x in self.node_live],
+            "node_refs": [int(x) for x in self.node_refs],
+            # (parent, token tuple) keys flattened for JSON; node_key is
+            # the exact inverse and is rebuilt on load
+            "node_index": [[int(parent), [int(t) for t in toks], int(nid)]
+                           for (parent, toks), nid
+                           in self.node_index.items()],
+            "slot_request": [int(x) for x in self.slot_request],
+            # (rid, entry) pairs: the table is a compacted dict keyed by
+            # monotonic rids, not a dense list
+            "requests": [[int(rid),
+                          {"path": [int(n) for n in r["path"]],
+                           "slots": [int(s) for s in r["slots"]],
+                           "live": bool(r["live"])}]
+                         for rid, r in sorted(self.requests.items())],
+            "next_rid": int(self.next_rid),
+            "node_len": [int(x) for x in self.node_len],
+            # the cached-node set and the LRU clock survive a snapshot, so
+            # the eviction order after recovery is bit-identical
+            "node_cached": [[int(n), int(stamp)] for n, stamp
+                            in sorted(self.node_cached.items())],
+            "lru_clock": int(self.lru_clock),
+            "prefix_stats": {k: int(v)
+                             for k, v in self.prefix_stats.items()},
+        })
+        if self.paged:
+            d["node_pages"] = [[int(n), [int(p) for p in ids]]
+                               for n, ids in self.node_pages.items()]
+            d["allocator"] = self.page_alloc.state_dict()
+        return d
+
+    def load_host_state(self, d: dict):
+        super().load_host_state(d)
+        self.node_live = [bool(x) for x in d["node_live"]]
+        self.node_refs = [int(x) for x in d["node_refs"]]
+        self.node_index = {}
+        self.node_key = [None] * self.tcfg.n_nodes
+        for parent, toks, nid in d["node_index"]:
+            key = (int(parent), tuple(int(t) for t in toks))
+            self.node_index[key] = int(nid)
+            self.node_key[int(nid)] = key
+        self.slot_request = [int(x) for x in d["slot_request"]]
+        self.requests = {int(rid): {"path": [int(n) for n in r["path"]],
+                                    "slots": [int(s) for s in r["slots"]],
+                                    "live": bool(r["live"])}
+                         for rid, r in d["requests"]}
+        self.next_rid = int(d["next_rid"])
+        self.last_rid = self.next_rid - 1
+        self.node_len = [int(x) for x in d["node_len"]]
+        self.node_cached = {int(n): int(stamp)
+                            for n, stamp in d["node_cached"]}
+        self.lru_clock = int(d["lru_clock"])
+        self.prefix_stats = {k: int(v)
+                             for k, v in d["prefix_stats"].items()}
+        if self.paged:
+            self.node_pages = {int(n): [int(p) for p in ids]
+                               for n, ids in d["node_pages"]}
+            self.page_alloc.load_state_dict(d["allocator"])
+        return self

@@ -1,8 +1,10 @@
 """Port parity for the trie engine's cross-request PREFIX CACHE
 (``TreeConfig(prefix_cache=True, evict_policy=...)``): the reference's
-``tests/test_prefix_cache.py`` cases that need no integrity surface
-(``audit_state``, ``host_state``, checksums), each run on the port's
-``TreeServeEngine`` and on the reference's on the same admissions. After
+``tests/test_prefix_cache.py`` cases, each run on the port's
+``TreeServeEngine`` and on the reference's on the same admissions, with
+the integrity surface (``audit_state(verify_checksums=True)``,
+``host_state`` / ``load_host_state``) on both sides where the reference's
+case uses it. After
 every admission, step and retirement the two engines must hold the same
 cache entries and LRU stamps (``cached_nodes()``, ``node_cached``,
 ``lru_clock``), the same trie (live bits, refcounts, lengths, index), the
@@ -18,6 +20,7 @@ the cached engine under ``train_attn="flash"`` (kernel #12's plain version
 on the CPU) against the evict-eagerly baseline."""
 import dataclasses
 import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -161,6 +164,36 @@ def _node_of(eng, seg, parent=-1):
     return eng.node_index[(parent, tuple(int(t) for t in seg[0]))]
 
 
+def _clone(st):
+    """A disjoint copy of a port state (its tensors change in place)."""
+    def cl(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if dataclasses.is_dataclass(x) and not isinstance(
+                x, torch.Generator):
+            return dataclasses.replace(x, **{
+                f.name: cl(getattr(x, f.name))
+                for f in dataclasses.fields(x) if f.name != "generator"})
+        return x
+
+    gen = torch.Generator().set_state(st.generator.get_state())
+    return dataclasses.replace(cl(st), generator=gen)
+
+
+def _host_equal(t, j):
+    """The port's and the reference's host state agree on everything but
+    log-probs (1e-5) and the checksums (fp32 K/V bytes differ in their last
+    bits between the frameworks)."""
+    dt, dj = t.host_state(), j.host_state()
+    for d in (dt, dj):
+        d.pop("seg_checksums")
+    lt, lj = dt.pop("logps"), dj.pop("logps")
+    assert dt == dj
+    for a, b in zip(lt, lj):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    assert sorted(t.seg_checksums) == sorted(j.seg_checksums)
+
+
 # ---- request-table compaction ----
 
 def test_request_table_stays_bounded_under_churn():
@@ -251,6 +284,31 @@ def test_sharing_eviction_prefers_cold_private_tails(policy,
     assert gone not in pr.t.node_cached and kept in pr.t.node_cached
 
 
+def test_sharing_eviction_soak_reuse_does_not_regress():
+    """Seeded soak under node pressure (the reference's): alternating
+    hot-ancestor re-admissions and one-off private prompts. Both packages
+    evict alike at every step; "sharing" reuses at least as many prefix
+    tokens as plain LRU, and the checksums of every resident node verify
+    at the end."""
+    lrng = np.random.RandomState(3)
+    kids = [lrng.randint(0, CFG_J.vocab_size, (1, 8)) for _ in range(3)]
+    privs = [lrng.randint(0, CFG_J.vocab_size, (1, 10)) for _ in range(6)]
+
+    def run(policy):
+        pr = Pair(n_nodes=5, depth=2, slots=4, prefix_cache=True,
+                  evict_policy=policy)
+        for i in range(9):
+            pr.retire(pr.admit([SYS, kids[i % 3]], 1))
+            pr.retire(pr.admit([privs[i % 6]], 1))
+        assert pr.t.audit_state(pr.ts, verify_checksums=True)
+        assert pr.j.audit_state(pr.js, verify_checksums=True)
+        return pr.t.prefix_stats
+
+    sharing, lru = run("sharing"), run("lru")
+    assert sharing["reused_tokens"] >= lru["reused_tokens"]
+    assert sharing["reused_tokens"] > 0
+
+
 def test_page_pressure_evicts_lru():
     """A full pool of two cached nodes: a two-page demand evicts exactly
     the LRU entry (its table row cleared before its pages return), and the
@@ -263,6 +321,9 @@ def test_page_pressure_evicts_lru():
     pr.retire(pr.admit([seg_a], 1))
     pr.retire(pr.admit([seg_b], 1))
     assert pr.t.page_alloc.free_count() == 0 and len(pr.t.node_cached) == 2
+    # cached nodes stay audited: allocator invariants and checksums hold
+    assert pr.t.audit_state(pr.ts, verify_checksums=True)
+    assert pr.j.audit_state(pr.js, verify_checksums=True)
     occ = pr.t.occupancy(pr.ts)
     assert occ["nodes_cached"] == 2 and occ["pages_cached"] == 4
     nid_a = _node_of(pr.t, seg_a)
@@ -274,6 +335,9 @@ def test_page_pressure_evicts_lru():
     assert int(pr.ts.cache.store.seg_lens[nid_a]) == 0
     assert (rows[nid_a] == -1).all()
     assert sorted(pr.t.node_pages[_node_of(pr.t, seg_c)]) == [0, 1]
+    assert pr.t.audit_state(pr.ts, verify_checksums=True)
+    assert pr.j.audit_state(pr.js, verify_checksums=True)
+    assert nid_a not in pr.t.seg_checksums
 
 
 def test_unsatisfiable_demand_evicts_nothing_and_raises():
@@ -301,6 +365,58 @@ def test_matched_path_protected_from_eviction():
     assert pr.t.prefix_stats["evictions"] == 1
     assert pr.t.node_live[root] and pr.t.node_refs[root] == 1
     assert pr.t.prefix_stats["partial_hits"] == 1
+
+
+# ---- host state (snapshot / recovery surface) ----
+
+def test_host_state_roundtrip_with_cached_nodes():
+    """The cached-node set, LRU clock, lengths, request table and stats
+    survive ``host_state`` -> JSON -> ``load_host_state`` on a fresh port
+    engine; on a copy of the same device state its checksums verify and
+    the cached path revives exactly as on the original engine (and as on
+    the reference's)."""
+    kw = dict(ctx_store="paged", page_size=8, num_pages=8, prefix_cache=True,
+              suffix_prefill=True)
+    pr = Pair(**kw)
+    slots = pr.admit([SYS, TPL, REQ_A], 2)
+    pr.step(4)
+    pr.retire(slots)
+    _host_equal(pr.t, pr.j)
+    blob = json.loads(json.dumps(pr.t.host_state()))
+    eng2 = TreeServeEngine(pr.t.model, pr.t.cfg, pr.t.tcfg)
+    eng2.load_host_state(blob)
+    for name in ("node_cached", "lru_clock", "node_len", "requests",
+                 "next_rid", "prefix_stats", "seg_checksums", "node_pages"):
+        assert getattr(eng2, name) == getattr(pr.t, name), name
+    assert eng2.page_alloc.free_pages() == pr.t.page_alloc.free_pages()
+    st_b = _clone(pr.ts)
+    assert eng2.audit_state(st_b, verify_checksums=True)
+    st_b, slots2 = eng2.admit(TP, st_b, [torch.as_tensor(s) for s in
+                                         (SYS, TPL, REQ_A)], 2)
+    assert eng2.prefix_stats["full_hits"] == pr.t.prefix_stats[
+        "full_hits"] + 1
+    eng2.step_chunk(TP, st_b, 4)
+    slots1 = pr.admit([SYS, TPL, REQ_A], 2)
+    pr.step(4)
+    pr.assert_outputs(slots1)
+    for s2, s1 in zip(slots2, slots1):
+        assert eng2.outputs[s2] == pr.t.outputs[s1]
+
+
+def test_prefix_stats_survive_host_state_roundtrip_and_continue():
+    pr = Pair(prefix_cache=True, suffix_prefill=True)
+    pr.retire(pr.admit([SYS, TPL], 1))
+    pr.retire(pr.admit([SYS, TPL, REQ_A], 1))
+    _host_equal(pr.t, pr.j)
+    eng2 = TreeServeEngine(pr.t.model, pr.t.cfg, pr.t.tcfg)
+    eng2.load_host_state(json.loads(json.dumps(pr.t.host_state())))
+    assert eng2.prefix_stats == pr.t.prefix_stats
+    # both sides of the round-trip keep counting identically
+    st_b = _clone(pr.ts)
+    pr.admit([SYS, REQ_B], 1)
+    eng2.admit(TP, st_b, [torch.as_tensor(SYS), torch.as_tensor(REQ_B)], 1)
+    assert eng2.prefix_stats == pr.t.prefix_stats
+    assert eng2.prefix_stats["partial_hits"] == 2
 
 
 # ---- prefix_stats edge cases ----

@@ -84,7 +84,15 @@ printing its result lines:
      the inter-chunk term without e^{A_i}, an exclusive cumsum, the causal
      mask dropped, the padded rows given a nonzero decay (the state gate),
      and, from an initial state, the state handed to the wrong chunk or
-     the initial state dropped, miss it by far;
+     the initial state dropped, miss it by far. #13's wide path (heads past
+     128, two launches a call) runs at the mLSTM's shape (b 1, n 8192, 4
+     heads, dk = dv = 1024, normalised: 1025 columns, chunk 256), at n
+     1000 and 1, from an initial state, at dk 512 / dv 1024, b 3 and
+     136-wide heads, under the same per-row gate; the same call twice
+     gives the same bits and leaves the sync words zero; plain versions
+     with the first dk block dropped from the inter sum, the first state
+     block's chain not carried, or the normaliser taken from another
+     block's column miss it by far;
   3. serve internlm2-1.8b at its published width (seeded random weights)
      with ServeEngine.generate: bifurcated cache, fused kernel, batch 32,
      context 8192, 16 steps. The fused kernel must launch 24 layers x 15
@@ -238,7 +246,29 @@ printing its result lines:
      2, 3 and none; the bits unmoved), and #1 and #3 at the hybrid's shape
      over its 13 served context caches as in phase 4 (graph-timed, the S
      sweep, the merge's share);
-  5. print the kernels' JSON line, then the result line, last.
+  3k. serve xlstm-1.3b at its published width and depth (48 layers: 6
+     groups of 7 mLSTM + 1 sLSTM, d 2048, 4 heads, mLSTM heads of 1024,
+     chunk 256; seeded random weights made on the card) with
+     ServeEngine.generate: batch 32, context 8192, 16 steps, bf16, sampled.
+     The generate must launch #13 exactly 2 x 42 times (its wide path in
+     each mLSTM layer of the prefill) and no other kernel; #13's output and
+     final state at mLSTM layers 0, 20 and 41 against its plain version on
+     the same inputs (per-row gate); the first 4 samples' prefill logits
+     and first decode step's logits against an fp32 run of the same path
+     on the plain versions at batch 4 (weights widened from the same
+     bf16), within max(2e-2 x max |logit|, 1.5 x the bf16 plain versions'
+     distance from it), and, since a random-weight xLSTM this deep ends
+     its bf16 and fp32 paths far apart whatever the kernels do, every
+     layer of the prefill and the first decode step fed the fp32 path's
+     own input, its increment held to the witness's within max(2e-2 x
+     max, 1.5 x the plain versions' distance). Prints prefill ms, the
+     sLSTM loops' share of it,
+     #13's device time in the prefill (CUDA events around each call),
+     decode ms/step and the states' bytes;
+  4k. time #13's wide path on phase 3k's recorded inputs (three mLSTM
+     layers of the prefill) beside its bound and its plain version;
+  5. print the kernels' JSON line (#13 at both widths), then the result
+     line, last.
 
 Imports torch and the port only; needs a checkout of the repository (it
 builds the kernels from its sources) and a CUDA device.
@@ -249,6 +279,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -2072,17 +2103,24 @@ def check_chunked(name, x, chunk, normalize=False):
     return err_o
 
 
-def faulty_chunked_plain(q, k, v, a, chunk, fault, s0=None):
+def faulty_chunked_plain(q, k, v, a, chunk, fault, s0=None,
+                         normalize=False):
     """The plain version's order (fp32): each chunk's own products and
     state contribution, the chain of states from ``s0`` (None: zero), then
     the inter term; with one planted fault: the state not carried across
     chunks, the inter-chunk term without e^{A_i}, an exclusive cumsum, the
     in-chunk causal mask dropped, the padded rows given a nonzero decay,
     the state handed to the wrong chunk (chunk c's rows against S_{c-1}),
-    or the initial state dropped (None: no fault)."""
+    the initial state dropped, and for the wide path's 64 x 64 state
+    blocks: the first dk block dropped from the inter sum, the first
+    block's chain not carried (its S_c zero past chunk 0), or, with
+    ``normalize``, the normaliser taken from a column of another block
+    (None: no fault)."""
     import torch
     import torch.nn.functional as F
 
+    if normalize:
+        v = torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
     b, n, H, dk = q.shape
     c = min(chunk, n)
     pad = (-n) % c
@@ -2120,10 +2158,19 @@ def faulty_chunked_plain(q, k, v, a, chunk, fault, s0=None):
             S = S0
         elif fault == "state to the wrong chunk":
             S = states[max(i - 1, 0)]
+        elif fault == "block chain not carried" and i > 0:
+            S = S.clone()
+            S[:, :, :64, :64] = 0.0
+        qi = q[:, c0:c0 + c]
+        if fault == "dk block dropped":
+            qi = torch.cat([torch.zeros_like(qi[..., :64]), qi[..., 64:]], -1)
         e_a = 1.0 if fault == "inter without e^A" else torch.exp(A)[..., None]
-        out.append(intra[i] + torch.einsum("bihk,bhkv->bihv",
-                                           q[:, c0:c0 + c] * e_a, S))
-    return torch.cat(out, dim=1)[:, :n], states[-1]
+        out.append(intra[i] + torch.einsum("bihk,bhkv->bihv", qi * e_a, S))
+    out = torch.cat(out, dim=1)[:, :n]
+    if normalize:
+        den = out[..., -65 if fault == "normaliser from another block" else -1]
+        out = out[..., :-1] / torch.clamp(den.abs(), min=1.0)[..., None]
+    return out, states[-1]
 
 
 def check_chunked_kernels():
@@ -2189,7 +2236,74 @@ def check_chunked_kernels():
           + ", ".join(f"{k} {r:.2f}" for k, r in rels.items()))
     for fault, rel in rels.items():
         check(rel >= 10 * TOL, f"the #13 gate misses '{fault}'")
-    return {"chunked_linear_attention": err}
+    return {"chunked_linear_attention": err,
+            "chunked_linear_attention_wide": check_chunked_wide()}
+
+
+MLSTM_HEADS, MLSTM_HD = 4, 1024     # xlstm-1.3b's mLSTM: dk = dv = 1024
+
+
+def check_chunked_wide():
+    """Phase 2's cases of #13's wide path (heads past 128: two launches a
+    call); returns the max abs error of the mLSTM shape's case."""
+    import torch
+    from repro_torch.kernels import chunked_linear as cl
+
+    H, hd, C = MLSTM_HEADS, MLSTM_HD, SSM_CHUNK
+    x = chunked_inputs(1, CONTEXT, H, hd, hd, 100)
+    n0 = cl.chunked_linear_attention.launches
+    err = check_chunked("wide: the mLSTM's shape, normalised", x, C,
+                        normalize=True)
+    check(cl.chunked_linear_attention.launches == n0 + 2,
+          "the wide path is not two launches a call")
+    # the same call twice: the same bits, and the sync words zero again
+    again = [cl.chunked_linear_attention(*x[:4], chunk=C, normalize=True)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*again)),
+          "#13's wide path is not deterministic")
+    check(all(int(w.abs().sum()) == 0 for w in cl._SYNC.values()),
+          "#13's sync words are not zero after a call")
+    print("check wide: the mLSTM's shape twice: bit-identical, sync words "
+          "zero")
+    for i, (name, shape, kw, chunk, norm) in enumerate([
+            ("wide: n off the chunk", (1, 1000, H, hd, hd), {}, C, True),
+            ("wide: n 1", (1, 1, H, hd, hd), {}, C, True),
+            ("wide: initial state", (1, 2048, H, hd, hd), dict(init=True), C,
+             True),
+            ("wide: dk != dv", (1, 2048, H, 512, hd), {}, C, False),
+            ("wide: b > 1", (3, 1024, H, hd, hd), {}, C, True),
+            ("wide: 136-wide heads", (2, 1000, 8, 136, 136), dict(init=True),
+             C, False)]):
+        q, k, v, a, s0 = chunked_inputs(*shape, seed=101 + i, **kw)
+        if norm and s0 is not None:
+            s0 = torch.nn.functional.pad(s0, (0, 1))
+        check_chunked(name, (q, k, v, a, s0), chunk, normalize=norm)
+
+    # gate sensitivity on the wide path: a faulty plain version misses the
+    # per-row gate by far (the block faults on 136-wide heads from an
+    # initial state, where the first 64 x 64 block is half a head's state;
+    # the normaliser's on the mLSTM's heads)
+    rels = {}
+    for shape, norm, faults in (
+            ((1, 1000, 8, 136, 136), False, ("dk block dropped",
+                                             "block chain not carried")),
+            ((1, 1000, H, hd, hd), True, ("normaliser from another block",))):
+        q, k, v, a, s0 = chunked_inputs(*shape, seed=111, init=not norm)
+        out, _ = cl.chunked_linear_attention(q, k, v, a, chunk=C,
+                                             normalize=norm, initial_state=s0)
+        good, _ = faulty_chunked_plain(q, k, v, a, C, None, s0, norm)
+        check(within_rows(out, good)[0], "#13's wide path disagrees with "
+                                         "the faulty plain's own order")
+        for fault in faults:
+            bad, _ = faulty_chunked_plain(q, k, v, a, C, fault, s0, norm)
+            rels[fault] = within_rows(out, bad)[2]
+    print("check #13 wide gate sensitivity (n 1000, chunk 256): a faulty "
+          "plain version's worst row error / its max: "
+          + ", ".join(f"{k} {r:.2f}" for k, r in rels.items()))
+    for fault, rel in rels.items():
+        check(rel >= 10 * TOL, f"the #13 wide gate misses '{fault}'")
+    return err
 
 
 def check_kernels():
@@ -4886,31 +5000,42 @@ HYBRID_SAMPLE_LAYERS = (0, 40, 80)   # Mamba2 layers whose #13 call is checked
 
 
 class record_chunked:
-    """Keep the inputs and results of #13's calls at the Mamba2 layers
-    ``layers`` (in call order) for the duration of a ``with`` block."""
+    """Keep the inputs and results of #13's calls at the layers ``layers``
+    (in call order) of the model module ``module`` (mamba: the Mamba2
+    layers; xlstm: the mLSTM layers) for the duration of a ``with`` block,
+    and a pair of CUDA events around every call (``device_ms``: their
+    sum)."""
 
-    def __init__(self, layers):
-        self.layers, self.calls, self.n = set(layers), [], 0
+    def __init__(self, layers, module="mamba"):
+        import importlib
+
+        self.mod = importlib.import_module(f"repro_torch.models.{module}")
+        self.layers, self.calls, self.n, self.events = set(layers), [], 0, []
 
     def __enter__(self):
-        from repro_torch.models import mamba
+        import torch
 
-        self.real = mamba.chunked_linear_attention
+        self.real = self.mod.chunked_linear_attention
 
         def rec(q, k, v, a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
             out, S = self.real(q, k, v, a, **kw)
+            ev[1].record()
+            self.events.append(ev)
             if self.n in self.layers:
                 self.calls.append((self.n, (q, k, v, a), kw, out, S))
             self.n += 1
             return out, S
 
-        mamba.chunked_linear_attention = rec
+        self.mod.chunked_linear_attention = rec
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.models import mamba
+        self.mod.chunked_linear_attention = self.real
 
-        mamba.chunked_linear_attention = self.real
+    def device_ms(self):
+        return sum(a.elapsed_time(b) for a, b in self.events)
 
 
 def serve_hybrid():
@@ -5072,6 +5197,235 @@ def serve_hybrid():
     torch.cuda.empty_cache()
     print(f"serve hybrid: phase 3i took {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3k: xlstm-1.3b served
+# ---------------------------------------------------------------------------
+
+XLSTM_SAMPLE_LAYERS = (0, 20, 41)   # mLSTM layers whose #13 call is checked
+WITNESS_BATCH = 4   # the plain versions' runs: the first samples' rows
+
+
+def serve_xlstm():
+    """Phase 3k: ServeEngine.generate on xlstm-1.3b at its published width
+    and depth (seeded random weights made on the card), bf16. Returns
+    ({kernel name: launches} of the run, #13's max abs error over the
+    sampled layers, #13's recorded inputs) for phase 4k."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import cast_weights
+    from repro_torch.kernels import chunked_linear as cl
+    from repro_torch.models import get_model, xlstm
+
+    t_phase = time.perf_counter()
+    tag = "serve xlstm"
+    cfg = get_config("xlstm-1.3b")
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    _, nh, hd = xlstm._dims(cfg)
+    n_mlstm = model.n_groups * model.m_per_group
+    print(f"{tag}: {cfg.name} {cfg.n_layers} layers ({model.n_groups} groups "
+          f"of {model.m_per_group} mLSTM + 1 sLSTM; d {cfg.d_model}, {nh} "
+          f"heads, mLSTM dk = dv = {hd} + the normaliser, chunk "
+          f"{cfg.ssm.chunk}), vocab {cfg.padded_vocab}: "
+          f"{n_params / 1e9:.3f} B params, init "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = torch.Generator(device=DEVICE).manual_seed(5)
+    ctx = torch.randint(0, cfg.vocab_size, (1, CONTEXT), generator=rng,
+                        device=DEVICE)
+    engine = xlstm_engine(cfg, model, BATCH)
+
+    # the counted generate: the prefill's logits, ms and sLSTM loops'
+    # time, #13's calls (the sampled layers kept, each call's device time)
+    # and the first decode step's logits recorded on the way
+    seen, slstm_ms = {}, []
+    real_pre, real_dec = engine.prefill_shared, model.decode_step
+    real_slstm = xlstm.apply_slstm_prefill
+
+    def spy_pre(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_pre(*a)
+        torch.cuda.synchronize()
+        seen["prefill_s"] = time.perf_counter() - t0
+        seen["prefill"] = out[0].clone()
+        return out
+
+    def spy_dec(prm, cache, tok, **kw):
+        out = real_dec(prm, cache, tok, **kw)
+        if "decode" not in seen:
+            seen["decode"], seen["tok"] = out[0].clone(), tok.clone()
+        return out
+
+    def spy_slstm(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_slstm(*a)
+        torch.cuda.synchronize()
+        slstm_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    engine.prefill_shared, model.decode_step = spy_pre, spy_dec
+    xlstm.apply_slstm_prefill = spy_slstm
+    torch.cuda.synchronize()
+    reset_launches()
+    try:
+        with record_chunked(XLSTM_SAMPLE_LAYERS, "xlstm") as rec:
+            t0 = time.perf_counter()
+            result = engine.generate(params, ctx, n_steps=STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        del engine.prefill_shared, model.decode_step
+        xlstm.apply_slstm_prefill = real_slstm
+    counts = read_launches()
+    print(f"{tag}: generate launches {counts}")
+    want_13 = 2 * n_mlstm       # the wide path: two launches a call
+    expect_counts(counts, {"chunked_linear_attention": want_13})
+    check(rec.n == n_mlstm, f"#13 called {rec.n} times")
+    toks, lps = result.tokens, result.logprobs
+    check(tuple(toks.shape) == (BATCH, STEPS), f"tokens {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "token range")
+    check(bool(torch.isfinite(lps).all() and (lps <= 0).all()), "logprobs")
+    check(len({tuple(t) for t in toks.tolist()}) > 1,
+          "every sample drew the same tokens: the states are shared")
+    prefill_s = seen["prefill_s"]
+    k13_ms = rec.device_ms()
+    state_bytes = sum(math.prod(shape) * torch.tensor([], dtype=dt
+                                                      ).element_size()
+                      for shape, dt in model.cache_spec(BATCH).values())
+    print(f"{tag}: generate {wall * 1e3:.1f} ms = prefill "
+          f"{prefill_s * 1e3:.1f} ms + {STEPS - 1} decode steps at "
+          f"{(wall - prefill_s) / (STEPS - 1) * 1e3:.2f} ms/step (batch "
+          f"{BATCH}, context {CONTEXT}; states {state_bytes} bytes)")
+    print(f"{tag}: prefill: the {len(slstm_ms)} sLSTM layers' loops "
+          f"{sum(slstm_ms):.1f} ms ({sum(slstm_ms) / (prefill_s * 1e3):.1%};"
+          f" per layer " + ", ".join(f"{x:.0f}" for x in slstm_ms)
+          + f"); #13 {k13_ms:.2f} ms on the device in {rec.n} calls, "
+          f"{want_13} launches (CUDA events around each call; "
+          f"{k13_ms / (prefill_s * 1e3):.1%})")
+
+    errs = []
+    for layer, ops, kw, o, S in rec.calls:
+        want, S_p = cl.chunked_linear_attention_plain(*ops, **kw)
+        ok_o, err_o, rel_o = within_rows(o, want)
+        ok_s, _, rel_s = within_rows(S.flatten(2), S_p.flatten(2))
+        check(ok_o and ok_s, f"{tag}: layer {layer}: #13 disagrees with its "
+                             f"plain version")
+        errs.append((layer, err_o, rel_o, rel_s))
+    print(f"{tag}: #13 against its plain version on the served inputs, per "
+          f"(mLSTM layer: max_abs_err, worst row, worst head state): "
+          + ", ".join(f"{li}: {e:.2e} {r:.1e} {rs:.1e}"
+                      for li, e, r, rs in errs)
+          + f" (gate {TOL:g} per row / head)")
+    calls = [ops for _, ops, _, _, _ in rec.calls]
+    del rec, result
+
+    # the plain versions in bf16 and the fp32 witness on the plain versions
+    # (weights widened from the same bf16): the same path at batch
+    # WITNESS_BATCH, the first samples' tokens
+    wb = WITNESS_BATCH
+    tok = seen["tok"][:wb]
+    witness = xlstm_engine(cfg, model, wb)
+    params32 = cast_weights(params, torch.float32)
+    runs = {}
+    for name, prm in (("plain", params), ("witness", params32)):
+        with plain_versions():
+            l_pre, cache = witness.prefill_shared(prm, ctx, wb)
+            l_dec, _ = model.decode_step(prm, cache, tok)
+        runs[name] = (l_pre, l_dec)
+        del cache
+        gc.collect()
+    for i, what in enumerate(("prefill logits", "first decode step logits")):
+        got = (seen["prefill"], seen["decode"])[i][:wb]
+        gate_logits(f"{tag} (kernel path vs fp32 witness, batch {wb})", what,
+                    got, runs["witness"][i], runs["plain"][i])
+    xlstm_layer_witness(tag, cfg, model, params, params32, ctx, tok)
+    del params, params32, runs, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{tag}: phase 3k took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": want_13, "err": max(e for _, e, _, _ in errs),
+            "calls": calls}
+
+
+def xlstm_layer_witness(tag, cfg, model, params, params32, ctx, tok):
+    """Phase 3k's gate layer by layer: every layer of the prefill and of
+    the first decode step fed the fp32 witness's own input (its residual
+    stream, and for the decode its states, copied per sample), in bf16
+    through the kernel path and through the plain versions, and in fp32
+    through the plain versions. Each layer's increment (output less input)
+    on the kernel path must lie within max(2e-2 x max |witness's|, 1.5 x
+    the bf16 plain versions' distance) of the witness's; the decode step's
+    (no kernel runs in it) within max(2e-2, 1.5 x the same layer's prefill
+    plain distance) of max |witness's|. A random-weight xLSTM this deep
+    carries each layer's bf16 rounding (~1% of its increment) into every
+    later layer and ends with logits unrelated to the fp32 path's, so the
+    whole-path gate above cannot tell a fault from rounding; this one
+    holds each layer to rounding alone."""
+    import torch
+    from repro_torch.models import xlstm
+
+    fns = {"m": (xlstm.apply_mlstm_prefill, xlstm.apply_mlstm_decode),
+           "s": (xlstm.apply_slstm_prefill, xlstm.apply_slstm_decode)}
+    layers32 = {(kind, at): lp for kind, at, lp in model._layers(params32)}
+    x, xd = params32["embed"][ctx], params32["embed"][tok]
+    wb = tok.shape[0]
+
+    def fan(st):   # the batch-1 states, one copy per sample
+        if isinstance(st, tuple):
+            return tuple(fan(t) for t in st)
+        return st.expand(wb, *st.shape[1:]).contiguous()
+
+    rels = {"m": [], "s": []}
+    for kind, at, lp in model._layers(params):
+        pre, dec = fns[kind]
+        lw = layers32[(kind, at)]
+        xb, xdb = x.bfloat16(), xd.bfloat16()
+        y_k, _ = pre(cfg, lp, xb)
+        with plain_versions():
+            y_p, _ = pre(cfg, lp, xb)
+            y_w, st_w = pre(cfg, lw, x)
+        inc_w = y_w - x
+        e_k, scale = gap(y_k.float() - xb.float(), inc_w)
+        e_p, _ = gap(y_p.float() - xb.float(), inc_w)
+        check(e_k <= max(TOL * scale, 1.5 * e_p),
+              f"{tag}: layer {kind} {at}: the prefill's increment is off the "
+              f"fp32 witness's")
+        yd_k, _ = dec(cfg, lp, xdb, fan(st_w))
+        yd_w, _ = dec(cfg, lw, xd, fan(st_w))
+        e_d, scale_d = gap(yd_k.float() - xdb.float(), yd_w - xd)
+        check(e_d <= max(TOL, 1.5 * e_p / scale) * scale_d,
+              f"{tag}: layer {kind} {at}: the decode step's increment is off "
+              f"the fp32 witness's")
+        rels[kind].append((at, e_k / scale, e_p / scale, e_d / scale_d))
+        x, xd = y_w, yd_w
+        del y_k, y_p, st_w
+    for kind, name in (("m", "mLSTM"), ("s", "sLSTM")):
+        r = rels[kind]
+        print(f"{tag}: layer by layer on the fp32 witness's inputs, "
+              f"{len(r)} {name} layers: increment error / max |witness "
+              f"increment|, prefill kernel path worst "
+              f"{max(x[1] for x in r):.2e} (bf16 plain versions "
+              f"{max(x[2] for x in r):.2e}), first decode step worst "
+              f"{max(x[3] for x in r):.2e}; per layer (kernel, plain, "
+              f"decode): " + ", ".join(
+                  f"{at}: {k:.1e} {p:.1e} {d:.1e}" for at, k, p, d in r))
+
+
+def xlstm_engine(cfg, model, batch):
+    """The serve engine phase 3k drives: ``batch`` samples, sampled at
+    temperature 0.8 (so each sample's states take their own tokens)."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.runtime.serve import ServeEngine
+
+    return ServeEngine(model, cfg, ServeConfig(
+        batch=batch, context_len=CONTEXT, decode_capacity=max(16, STEPS + 8),
+        temperature=0.8))
 
 
 # ---------------------------------------------------------------------------
@@ -5922,57 +6276,64 @@ def time_flash_kernel(launches, errs):
     return entries[:1]
 
 
-def time_chunked_kernel(calls, launches, err):
-    """#13 at the slice's shape on phase 3i's recorded inputs (three Mamba2
-    layers of the bf16 prefill: q and k the model's head-broadcast views),
-    beside its bound, its plain version; no one PyTorch call computes
-    chunked linear attention, so the library column is null."""
+def time_chunked_kernel(calls, launches, err, chunk=SSM_CHUNK,
+                        normalize=False, name="chunked_linear_attention"):
+    """#13 on a serve phase's recorded inputs (three layers of its prefill:
+    3i's Mamba2 layers, q and k the model's head-broadcast views; 3k's
+    mLSTM layers, normalised, the wide path) beside its bound and its plain
+    version; no one PyTorch call computes chunked linear attention, so the
+    library column is null. At the narrow kernel's shape, a sweep over the
+    CTAs an SM holds."""
+    import torch
     from repro_torch.kernels import chunked_linear as cl
 
+    kw = dict(chunk=chunk, normalize=normalize)
+
     def kern(i):
-        return cl.chunked_linear_attention(*calls[i], chunk=SSM_CHUNK)
+        return cl.chunked_linear_attention(*calls[i], **kw)
 
     def plain(i):
-        return cl.chunked_linear_attention_plain(*calls[i], chunk=SSM_CHUNK)
+        return cl.chunked_linear_attention_plain(*calls[i], **kw)
 
     q, k, v, a = calls[0]
     b, n, H, dk = q.shape
     dv = v.shape[-1]
-    # the bytes as the model hands them: q and k (b, n, dk) views read once,
-    # v and the output, the log-decay, the final state
-    nbytes = (2 * b * n * dk * 2 + 2 * b * n * H * dv * 2 + b * n * H * 4
-              + b * H * dk * dv * 4)
+    dv_s = dv + normalize            # the state's columns
+    qk_heads = 1 if q.stride(2) == 0 else H
+    # the bytes as the model hands them: q and k (head-broadcast views read
+    # once), v and the output, the log-decay, the final state
+    nbytes = (2 * b * n * qk_heads * dk * 2 + 2 * b * n * H * dv * 2
+              + b * n * H * 4 + b * H * dk * dv_s * 4)
     # per chunk of C: q.k^T and P.v over the causal half (C^2 (dk + dv)),
     # q.S and the state update (2 C dk dv each); 2 operations a product
-    n_chunks = -(-n // SSM_CHUNK)
-    c = min(SSM_CHUNK, n)
-    flop = b * H * n_chunks * (c * c * (dk + dv) + 4 * c * dk * dv)
-    print(f"time: chunked_linear_attention at the slice's shape (b={b} n={n} "
-          f"H={H} dk={dk} dv={dv} chunk={SSM_CHUNK}, q/k strides "
-          f"{tuple(q.stride())}; no library call computes it)")
-    entry = _timed_entry("chunked_linear_attention", "chunked_linear.cu", 83,
-                         kern, plain, None, nbytes, flop, launches, err,
-                         len(calls), module="chunked_linear.py")
-    # the design's one free parameter: the CTAs an SM holds (the bits do
-    # not move with it)
-    import torch
-
+    n_chunks = -(-n // chunk)
+    c = min(chunk, n)
+    flop = b * H * n_chunks * (c * c * (dk + dv_s) + 4 * c * dk * dv_s)
+    print(f"time: {name} (b={b} n={n} H={H} dk={dk} dv={dv} normalize="
+          f"{normalize} chunk={chunk}, q/k strides {tuple(q.stride())}; no "
+          f"library call computes it)")
+    entry = _timed_entry(name, "chunked_linear.cu", 83, kern, plain, None,
+                         nbytes, flop, launches, err, len(calls),
+                         module="chunked_linear.py")
+    print(f"time: {name}: {flop / entry['ms'] / 1e9:.1f} TFLOP/s of its "
+          f"{flop / 1e9:.2f} GFLOP")
+    if max(dk, dv_s) > cl.KERNEL_MAX_DIM:
+        return entry
+    # the narrow design's one free parameter: the CTAs an SM holds (the
+    # bits do not move with it)
     out, st = kern(0)
     times = {}
     for cap in (1, 2, 3, None):
-        o, s = cl.chunked_linear_attention(*calls[0], chunk=SSM_CHUNK,
-                                           ctas_per_sm=cap)
+        o, s = cl.chunked_linear_attention(*calls[0], ctas_per_sm=cap, **kw)
         check(bool(torch.equal(o, out) and torch.equal(s, st)),
               f"#13's bits move with ctas_per_sm={cap}")
-        times[cap] = (cl.occupancy(dk, dv, SSM_CHUNK, cap), time_ms(
+        times[cap] = (cl.occupancy(dk, dv, chunk, cap), time_ms(
             lambda i, cap=cap: cl.chunked_linear_attention(
-                *calls[i], chunk=SSM_CHUNK, ctas_per_sm=cap), len(calls)))
+                *calls[i], ctas_per_sm=cap, **kw), len(calls)))
     print("time (occupancy sweep): chunked_linear_attention, CTAs an SM "
           "(ctas_per_sm cap): " + ", ".join(
               f"{occ}{' (default)' if cap is None else f' (cap {cap})'} "
-              f"{t * 1e3:.1f} us" for cap, (occ, t) in times.items())
-          + f"; {flop / entry['ms'] / 1e9:.1f} TFLOP/s of its "
-          f"{flop / 1e9:.2f} GFLOP at the default")
+              f"{t * 1e3:.1f} us" for cap, (occ, t) in times.items()))
     return entry
 
 
@@ -6134,6 +6495,17 @@ def main():
     from repro_torch.configs import get_config
     time_hybrid_decode(get_config("zamba2-7b"), hyb["attn"], hyb["attn_q8"])
     lap("phases 3i-4i")
+    del hyb
+    gc.collect()
+    torch.cuda.empty_cache()
+    xl = serve_xlstm()
+    entries.append(time_chunked_kernel(
+        xl["calls"], xl["launches"],
+        max(errs["chunked_linear_attention_wide"], xl["err"]),
+        chunk=get_config("xlstm-1.3b").ssm.chunk, normalize=True,
+        name="chunked_linear_attention (wide: mLSTM, dk 1024, dv 1024 + 1)"))
+    del xl
+    lap("phases 3k-4k")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))

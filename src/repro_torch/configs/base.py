@@ -2,9 +2,10 @@
 
 The port's own copy of the reference's configuration (``repro/configs``):
 the same fields, defaults and derived properties, so a config built here
-describes the same model as its counterpart there. The dense family and
-the zamba2 hybrid (its ``SSMConfig`` and ``attn_period``) are ported; the
-fields and classes that only the other families read (mixture-of-experts,
+describes the same model as its counterpart there. The dense family, the
+zamba2 hybrid (its ``SSMConfig`` and ``attn_period``) and xLSTM
+(``SSMConfig.kind`` "mlstm" and ``slstm_every``) are ported; the fields and
+classes that only the other families read (mixture-of-experts,
 encoder-decoder, vision) are left out until their slices port them.
 """
 from __future__ import annotations
@@ -36,7 +37,8 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # "dense" | "hybrid": the families ported
+    family: str                  # "dense" | "hybrid" | "xlstm": the families
+                                 # ported
     n_layers: int
     d_model: int
     n_heads: int

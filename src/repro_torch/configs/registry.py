@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig, plus reduced
 smoke-test variants and the paper's own model configs (Table 1/4).
 
-Only the architectures the port serves are registered (the dense ones and
-the zamba2 hybrid); each other family's configs arrive with the slice that
-ports that family."""
+Only the architectures the port serves are registered (the dense ones, the
+zamba2 hybrid and xlstm-1.3b); each other family's configs arrive with the
+slice that ports that family."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,6 +16,7 @@ _ARCH_MODULES = {
     "qwen1.5-32b": "repro_torch.configs.qwen1_5_32b",
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)
@@ -78,7 +79,10 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         head_pad_multiple=1,
         decode_capacity=16,
     )
-    if cfg.family == "hybrid":
+    if cfg.family == "xlstm":
+        kw.update(n_layers=4, n_heads=2, n_kv_heads=2,
+                  ssm=dataclasses.replace(cfg.ssm, slstm_every=2, chunk=16))
+    elif cfg.family == "hybrid":
         kw.update(n_layers=5, attn_period=2,
                   ssm=dataclasses.replace(cfg.ssm, state_dim=8, head_dim=8, chunk=16))
     else:

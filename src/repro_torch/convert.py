@@ -4,8 +4,11 @@
 ``repro.models.TransformerLM.init`` returns, layers stacked under
 ``params["layers"]`` with a leading L axis, or ``repro.models.HybridModel
 .init``'s, Mamba2 layers stacked under ``params["mamba"]`` /
-``["mamba_tail"]``) with every leaf given as a numpy array, and returns the
-same tree of torch tensors, which the port's model takes as its weights.
+``["mamba_tail"]``, or ``repro.models.XLSTMModel.init``'s, mLSTM layers
+stacked (groups, per group) under ``params["mlstm"]``, sLSTM layers under
+``params["slstm"]``) with every leaf given as a numpy array, and returns
+the same tree of torch tensors, which the port's model takes as its
+weights.
 This module imports no jax: the caller hands it numpy.
 """
 from __future__ import annotations
@@ -16,11 +19,15 @@ import torch
 from repro_torch import resolve_device
 
 # Leaves the reference applies in float32, kept so: the norm params
-# (blocks.apply_norm, rms_normalize: ln1, ln2, final_norm, the Mamba2 "ln"
-# and "norm_scale") and the Mamba2 leaves its float32 arithmetic reads
-# (A_log, dt_bias, the conv's conv_w and conv_b; models/mamba.py).
+# (blocks.apply_norm, rms_normalize: ln1, ln2, final_norm, the Mamba2 and
+# xLSTM "ln" and "norm_scale"), the Mamba2 leaves its float32 arithmetic
+# reads (A_log, dt_bias, the conv's conv_w and conv_b; models/mamba.py) and
+# the xLSTM gates' (the mLSTM's w_gates and gate_bias, the sLSTM's r_rec
+# and bias; models/xlstm.py). "bias" is also a layernorm leaf, which sits
+# under ln1 / ln2 / final_norm and is kept anyway.
 FP32_KEYS = ("ln1", "ln2", "final_norm", "ln", "norm_scale", "A_log",
-             "dt_bias", "conv_w", "conv_b")
+             "dt_bias", "conv_w", "conv_b", "w_gates", "gate_bias", "r_rec",
+             "bias")
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:

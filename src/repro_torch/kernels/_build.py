@@ -104,6 +104,11 @@ SIGNATURES = {
         "chunked_linear_attention": [_P] * 8 + [_L] * 9 + [_I] * 8 + [_P],
         # d, chunk, ctas_per_sm, out (one int32)
         "chunked_linear_occupancy": [_I] * 3 + [_P],
+        # the wide path's two launches, the same arguments: q, k, v,
+        # log_decay, s0, scores, out, s_out, sync, the strides (batch,
+        # position, head) of q, k and v, b, n, H, dk, dv, chunk, stream
+        "chunked_linear_scores": [_P] * 9 + [_L] * 9 + [_I] * 6 + [_P],
+        "chunked_linear_wide": [_P] * 9 + [_L] * 9 + [_I] * 6 + [_P],
     },
 }
 SOURCES = {name: CSRC / f"{name}.cu" for name in SIGNATURES}

@@ -21,24 +21,32 @@ version.
   max(|that column's output|, 1), in v's dtype, as the reference's wrapper
   does. Returns (out (b, n, H, dv) in v's dtype, final state (b, H, dk,
   dv[+1]) fp32). Written in CUDA C++ for Hopper (``csrc/chunked_linear.cu``,
-  built by ``_build.py``): one CTA per (batch, head, chunk), the state
-  handed from chunk to chunk through L2 by a flag per head, one launch a
-  call; its bound, design and the precision of its four products are written
-  at the top of the source. Replaces ``repro/kernels/chunked_linear.py:
-  chunked_linear_attention_kernel`` (Pallas, ``_chunk_kernel``), which has
-  no initial state.
+  built by ``_build.py``). Heads up to 128 wide (Mamba2's 64): one CTA per
+  (batch, head, chunk), the state handed from chunk to chunk through L2 by
+  a flag per head, one launch a call. Wider heads (xLSTM's mLSTM: dk 1024,
+  dv 1024 and the normaliser column) take the wide path, two launches a
+  call: the intra term's decay-weighted scores P once per (head, chunk)
+  into a scratch buffer, then one CTA per (batch, head, chunk, 64 columns
+  of dv) walking dk in 64-row blocks, the state as 64 x 64 blocks each
+  with its own chain and flag. Their bounds, designs and the precision of
+  their products are written in the source. Replaces ``repro/kernels/
+  chunked_linear.py:chunked_linear_attention_kernel`` (Pallas,
+  ``_chunk_kernel``), which has no initial state.
 
 The wrapper takes CPU tensors to the plain version and CUDA tensors to the
-kernel, which takes bf16 q, k, v only (fp32 raises ``TypeError`` there),
-dk and dv up to 128 (larger raise ``ValueError``; a size that is not a
-multiple of 8 is zero-padded here), q, k and v through their strides with
-the last dim contiguous (the model's head-broadcast q and k go in as
-views), and a chunk whose cumulative log-decay fits the CTA's shared
-memory beside its tiles (up to ~23,000 rows at 128-wide heads; a larger
-one is refused at launch). It never falls back.
-``chunked_linear_attention.launches`` counts kernel launches, one a call.
-``ctas_per_sm`` (the kernel's one free parameter, a measurement knob)
-caps the CTAs an SM holds; ``occupancy`` says how many it holds.
+kernels, which take bf16 q, k, v only (fp32 raises ``TypeError`` there),
+dk up to 1024 and dv up to 1032 (after the normaliser column; larger raise
+``ValueError``; a size that is not a multiple of 8 is zero-padded here), q,
+k and v through their strides with the last dim contiguous (the model's
+head-broadcast q and k go in as views). The narrow kernel takes a chunk
+whose cumulative log-decay fits the CTA's shared memory beside its tiles
+(up to ~23,000 rows at 128-wide heads; a larger one is refused at launch),
+the wide path chunks of up to 256 rows (larger raise ``ValueError``). It
+never falls back.
+``chunked_linear_attention.launches`` counts kernel launches: one a call
+up to 128-wide heads, two on the wide path.
+``ctas_per_sm`` (the narrow kernel's one free parameter, a measurement
+knob) caps the CTAs an SM holds; ``occupancy`` says how many it holds.
 """
 from __future__ import annotations
 
@@ -50,8 +58,12 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 from repro_torch.kernels.bifurcated_decode import _launch, _on_cuda
 
-KERNEL_MAX_DIM = 128
-KERNEL_DIMS = (16, 32, 64, 128)      # the kernel's padded sizes
+KERNEL_MAX_DIM = 128                 # the narrow kernel's widest head
+KERNEL_DIMS = (16, 32, 64, 128)      # its padded sizes
+WIDE_MAX_DK, WIDE_MAX_DV = 1024, 1032   # the wide path's (dv: 1024 + 1,
+                                        # padded to a multiple of 8)
+WIDE_MAX_CHUNK = 256
+WIDE_BLOCK = 64                      # its state blocks are 64 x 64
 MAX_CTAS_PER_SM = 32
 _SYNC = {}      # (device index, stream) -> the kernel's int32 sync words
 
@@ -157,9 +169,10 @@ def _ctas_arg(ctas_per_sm):
 
 
 def _sync_words(device, n):
-    """The kernel's ticket counter and per-(batch, head) chain flags: at
-    least ``n`` int32 words, zero between calls (each launch leaves them
-    zero), one buffer per device and stream (calls on one stream run one
+    """The kernels' ticket counter and chain flags (one per (batch, head),
+    or per (batch, head, state block) on the wide path): at least ``n``
+    int32 words, zero between calls (each launch leaves them zero), one
+    buffer per device and stream (calls on one stream run one
     after the other)."""
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     buf = _SYNC.get(key)
@@ -187,7 +200,9 @@ def chunked_linear_attention(q, k, v, log_decay, *, chunk=256,
     """Chunked linear attention of q, k (b, n, H, dk), v (b, n, H, dv)
     under log_decay (b, n, H); returns (out (b, n, H, dv) in v's dtype,
     final state (b, H, dk, dv[+1]) fp32). ``ctas_per_sm``: None, or at
-    most that many of the kernel's CTAs an SM (the result is the same)."""
+    most that many of the narrow kernel's CTAs an SM (the result is the
+    same). On CUDA one launch, or two for heads past 128 wide, each
+    counted in ``chunked_linear_attention.launches``."""
     _check(q, k, v, log_decay, chunk, initial_state, normalize)
     cap = _ctas_arg(ctas_per_sm)
     if initial_state is None:
@@ -205,13 +220,20 @@ def chunked_linear_attention(q, k, v, log_decay, *, chunk=256,
     if normalize:
         v = _ones_column(v)
     dv = v.shape[-1]
-    if max(dk, dv) > KERNEL_MAX_DIM:
-        raise ValueError(f"the kernel takes dk and dv up to "
-                         f"{KERNEL_MAX_DIM}, not {dk} and {dv}: a state of "
-                         f"that size does not fit one CTA's shared memory")
     dk8, dv8 = -(-dk // 8) * 8, -(-dv // 8) * 8
-    d = _padded_dim(max(dk8, dv8))
     c = min(chunk, n)
+    wide = max(dk8, dv8) > KERNEL_MAX_DIM
+    if wide:
+        if dk8 > WIDE_MAX_DK or dv8 > WIDE_MAX_DV:
+            raise ValueError(f"the kernels take dk up to {WIDE_MAX_DK} and "
+                             f"dv up to {WIDE_MAX_DV} (with the normaliser "
+                             f"column), not {dk} and {dv}")
+        if c > WIDE_MAX_CHUNK:
+            raise ValueError(f"the wide path (heads past {KERNEL_MAX_DIM}) "
+                             f"takes chunks of up to {WIDE_MAX_CHUNK} rows, "
+                             f"not {c}")
+        if cap:
+            raise ValueError("ctas_per_sm caps the narrow kernel only")
     qk = [_kernel_operand(t, dk8) for t in (q, k)]
     vk = _kernel_operand(v, dv8)
     for t in qk + [vk]:
@@ -227,14 +249,26 @@ def chunked_linear_attention(q, k, v, log_decay, *, chunk=256,
                    (0, dv8 - dv, 0, dk8 - dk)).contiguous()
     out = torch.empty(b, n, H, dv8, dtype=torch.bfloat16, device=q.device)
     state = torch.empty(b, H, dk8, dv8, dtype=torch.float32, device=q.device)
-    sync = _sync_words(q.device, 1 + b * H)
     strides = [s for t in (qk[0], qk[1], vk) for s in t.stride()[:3]]
-    _launch("chunked_linear_attention", q.device, qk[0].data_ptr(),
-            qk[1].data_ptr(), vk.data_ptr(), a.data_ptr(),
-            None if s0 is None else s0.data_ptr(), out.data_ptr(),
-            state.data_ptr(), sync.data_ptr(), *strides, b, n, H, dk8, dv8,
-            d, c, cap)
-    chunked_linear_attention.launches += 1
+    ptrs = [qk[0].data_ptr(), qk[1].data_ptr(), vk.data_ptr(), a.data_ptr(),
+            None if s0 is None else s0.data_ptr()]
+    if wide:
+        blocks = -(-dk8 // WIDE_BLOCK) * -(-dv8 // WIDE_BLOCK)
+        sync = _sync_words(q.device, 1 + b * H * blocks)
+        cp = -(-c // 64) * 64
+        scores = torch.empty(b * H * -(-n // c) * cp * cp,
+                             dtype=torch.float32, device=q.device)
+        args = (*ptrs, scores.data_ptr(), out.data_ptr(), state.data_ptr(),
+                sync.data_ptr(), *strides, b, n, H, dk8, dv8, c)
+        for name in ("chunked_linear_scores", "chunked_linear_wide"):
+            _launch(name, q.device, *args)
+            chunked_linear_attention.launches += 1
+    else:
+        sync = _sync_words(q.device, 1 + b * H)
+        _launch("chunked_linear_attention", q.device, *ptrs, out.data_ptr(),
+                state.data_ptr(), sync.data_ptr(), *strides, b, n, H, dk8,
+                dv8, _padded_dim(max(dk8, dv8)), c, cap)
+        chunked_linear_attention.launches += 1
     out, state = out[..., :dv], state[:, :, :dk, :dv]
     if normalize:
         out = _normalized(out)

@@ -6,6 +6,8 @@
 ``--arch zamba2-7b`` serves the Mamba2 hybrid: its prefill runs kernel
 #13 (``chunked_linear_attention``) in every Mamba2 layer, and with
 ``--kernel`` its shared attention block decodes through the fused kernels.
+``--arch xlstm-1.3b`` serves xLSTM: its prefill runs #13's wide path (two
+launches a call) in every mLSTM layer; it has no attention to decode.
 
 Takes the flags of ``python -m repro.launch.serve``, plus ``--device``
 (default cuda). Reduced config by default; --full serves the published

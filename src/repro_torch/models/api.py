@@ -19,6 +19,10 @@ def get_model(cfg: ModelConfig):
         from repro_torch.models.hybrid import HybridModel
 
         return HybridModel(cfg)
-    if cfg.family in ("moe", "vlm", "xlstm", "encdec"):
+    if cfg.family == "xlstm":
+        from repro_torch.models.xlstm import XLSTMModel
+
+        return XLSTMModel(cfg)
+    if cfg.family in ("moe", "vlm", "encdec"):
         raise NotImplementedError(f"model family {cfg.family!r} is not ported")
     raise ValueError(f"unknown model family: {cfg.family}")

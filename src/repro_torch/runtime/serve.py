@@ -15,7 +15,9 @@ Pipeline (paper Figure 1, bottom):
 The zamba2 hybrid serves through the same engine: its cache is a dict of
 the shared attention block's cache (bifurcated, or the standard fallback),
 the Mamba2 states and the position; ``_broadcast_state`` fans the prefill's
-batch-1 states out to the samples.
+batch-1 states out to the samples. xLSTM's cache is its recurrent states
+alone (the mLSTM's matrix memories, the sLSTM's h and c), fanned out the
+same way; the policy and the cache dtype have nothing to act on there.
 
 Also provides greedy/temperature sampling with top-p, and per-sample
 mean-logprob tracking used for pass@top-k style reranking (paper §5.4).
@@ -140,8 +142,15 @@ class ServeEngine:
     def prefill_shared(self, params, context_tokens, batch: int):
         """context_tokens: (1, m_c). Returns (first logits (batch, V), cache)."""
         cfg, model = self.cfg, self.model
-        if cfg.family not in ("dense", "hybrid"):
+        if cfg.family not in ("dense", "hybrid", "xlstm"):
             raise NotImplementedError(f"family {cfg.family!r} is not ported")
+        if cfg.family == "xlstm":
+            # a state cache: the prefill's final states broadcast to the
+            # samples; no KV cache, so neither the policy nor the cache
+            # dtype applies (as in the reference)
+            logits, cache1 = model.prefill(params, context_tokens)
+            return (logits.expand(batch, logits.shape[-1]),
+                    self._broadcast_state(cache1, batch))
         m_c = context_tokens.shape[1]
         quant = "int8" if self.scfg.cache_dtype == "int8" else "none"
         bifurcated = self.should_bifurcate(batch, m_c)
@@ -185,14 +194,21 @@ class ServeEngine:
         return logits.expand(batch, logits.shape[-1]), cache
 
     def _broadcast_state(self, cache, batch):
-        """A hybrid prefill's cache (batch 1) for ``batch`` samples: the
-        Mamba2 states and the shared block's per-sample arm (bifurcated: the
-        decode arm; standard: the whole cache) copied per sample, since
-        decode updates them in place; a bifurcated context (and its scales)
-        stays unbatched."""
-        def fan(x):
-            return x.expand(x.shape[0], batch, *x.shape[2:]).contiguous()
+        """A state-cache prefill's cache (batch 1) for ``batch`` samples:
+        xLSTM's states; the hybrid's Mamba2 states and its shared block's
+        per-sample arm (bifurcated: the decode arm; standard: the whole
+        cache). Each is copied per sample, since decode updates them in
+        place (an expanded view would let every sample write one state); a
+        bifurcated context (and its scales) stays unbatched."""
+        def fan(x, axis=1):
+            return x.expand(*x.shape[:axis], batch,
+                            *x.shape[axis + 1:]).contiguous()
 
+        if self.cfg.family == "xlstm":
+            return {"mlstm": fan(cache["mlstm"], axis=2),
+                    "slstm_h": fan(cache["slstm_h"]),
+                    "slstm_c": fan(cache["slstm_c"]),
+                    "position": cache["position"]}
         attn = cache["attn"]
         if isinstance(attn, DecodeCache):
             attn = DecodeCache(k=fan(attn.k), v=fan(attn.v), length=attn.length)

@@ -1096,10 +1096,87 @@ def test_chunked_linear_kernel_takes_bf16_and_small_heads_only(cuda):
                                     dtype=torch.float32)
     with pytest.raises(TypeError, match="bfloat16"):
         cl.chunked_linear_attention(q, k, v, a)
-    q, k, v, a, _ = _chunked_inputs(cuda, 1, 64, 2, 256, 64, 0)   # xLSTM-like
+    # past the wide path's widest head (dk 1024), past its chunk (256),
+    # and the narrow kernel's occupancy cap on the wide path
+    q, k, v, a, _ = _chunked_inputs(cuda, 1, 64, 2, 2048, 64, 0)
     with pytest.raises(ValueError, match="up to"):
         cl.chunked_linear_attention(q, k, v, a)
+    q, k, v, a, _ = _chunked_inputs(cuda, 1, 600, 2, 256, 64, 0)
+    with pytest.raises(ValueError, match="chunks of up to"):
+        cl.chunked_linear_attention(q, k, v, a, chunk=512)
+    with pytest.raises(ValueError, match="narrow"):
+        cl.chunked_linear_attention(q, k, v, a, ctas_per_sm=2)
     assert cl.chunked_linear_attention.launches == n0
+
+
+# (b, n, H, dk, dv, chunk, normalize, initial state): the wide path, heads
+# past 128: xLSTM's mLSTM head normalised (dk 1024, dv 1024 + 1) at a
+# shorter n, n off the chunk from a state, n 1, dk != dv, b > 1, the first
+# width past 128, a chunk off the 64-row tile
+WIDE_CHUNKED_SHAPES = [
+    (1, 1024, 2, 1024, 1024, 256, True, False),
+    (1, 700, 2, 256, 256, 256, True, True),
+    (1, 1, 2, 1024, 1024, 256, True, True),
+    (1, 600, 2, 512, 1024, 256, False, True),
+    (3, 300, 2, 256, 136, 64, False, False),
+    (2, 333, 3, 136, 136, 100, False, True),
+]
+
+
+@pytest.mark.parametrize("case", WIDE_CHUNKED_SHAPES)
+def test_chunked_linear_wide_path_matches_plain_version(cuda, case):
+    """#13's wide path against its plain version on the card, row by row
+    and head by head as above; two launches a call; the same bits on a
+    second call, and the sync words zero again after each."""
+    from repro_torch.kernels import chunked_linear as cl
+
+    b, n, H, dk, dv, chunk, normalize, init = case
+    q, k, v, a, s0 = _chunked_inputs(cuda, b, n, H, dk, dv, sum(case[:6]),
+                                     init=init)
+    if normalize and s0 is not None:
+        s0 = torch.nn.functional.pad(s0, (0, 1))
+    kw = dict(chunk=chunk, normalize=normalize, initial_state=s0)
+    n0 = cl.chunked_linear_attention.launches
+    out, st = cl.chunked_linear_attention(q, k, v, a, **kw)
+    out2, st2 = cl.chunked_linear_attention(q, k, v, a, **kw)
+    want, st_p = cl.chunked_linear_attention_plain(q, k, v, a, **kw)
+    torch.cuda.synchronize()
+    assert cl.chunked_linear_attention.launches == n0 + 4
+    assert torch.equal(out, out2) and torch.equal(st, st2)
+    assert all(int(w.abs().sum()) == 0 for w in cl._SYNC.values())
+    assert out.shape == want.shape and out.dtype == v.dtype
+    assert st.shape == st_p.shape and st.dtype == torch.float32
+    assert torch.isfinite(out.float()).all() and torch.isfinite(st).all()
+    assert _rows_within(out, want)
+    assert _rows_within(st.flatten(2), st_p.flatten(2))
+
+
+def test_xlstm_serve_path_launches_the_wide_kernel(cuda):
+    """A reduced xLSTM with 256-wide mLSTM heads: generate launches #13's
+    wide path (two launches) once per mLSTM layer of the prefill and no
+    other kernel; decode writes each sample's own states."""
+    import dataclasses
+
+    from repro_torch.configs import ServeConfig, get_config, reduced_config
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import get_model
+    from repro_torch.runtime.serve import ServeEngine
+
+    cfg = dataclasses.replace(reduced_config(get_config("xlstm-1.3b")),
+                              d_model=256)
+    model = get_model(cfg)
+    params = model.init(0, device=cuda)
+    eng = ServeEngine(model, cfg, ServeConfig(batch=4, decode_capacity=8,
+                                              temperature=0.8))
+    ctx = torch.randint(0, cfg.vocab_size, (1, 40), device=cuda)
+    for kern in KERNELS:
+        kern.launches = 0
+    res = eng.generate(params, ctx, n_steps=5)
+    n_mlstm = model.n_groups * model.m_per_group
+    assert {k.__name__: k.launches for k in KERNELS if k.launches} == {
+        "chunked_linear_attention": 2 * n_mlstm}
+    assert res.tokens.shape == (4, 5) and torch.isfinite(res.logprobs).all()
+    assert len({tuple(t) for t in res.tokens.tolist()}) > 1
 
 
 @pytest.mark.parametrize("cache_dtype", ["bfloat16", "int8"])

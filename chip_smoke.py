@@ -267,8 +267,48 @@ printing its result lines:
      decode ms/step and the states' bytes;
   4k. time #13's wide path on phase 3k's recorded inputs (three mLSTM
      layers of the prefill) beside its bound and its plain version;
-  5. print the kernels' JSON line (#13 at both widths), then the result
-     line, last.
+  3l. the other model families at their published widths, seeded random
+     weights made on the card (each leaf cast as drawn), batch 32, one
+     model on the card at a time: dbrx-132b at 8 of its 40 layers (16
+     experts of 6144 x 10752, top 4; 48 q / 8 kv heads: p 6, 192 query
+     rows a kv head) with ServeEngine.generate over a context of 8192, 16
+     steps, bf16 then int8 context (#1 then #3, 8 x 15 launches each), then
+     a ForestServeEngine of two prompts (8192 and 2500 tokens, 8 samples
+     each, one chunk of 8 steps: #4, 8 x 8 launches); mixtral-8x7b at 16 of
+     its 32 layers under train_attn="flash" (#12 with its 4096 window, 16
+     launches a prefill; its 8 decode steps leave the kernels for the
+     flash path, as in the reference); internvl2-26b whole (48 layers,
+     1024 patch embeddings before the 8192 text tokens: #1/#3 over 9216
+     keys at p 6); whisper-medium whole (8192 frames and 8192 decoder
+     tokens, as the CLI makes them at --context 8192: #1/#3 at g 16, p 1,
+     hd 64; its prefill also under flash, #12 non-causal in the encoder
+     and the cross-attention). Each generate must launch its kernel L
+     times per decode step and no other kernel; every decode kernel at
+     these shapes on every layer's served context (#4 on the forest's
+     segments) against its plain version (2e-2 of max |out|); one decode
+     step walked layer by layer on the plain versions' own stream, each
+     layer's attention on the kernel path against its plain versions, and
+     for the MoE the router's expert choices for the kernel stream's
+     input against the plain's: a row may choose differently only where
+     the plain row's k-th and (k+1)-th router logits lie within 2e-2 of
+     its largest |logit| (a near-tie that rounding flips; the flipped rows
+     are printed), and moe_decode on the other rows within 2e-2; the whole
+     step's logits, kernel path against the plain impl="flash" path, within
+     max(2e-2 x max |logit|, 1.5 x the kernels' plain versions' distance);
+     the flash prefills' last logits against the chunked ones within the
+     same gate; for the MoE the kernel and plain-version runs of these
+     whole-path gates take the reference run's expert choices (a flipped
+     near-tie moves a token by a whole expert's share, and in a prefill
+     every later token through attention and capacity), the choices they
+     would have flipped printed; and mixtral's flash prefill layer by
+     layer: #12 against its plain version row by row and the routing of
+     every token as above. Prints each model's prefill ms and decode
+     ms/step and its elapsed line, then times #1 and #3 at p 6 (dbrx's
+     served caches) and at hd 64 (whisper's) by CUDA graph replay, and #12
+     at mixtral's windowed and whisper's non-causal shapes, beside their
+     bounds, plain versions and SDPA yardsticks;
+  5. print the kernels' JSON line (#13 at both widths; #1, #3 and #12 also
+     at phase 3l's shapes, named by shape), then the result line, last.
 
 Imports torch and the port only; needs a checkout of the repository (it
 builds the kernels from its sources) and a CUDA device.
@@ -5429,6 +5469,662 @@ def xlstm_engine(cfg, model, batch):
 
 
 # ---------------------------------------------------------------------------
+# phase 3l: the MoE, VLM and encoder-decoder families served
+# ---------------------------------------------------------------------------
+
+# layers kept where one 80 GB card cannot hold the model (PERF.md §4):
+# dbrx-132b 8 of 40 (16 experts of 3 x 6144 x 10752 bf16, 6.3 GB a layer),
+# mixtral-8x7b 16 of 32 (2.8 GB a layer); internvl2-26b and whisper-medium
+# are whole
+FAMILY_LAYERS = {"dbrx-132b": 8, "mixtral-8x7b": 16}
+FAMILY_FOREST = (8192, 2500)    # dbrx's forest: two prompts, 8 samples each
+FAMILY_FOREST_STEPS = 8         # one chunk
+MIXTRAL_STEPS = 8               # decode steps (no kernel: the window)
+
+
+class record_routes:
+    """Keep every MoE routing decision made inside the block (each call of
+    ``models/moe.route``: its expert ids, in ``calls``), or, given
+    ``replay`` (another run's record), impose that run's ids call for call,
+    the gate values taken from this run's own router probabilities. A
+    near-tie that bf16 rounding flips (``route_gate`` holds each layer to
+    near-ties) moves a token's output by a whole expert's share and, in a
+    prefill, every later token's through attention and the experts'
+    capacity; with the choices imposed, a whole-path gate measures what
+    the kernels do to the numbers. ``flips`` counts the (token, layer)
+    choices this run would have made otherwise."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+        self.calls, self.flips = [], 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.mod, self.saved = moe, moe.route
+
+        def route(router, x, top_k):
+            probs, vals, idx = self.saved(router, x, top_k)
+            if self.replay is not None:
+                own, idx = idx, self.replay.calls[len(self.calls)]
+                self.flips += int((own.sort(-1).values
+                                   != idx.sort(-1).values).any(-1).sum())
+                vals = probs.gather(-1, idx)
+                vals = vals / vals.sum(-1, keepdim=True)
+            self.calls.append(idx)
+            return probs, vals, idx
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.saved
+
+
+def family_config(arch, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch in FAMILY_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=FAMILY_LAYERS[arch])
+    return dataclasses.replace(cfg, **kw)
+
+
+def family_model(tag, cfg):
+    """The model and its seeded random weights made on the card, with the
+    init's peak device memory beside the weights' bytes."""
+    import torch
+    from repro_torch.models import get_model
+
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(0, device=DEVICE)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"{tag}: {cfg.name} L={cfg.n_layers} d={cfg.d_model} h="
+          f"{cfg.n_heads} g={cfg.n_kv_heads} hd={cfg.kq_dim} d_ff={cfg.d_ff}"
+          + (f" experts={cfg.moe.n_experts} top_k={cfg.moe.top_k}"
+             if cfg.moe else "")
+          + f" vocab={cfg.padded_vocab}: "
+          f"{sum(t.numel() for t in leaves) / 1e9:.3f} B params, "
+          f"{nbytes / 1e9:.2f} GB; init {time.perf_counter() - t0:.1f} s, "
+          f"its peak {(torch.cuda.max_memory_allocated() - base) / 1e9:.2f}"
+          f" GB")
+    return model, params
+
+
+def family_inputs(cfg):
+    """The CLI's inputs (``launch/serve.py``, ``--context CONTEXT``): the
+    context's tokens, and a VLM's patch embeddings or an encoder-decoder's
+    frames (and ``sample_batch``), from ``np.random.RandomState(0)``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(0)
+    ctx = torch.as_tensor(rng.randint(0, cfg.vocab_size, (1, CONTEXT)),
+                          device=DEVICE)
+    kw = {}
+    if cfg.family == "vlm":
+        kw["patch_embeds"] = torch.as_tensor(
+            rng.randn(1, cfg.n_image_tokens, cfg.d_model) * 0.02,
+            dtype=torch.float32, device=DEVICE)
+    if cfg.family == "encdec":
+        kw["frames"] = torch.as_tensor(
+            rng.randn(1, CONTEXT, cfg.d_model) * 0.02, dtype=torch.float32,
+            device=DEVICE)
+        kw["sample_batch"] = BATCH
+    return ctx, kw
+
+
+def family_generate(tag, model, cfg, params, ctx, kw, want, cache_dtype,
+                    steps=STEPS, warm=False):
+    """ServeEngine.generate at batch 32 with the fused kernels (after a
+    warm-up generate where ``warm``: the phase's first): its launch counts
+    (``want``: kernel name -> launches; no other kernel), tokens and
+    log-probs, prefill ms and decode ms/step. Returns (engine, result, the
+    cache of a prefill of its own, counts)."""
+    import torch
+    from repro_torch.configs import ServeConfig
+    from repro_torch.runtime.serve import ServeEngine
+
+    engine = ServeEngine(model, cfg, ServeConfig(
+        batch=BATCH, context_len=CONTEXT, decode_capacity=max(16, steps + 8),
+        bifurcated=True, use_kernel=True, cache_dtype=cache_dtype))
+    check(engine.should_bifurcate(BATCH, CONTEXT), "policy did not bifurcate")
+    if warm:
+        engine.generate(params, ctx, n_steps=2, **kw)
+        torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    result = engine.generate(params, ctx, n_steps=steps, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    print(f"{tag}: generate launches {counts}")
+    expect_counts(counts, want)
+    toks, lps = result.tokens, result.logprobs
+    check(tuple(toks.shape) == (BATCH, steps)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+          and bool(torch.isfinite(lps).all() and (lps <= 0).all()),
+          f"{tag}: tokens or log-probs out of range")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, cache = engine.prefill_shared(params, ctx, BATCH, **kw)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    print(f"{tag}: generate {wall * 1e3:.1f} ms = prefill "
+          f"{prefill_s * 1e3:.1f} ms + {steps - 1} decode steps at "
+          f"{(wall - prefill_s) / (steps - 1) * 1e3:.2f} ms/step (batch "
+          f"{BATCH}, context {CONTEXT}; on {CARD[0]})")
+    return engine, result, cache, counts
+
+
+def _fresh(cache):
+    """The cache with copies of its decode arms (a step writes them)."""
+    import dataclasses
+
+    if isinstance(cache, dict):
+        return {**cache, "self": _fresh(cache["self"])}
+    return dataclasses.replace(cache, k_dec=cache.k_dec.clone(),
+                               v_dec=cache.v_dec.clone())
+
+
+def route_gate(tag, what, router, h_k, h_p, top_k):
+    """The MoE trap: the expert choices the router makes for the kernel
+    stream's input ``h_k`` against the plain stream's ``h_p`` (rows, d).
+    A row may choose differently only where the plain row's k-th and
+    (k+1)-th router logits lie within 2e-2 of its largest |logit| (a
+    near-tie that bf16 rounding may flip); returns the rows that kept
+    their choices."""
+    from repro_torch.models import moe
+
+    l_p = h_p.float() @ router.float()
+    _, _, i_k = moe.route(router, h_k, top_k)
+    _, _, i_p = moe.route(router, h_p, top_k)
+    same = (i_k.sort(-1).values == i_p.sort(-1).values).all(-1)
+    top = l_p.sort(-1, descending=True).values
+    margin = top[:, top_k - 1] - top[:, top_k]
+    near = margin <= TOL * l_p.abs().amax(-1)
+    check(bool((same | near).all()),
+          f"{tag}: {what}: expert choices differ on a row whose router "
+          f"margin exceeds 2e-2 of its largest logit")
+    return same
+
+
+def family_layer_gate(tag, cfg, model, params, cache, tok):
+    """One decode step of a TransformerLM (dbrx, internvl2) walked layer
+    by layer on the plain versions' own residual stream: each layer's
+    attention on the kernel path against its plain versions on the same
+    input (2e-2 of max |out|); for the MoE, the router's choices for the
+    kernel stream's input against the plain's (``route_gate``) and
+    ``moe_decode`` on the rows that kept them within 2e-2 of max |out|.
+    Prints the flipped rows and the worst errors."""
+    import torch
+    from repro_torch.models import blocks, moe
+    from repro_torch.models.transformer import _layer
+
+    names = ["k_ctx", "v_ctx", "k_dec", "v_dec"]
+    if hasattr(cache, "k_scale"):
+        names += ["k_scale", "v_scale"]
+    position = cache.context_len + cache.dec_length
+    x = model._embed(params, tok)
+    rel_a = rel_m = 0.0
+    flipped = []
+    for i in range(cfg.n_layers):
+        layer = _layer(params["layers"], i)
+        h = blocks.apply_norm(cfg, layer["ln1"], x)
+
+        def attn():
+            lc = {n: getattr(cache, n)[i] for n in names}
+            lc["k_dec"], lc["v_dec"] = lc["k_dec"].clone(), lc["v_dec"].clone()
+            return blocks.attention_decode(cfg, layer["attn"], h, lc,
+                                           position=position, bifurcated=True,
+                                           impl="kernel")
+
+        o_k = attn()
+        with plain_versions():
+            o_p = attn()
+        ok, _, rel = within(o_k, o_p)
+        check(ok, f"{tag}: layer {i}: kernel attention disagrees with its "
+                  f"plain versions ({rel:.2e} of max |out|)")
+        rel_a = max(rel_a, rel)
+        x_k, x = x + o_k, x + o_p
+        h_p = blocks.apply_norm(cfg, layer["ln2"], x)
+        if cfg.moe is None:
+            x = x + blocks.apply_mlp(cfg, layer["mlp"], h_p)
+            continue
+        h_k = blocks.apply_norm(cfg, layer["ln2"], x_k)
+        d = cfg.d_model
+        same = route_gate(tag, f"layer {i}", layer["moe"]["router"],
+                          h_k.reshape(-1, d), h_p.reshape(-1, d),
+                          cfg.moe.top_k)
+        flipped.append(int((~same).sum()))
+        m_k = moe.moe_decode(cfg, layer["moe"], h_k)
+        m_p = moe.moe_decode(cfg, layer["moe"], h_p)
+        ok, _, rel = within(m_k.reshape(-1, d)[same], m_p.reshape(-1, d)[same])
+        check(ok, f"{tag}: layer {i}: moe_decode on the kernel stream's "
+                  f"input disagrees ({rel:.2e} of max |out|)")
+        rel_m = max(rel_m, rel)
+        x = x + m_p
+    torch.cuda.synchronize()
+    print(f"{tag}: one decode step layer by layer on the plain versions' "
+          f"stream ({cache.dec_length + 1} live decode slots): attention, "
+          f"kernel vs plain, worst {rel_a:.2e} of max |out| (gate 2e-2)"
+          + (f"; MoE rows whose expert choices flipped, per layer "
+             f"{flipped} of {tok.numel()} (each a near-tie), moe_decode on "
+             f"the rest worst {rel_m:.2e}" if cfg.moe else ""))
+
+
+def family_step_gate(tag, model, params, cache, tok, moe_model):
+    """The whole step: kernel path vs the plain impl="flash" path, within
+    max(2e-2 x max |logit|, 1.5 x the kernels' plain versions' distance);
+    a MoE model's kernel and plain-version runs take the flash run's
+    expert choices (``record_routes``), the flips they would have made
+    printed."""
+    import contextlib
+
+    def run(impl, plain=False, replay=None):
+        with (record_routes(replay) if moe_model
+              else contextlib.nullcontext()) as rec, \
+                (plain_versions() if plain else contextlib.nullcontext()):
+            logits, _ = model.decode_step(params, _fresh(cache), tok,
+                                          impl=impl)
+        return logits[:, -1], rec
+
+    lf, ref = run("flash")
+    lk, rec_k = run("kernel", replay=ref)
+    lp, rec_p = run("kernel", plain=True, replay=ref)
+    if moe_model:
+        print(f"{tag}: whole step on the flash run's expert choices; the "
+              f"kernel path would have flipped {rec_k.flips}, the plain "
+              f"versions {rec_p.flips} (row, layer) choices of "
+              f"{tok.numel() * len(ref.calls)}")
+    gate_logits(tag, "decode-step logits, kernel path vs flash path", lk, lf,
+                lp)
+
+
+def family_prefill_gate(tag, cfg, model, params, ctx, kw):
+    """A prefill under train_attn="flash" (#12) against the chunked one:
+    the last position's logits within the whole-step gate, the flash
+    prefill on the plain versions the witness (a MoE model's flash runs
+    take the chunked run's expert choices, ``record_routes``). Prints
+    prefill ms, flash beside chunked, in turns. Returns #12's launches of
+    one prefill."""
+    import contextlib
+    import dataclasses
+
+    import torch
+    from repro_torch.models import get_model
+
+    models = {name: get_model(dataclasses.replace(cfg, train_attn=name))
+              for name in ("chunked", "flash")}
+    times = {"chunked": [], "flash": []}
+    out = {}
+    for name in ("chunked", "flash", "flash", "chunked"):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = models[name].prefill(params, ctx, **kw)[0]
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+        if name == "flash":
+            launches = read_launches()["flash_prefill_attention"]
+    print(f"{tag}: prefill of {CONTEXT} tokens, flash "
+          + " / ".join(f"{t:.1f}" for t in times["flash"]) + " ms, chunked "
+          + " / ".join(f"{t:.1f}" for t in times["chunked"])
+          + f" ms (in turns); #12 {launches} launches a prefill")
+    ref = None
+    if cfg.moe:
+        with record_routes() as ref:
+            out["chunked"] = models["chunked"].prefill(params, ctx, **kw)[0]
+
+    def flash(plain):
+        with (record_routes(ref) if ref is not None
+              else contextlib.nullcontext()
+              ) as rec, (plain_versions() if plain
+                         else contextlib.nullcontext()):
+            return models["flash"].prefill(params, ctx, **kw)[0], rec
+
+    (out["flash"], rec_f), (out["plain"], rec_p) = flash(False), flash(True)
+    if ref is not None:
+        print(f"{tag}: flash prefills on the chunked run's expert choices; "
+              f"the kernel path would have flipped {rec_f.flips}, the plain "
+              f"versions {rec_p.flips} (token, layer) choices of "
+              f"{ctx.shape[1] * cfg.n_layers}")
+    gate_logits(tag, "prefill logits, flash vs chunked", out["flash"],
+                out["chunked"], out["plain"])
+    return launches
+
+
+def family_prefill_layers(tag, cfg, model, params, ctx):
+    """mixtral's prefill under flash walked layer by layer on the plain
+    versions' stream: #12 against its plain version on each layer's input
+    (row by row), and apply_moe's router choices for the kernel stream's
+    input against the plain's (``route_gate`` over every token). Returns
+    #12's worst row error."""
+    import torch
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.models import blocks, moe
+    from repro_torch.models.transformer import _layer
+
+    x = model._embed(params, ctx)
+    pos = torch.arange(x.shape[1], device=x.device)
+    worst = err_abs = 0.0
+    flipped = []
+    for i in range(cfg.n_layers):
+        layer = _layer(params["layers"], i)
+        h = blocks.apply_norm(cfg, layer["ln1"], x)
+        q, k, v = blocks._project_qkv(cfg, layer["attn"], h)
+        q = blocks.apply_rope(q, pos, cfg.rope_theta)
+        k = blocks.apply_rope(k, pos, cfg.rope_theta)
+        kw = dict(window=cfg.sliding_window or 0)
+        o_k = fp.flash_prefill_attention(q, k, v, **kw)
+        o_p = fp.flash_prefill_attention_plain(q, k, v, **kw)
+        ok, err, rel = within_rows(o_k, o_p)
+        check(ok, f"{tag}: layer {i}: #12 disagrees with its plain version "
+                  f"({rel:.2e} of a row's max)")
+        worst, err_abs = max(worst, rel), max(err_abs, err)
+        wo = layer["attn"]["wo"].to(x.dtype)
+        hd_all = cfg.n_heads_padded * cfg.kq_dim
+        x_k = x + o_k.reshape(*x.shape[:2], hd_all) @ wo
+        x = x + o_p.reshape(*x.shape[:2], hd_all) @ wo
+        h_p = blocks.apply_norm(cfg, layer["ln2"], x)
+        h_k = blocks.apply_norm(cfg, layer["ln2"], x_k)
+        d = cfg.d_model
+        same = route_gate(tag, f"prefill layer {i}", layer["moe"]["router"],
+                          h_k.reshape(-1, d), h_p.reshape(-1, d),
+                          cfg.moe.top_k)
+        flipped.append(int((~same).sum()))
+        x = x + moe.apply_moe(cfg, layer["moe"], h_p)[0]
+        del q, k, v, o_k, o_p, x_k, h_k
+    print(f"{tag}: prefill layer by layer on the plain versions' stream: "
+          f"#12 (window {cfg.sliding_window}) worst row {worst:.2e} (gate "
+          f"2e-2), max_abs_err {err_abs:.3e}; tokens whose expert choices "
+          f"flipped, per layer {flipped} of {ctx.shape[1]} (each a "
+          f"near-tie)")
+    return err_abs
+
+
+def check_decode_kernels(tag, cfg, cache, quant, seed):
+    """#1 (int8: #3) at the served shape against its plain version on
+    every layer's served context, random queries and decode arms; returns
+    the max abs error."""
+    import torch
+    from repro_torch.kernels.ops import (
+        bifurcated_decode_attention,
+        bifurcated_decode_attention_q8,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    g, hd = cfg.n_kv_heads_padded, cfg.kq_dim
+    p = cfg.n_heads_padded // g
+    c_d = cache.decode_capacity
+    q = torch.randn(BATCH, g, p, 1, hd, generator=gen,
+                    device=DEVICE).to(torch.bfloat16)
+    kd, vd = (torch.randn(BATCH, c_d, g, hd, generator=gen,
+                          device=DEVICE).to(torch.bfloat16) for _ in range(2))
+    mask = (torch.arange(c_d, device=DEVICE)[None, :]
+            < torch.randint(1, c_d + 1, (BATCH, 1), generator=gen,
+                            device=DEVICE))
+    err = rel_w = 0.0
+    for i in range(cache.k_ctx.shape[0]):
+        if quant:
+            args = (q, cache.k_ctx[i], cache.v_ctx[i], cache.k_scale[i],
+                    cache.v_scale[i], kd, vd, mask)
+            fn = bifurcated_decode_attention_q8
+        else:
+            args = (q, cache.k_ctx[i], cache.v_ctx[i], kd, vd, mask)
+            fn = bifurcated_decode_attention
+        got = fn(*args, ctx_layout=cfg.ctx_layout)
+        with plain_versions():
+            want = fn(*args, ctx_layout=cfg.ctx_layout)
+        ok, e, rel = within(got, want)
+        check(ok, f"{tag}: layer {i}: the decode kernel disagrees with its "
+                  f"plain version ({rel:.2e})")
+        err, rel_w = max(err, e), max(rel_w, rel)
+    print(f"{tag}: {'#3' if quant else '#1'} at g={g} p={p} ({BATCH * p} "
+          f"rows) hd={hd} m_c={cache.context_len} on every layer's served "
+          f"context vs its plain version: worst {rel_w:.2e} of max |out| "
+          f"(gate 2e-2), max_abs_err {err:.3e}")
+    return err
+
+
+def serve_moe_dbrx(out):
+    """dbrx-132b at 8 of its 40 layers: bf16 and int8 context (#1, #3),
+    then a forest of two prompts (#4)."""
+    import gc
+
+    import torch
+    from repro_torch.configs import ForestConfig
+    from repro_torch.runtime.serve import ForestServeEngine
+
+    tag = "serve dbrx"
+    cfg = family_config("dbrx-132b")
+    model, params = family_model(tag, cfg)
+    ctx, kw = family_inputs(cfg)
+    L = cfg.n_layers
+    caches = {}
+    for quant in (False, True):
+        t = f"{tag} int8" if quant else tag
+        kname = ("fused_bifurcated_decode_q8" if quant
+                 else "fused_bifurcated_decode")
+        eng, result, cache, counts = family_generate(
+            t, model, cfg, params, ctx, kw, {kname: L * (STEPS - 1)},
+            "int8" if quant else "bfloat16", warm=not quant)
+        out["launches"][("p6", quant)] = counts[kname]
+        tok = result.tokens[:, :1]
+        family_layer_gate(t, cfg, model, params, cache, tok)
+        family_step_gate(t, model, params, cache, tok, True)
+        out["errs"][("p6", quant)] = check_decode_kernels(
+            t, cfg, cache, quant, seed=41 + quant)
+        caches[quant] = cache
+        del eng, result
+    out["caches"]["p6"] = (cfg, caches[False], caches[True])
+
+    # the forest: two prompts, 8 samples each, one chunk
+    tf = f"{tag} forest"
+    feng = ForestServeEngine(model, cfg, ForestConfig(
+        n_groups=2, slots=16, ctx_capacity=max(FAMILY_FOREST),
+        decode_capacity=16, use_kernel=True))
+    st = feng.init_state(device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(43)
+    t0 = time.perf_counter()
+    for n in FAMILY_FOREST:
+        prompt = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                               device=DEVICE)
+        st, _ = feng.admit(params, st, prompt, 8)
+    torch.cuda.synchronize()
+    admit_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    st = feng.step_chunk(params, st, FAMILY_FOREST_STEPS)
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+    counts = read_launches()
+    expect_counts(counts, {"grouped_fused_bifurcated_decode":
+                           L * FAMILY_FOREST_STEPS})
+    emitted = sum(len(v) for v in feng.outputs.values())
+    check(emitted == 16 * (1 + FAMILY_FOREST_STEPS),
+          f"{tf}: {emitted} tokens emitted")
+    print(f"{tf}: prompts of {FAMILY_FOREST} tokens, 8 samples each: "
+          f"admissions {admit_s * 1e3:.1f} ms, a chunk of "
+          f"{FAMILY_FOREST_STEPS} steps {chunk_s * 1e3:.1f} ms "
+          f"({chunk_s / FAMILY_FOREST_STEPS * 1e3:.2f} ms/step); launches "
+          f"{counts}")
+    check_forest_kernel(tf, cfg, st.cache)
+    del feng, st, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_forest_kernel(tag, cfg, fcache):
+    """#4 on the served forest segments (every layer) against its plain
+    version: random queries and decode arms over the 16 slots."""
+    import torch
+    from repro_torch.kernels.ops import grouped_bifurcated_decode_attention
+
+    gen = torch.Generator(device=DEVICE).manual_seed(44)
+    g, hd = cfg.n_kv_heads_padded, cfg.kq_dim
+    p = cfg.n_heads_padded // g
+    b, c_d = fcache.k_dec.shape[1:3]
+    q = torch.randn(b, g, p, 1, hd, generator=gen,
+                    device=DEVICE).to(torch.bfloat16)
+    mask = torch.arange(c_d, device=DEVICE)[None, :] <= fcache.dec_lens[:, None]
+    err = rel_w = 0.0
+    for i in range(fcache.k_ctx.shape[0]):
+        args = (q, fcache.k_ctx[i], fcache.v_ctx[i], fcache.group_ids,
+                fcache.ctx_lens, fcache.k_dec[i], fcache.v_dec[i], mask)
+        got = grouped_bifurcated_decode_attention(*args,
+                                                  ctx_layout=cfg.ctx_layout)
+        with plain_versions():
+            want = grouped_bifurcated_decode_attention(
+                *args, ctx_layout=cfg.ctx_layout)
+        ok, e, rel = within(got, want)
+        check(ok, f"{tag}: layer {i}: #4 disagrees with its plain version")
+        err, rel_w = max(err, e), max(rel_w, rel)
+    print(f"{tag}: #4 at g={g} p={p} on every layer's served segments vs "
+          f"its plain version: worst {rel_w:.2e} of max |out| (gate 2e-2)")
+    return err
+
+
+def serve_moe_mixtral(out):
+    """mixtral-8x7b at 16 of its 32 layers under train_attn="flash": #12
+    with its 4096 window in every prefill; 8 decode steps (the window
+    takes them off the kernel, as in the reference)."""
+    import gc
+
+    import torch
+
+    tag = "serve mixtral"
+    cfg = family_config("mixtral-8x7b", train_attn="flash")
+    model, params = family_model(tag, cfg)
+    ctx, kw = family_inputs(cfg)
+    eng, result, cache, counts = family_generate(
+        tag, model, cfg, params, ctx, kw,
+        {"flash_prefill_attention": cfg.n_layers}, "bfloat16",
+        steps=MIXTRAL_STEPS + 1)
+    out["launches"]["window"] = counts["flash_prefill_attention"]
+    del eng, result, cache
+    family_prefill_gate(tag, cfg, model, params, ctx, kw)
+    out["errs"]["window"] = family_prefill_layers(tag, cfg, model, params,
+                                                  ctx)
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_vlm():
+    """internvl2-26b, all 48 layers: 1024 patch embeddings before 8192
+    text tokens, bf16 and int8 context (#1, #3 over 9216 keys; their JSON
+    entries at p 6 are dbrx's shape)."""
+    import gc
+
+    import torch
+
+    tag = "serve internvl2"
+    cfg = family_config("internvl2-26b")
+    model, params = family_model(tag, cfg)
+    ctx, kw = family_inputs(cfg)
+    L = cfg.n_layers
+    for quant in (False, True):
+        t = f"{tag} int8" if quant else tag
+        kname = ("fused_bifurcated_decode_q8" if quant
+                 else "fused_bifurcated_decode")
+        eng, result, cache, _ = family_generate(
+            t, model, cfg, params, ctx, kw, {kname: L * (STEPS - 1)},
+            "int8" if quant else "bfloat16")
+        check(cache.context_len == CONTEXT + cfg.n_image_tokens,
+              f"{t}: context {cache.context_len}")
+        tok = result.tokens[:, :1]
+        family_layer_gate(t, cfg, model, params, cache, tok)
+        family_step_gate(t, model, params, cache, tok, False)
+        check_decode_kernels(t, cfg, cache, quant, seed=45 + quant)
+        del eng, result, cache
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_encdec(out):
+    """whisper-medium, whole: 8192 frames and 8192 decoder tokens (the CLI
+    at --context 8192), bf16 and int8 self-attention context (#1, #3 at hd
+    64, g 16, p 1); the prefill chunked and under flash (#12: non-causal
+    encoder and cross-attention, causal decoder), gated against each
+    other."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    tag = "serve whisper"
+    cfg = family_config("whisper-medium")
+    model, params = family_model(tag, cfg)
+    ctx, kw = family_inputs(cfg)
+    L = cfg.n_layers
+    for quant in (False, True):
+        t = f"{tag} int8" if quant else tag
+        kname = ("fused_bifurcated_decode_q8" if quant
+                 else "fused_bifurcated_decode")
+        eng, result, cache, counts = family_generate(
+            t, model, cfg, params, ctx, kw, {kname: L * (STEPS - 1)},
+            "int8" if quant else "bfloat16")
+        out["launches"][("hd64", quant)] = counts[kname]
+        tok = result.tokens[:, :1]
+        family_step_gate(t, model, params, cache, tok, False)
+        out["errs"][("hd64", quant)] = check_decode_kernels(
+            t, cfg, cache["self"], quant, seed=47 + quant)
+        if quant:
+            out["caches"]["hd64"] = (cfg, prev, cache["self"])
+        prev = cache["self"]
+        del eng, result, cache
+    cfg_f = dataclasses.replace(cfg, train_attn="flash")
+    out["launches"]["noncausal"] = family_prefill_gate(
+        tag, cfg_f, model, params, ctx, kw)
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_families():
+    """Phase 3l. Returns the JSON entries of #1, #3 and #12 at this
+    slice's shapes (phase 4's timing, on the served caches)."""
+    import gc
+
+    import torch
+
+    # each model's phase fills in the launches and errors of its shapes
+    # (keys "p6", "hd64" with the int8 flag; "window", "noncausal") and
+    # hands its served caches to the timing that follows it
+    out = {"launches": {}, "errs": {}, "caches": {}}
+    t_phase = time.perf_counter()
+    serve_moe_dbrx(out)
+    entries = time_decode_shape("p6", *out["caches"].pop("p6"), out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"elapsed: phase 3l dbrx-132b {time.perf_counter() - t_phase:.1f} s")
+    t0 = time.perf_counter()
+    serve_moe_mixtral(out)
+    print(f"elapsed: phase 3l mixtral-8x7b {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve_vlm()
+    print(f"elapsed: phase 3l internvl2-26b {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve_encdec(out)
+    entries += time_decode_shape("hd64", *out["caches"].pop("hd64"), out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    entries += time_flash_families(out)
+    print(f"elapsed: phase 3l whisper-medium and #12's times "
+          f"{time.perf_counter() - t0:.1f} s")
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 
@@ -6340,16 +7036,41 @@ def time_chunked_kernel(calls, launches, err, chunk=SSM_CHUNK,
 def time_hybrid_decode(cfg_h, attn, attn_q8):
     """#1 and #3 at the hybrid's shape (32 kv heads of hd 112, p 1, 32
     rows, m_c 8192, 32 x 24 decode slots) over phase 3i's 13 served context
-    caches, graph-timed at their default split beside their bounds, plain
-    versions at the same S and SDPA yardsticks, with a sweep over S and
-    the merge's share (printed; the JSON entries of #1/#3 are phase 3's
-    shape)."""
+    caches (printed; the JSON entries of #1/#3 are phase 3's shape)."""
+    time_decode_at("the hybrid's shape", cfg_h.n_heads // cfg_h.n_kv_heads,
+                   attn, attn_q8)
+
+
+def time_decode_shape(key, cfg, attn, attn_q8, out):
+    """#1 and #3 at one of phase 3l's shapes (``key`` "p6": dbrx's and
+    internvl2's 6 query heads per kv head, 192 rows, hd 128; "hd64":
+    whisper's decoder, g 16, p 1, hd 64) over the model's served caches:
+    their JSON entries, named by shape, with the launches and errors of
+    phase 3l's runs."""
+    g, hd = cfg.n_kv_heads_padded, cfg.kq_dim
+    p = cfg.n_heads_padded // g
+    label = f"g {g}, p {p}: {BATCH * p} rows, hd {hd}, m_c {attn.context_len}"
+    return time_decode_at(
+        label, p, attn, attn_q8,
+        launches=(out["launches"][(key, False)], out["launches"][(key, True)]),
+        errs=(out["errs"][(key, False)], out["errs"][(key, True)]),
+        sweep=False)
+
+
+def time_decode_at(label, p, attn, attn_q8, launches=None, errs=None,
+                   sweep=True):
+    """#1 and #3 over a served model's context caches (``attn``,
+    ``attn_q8``; one input set a layer), 32 x 24 decode slots, graph-timed
+    at their default split beside their bounds, plain versions at the same
+    S and SDPA yardsticks; with ``sweep``, a sweep over S and the merge's
+    share. Returns their entries (``launches`` and ``errs``: (#1, #3);
+    None: the entries are printed only)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import bifurcated_decode as bd
 
     L, g, m_c, hd = attn.k_ctx.shape
-    b, c_d, p = BATCH, attn.decode_capacity, cfg_h.n_heads // cfg_h.n_kv_heads
+    b, c_d = BATCH, attn.decode_capacity
     rows, ld = b * p, b * c_d
     gen = torch.Generator(device=DEVICE).manual_seed(12)
     q = torch.randn(g, rows, hd, generator=gen, device=DEVICE).to(torch.bfloat16)
@@ -6375,7 +7096,7 @@ def time_hybrid_decode(cfg_h, attn, attn_q8):
     vq_all = [torch.cat([_dequantized(vq[i], vs[i]), vd[i]], dim=1)[None]
               for i in range(L)]
     cases = (
-        ("fused_bifurcated_decode",
+        ("fused_bifurcated_decode", "bifurcated_decode.cu", 206,
          lambda i, S=None: bd.fused_bifurcated_decode(
              q, kc[i], vc[i], kd[i], vd[i], bias, **fkw, splits=S),
          lambda i: bd.fused_bifurcated_decode_plain(q, kc[i], vc[i], kd[i],
@@ -6383,7 +7104,7 @@ def time_hybrid_decode(cfg_h, attn, attn_q8):
          lambda i: F.scaled_dot_product_attention(
              q[None], k_all[i], v_all[i], attn_mask=mask, scale=scale),
          io_bytes + 2 * g * m_c * hd * 2),
-        ("fused_bifurcated_decode_q8",
+        ("fused_bifurcated_decode_q8", "forest_q8_decode.cu", 350,
          lambda i, S=None: bd.fused_bifurcated_decode_q8(
              q, kq[i], vq[i], ks[i], vs[i], kd[i], vd[i], bias, **fkw,
              splits=S),
@@ -6392,19 +7113,81 @@ def time_hybrid_decode(cfg_h, attn, attn_q8):
          lambda i: F.scaled_dot_product_attention(
              q[None], kq_all[i], vq_all[i], attn_mask=mask, scale=1.0),
          io_bytes + 2 * g * m_c * hd + 2 * g * m_c * 4))
-    for name, kern, plain, lib, nbytes in cases:
+    entries = []
+    for j, (name, source, line, kern, plain, lib, nbytes) in enumerate(cases):
         ok, _, rel = within(lib(0)[0], kern(0))
-        ok_p, _, rel_p = within(kern(0), plain(0))
-        print(f"time: {name} at the hybrid's shape (g={g} rows={rows} hd={hd}"
-              f" m_c={m_c} ld={ld}, {n_live} live slots): library yardstick "
-              f"vs kernel {rel:.2e}, kernel vs plain {rel_p:.2e} of max "
-              f"|out| (gate 2e-2)")
-        check(ok and ok_p, f"{name} at hd {hd}: yardstick or kernel wrong")
-        _timed_entry(name, "", 0, kern, plain, lib, nbytes, flop, 0, 0.0, L,
-                     graph=True)
-        split_sweep(f"{name} hd {hd}", lambda S, kern=kern: (
-            lambda i: kern(i, S)), L, skw["splits"])
-        merge_share(f"{name} hd {hd} S={skw['splits']}", kern, L)
+        ok_p, err, rel_p = within(kern(0), plain(0))
+        print(f"time: {name} at {label} (g={g} rows={rows} hd={hd} m_c={m_c}"
+              f" ld={ld}, {n_live} live slots): library yardstick vs kernel "
+              f"{rel:.2e}, kernel vs plain {rel_p:.2e} of max |out| (gate "
+              f"2e-2)")
+        check(ok and ok_p, f"{name} at {label}: yardstick or kernel wrong")
+        entry = _timed_entry(
+            f"{name} ({label})" if launches else name, source, line, kern,
+            plain, lib, nbytes, flop, launches[j] if launches else 0,
+            max(errs[j], err) if errs else 0.0, L, graph=True)
+        if launches:
+            entries.append(entry)
+        if sweep:
+            split_sweep(f"{name} hd {hd}", lambda S, kern=kern: (
+                lambda i: kern(i, S)), L, skw["splits"])
+            merge_share(f"{name} hd {hd} S={skw['splits']}", kern, L)
+    return entries
+
+
+def time_flash_families(out):
+    """#12 at phase 3l's shapes: mixtral's windowed prefill (b 1, n 8192,
+    h 32, g 8, hd 128, causal, window 4096) and whisper's non-causal
+    encoder (b 1, n = m = 8192, h = g = 16, hd 64), beside their bounds,
+    plain versions and one scaled_dot_product_attention call (a boolean
+    mask for the window). Returns their JSON entries, named by shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_prefill as fp
+
+    entries = []
+    cases = (("window", "mixtral: causal, window 4096, h 32, g 8, hd 128",
+              (1, CONTEXT, CONTEXT, 32, 8, 128), True, 4096),
+             ("noncausal", "whisper: non-causal, h = g = 16, hd 64",
+              (1, CONTEXT, CONTEXT, 16, 16, 64), False, 0))
+    for key, label, (b, n, m, h, g, hd), causal, window in cases:
+        xs = [flash_inputs(b, n, m, h, g, hd, seed=90 + i) for i in range(3)]
+        kw = dict(causal=causal, window=window)
+        qp = torch.arange(n, device=DEVICE)[:, None]
+        kp = torch.arange(m, device=DEVICE)[None, :]
+        mask = (kp <= qp) & (kp > qp - window) if window else None
+
+        def kern(i, xs=xs, kw=kw):
+            return fp.flash_prefill_attention(*xs[i], **kw)
+
+        def plain(i, xs=xs, kw=kw):
+            return fp.flash_prefill_attention_plain(*xs[i], **kw)
+
+        def lib(i, xs=xs, mask=mask):
+            q, k, v = (t.transpose(1, 2) for t in xs[i])
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        ok_l, _, rel_l = within_rows(lib(0).transpose(1, 2), kern(0))
+        ok, err, rel = within_rows(kern(0), plain(0))
+        print(f"time: flash_prefill_attention at {label} (b={b} n={n} m={m})"
+              f": library yardstick vs kernel worst row {rel_l:.2e}, kernel "
+              f"vs plain worst row {rel:.2e} (gate 2e-2)")
+        check(ok and ok_l, f"#12 at {label}: yardstick or kernel wrong")
+        if window:     # row i sees keys max(0, i - window + 1)..i
+            i = torch.arange(n, dtype=torch.float64)
+            pairs = int(torch.minimum(i + 1, torch.full_like(i, window)).sum())
+        else:
+            pairs = n * m
+        nbytes = 2 * b * n * h * hd * 2 + 2 * b * m * g * hd * 2
+        flop = 4 * hd * b * h * pairs
+        entries.append(_timed_entry(
+            f"flash_prefill_attention ({label})", "flash_prefill.cu", 108,
+            kern, plain, lib, nbytes, flop, out["launches"][key],
+            max(out["errs"].get(key, 0.0), err), 3,
+            module="flash_prefill.py"))
+        del xs
+    return entries
 
 
 def main():
@@ -6505,7 +7288,11 @@ def main():
         chunk=get_config("xlstm-1.3b").ssm.chunk, normalize=True,
         name="chunked_linear_attention (wide: mLSTM, dk 1024, dv 1024 + 1)"))
     del xl
+    gc.collect()
+    torch.cuda.empty_cache()
     lap("phases 3k-4k")
+    entries += serve_families()
+    lap("phase 3l")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))

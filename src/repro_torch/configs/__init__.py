@@ -1,6 +1,7 @@
 from repro_torch.configs.base import (
     ForestConfig,
     ModelConfig,
+    MoEConfig,
     ServeConfig,
     SSMConfig,
     TreeConfig,
@@ -8,5 +9,5 @@ from repro_torch.configs.base import (
 from repro_torch.configs.registry import ARCH_IDS, get_config, reduced_config
 
 __all__ = [
-    "ForestConfig", "ModelConfig", "ServeConfig", "SSMConfig", "TreeConfig", "ARCH_IDS", "get_config", "reduced_config",
+    "ForestConfig", "ModelConfig", "MoEConfig", "ServeConfig", "SSMConfig", "TreeConfig", "ARCH_IDS", "get_config", "reduced_config",
 ]

@@ -2,11 +2,10 @@
 
 The port's own copy of the reference's configuration (``repro/configs``):
 the same fields, defaults and derived properties, so a config built here
-describes the same model as its counterpart there. The dense family, the
-zamba2 hybrid (its ``SSMConfig`` and ``attn_period``) and xLSTM
-(``SSMConfig.kind`` "mlstm" and ``slstm_every``) are ported; the fields and
-classes that only the other families read (mixture-of-experts,
-encoder-decoder, vision) are left out until their slices port them.
+describes the same model as its counterpart there: every family of the
+reference (dense, mixture-of-experts, vision-language, encoder-decoder,
+the zamba2 hybrid and xLSTM). The reference's ``MeshRules`` and
+``TrainConfig`` (sharding and training) are not ported yet.
 """
 from __future__ import annotations
 
@@ -18,6 +17,17 @@ def round_up(x: int, multiple: int) -> int:
     if multiple <= 1:
         return x
     return ((x + multiple - 1) // multiple) * multiple
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    # tokens are re-grouped to this many per dispatch group to bound the
+    # (G, S, E, C) dispatch tensor (GShard/T5X-style einsum dispatch).
+    group_size: int = 512
+    router_aux_weight: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,8 +47,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # "dense" | "hybrid" | "xlstm": the families
-                                 # ported
+    family: str                  # dense | moe | xlstm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -52,10 +61,19 @@ class ModelConfig:
     norm: str = "rmsnorm"        # rmsnorm | layernorm
     act: str = "swiglu"          # swiglu | geglu | gelu
     tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     # hybrid (zamba2): one globally-shared attention block applied every
     # `attn_period` ssm layers (Zamba-style parameter sharing).
     attn_period: int = 0
+    # encdec (whisper): `n_layers` decoder layers + this many encoder layers.
+    n_encoder_layers: int = 0
+    cross_attention: bool = False
+    # learned absolute positions (whisper). 0 -> RoPE via rope_theta.
+    max_position: int = 0
+    max_enc_position: int = 0
+    # vlm (internvl2): stub frontend provides this many patch embeddings.
+    n_image_tokens: int = 0
     # full-sequence attention implementation: "chunked" materializes
     # (chunk x m) logit rows (baseline); "flash" is the online-softmax
     # nested-scan path (beyond-paper prefill optimization, §Perf).
@@ -110,6 +128,8 @@ class ModelConfig:
             ffn = 3 * d * self.d_ff
         else:
             ffn = 2 * d * self.d_ff
+        if self.moe is not None:
+            ffn = ffn * self.moe.n_experts + d * self.moe.n_experts
         per_layer = attn + ffn
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + emb

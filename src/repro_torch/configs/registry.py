@@ -1,14 +1,10 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig, plus reduced
-smoke-test variants and the paper's own model configs (Table 1/4).
-
-Only the architectures the port serves are registered (the dense ones, the
-zamba2 hybrid and xlstm-1.3b); each other family's configs arrive with the
-slice that ports that family."""
+smoke-test variants and the paper's own model configs (Table 1/4)."""
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, MoEConfig
 
 _ARCH_MODULES = {
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
@@ -17,6 +13,10 @@ _ARCH_MODULES = {
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "whisper-medium": "repro_torch.configs.whisper_medium",
+    "internvl2-26b": "repro_torch.configs.internvl2_26b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)
@@ -56,8 +56,8 @@ def get_config(arch: str) -> ModelConfig:
     if arch in _PAPER:
         return _PAPER[arch]
     if arch not in _ARCH_MODULES:
-        raise KeyError(f"arch {arch!r} is unknown or not ported; the port "
-                       f"serves {ARCH_IDS + tuple(_PAPER)}")
+        raise KeyError(f"unknown arch {arch!r}; the port serves "
+                       f"{ARCH_IDS + tuple(_PAPER)}")
     import importlib
 
     mod = importlib.import_module(_ARCH_MODULES[arch])
@@ -85,8 +85,18 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
     elif cfg.family == "hybrid":
         kw.update(n_layers=5, attn_period=2,
                   ssm=dataclasses.replace(cfg.ssm, state_dim=8, head_dim=8, chunk=16))
+    elif cfg.family == "encdec":
+        kw.update(n_layers=2, n_encoder_layers=2, max_position=128,
+                  max_enc_position=128)
+    elif cfg.family == "vlm":
+        kw.update(n_layers=2, n_image_tokens=8)
     else:
         kw.update(n_layers=2)
+    if cfg.moe is not None:
+        kw["moe"] = MoEConfig(
+            n_experts=4, top_k=min(cfg.moe.top_k, 2), capacity_factor=2.0,
+            group_size=16,
+        )
     if cfg.sliding_window:
         kw["sliding_window"] = 8
     return dataclasses.replace(cfg, **kw)

@@ -23,11 +23,15 @@ from repro_torch import resolve_device
 # xLSTM "ln" and "norm_scale"), the Mamba2 leaves its float32 arithmetic
 # reads (A_log, dt_bias, the conv's conv_w and conv_b; models/mamba.py) and
 # the xLSTM gates' (the mLSTM's w_gates and gate_bias, the sLSTM's r_rec
-# and bias; models/xlstm.py). "bias" is also a layernorm leaf, which sits
-# under ln1 / ln2 / final_norm and is kept anyway.
+# and bias; models/xlstm.py), the MoE router (routing is fp32: a bf16
+# router flips top-k choices; models/moe.py) and the encoder-decoder's
+# norms (ln_x, enc_norm). "bias" is also a layernorm leaf, which sits under
+# ln1 / ln2 / final_norm and is kept anyway. The position tables of the
+# encoder-decoder are cast to the activation dtype at each use in the
+# reference, so they are cast at load with the matmul weights.
 FP32_KEYS = ("ln1", "ln2", "final_norm", "ln", "norm_scale", "A_log",
              "dt_bias", "conv_w", "conv_b", "w_gates", "gate_bias", "r_rec",
-             "bias")
+             "bias", "router", "ln_x", "enc_norm")
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:

@@ -8,6 +8,11 @@
 ``--kernel`` its shared attention block decodes through the fused kernels.
 ``--arch xlstm-1.3b`` serves xLSTM: its prefill runs #13's wide path (two
 launches a call) in every mLSTM layer; it has no attention to decode.
+``--arch dbrx-132b`` / ``mixtral-8x7b`` serve the mixture-of-experts
+family, ``internvl2-26b`` the VLM (``n_image_tokens`` random patch
+embeddings before the context) and ``whisper-medium`` the encoder-decoder
+(``--context`` random frames beside the ``--context`` decoder tokens), as
+the reference's CLI makes those inputs.
 
 Takes the flags of ``python -m repro.launch.serve``, plus ``--device``
 (default cuda). Reduced config by default; --full serves the published
@@ -71,10 +76,22 @@ def main(argv=None):
     rng = np.random.RandomState(0)
     ctx = torch.as_tensor(rng.randint(0, cfg.vocab_size, (1, args.context)),
                           device=dev)
+    kwargs = {}
+    if cfg.family == "vlm":
+        kwargs["patch_embeds"] = torch.as_tensor(
+            rng.randn(1, cfg.n_image_tokens, cfg.d_model) * 0.02,
+            dtype=torch.float32, device=dev)
+    if cfg.family == "encdec":
+        kwargs["frames"] = torch.as_tensor(
+            rng.randn(1, args.context, cfg.d_model) * 0.02,
+            dtype=torch.float32, device=dev)
+        if scfg.bifurcated:
+            kwargs["sample_batch"] = args.batch
     for kern in KERNELS:
         kern.launches = 0
     t0 = time.perf_counter()
-    result = engine.generate(params, ctx, n_steps=args.steps, batch=args.batch)
+    result = engine.generate(params, ctx, n_steps=args.steps, batch=args.batch,
+                             **kwargs)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0

@@ -11,10 +11,14 @@ from repro_torch.configs.base import ModelConfig
 
 
 def get_model(cfg: ModelConfig):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models.transformer import TransformerLM
 
         return TransformerLM(cfg)
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import EncDecModel
+
+        return EncDecModel(cfg)
     if cfg.family == "hybrid":
         from repro_torch.models.hybrid import HybridModel
 
@@ -23,6 +27,4 @@ def get_model(cfg: ModelConfig):
         from repro_torch.models.xlstm import XLSTMModel
 
         return XLSTMModel(cfg)
-    if cfg.family in ("moe", "vlm", "encdec"):
-        raise NotImplementedError(f"model family {cfg.family!r} is not ported")
     raise ValueError(f"unknown model family: {cfg.family}")

@@ -49,9 +49,12 @@ from repro_torch.kernels.ops import (
 )
 
 
-def _dense_init(gen: torch.Generator, shape, fan_in: int) -> torch.Tensor:
-    """Scaled-normal init (1/sqrt(fan_in)), float32."""
-    return torch.randn(shape, generator=gen, device=gen.device) / fan_in**0.5
+def _dense_init(gen: torch.Generator, shape, fan_in: int,
+                dtype=None) -> torch.Tensor:
+    """Scaled-normal init (1/sqrt(fan_in)), drawn in float32 and cast to
+    ``dtype`` (None: kept float32)."""
+    w = torch.randn(shape, generator=gen, device=gen.device).div_(fan_in**0.5)
+    return w if dtype is None else w.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -103,16 +106,18 @@ def unembed(cfg: ModelConfig, params, x):
 # Dense MLP
 # ---------------------------------------------------------------------------
 
-def init_mlp(cfg: ModelConfig, gen: torch.Generator, n_layers: int):
+def init_mlp(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
+             dtype=None):
+    """Stacked (L, ...) MLP weights, each cast to ``dtype`` as drawn."""
     d, f = cfg.d_model, cfg.d_ff
     if cfg.act in ("swiglu", "geglu"):
         return {
-            "wi_gate": _dense_init(gen, (n_layers, d, f), d),
-            "wi_up": _dense_init(gen, (n_layers, d, f), d),
-            "w_down": _dense_init(gen, (n_layers, f, d), f),
+            "wi_gate": _dense_init(gen, (n_layers, d, f), d, dtype),
+            "wi_up": _dense_init(gen, (n_layers, d, f), d, dtype),
+            "w_down": _dense_init(gen, (n_layers, f, d), f, dtype),
         }
-    return {"wi": _dense_init(gen, (n_layers, d, f), d),
-            "w_down": _dense_init(gen, (n_layers, f, d), f)}
+    return {"wi": _dense_init(gen, (n_layers, d, f), d, dtype),
+            "w_down": _dense_init(gen, (n_layers, f, d), f, dtype)}
 
 
 def _gelu(x):
@@ -141,35 +146,42 @@ def apply_mlp(cfg: ModelConfig, params, x):
 # Attention layer
 # ---------------------------------------------------------------------------
 
-def init_attention(cfg: ModelConfig, gen: torch.Generator, n_layers: int):
+def init_attention(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
+                   dtype=None):
+    """Stacked (L, ...) attention weights, each cast to ``dtype`` as drawn
+    (the qkv biases zeros)."""
     d, hd = cfg.d_model, cfg.kq_dim
     h, g = cfg.n_heads_padded, cfg.n_kv_heads_padded
     p = {
-        "wq": _dense_init(gen, (n_layers, d, h * hd), d),
-        "wk": _dense_init(gen, (n_layers, d, g * hd), d),
-        "wv": _dense_init(gen, (n_layers, d, g * hd), d),
-        "wo": _dense_init(gen, (n_layers, h * hd, d), h * hd),
+        "wq": _dense_init(gen, (n_layers, d, h * hd), d, dtype),
+        "wk": _dense_init(gen, (n_layers, d, g * hd), d, dtype),
+        "wv": _dense_init(gen, (n_layers, d, g * hd), d, dtype),
+        "wo": _dense_init(gen, (n_layers, h * hd, d), h * hd, dtype),
     }
     if cfg.qkv_bias:
         for name, width in (("bq", h * hd), ("bk", g * hd), ("bv", g * hd)):
-            p[name] = torch.zeros((n_layers, width), dtype=torch.float32,
+            p[name] = torch.zeros((n_layers, width),
+                                  dtype=dtype or torch.float32,
                                   device=gen.device)
     return p
 
 
-def _project_qkv(cfg: ModelConfig, params, x):
-    """x: (b, n, d) -> q (b, n, h, hd), k/v (b, n, g, hd)."""
+def _project_qkv(cfg: ModelConfig, params, x, x_kv=None):
+    """x: (b, n, d) -> q (b, n, h, hd), k/v (b, m, g, hd) from ``x_kv``
+    (b, m, d), default ``x``."""
     dtype = x.dtype
     h, g, hd = cfg.n_heads_padded, cfg.n_kv_heads_padded, cfg.kq_dim
+    x_kv = x if x_kv is None else x_kv
     q = x @ params["wq"].to(dtype)
-    k = x @ params["wk"].to(dtype)
-    v = x @ params["wv"].to(dtype)
+    k = x_kv @ params["wk"].to(dtype)
+    v = x_kv @ params["wv"].to(dtype)
     if cfg.qkv_bias:
         q = q + params["bq"].to(dtype)
         k = k + params["bk"].to(dtype)
         v = v + params["bv"].to(dtype)
     b, n = q.shape[:2]
-    return q.reshape(b, n, h, hd), k.reshape(b, n, g, hd), v.reshape(b, n, g, hd)
+    m = k.shape[1]
+    return q.reshape(b, n, h, hd), k.reshape(b, m, g, hd), v.reshape(b, m, g, hd)
 
 
 def chunked_attention(
@@ -177,12 +189,14 @@ def chunked_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     *,
+    causal: bool = True,
     window: Optional[int] = None,
     chunk: int = 512,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    """Memory-bounded causal attention (optionally sliding-window): a loop
-    over query chunks.
+    """Memory-bounded full attention, causal (optionally sliding-window) or
+    not (every query sees every key: an encoder, a cross-attention with
+    m != n): a loop over query chunks.
 
     q: (b, n, h, hd); k, v: (b, m, g, hd) with h = g * p — the kv tensors are
     broadcast over the group dimension inside the einsum (no materialized
@@ -192,8 +206,11 @@ def chunked_attention(
     ``q_offset`` shifts the queries' absolute positions for the causal and
     window masks: query row i sits at position q_offset + i while the keys
     stay at 0..m-1 (the suffix-prefill case, where the first q_offset keys
-    are a cached prefix every query may attend to).
+    are a cached prefix every query may attend to). A window needs
+    ``causal``, as in ``flash_chunked_attention``.
     """
+    if window is not None and not causal:
+        raise ValueError("a window needs causal=True")
     b, n, h, hd = q.shape
     m, g = k.shape[1], k.shape[2]
     p = h // g
@@ -206,11 +223,12 @@ def chunked_attention(
         c = qc.shape[1]
         qc = qc.reshape(b, c, g, p, hd).permute(0, 2, 3, 1, 4)  # (b,g,p,c,hd)
         logits = torch.einsum("bgpck,bmgk->bgpcm", qc, k).float() * scale
-        q_pos = q_offset + start + torch.arange(c, device=q.device)[:, None]
-        mask = k_pos <= q_pos
-        if window is not None:
-            mask = mask & (k_pos > q_pos - window)
-        logits = logits + mask_to_bias(mask)
+        if causal:
+            q_pos = q_offset + start + torch.arange(c, device=q.device)[:, None]
+            mask = k_pos <= q_pos
+            if window is not None:
+                mask = mask & (k_pos > q_pos - window)
+            logits = logits + mask_to_bias(mask)
         w = torch.softmax(logits, dim=-1)
         out = torch.einsum("bgpcm,bmgk->bgpck", w.to(v.dtype), v)
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, c, h, hd))
@@ -250,29 +268,39 @@ def _check_train_attn(cfg: ModelConfig):
 
 
 def attention_train(cfg: ModelConfig, params, x: torch.Tensor,
-                    positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence causal self-attention (prefill)."""
+                    positions: Optional[torch.Tensor] = None, *,
+                    causal: bool = True,
+                    x_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention (prefill, encoder): causal self-attention,
+    or with ``causal=False`` every query over every key; ``x_kv`` (b, m, d)
+    makes it a cross-attention over another sequence (no rope)."""
     _check_train_attn(cfg)
-    q, k, v = _project_qkv(cfg, params, x)
-    if cfg.rope_theta > 0:
+    q, k, v = _project_qkv(cfg, params, x, x_kv)
+    if cfg.rope_theta > 0 and x_kv is None:
+        if positions is None:
+            positions = torch.arange(q.shape[1], device=x.device)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     if cfg.train_attn == "flash":
-        o = flash_chunked_attention(q, k, v, causal=True,
+        o = flash_chunked_attention(q, k, v, causal=causal,
                                     window=cfg.sliding_window)
     else:
-        o = chunked_attention(q, k, v, window=cfg.sliding_window)
+        o = chunked_attention(q, k, v, causal=causal,
+                              window=cfg.sliding_window)
     b, n = o.shape[:2]
     o = o.reshape(b, n, cfg.n_heads_padded * cfg.kq_dim)
     return o @ params["wo"].to(x.dtype)
 
 
 def attention_prefill_kv(cfg: ModelConfig, params, x: torch.Tensor,
-                         positions: torch.Tensor
+                         positions: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Return the rotated K/V tensors that prefill writes into the cache."""
+    """Return the rotated K/V tensors that prefill writes into the cache
+    (``positions`` default 0..n-1)."""
     _, k, v = _project_qkv(cfg, params, x)
     if cfg.rope_theta > 0:
+        if positions is None:
+            positions = torch.arange(k.shape[1], device=x.device)
         k = apply_rope(k, positions, cfg.rope_theta)
     return k, v
 

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family.
+"""Decoder-only transformer LM covering the dense / moe / vlm families.
 
 Parameters are a plain dict whose layer weights are stacked (L, ...) as in
 the reference (``params["layers"]``); the forward passes loop over layers
@@ -11,6 +11,14 @@ batched KV cache, the paper's ``BifurcatedCache`` or its int8 twin
 ``prefill_suffix`` prefills a suffix over a cached prefix's K/V, and
 ``decode_step_packed`` runs a decode step of a paged trie cache and one
 suffix-prefill chunk through the same launches.
+
+A mixture-of-experts config (``cfg.moe``: dbrx, mixtral) replaces each
+layer's MLP by ``models/moe.py``: ``apply_moe`` (capacity-bounded
+dispatch) in the prefills, ``moe_decode`` in every decode step, the packed
+step's chunk rows included, as in the reference. The VLM family
+(internvl2) prepends the projected patch embeddings of a stub vision
+frontend (``img_proj``) to the text: they become part of the shared
+context, covered by bifurcated attention like any other context token.
 """
 from __future__ import annotations
 
@@ -20,7 +28,6 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.convert import cast_weights
 from repro_torch.core.kv_cache import (
     BifurcatedCache,
     DecodeCache,
@@ -48,6 +55,7 @@ from repro_torch.models.blocks import (
     init_mlp,
     init_norm,
 )
+from repro_torch.models.moe import apply_moe, init_moe, moe_decode
 
 
 def _layer(layers, i: int):
@@ -58,33 +66,42 @@ def _layer(layers, i: int):
 
 class TransformerLM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported; only 'dense' is")
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"TransformerLM serves the dense, moe and vlm "
+                             f"families, not {cfg.family!r}")
         self.cfg = cfg
 
     # ---- params ----
     def init(self, seed: int = 0, *, device="cuda", dtype=torch.bfloat16):
         """Seeded random weights of the reference's shapes and scale
-        (normal / sqrt(fan_in)); matmul weights in ``dtype``, norm params in
-        float32. Runs on ``device`` (CUDA unless the caller says "cpu")."""
+        (normal / sqrt(fan_in)); matmul weights in ``dtype``, norm params
+        and the MoE router in float32. Each leaf is cast as soon as it is
+        drawn (an expert leaf one layer at a time), so the fp32 peak is one
+        leaf. Runs on ``device`` (CUDA unless the caller says "cpu")."""
         cfg = self.cfg
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         L, d = cfg.n_layers, cfg.d_model
-        params = {
-            "embed": blocks._dense_init(gen, (cfg.padded_vocab, d), d),
-            "layers": {
-                "ln1": init_norm(cfg, (L, d), dev),
-                "attn": init_attention(cfg, gen, L),
-                "ln2": init_norm(cfg, (L, d), dev),
-                "mlp": init_mlp(cfg, gen, L),
-            },
-            "final_norm": init_norm(cfg, (d,), dev),
-        }
+        # drawn in the order embed, attention, MLP or MoE, lm_head, img_proj
+        params = {"embed": blocks._dense_init(gen, (cfg.padded_vocab, d), d,
+                                              dtype)}
+        layers = {"ln1": init_norm(cfg, (L, d), dev),
+                  "attn": init_attention(cfg, gen, L, dtype),
+                  "ln2": init_norm(cfg, (L, d), dev)}
+        if cfg.moe is not None:
+            layers["moe"] = init_moe(cfg, gen, L, dtype)
+        else:
+            layers["mlp"] = init_mlp(cfg, gen, L, dtype)
+        params["layers"] = layers
+        params["final_norm"] = init_norm(cfg, (d,), dev)
         if not cfg.tie_embeddings:
-            params["lm_head"] = blocks._dense_init(gen, (cfg.padded_vocab, d), d)
-        return cast_weights(params, dtype)
+            params["lm_head"] = blocks._dense_init(
+                gen, (cfg.padded_vocab, d), d, dtype)
+        if cfg.family == "vlm":
+            # stub frontend: one projection standing in for InternViT's
+            # mlp1 connector (patch embeddings are precomputed inputs)
+            params["img_proj"] = blocks._dense_init(gen, (d, d), d, dtype)
+        return params
 
     # ---- shared pieces ----
     def _embed(self, params, tokens):
@@ -93,12 +110,29 @@ class TransformerLM:
     def _unembed(self, params, x):
         return blocks.unembed(self.cfg, params, x)
 
+    def _ffn(self, layer, x, *, decode: bool):
+        """The layer's feed-forward increment on residual ``x``: the MLP,
+        or the MoE (``moe_decode`` in decode steps, ``apply_moe`` with its
+        capacity drops in prefills)."""
+        cfg = self.cfg
+        h = apply_norm(cfg, layer["ln2"], x)
+        if cfg.moe is None:
+            return apply_mlp(cfg, layer["mlp"], h)
+        if decode:
+            return moe_decode(cfg, layer["moe"], h)
+        return apply_moe(cfg, layer["moe"], h)[0]
+
     # ---- prefill (batched, standard cache out) ----
-    def prefill(self, params, tokens):
+    def prefill(self, params, tokens, patch_embeds=None):
         """Returns (last-position logits (b, V), DecodeCache holding the
-        context's rotated K/V, (L, b, m, g, hd))."""
+        context's rotated K/V, (L, b, m, g, hd)). VLM: ``patch_embeds``
+        (b, n_img, d), projected by ``img_proj``, come before the text, so
+        m = n_img + the text's length."""
         cfg = self.cfg
         x = self._embed(params, tokens)
+        if cfg.family == "vlm" and patch_embeds is not None:
+            img = patch_embeds.to(x.dtype) @ params["img_proj"].to(x.dtype)
+            x = torch.cat([img, x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)
         ks, vs = [], []
         for i in range(cfg.n_layers):
@@ -108,7 +142,7 @@ class TransformerLM:
             ks.append(k)
             vs.append(v)
             x = x + attention_train(cfg, layer["attn"], h, positions)
-            x = x + apply_mlp(cfg, layer["mlp"], apply_norm(cfg, layer["ln2"], x))
+            x = x + self._ffn(layer, x, decode=False)
         x = apply_norm(cfg, params["final_norm"], x)
         logits = self._unembed(params, x[:, -1:])[:, 0]
         cache = DecodeCache(k=torch.stack(ks), v=torch.stack(vs),
@@ -127,6 +161,9 @@ class TransformerLM:
         only: k/v (L, b, n, g, hd) at absolute positions
         start..start+n-1, ``length`` start + n)."""
         cfg = self.cfg
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(f"prefill_suffix supports dense/moe families, "
+                             f"not {cfg.family!r}")
         x = self._embed(params, tokens)
         positions = start + torch.arange(x.shape[1], device=x.device)
         ks, vs = [], []
@@ -139,7 +176,7 @@ class TransformerLM:
             ks.append(k)
             vs.append(v)
             x = x + a
-            x = x + apply_mlp(cfg, layer["mlp"], apply_norm(cfg, layer["ln2"], x))
+            x = x + self._ffn(layer, x, decode=False)
         x = apply_norm(cfg, params["final_norm"], x)
         logits = self._unembed(params, x[:, -1:])[:, 0]
         cache = DecodeCache(k=torch.stack(ks), v=torch.stack(vs),
@@ -178,7 +215,7 @@ class TransformerLM:
             x = x + attention_decode(cfg, layer["attn"], h, lcache,
                                      position=position, bifurcated=bifurcated,
                                      impl=impl)
-            x = x + apply_mlp(cfg, layer["mlp"], apply_norm(cfg, layer["ln2"], x))
+            x = x + self._ffn(layer, x, decode=True)
         x = apply_norm(cfg, params["final_norm"], x)
         logits = self._unembed(params, x)
         n = tokens.shape[1]
@@ -206,7 +243,7 @@ class TransformerLM:
             x = x + attention_decode_forest(
                 cfg, layer["attn"], h, lcache, group_ids=cache.group_ids,
                 ctx_lens=cache.ctx_lens, dec_lens=cache.dec_lens, impl=impl)
-            x = x + apply_mlp(cfg, layer["mlp"], apply_norm(cfg, layer["ln2"], x))
+            x = x + self._ffn(layer, x, decode=True)
         x = apply_norm(cfg, params["final_norm"], x)
         logits = self._unembed(params, x)
         cache.dec_lens.add_(tokens.shape[1])
@@ -234,7 +271,7 @@ class TransformerLM:
                 cfg, layer["attn"], h, lcache, paths=cache.paths,
                 node_lens=cache.node_lens, ctx_lens_b=ctx_lens_b,
                 dec_lens=cache.dec_lens, impl=impl)
-            x = x + apply_mlp(cfg, layer["mlp"], apply_norm(cfg, layer["ln2"], x))
+            x = x + self._ffn(layer, x, decode=True)
         x = apply_norm(cfg, params["final_norm"], x)
         logits = self._unembed(params, x)
         cache.dec_lens.add_(tokens.shape[1])
@@ -270,7 +307,7 @@ class TransformerLM:
                 cfg, layer["attn"], h, lcache, page_tables=store.page_tables,
                 seg_lens=store.seg_lens, paths=paths, ctx_lens_b=ctx_lens_b,
                 dec_lens=dec_lens, impl=impl)
-            x = x + apply_mlp(cfg, layer["mlp"], apply_norm(cfg, layer["ln2"], x))
+            x = x + self._ffn(layer, x, decode=True)
         x = apply_norm(cfg, params["final_norm"], x)
         logits = self._unembed(params, x)
         return logits, cache.advance_decode(tokens.shape[1])
@@ -318,9 +355,8 @@ class TransformerLM:
                 fresh_path=fresh_path)
             x = x + a
             x_c = x_c + a_c
-            x = x + apply_mlp(cfg, layer["mlp"], apply_norm(cfg, layer["ln2"], x))
-            x_c = x_c + apply_mlp(cfg, layer["mlp"],
-                                  apply_norm(cfg, layer["ln2"], x_c))
+            x = x + self._ffn(layer, x, decode=True)
+            x_c = x_c + self._ffn(layer, x_c, decode=True)
         logits = self._unembed(params, apply_norm(cfg, params["final_norm"], x))
         logits_c = self._unembed(params,
                                  apply_norm(cfg, params["final_norm"], x_c))

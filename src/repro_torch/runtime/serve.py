@@ -12,6 +12,14 @@ Pipeline (paper Figure 1, bottom):
      for tiny workloads (paper FAQ #4), so enabling the feature is never a
      loss.
 
+The mixture-of-experts and VLM families serve as the dense one does (a
+VLM's ``patch_embeds`` go to its prefill through ``generate``'s
+``prefill_kwargs``; the policy decides on the text's length). The
+encoder-decoder's cache is a dict of its decoder's self-attention cache
+(bifurcated, int8 context or not, or the standard fallback) and the
+cross-attention K/V (unbatched when bifurcated); its ``frames`` and
+``sample_batch`` go to its prefill the same way.
+
 The zamba2 hybrid serves through the same engine: its cache is a dict of
 the shared attention block's cache (bifurcated, or the standard fallback),
 the Mamba2 states and the position; ``_broadcast_state`` fans the prefill's
@@ -139,16 +147,18 @@ class ServeEngine:
         )
 
     # ---- engine steps ----
-    def prefill_shared(self, params, context_tokens, batch: int):
-        """context_tokens: (1, m_c). Returns (first logits (batch, V), cache)."""
+    def prefill_shared(self, params, context_tokens, batch: int, **kwargs):
+        """context_tokens: (1, m_c). Returns (first logits (batch, V),
+        cache). ``kwargs`` go to the model's prefill: ``patch_embeds``
+        (vlm), ``frames`` and ``sample_batch`` (encdec). The policy decides
+        on the text's length m_c alone (a VLM's image tokens join the
+        cache's context all the same, as in the reference)."""
         cfg, model = self.cfg, self.model
-        if cfg.family not in ("dense", "hybrid", "xlstm"):
-            raise NotImplementedError(f"family {cfg.family!r} is not ported")
         if cfg.family == "xlstm":
             # a state cache: the prefill's final states broadcast to the
             # samples; no KV cache, so neither the policy nor the cache
             # dtype applies (as in the reference)
-            logits, cache1 = model.prefill(params, context_tokens)
+            logits, cache1 = model.prefill(params, context_tokens, **kwargs)
             return (logits.expand(batch, logits.shape[-1]),
                     self._broadcast_state(cache1, batch))
         m_c = context_tokens.shape[1]
@@ -162,10 +172,31 @@ class ServeEngine:
             logits, cache1 = model.prefill(
                 params, context_tokens, bifurcated=bifurcated,
                 dec_capacity=self.scfg.decode_capacity,
-                ctx_quant=quant if bifurcated else "none")
+                ctx_quant=quant if bifurcated else "none", **kwargs)
             return (logits.expand(batch, logits.shape[-1]),
                     self._broadcast_state(cache1, batch))
-        logits, cache1 = model.prefill(params, context_tokens)
+        if cfg.family == "encdec":
+            # the decode arm sized from the serve config, int8 for the
+            # self-attention's context arm; ctx_store is not read (the
+            # reference's encdec branch builds the dense slab). The
+            # standard cache is copied per sample (decode writes it in
+            # place); its cross K/V are read only, so they are expanded.
+            kwargs.setdefault("dec_capacity", self.scfg.decode_capacity)
+            if bifurcated:
+                kwargs.setdefault("ctx_quant", quant)
+            logits, cache = model.prefill(params, context_tokens,
+                                          bifurcated=bifurcated, **kwargs)
+            if not bifurcated:
+                sc = cache["self"]
+                cache = {"self": DecodeCache(k=_fan(sc.k, batch),
+                                             v=_fan(sc.v, batch),
+                                             length=sc.length),
+                         **{name: _fan(cache[name], batch, copy=False)
+                            for name in ("cross_k", "cross_v")}}
+            return logits.expand(batch, logits.shape[-1]), cache
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"unknown model family: {cfg.family}")
+        logits, cache1 = model.prefill(params, context_tokens, **kwargs)
         if bifurcated and self.scfg.ctx_store == "paged":
             # the context lands in a page pool of exactly
             # ceil(m_c / page_size) pages; decode reads it through the page
@@ -201,8 +232,7 @@ class ServeEngine:
         place (an expanded view would let every sample write one state); a
         bifurcated context (and its scales) stays unbatched."""
         def fan(x, axis=1):
-            return x.expand(*x.shape[:axis], batch,
-                            *x.shape[axis + 1:]).contiguous()
+            return _fan(x, batch, axis)
 
         if self.cfg.family == "xlstm":
             return {"mlstm": fan(cache["mlstm"], axis=2),
@@ -233,8 +263,11 @@ class ServeEngine:
                  batch: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
                  noise: Optional[torch.Tensor] = None,
-                 loop: str = "scan") -> GenerationResult:
+                 loop: str = "scan", **prefill_kwargs) -> GenerationResult:
         """Prefill once, then decode ``n_steps`` tokens per sample.
+        ``prefill_kwargs`` go to ``prefill_shared`` (a VLM's
+        ``patch_embeds``; an encoder-decoder's ``frames`` and
+        ``sample_batch``).
 
         ``generator`` draws the sampling noise (default: seeded from
         ``ServeConfig.seed``); ``noise`` (n_steps, batch, V) gives the
@@ -256,7 +289,8 @@ class ServeEngine:
         dev = context_tokens.device
         if generator is None and noise is None:
             generator = torch.Generator(device=dev).manual_seed(scfg.seed)
-        logits0, cache = self.prefill_shared(params, context_tokens, batch)
+        logits0, cache = self.prefill_shared(params, context_tokens, batch,
+                                             **prefill_kwargs)
         tok = sample_tokens(logits0, scfg.temperature, scfg.top_p,
                             generator=generator,
                             noise=None if noise is None else noise[0])
@@ -275,6 +309,15 @@ class ServeEngine:
         return GenerationResult(tokens=torch.stack(toks, dim=1),
                                 mean_logprob=torch.mean(logprobs, dim=1),
                                 logprobs=logprobs)
+
+
+def _fan(x, batch, axis=1, copy=True):
+    """A batch-1 leaf for ``batch`` samples along ``axis``: copied per
+    sample (``copy``; decode updates it in place, and an expanded view
+    would let every sample write one state) or an expanded view (read
+    only)."""
+    x = x.expand(*x.shape[:axis], batch, *x.shape[axis + 1:])
+    return x.contiguous() if copy else x
 
 
 def _check_ctx_store(ctx_store: str):

@@ -50,7 +50,9 @@ def _assert_within(got, want, tol):
 # dominant decode arm, ragged m_c, rows off the tile
 SHAPES = [(8, 32, 2, 128, 4096, 24, 0.0), (8, 32, 2, 128, 4096, 24, 3.0),
           (2, 3, 4, 64, 333, 5, 0.0), (4, 9, 2, 80, 130, 3, 0.0),
-          (32, 32, 1, 112, 2048, 24, 0.0)]   # zamba2's shared block, hd 112
+          (32, 32, 1, 112, 2048, 24, 0.0),   # zamba2's shared block, hd 112
+          (8, 32, 6, 128, 4096, 24, 0.0),    # dbrx / internvl2: 192 rows
+          (16, 32, 1, 64, 4096, 24, 0.0)]    # whisper's decoder: MHA, hd 64
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -128,7 +130,8 @@ def _q8(k, v):
 # (g, b, pn, hd, m_c, c_d, dec_boost)
 Q8_SHAPES = [(8, 32, 2, 128, 4096, 24, 0.0), (8, 32, 2, 128, 4096, 24, 3.0),
              (2, 3, 4, 64, 333, 5, 0.0), (4, 9, 2, 80, 130, 3, 0.0),
-             (32, 32, 1, 112, 2048, 24, 0.0)]
+             (32, 32, 1, 112, 2048, 24, 0.0), (8, 32, 6, 128, 4096, 24, 0.0),
+             (16, 32, 1, 64, 4096, 24, 0.0)]
 
 
 @pytest.mark.parametrize("shape", Q8_SHAPES)
@@ -850,6 +853,8 @@ FLASH_SHAPES = [
     (1, 64, 8192, 16, 8, 128, True, 0, 8128),   # 8 CTAs: keys split
     (1, 1024, 1024, 32, 32, 112, True, 0, 0),   # zamba2's shared block
     (1, 1001, 1001, 24, 8, 128, True, 0, 0),    # p 3: tiles of 126 rows
+    (1, 700, 1500, 16, 16, 64, False, 0, 0),    # whisper's cross-attention
+    (1, 5000, 5000, 32, 8, 128, True, 4096, 0),  # mixtral's window
 ]
 
 
@@ -1206,4 +1211,39 @@ def test_hybrid_serve_path_launches_its_kernels(cuda, cache_dtype):
     assert {k.__name__: k.launches for k in KERNELS if k.launches} == {
         "chunked_linear_attention": cfg.n_layers,
         dec: model.n_super * 4}
+    assert res.tokens.shape == (4, 5) and torch.isfinite(res.logprobs).all()
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "internvl2-26b",
+                                  "whisper-medium"])
+def test_family_serve_paths_launch_the_fused_kernel(cuda, arch):
+    """A reduced MoE, VLM and encoder-decoder generate (patch embeddings,
+    frames and sample_batch as the CLI makes them): every decode step
+    launches the fused decode kernel once per layer and no other kernel
+    runs."""
+    from repro_torch.configs import ServeConfig, get_config, reduced_config
+    from repro_torch.core.policy import BifurcationPolicy
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import get_model
+    from repro_torch.runtime.serve import ServeEngine
+
+    cfg = reduced_config(get_config(arch))
+    model = get_model(cfg)
+    params = model.init(0, device=cuda)
+    eng = ServeEngine(model, cfg, ServeConfig(batch=4, decode_capacity=8,
+                                              use_kernel=True),
+                      policy=BifurcationPolicy(min_io_saving_bytes=0))
+    ctx = torch.randint(0, cfg.vocab_size, (1, 40), device=cuda)
+    kw = {}
+    if cfg.family == "vlm":
+        kw["patch_embeds"] = 0.02 * torch.randn(1, cfg.n_image_tokens,
+                                                cfg.d_model, device=cuda)
+    if cfg.family == "encdec":
+        kw = dict(frames=0.02 * torch.randn(1, 40, cfg.d_model, device=cuda),
+                  sample_batch=4)
+    for kern in KERNELS:
+        kern.launches = 0
+    res = eng.generate(params, ctx, n_steps=5, **kw)
+    assert {k.__name__: k.launches for k in KERNELS if k.launches} == {
+        "fused_bifurcated_decode": cfg.n_layers * 4}
     assert res.tokens.shape == (4, 5) and torch.isfinite(res.logprobs).all()

@@ -161,14 +161,19 @@ def test_unported_paths_raise():
     tm = t_get_model(CFG_T)
     with pytest.raises(ValueError, match="ctx_store"):  # dense or paged
         TServeEngine(tm, CFG_T, tconfigs.ServeConfig(ctx_store="ring"))
-    with pytest.raises(NotImplementedError):  # unported families, paged too
-        TServeEngine(tm, dataclasses.replace(CFG_T, family="moe"),
+    with pytest.raises(ValueError, match="family"):  # unknown, paged too
+        TServeEngine(tm, dataclasses.replace(CFG_T, family="unknown"),
                      tconfigs.ServeConfig(ctx_store="paged")).prefill_shared(
             None, torch.as_tensor(CTX), 2)
-    with pytest.raises(NotImplementedError):
-        t_get_model(dataclasses.replace(CFG_T, family="moe"))
-    with pytest.raises(KeyError):       # configs of unported families
-        tconfigs.get_config("mixtral-8x7b")
+    with pytest.raises(ValueError, match="family"):
+        t_get_model(dataclasses.replace(CFG_T, family="unknown"))
+    with pytest.raises(KeyError):       # an unknown arch
+        tconfigs.get_config("mixtral-8x8b")
+    # every family of the reference is served (the MoE, VLM and enc-dec
+    # families since they were ported)
+    for arch in ("mixtral-8x7b", "dbrx-132b", "internvl2-26b",
+                 "whisper-medium"):
+        t_get_model(tconfigs.get_config(arch))
     with pytest.raises(RuntimeError):   # no CUDA device here: never the CPU
         tm.init(0)
     te = TServeEngine(tm, CFG_T, tconfigs.ServeConfig(decode_capacity=4))

@@ -232,8 +232,8 @@ def test_new_fp32_keys_move_no_dense_or_hybrid_leaf(arch):
 
 def test_registry_and_model_api():
     """xlstm-1.3b is registered with the reference's config and reduced
-    branch; get_model returns XLSTMModel (the MoE, VLM and enc-dec families
-    still raise)."""
+    branch; get_model returns XLSTMModel (and the MoE, VLM and enc-dec
+    families their models; an unknown family raises ValueError)."""
     full_j, full_t = get_config("xlstm-1.3b"), tconfigs.get_config("xlstm-1.3b")
     for cfg_j, cfg_t in ((full_j, full_t), (CFG_J, CFG_T)):
         for f in dataclasses.fields(cfg_t):
@@ -248,9 +248,12 @@ def test_registry_and_model_api():
     assert (model.n_groups, model.m_per_group) == (2, 1)
     assert (tx.XLSTMModel(full_t).n_groups,
             tx.XLSTMModel(full_t).m_per_group) == (6, 7)
-    for family in ("moe", "vlm", "encdec"):
-        with pytest.raises(NotImplementedError):
-            t_get_model(dataclasses.replace(CFG_T, family=family))
+    for family in ("moe", "vlm", "encdec"):     # ported since
+        assert t_get_model(dataclasses.replace(
+            tconfigs.reduced_config(tconfigs.get_config("whisper-medium")),
+            family=family)).cfg.family == family
+    with pytest.raises(ValueError, match="family"):
+        t_get_model(dataclasses.replace(CFG_T, family="unknown"))
 
 
 @pytest.fixture(scope="module")
